@@ -1,0 +1,120 @@
+"""Build the port's CUDA kernels from ``kernels/csrc`` and load them.
+
+Each ``csrc/*.cu`` has a plain C entry point (``<name>_launch``) and is
+compiled by its own ``nvcc`` into a shared library, all of them started
+together, then loaded with :mod:`ctypes`.  No source includes PyTorch's
+headers, so the whole build takes seconds rather than the minutes a
+``torch.utils.cpp_extension`` binding costs, which matters because every
+fresh checkout builds at first use.  Libraries land in ``build/torch_ext/``
+of the checkout (listed in ``.gitignore``), named by a hash of their
+sources, so an edited kernel is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import: the CPU tests import every module on a machine
+without ``nvcc``.  A failed build raises with the compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+KERNELS = ("rmsnorm", "flash_attention", "grouped_matmul")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # x, w, out, T, D, eps, dtype, stream
+    "rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    # q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, dtype, stream
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                        _P),
+    # lhs, rhs, offsets, out, T, D, F, E, dtype, stream
+    "grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}       # kernel -> nvcc's ptxas report
+BUILD_SECONDS: Optional[float] = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("repro_torch: nvcc not found (set CUDA_HOME); the "
+                       "CUDA kernels are built from kernels/csrc at first use")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile (in parallel) and load every kernel library not yet loaded."""
+    global BUILD_SECONDS
+    todo = [n for n in KERNELS if n not in _LIBS]
+    if not todo:
+        return _LIBS
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode}) ---\n"
+                          f"{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("repro_torch: kernel build failed\n"
+                           + "\n".join(failed))
+    for name in todo:
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = list(_SIGNATURES[name])
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    BUILD_SECONDS = time.perf_counter() - t0
+    return _LIBS
+
+
+def launcher(name: str):
+    """The C entry point ``<name>_launch`` of a built kernel library."""
+    return getattr(build_all()[name], f"{name}_launch")
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if a kernel's launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"repro_torch: {name} kernel launch failed with "
+                           f"CUDA error {rc}")

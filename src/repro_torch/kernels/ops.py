@@ -1,0 +1,117 @@
+"""Entry points of the port's kernels (counterpart of ``repro.kernels.ops``).
+
+A CUDA tensor goes to the hand-written CUDA kernel (built at first use by
+:mod:`.build`); a CPU tensor, which only the tests pass, goes to the plain
+version in :mod:`.ref`.  There is no fallback: a CUDA call that cannot
+launch raises.  ``LAUNCHES`` counts each kernel's launches, one per call
+that reached the GPU, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from . import build, ref
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _cuda_args(name: str, *tensors: torch.Tensor) -> int:
+    """Validate CUDA operands; returns the kernel's dtype code."""
+    dtype = tensors[0].dtype
+    if dtype not in build.DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        f"(float32 or bfloat16)")
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name}: operands must share device and dtype, "
+                             f"got {t.device}/{t.dtype} and {dev}/{dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return build.DTYPE_CODES[dtype]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x: [T, D]; w: [D] -> [T, D] in x.dtype (reduction in f32)."""
+    if x.ndim != 2 or w.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm: x [T,D] and w [D] expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if not x.is_cuda:
+        return ref.rmsnorm_ref(x, w, eps=eps)
+    code = _cuda_args("rmsnorm", x)
+    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
+    out = torch.empty_like(x)
+    T, D = x.shape
+    rc = build.launcher("rmsnorm")(x.data_ptr(), wf.data_ptr(),
+                                   out.data_ptr(), T, D, float(eps), code,
+                                   _stream(x))
+    build.check("rmsnorm", rc)
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B,Sq,H,Dh]; k, v: [B,Sk,KV,Dh] -> [B,Sq,H,Dh] in q.dtype.
+
+    Causal attention needs ``Sq == Sk`` (the kernel's mask has no offset).
+    """
+    ref.check_attention_shapes(q, k, v, causal)
+    if not q.is_cuda:
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       sm_scale=sm_scale)
+    B, Sq, H, Dh = q.shape
+    _, Sk, KV, _ = k.shape
+    if Dh not in (64, 128):
+        raise ValueError(f"flash_attention: head dim {Dh} not built "
+                         f"(64 or 128)")
+    code = _cuda_args("flash_attention", q, k, v)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(Dh)
+    out = torch.empty_like(q)
+    rc = build.launcher("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
+        H, KV, Dh, float(sm_scale), int(causal), code, _stream(q))
+    build.check("flash_attention", rc)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
+                   group_offsets: torch.Tensor) -> torch.Tensor:
+    """lhs: [T,D] sorted by group; rhs: [E,D,F]; offsets: [E+1] -> [T,F].
+
+    Rows no group covers are zero.
+    """
+    if (lhs.ndim != 2 or rhs.ndim != 3 or rhs.shape[1] != lhs.shape[1]
+            or group_offsets.shape != (rhs.shape[0] + 1,)):
+        raise ValueError(f"grouped_matmul: lhs [T,D], rhs [E,D,F], offsets "
+                         f"[E+1] expected, got {tuple(lhs.shape)}, "
+                         f"{tuple(rhs.shape)}, {tuple(group_offsets.shape)}")
+    if not lhs.is_cuda:
+        return ref.grouped_matmul_ref(lhs, rhs, group_offsets)
+    code = _cuda_args("grouped_matmul", lhs, rhs)
+    offs = group_offsets.to(device=lhs.device, dtype=torch.int32).contiguous()
+    T, D = lhs.shape
+    E, _, F = rhs.shape
+    out = torch.empty((T, F), dtype=lhs.dtype, device=lhs.device)
+    rc = build.launcher("grouped_matmul")(
+        lhs.data_ptr(), rhs.data_ptr(), offs.data_ptr(), out.data_ptr(), T, D,
+        F, E, code, _stream(lhs))
+    build.check("grouped_matmul", rc)
+    LAUNCHES["grouped_matmul"] += 1
+    return out

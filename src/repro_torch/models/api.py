@@ -1,0 +1,141 @@
+"""Model API of the port: init / prefill / decode_step and an ``nn.Module``.
+
+Counterpart of ``repro.models.api`` for the dense and MoE families.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..weights import flatten, unflatten
+from . import transformer
+from .spec import ModelConfig, torch_dtype
+
+# Leaves the JAX code reads in f32 (router, norm scales): never rounded to
+# the activation dtype, so cast_for_serving leaves them alone.
+_F32_LEAVES = ("router", "ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random params in ``cfg.param_dtype``, mirroring ``ParamBuilder``:
+    normal with std ``1/sqrt(fan_in)`` (``tok_embed``: std 1.0), ones for
+    norm scales, zeros for biases.  ``blocks`` leaves are stacked over the
+    blocks.  The numbers differ from ``jax.random``'s; the shapes and
+    scales do not."""
+    transformer.check_supported(cfg)
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.param_dtype)
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    nb = cfg.n_blocks
+
+    def normal(shape, fan_in=None, std=None):
+        if std is None:
+            std = 1.0 / math.sqrt(max(1, fan_in))
+        t = torch.randn(shape, generator=generator, device=dev, dtype=dt)
+        return t.mul_(std)
+
+    def ones(shape):
+        return torch.ones(shape, device=dev, dtype=dt)
+
+    def zeros(shape):
+        return torch.zeros(shape, device=dev, dtype=dt)
+
+    params = {
+        "tok_embed": normal((cfg.vocab_size, D), std=1.0),
+        "unembed": normal((D, cfg.vocab_size), fan_in=D),
+        "final_norm": ones((D,)),
+    }
+    attn = {
+        "wq": normal((nb, D, H, Dh), fan_in=D),
+        "wk": normal((nb, D, KV, Dh), fan_in=D),
+        "wv": normal((nb, D, KV, Dh), fan_in=D),
+        "wo": normal((nb, H, Dh, D), fan_in=H * Dh),
+    }
+    if cfg.qkv_bias:
+        attn.update(bq=zeros((nb, H, Dh)), bk=zeros((nb, KV, Dh)),
+                    bv=zeros((nb, KV, Dh)))
+    if cfg.qk_norm:
+        attn.update(q_norm=ones((nb, Dh)), k_norm=ones((nb, Dh)))
+    layer = {"ln1": ones((nb, D)), "attn": attn}
+    if transformer._has_ffn(cfg):
+        layer["ln2"] = ones((nb, D))
+        if transformer._layer_is_moe(cfg, 0):
+            E, F = cfg.n_experts, cfg.d_ff_expert
+            layer["moe"] = {
+                "router": normal((nb, D, E), fan_in=D),
+                "wi_gate": normal((nb, E, D, F), fan_in=D),
+                "wi_up": normal((nb, E, D, F), fan_in=D),
+                "wo": normal((nb, E, F, D), fan_in=F),
+            }
+        else:
+            F = cfg.d_ff
+            layer["mlp"] = {
+                "wi_gate": normal((nb, D, F), fan_in=D),
+                "wi_up": normal((nb, D, F), fan_in=D),
+                "wo": normal((nb, F, D), fan_in=F),
+            }
+    params["blocks"] = {"l0": layer}
+    return params
+
+
+def cast_for_serving(cfg: ModelConfig, params):
+    """Round once, at load, every weight the JAX code casts to the
+    activation dtype at each use; the result is the same and each step
+    stops copying weights.  Router and norm scales stay as they are."""
+    act = torch_dtype(cfg.dtype)
+    return unflatten({
+        path: (t if path.split("/")[-1] in _F32_LEAVES else t.to(act))
+        for path, t in flatten(params).items()})
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int):
+    """tokens [B, S] -> (last-token logits [B, V], caches)."""
+    return transformer.prefill(cfg, params, tokens, s_max)
+
+
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches):
+    """token [B] -> (logits [B, V], caches advanced in place)."""
+    return transformer.decode_step(cfg, params, token, caches)
+
+
+class CausalLM(nn.Module):
+    """A params tree held as buffers (so ``.to()`` moves it), with the
+    serving entry points as methods."""
+
+    def __init__(self, cfg: ModelConfig, params):
+        super().__init__()
+        transformer.check_supported(cfg)
+        self.cfg = cfg
+        self._names = {}
+        for path, t in flatten(params).items():
+            name = path.replace("/", "__")
+            self._names[path] = name
+            self.register_buffer(name, t)
+
+    @classmethod
+    def random(cls, cfg: ModelConfig, seed: int = 0,
+               device=None) -> "CausalLM":
+        """Seeded random weights, cast once for serving."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return cls(cfg, cast_for_serving(cfg, init(cfg, gen, dev)))
+
+    @property
+    def params(self):
+        return unflatten({path: getattr(self, name)
+                          for path, name in self._names.items()})
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, s_max: int):
+        return prefill(self.cfg, self.params, tokens, s_max)
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, caches):
+        return decode_step(self.cfg, self.params, token, caches)

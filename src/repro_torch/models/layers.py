@@ -1,0 +1,165 @@
+"""Core transformer layers in PyTorch (counterpart of ``repro.models.layers``).
+
+Every function takes the parameter sub-tree (a dict of tensors under the
+JAX package's names) and casts weights to the activation dtype at use, as
+the JAX code does; a weight already in that dtype is not copied.  RMSNorm
+and prefill attention go through the port's CUDA kernels (:mod:`..kernels.
+ops`); the dense projections stay plain ``torch.matmul``, as the JAX package
+leaves them to XLA.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .spec import ModelConfig, torch_dtype
+
+NEG_INF = -1e30
+
+
+# ----------------------------------------------------------------- RMSNorm
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over the last dim through the kernel, on a ``[T, D]`` view."""
+    shape = x.shape
+    y = ops.rmsnorm(x.reshape(-1, shape[-1]).contiguous(), scale, eps=eps)
+    return y.reshape(shape)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Half-split rotation.  x: [..., S, H, Dh]; positions: [..., S]."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    ang = positions[..., :, None, None].float() * freqs   # [..., S, 1, Dh/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------- Attention
+class KVCache(NamedTuple):
+    k: torch.Tensor      # [B, S_max, KV, Dh]
+    v: torch.Tensor      # [B, S_max, KV, Dh]
+    length: int          # current fill
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') as one matmul."""
+    D = w.shape[0]
+    y = x @ w.to(x.dtype).reshape(D, -1)
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd') as one matmul."""
+    H, Dh, D = wo.shape
+    return out.reshape(*out.shape[:-2], H * Dh) @ wo.to(out.dtype).reshape(
+        H * Dh, D)
+
+
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _no_window(window: int) -> None:
+    if window > 0:
+        raise NotImplementedError(
+            "sliding-window attention is not ported yet (ROADMAP.md, queue "
+            "1, item 2)")
+
+
+def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor, s_max: int, *,
+                      window: int = 0) -> Tuple[torch.Tensor, KVCache]:
+    """Causal prefill (Sq == Sk, through the flash-attention kernel) that
+    also returns a KV cache padded to ``s_max``."""
+    _no_window(window)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True)
+    out = _out_proj(out, p["wo"])
+    kc = k.new_zeros((B, s_max) + k.shape[2:])
+    vc = v.new_zeros((B, s_max) + v.shape[2:])
+    kc[:, :S] = k
+    vc[:, :S] = v
+    return out, KVCache(k=kc, v=vc, length=S)
+
+
+def _sdpa_masked(q, k, v, valid: torch.Tensor) -> torch.Tensor:
+    """GQA attention with f32 logits masked to -1e30 where ``valid`` is
+    False; the softmax weights are cast back to ``v.dtype`` (as the JAX
+    ``_sdpa`` does).  q: [B,Sq,H,Dh]; k,v: [B,Sk,KV,Dh]; valid: [Sk]."""
+    B, Sq, H, Dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, Dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+    logits = logits * (1.0 / math.sqrt(Dh))
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(B, Sq, H, Dh)
+
+
+def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, *,
+                     window: int = 0) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token decode.  x: [B,1,D].
+
+    Writes the new K/V row into ``cache`` at ``length`` *in place* (the JAX
+    code returns an updated copy; updating in place keeps one cache alive),
+    then attends over all ``S_max`` slots with ``j <= length``.
+    """
+    _no_window(window)
+    B = x.shape[0]
+    pos = torch.full((B, 1), cache.length, dtype=torch.long, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, pos)
+    cache.k[:, cache.length] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, cache.length] = v[:, 0].to(cache.v.dtype)
+    valid = torch.arange(cache.k.shape[1], device=x.device) <= cache.length
+    out = _sdpa_masked(q, cache.k, cache.v, valid)
+    out = _out_proj(out, p["wo"])
+    return out, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+
+
+# -------------------------------------------------------------- SwiGLU MLP
+def mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """Dense SwiGLU FFN (the JAX ``ffn_chunks`` split is a sharding device
+    that one card does not need)."""
+    g = x @ p["wi_gate"].to(x.dtype)
+    u = x @ p["wi_up"].to(x.dtype)
+    return (F.silu(g) * u) @ p["wo"].to(x.dtype)
+
+
+# ------------------------------------------------------------- Embeddings
+def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return params["tok_embed"].to(torch_dtype(cfg.dtype))[tokens]
+
+
+def unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["unembed"].to(x.dtype)

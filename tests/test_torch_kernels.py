@@ -1,0 +1,208 @@
+"""Port kernels: plain PyTorch versions against the JAX package's kernels.
+
+On the CPU each ``repro_torch.kernels.ops`` wrapper runs its kernel's plain
+version; the reference is ``repro.kernels.ops`` (Pallas in interpret mode
+off-TPU).  The same numpy inputs, made from a seed, go to both.
+Tolerances follow ``tests/test_kernels.py``: f32 2e-5, bf16 2e-2.  The
+CUDA kernels themselves are held against the plain versions on the card
+(``cuda`` marker here, and ``chip_smoke.py``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _both(a: np.ndarray, dtype: str):
+    """One f32 numpy array -> (torch, jax) arrays of the same values."""
+    tdt, jdt, _ = DTYPES[dtype]
+    return torch.from_numpy(a).to(tdt), jnp.asarray(a, jdt)
+
+
+def _close(t_out, j_out, dtype: str):
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(t_out.float().numpy(),
+                               np.asarray(j_out, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------ rmsnorm
+@pytest.mark.parametrize("T,D", [(256, 64), (512, 1024), (256, 3072)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax_kernel(T, D, dtype):
+    rng = np.random.default_rng(T * D)
+    x_t, x_j = _both(rng.standard_normal((T, D), np.float32), dtype)
+    w_t, w_j = _both(rng.standard_normal((D,), np.float32), dtype)
+    before = dict(ops.LAUNCHES)
+    out = ops.rmsnorm(x_t, w_t, eps=1e-6)
+    assert out.dtype == x_t.dtype and out.shape == (T, D)
+    _close(out, jops.rmsnorm(x_j, w_j, eps=1e-6), dtype)
+    assert ops.LAUNCHES == before      # CPU tensors never count a launch
+
+
+def test_rmsnorm_any_row_count():
+    """The port takes any T (the TPU kernel asserts T % block_rows == 0)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((5, 96), np.float32)
+    w = rng.standard_normal((96,), np.float32)
+    out = ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jref.rmsnorm_ref(
+        jnp.asarray(x), jnp.asarray(w))), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------- flash attention
+ATTN_SHAPES = [
+    # (B, Sq, Sk, H, KV, Dh, causal): a subset of test_kernels.ATTN_SHAPES
+    (1, 128, 128, 4, 4, 64, True),
+    (2, 256, 256, 8, 2, 64, True),      # GQA group=4
+    (2, 128, 128, 4, 4, 128, False),    # bidirectional
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dh,causal", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_jax_kernel(B, Sq, Sk, H, KV, Dh, causal,
+                                            dtype):
+    rng = np.random.default_rng(B * Sq * H * Dh + KV)
+    q_t, q_j = _both(rng.standard_normal((B, Sq, H, Dh), np.float32), dtype)
+    k_t, k_j = _both(rng.standard_normal((B, Sk, KV, Dh), np.float32), dtype)
+    v_t, v_j = _both(rng.standard_normal((B, Sk, KV, Dh), np.float32), dtype)
+    out = ops.flash_attention(q_t, k_t, v_t, causal=causal)
+    assert out.dtype == q_t.dtype and out.shape == (B, Sq, H, Dh)
+    _close(out, jops.flash_attention(q_j, k_j, v_j, causal=causal), dtype)
+
+
+def test_flash_attention_rejects_causal_offset():
+    """Causal with Sq != Sk is outside the kernel's contract (no Sk-Sq
+    offset in its mask), so the port refuses it instead of diverging."""
+    q = torch.zeros(1, 64, 2, 64)
+    kv = torch.zeros(1, 128, 2, 64)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ops.flash_attention(q, kv, kv, causal=True)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        ref.flash_attention_ref(q, kv, kv, causal=True)
+    # bidirectional attention takes any Sk
+    assert ops.flash_attention(q, kv, kv, causal=False).shape == q.shape
+
+
+# ----------------------------------------------------------- grouped matmul
+GMM_SHAPES = [
+    # (T, D, F, E): a subset of test_kernels.GMM_SHAPES
+    (256, 64, 128, 4),
+    (512, 128, 256, 8),
+    (384, 64, 128, 6),      # T not a power of two (3 tiles)
+]
+
+
+def _gmm_inputs(T, D, F, E, dtype, seed):
+    rng = np.random.default_rng(seed)
+    lhs_t, lhs_j = _both(rng.standard_normal((T, D), np.float32), dtype)
+    rhs_t, rhs_j = _both(
+        rng.standard_normal((E, D, F), np.float32) / np.sqrt(D), dtype)
+    return lhs_t, lhs_j, rhs_t, rhs_j, rng
+
+
+@pytest.mark.parametrize("T,D,F,E", GMM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_matches_jax_kernel(T, D, F, E, dtype):
+    lhs_t, lhs_j, rhs_t, rhs_j, rng = _gmm_inputs(T, D, F, E, dtype,
+                                                  T * D + F + E)
+    cuts = np.sort(rng.integers(0, T + 1, E - 1))     # some groups empty
+    offs = np.concatenate([[0], cuts, [T]]).astype(np.int32)
+    out = ops.grouped_matmul(lhs_t, rhs_t, torch.from_numpy(offs))
+    assert out.dtype == lhs_t.dtype and out.shape == (T, F)
+    _close(out, jops.grouped_matmul(lhs_j, rhs_j, jnp.asarray(offs)), dtype)
+
+
+@pytest.mark.parametrize("offs", [
+    [0, 0, 256, 256, 256],      # every row in expert 1, the rest empty
+    [0, 0, 0, 0, 0],            # all groups empty: all rows uncovered
+    [0, 64, 64, 64, 64],        # uncovered tail
+    [32, 64, 100, 100, 200],    # uncovered head and tail
+])
+def test_grouped_matmul_empty_and_uncovered(offs):
+    """Empty groups contribute nothing and rows that no group covers are
+    exactly zero, as the JAX kernel gives them (not ref.py's clip onto the
+    last expert)."""
+    lhs_t, lhs_j, rhs_t, rhs_j, _ = _gmm_inputs(256, 64, 128, 4, "float32",
+                                                7)
+    out = ops.grouped_matmul(lhs_t, rhs_t, torch.tensor(offs, dtype=torch.int32))
+    expect = np.asarray(jops.grouped_matmul(lhs_j, rhs_j,
+                                            jnp.asarray(offs, jnp.int32)))
+    np.testing.assert_allclose(out.numpy(), expect, rtol=2e-5, atol=2e-5)
+    covered = np.zeros(256, bool)
+    covered[offs[0]:offs[-1]] = True
+    assert (out.numpy()[~covered] == 0).all()
+
+
+def test_grouped_matmul_decode_shape():
+    """The decode shape of granite: T = B*top_k = 64 rows over 32 experts,
+    two rows each (f32, against the JAX kernel)."""
+    lhs_t, lhs_j, rhs_t, rhs_j, _ = _gmm_inputs(64, 64, 32, 32, "float32", 3)
+    offs = np.arange(0, 65, 2, dtype=np.int32)
+    out = ops.grouped_matmul(lhs_t, rhs_t, torch.from_numpy(offs))
+    expect = jops.grouped_matmul(lhs_j, rhs_j, jnp.asarray(offs),
+                                 block_t=64, block_f=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(expect), rtol=2e-5,
+                               atol=2e-5)
+
+
+# ------------------------------------------------------------------ build
+def test_build_names_libraries_by_source_and_raises_without_nvcc(
+        monkeypatch, tmp_path):
+    """Libraries are keyed by a hash of their sources and flags (an edited
+    kernel rebuilds); with no nvcc the build raises, never falls back."""
+    from repro_torch.kernels import build
+    paths = {name: build._lib_path(name) for name in build.KERNELS}
+    assert len(set(paths.values())) == len(build.KERNELS)
+    assert all(p.parent == build.BUILD_DIR for p in paths.values())
+    assert paths == {name: build._lib_path(name) for name in build.KERNELS}
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+
+
+# ------------------------------------------------------- on the card only
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """Each CUDA kernel against its plain version, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100: "
+                    "python3 chip_smoke.py covers the same checks)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        x = torch.randn(300, 1024, generator=gen, device=dev).to(dt)
+        w = torch.randn(1024, generator=gen, device=dev)
+        torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                                   rtol=tol, atol=tol)
+        q = torch.randn(2, 96, 8, 64, generator=gen, device=dev).to(dt)
+        k = torch.randn(2, 96, 4, 64, generator=gen, device=dev).to(dt)
+        v = torch.randn(2, 96, 4, 64, generator=gen, device=dev).to(dt)
+        torch.testing.assert_close(ops.flash_attention(q, k, v),
+                                   ref.flash_attention_ref(q, k, v),
+                                   rtol=tol, atol=tol)
+        lhs = torch.randn(200, 128, generator=gen, device=dev).to(dt)
+        rhs = (torch.randn(4, 128, 96, generator=gen, device=dev)
+               / 128 ** 0.5).to(dt)
+        offs = torch.tensor([10, 50, 50, 120, 190], dtype=torch.int32,
+                            device=dev)
+        torch.testing.assert_close(ops.grouped_matmul(lhs, rhs, offs),
+                                   ref.grouped_matmul_ref(lhs, rhs, offs),
+                                   rtol=tol, atol=tol)
+    torch.cuda.synchronize()
