@@ -9,16 +9,25 @@ exits non-zero:
 (a) the card's name and power limit (``nvidia-smi``), then the build of the
     CUDA kernels from ``src/repro_torch/kernels/csrc`` and its time;
 (b) each kernel against its plain PyTorch version on the card, in f32
-    (tolerance 2e-5) and bf16 (2e-2), at the main path's shapes and the
-    kernel tests' shapes, with times for the kernel, the plain version, the
-    nearest single PyTorch call and the least time the card could take;
-(c) the main path: granite-moe-1b-a400m at full width, bf16, seeded random
-    weights, prefill of 8 prompts of 512 tokens then 32 greedy tokens, with
-    the kernels' launch counts checked against the config, and one profiled
-    prefill and decode window (top device ops, device idle share);
-(d) whole-model checks in f32: the card against the plain path on the CPU
-    (2-layer full-width cut), and decode logits against prefill over the
-    prompt plus generated tokens (24 layers).
+    (tolerance 2e-5) and bf16 (2e-2; ssd_chunk is f32 only), at the main
+    paths' shapes and the kernel tests' shapes, with times for the kernel,
+    the plain version, the nearest single PyTorch call and the least time
+    the card could take;
+(c) the two main paths, each at full width and full depth, bf16, seeded
+    random weights, prefill of 8 prompts of 512 tokens then 32 greedy
+    tokens: granite-moe-1b-a400m (rmsnorm, flash_attention,
+    grouped_matmul) and mamba2-780m (rmsnorm, ssd_chunk).  Each path's
+    launch counts are set to 0 just before it and checked against the
+    config just after; each gets one profiled prefill and decode window
+    (top device ops, device idle share);
+(d) whole-model checks in f32 for both models: the card against the plain
+    path on the CPU (2-layer full-width cut), and decode against prefill
+    over the prompt plus generated tokens at full depth.  For granite the
+    bound holds the logits; for mamba2 it holds every layer on the same
+    inputs, and the end-to-end logit error is printed as a measurement
+    (48 random layers amplify f32 rounding past the bound; PERF.md).
+    mamba2 also prefills 2 tokens, so its conv-tail padding (S < K-1)
+    runs on the card.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -42,20 +51,30 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-ARCH = "granite-moe-1b-a400m"
+ARCH, SSM_ARCH = "granite-moe-1b-a400m", "mamba2-780m"
 BATCH, PROMPT, TOKENS = 8, 512, 32
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
     "flash_attention": "src/repro/kernels/flash_attention.py:27",
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:25",
+    "ssd_chunk": "src/repro/kernels/ssd_scan.py:28",
 }
+# mamba2-780m's SSD at the main path's prefill: b 8, S 512, chunk 256,
+# 48 heads of P 64, N 128 -> 16 (batch, chunk) cells of 48 heads each
+SSD_MAIN = (BATCH * PROMPT // 256, 256, 48, 64, 128)
 # test_kernels.py's shapes
 ATTN_SHAPES = [(1, 128, 128, 4, 4, 64, True), (2, 256, 256, 8, 2, 64, True),
                (1, 256, 256, 4, 1, 128, True), (2, 128, 128, 4, 4, 128, False),
                (1, 512, 512, 2, 2, 64, True)]
 GMM_SHAPES = [(256, 64, 128, 4), (512, 128, 256, 8), (128, 256, 128, 2),
               (384, 64, 128, 6)]
+# ssd_chunk as (BC, Q, H, P, N): test_kernels.SSD_SHAPES cut into chunks,
+# its intra-chunk test (JAX layout, H = 1), an odd Q, one step, and P, N
+# past one tile
+SSD_SHAPES = [(4, 16, 2, 16, 16), (8, 32, 4, 32, 64), (4, 64, 2, 64, 128),
+              (6, 32, 1, 16, 24), (3, 13, 48, 64, 128), (2, 1, 3, 8, 16),
+              (1, 200, 2, 130, 300)]
 
 
 def log(phase: str, msg: str) -> None:
@@ -85,8 +104,8 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got, want, dtype: str) -> float:
-    tol = TOL[dtype]
+def compare(name: str, got, want, dtype: str, tol=None) -> float:
+    tol = TOL[dtype] if tol is None else tol
     diff = (got.float() - want.float()).abs()
     err = float(diff.max()) if diff.numel() else 0.0
     limit = tol + tol * want.float().abs()
@@ -109,11 +128,50 @@ def random_offsets(torch, gen, T: int, E: int, top_k: int = 8):
 
 def expected_launches(cfg, n_tokens: int):
     """Kernel launches for one prefill and n_tokens - 1 decode steps."""
-    from repro_torch.models.transformer import _layer_is_moe
-    moe_layers = sum(1 for i in range(cfg.n_layers) if _layer_is_moe(cfg, i))
-    return {"rmsnorm": (2 * cfg.n_layers + 1) * n_tokens,
-            "flash_attention": cfg.n_layers,
-            "grouped_matmul": 3 * moe_layers * n_tokens}
+    from repro_torch.models.transformer import _has_ffn, _layer_is_moe
+    want = {"rmsnorm": n_tokens, "flash_attention": 0, "grouped_matmul": 0,
+            "ssd_chunk": 0}                           # final norm each token
+    for i in range(cfg.n_layers):
+        kind = cfg.pattern[i % cfg.block_size]
+        norms = 1                                     # ln1
+        if kind == "attn":
+            norms += 2 if cfg.qk_norm else 0
+            want["flash_attention"] += 1              # prefill only
+        else:
+            norms += 1                                # gated norm
+            want["ssd_chunk"] += 1                    # prefill only
+        if _has_ffn(cfg):
+            norms += 1                                # ln2
+            if _layer_is_moe(cfg, i % cfg.block_size):
+                want["grouped_matmul"] += 3 * n_tokens
+        want["rmsnorm"] += norms * n_tokens
+    return want
+
+
+def ssd_inputs(torch, gen, BC: int, Q: int, H: int, P: int, N: int):
+    """SSD operands distributed as in mamba2: dt = softplus(.), a =
+    -exp(A_log) dt with A_log ~ N(0, 0.1), conv outputs of unit scale."""
+    dev = gen.device
+    F = torch.nn.functional
+    x = torch.randn(BC, Q, H, P, generator=gen, device=dev)
+    dt = F.softplus(torch.randn(BC, Q, H, generator=gen, device=dev))
+    a = -dt * torch.exp(0.1 * torch.randn(H, generator=gen, device=dev))
+    B = torch.randn(BC, Q, N, generator=gen, device=dev)
+    C = torch.randn(BC, Q, N, generator=gen, device=dev)
+    if H == 1:                                        # the JAX layout
+        x, dt, a = x[:, :, 0], dt[..., 0], a[..., 0]
+    return x, dt, a, B, C
+
+
+def ssd_cost(BC: int, Q: int, H: int, P: int, N: int):
+    """(bytes, flops) the SSD function needs: each f32 operand read once
+    and each output written once; C.B^T once per (batch, chunk) cell (it
+    is the same for every head) and only for k <= q, as are the y terms."""
+    pairs = Q * (Q + 1) // 2
+    nbytes = 4 * (2 * BC * Q * H * P + 2 * BC * Q * H + 2 * BC * Q * N
+                  + BC * H * P * N)
+    flops = 2 * BC * pairs * N + 2 * BC * H * (pairs * P + Q * P * N)
+    return nbytes, flops
 
 
 # ------------------------------------------------------------ phase (b)
@@ -126,8 +184,9 @@ def check_kernels(torch, ops, ref, dev):
 
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
-        for T, D in [(BATCH * PROMPT, 1024), (BATCH, 1024), (256, 64),
-                     (512, 1024), (256, 3072), (37, 1001)]:
+        for T, D in [(BATCH * PROMPT, 1024), (BATCH, 1024),
+                     (BATCH * PROMPT, 1536), (BATCH * PROMPT, 3072),
+                     (256, 64), (512, 1024), (256, 3072), (37, 1001)]:
             x, w = randn(T, D, dtype=dt), randn(D, dtype=torch.float32)
             e = compare("rmsnorm", ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
                         dname)
@@ -188,6 +247,16 @@ def check_kernels(torch, ops, ref, dev):
             if dname == "bfloat16" and main:
                 errs["grouped_matmul"] = max(errs.get("grouped_matmul", 0.0),
                                              e)
+    for shape in [SSD_MAIN] + SSD_SHAPES:
+        args = ssd_inputs(torch, gen, *shape)
+        got = ops.ssd_chunk(*args)
+        want = ref.ssd_chunk_ref(*args)
+        e = max(compare(f"ssd_chunk {name}", g, w, "float32")
+                for name, g, w in zip(("y", "state"), got, want))
+        log("b", f"ssd_chunk (BC,Q,H,P,N)={shape} float32: max_abs_err "
+            f"{e:.3e} (tol {TOL['float32']})")
+        if shape == SSD_MAIN:
+            errs["ssd_chunk"] = e
     torch.cuda.synchronize()
     return errs
 
@@ -201,21 +270,23 @@ def time_kernels(torch, ops, ref, dev):
     es = 2
     out = {}
 
-    def record(name, shape, fn, plain, lib, nbytes, flops):
+    def record(name, shape, fn, plain, lib, nbytes, flops,
+               dtype="bfloat16"):
         ms = timed_ms(torch, fn, flush)
         plain_ms = timed_ms(torch, plain, flush)
         lib_ms = timed_ms(torch, lib, flush) if lib is not None else None
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
-        log("b", f"time {name} {shape} bf16: kernel {ms:.4f} ms, plain "
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        log("b", f"time {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{b_ms:.4f} ms ({b_by})")
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
 
-    # rmsnorm: prefill rows and decode rows
-    for T in (BATCH * PROMPT, BATCH):
-        D = 1024
+    # rmsnorm: granite's prefill and decode rows (the summary's record),
+    # then mamba2's ln1 and gated-norm rows
+    for T, D in ((BATCH * PROMPT, 1024), (BATCH, 1024), (BATCH * PROMPT, 1536),
+                 (BATCH * PROMPT, 3072), (BATCH, 3072)):
         x = torch.randn(T, D, generator=gen, device=dev).to(bf)
         w = torch.ones(D, device=dev)
         wb = w.to(bf)
@@ -266,6 +337,14 @@ def time_kernels(torch, ops, ref, dev):
                      + 4 * (E + 1),
                      2 * rows * D * Fo)
         out.setdefault("grouped_matmul", rec)
+
+    # ssd_chunk at mamba2's prefill, f32; no single PyTorch call computes it
+    BC, Q, H, P, N = SSD_MAIN
+    args = ssd_inputs(torch, gen, *SSD_MAIN)
+    out["ssd_chunk"] = record(
+        "ssd_chunk", f"x[{BC},{Q},{H},{P}] N {N}",
+        lambda: ops.ssd_chunk(*args), lambda: ref.ssd_chunk_ref(*args), None,
+        *ssd_cost(*SSD_MAIN), dtype="float32")
     del flush
     return out
 
@@ -295,19 +374,20 @@ def profile_window(torch, fn, wall_ms: float, label: str) -> None:
             f"device time not measured (the profiler saw no kernel)")
         return
     log("c", f"profile {label}: wall {wall_ms:.3f} ms (unprofiled), kernels "
-        f"{busy:.3f} ms (profiled run), device idle "
-        f"{max(0.0, 1 - busy / wall_ms) * 100:.1f}%")
+        f"{busy:.3f} ms in {sum(r[1] for r in rows)} launches (profiled "
+        f"run), device idle {max(0.0, 1 - busy / wall_ms) * 100:.1f}%")
     for t, n, key in rows[:12]:
         log("c", f"  {t:10.3f} ms {n:6d}x {key[:90]}")
 
 
-def main_path(torch, dev):
+def main_path(torch, dev, arch: str):
+    """Serve ``arch`` at full width; returns the path's launch counts."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models.api import CausalLM
 
-    cfg = configs.get_config(ARCH)
+    cfg = configs.get_config(arch)
     model = CausalLM.random(cfg, seed=0, device=dev)
     prompts = make_prompts(cfg, BATCH, PROMPT, seed=1, device=dev)
     generate(model, prompts[:, :16], 2)            # warm-up: cuBLAS, caches
@@ -319,13 +399,13 @@ def main_path(torch, dev):
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     rate = BATCH * (TOKENS - 1) / res.decode_s
-    log("c", f"{ARCH} bf16 batch {BATCH} prompt {PROMPT} tokens {TOKENS}: "
+    log("c", f"{arch} bf16 batch {BATCH} prompt {PROMPT} tokens {TOKENS}: "
         f"prefill {res.prefill_s * 1e3:.3f} ms, decode {rate:.1f} tok/s, "
         f"peak memory {peak:.2f} GiB")
     want = expected_launches(cfg, TOKENS)
-    log("c", f"launches {launches}, expected {want}")
+    log("c", f"{arch} launches {launches}, expected {want}")
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"{arch}: launch counts {launches} != {want}")
     toks = res.tokens
     if toks.shape != (BATCH, TOKENS) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -344,7 +424,7 @@ def main_path(torch, dev):
     torch.cuda.synchronize()
     pre_ms = (time.perf_counter() - t0) * 1e3
     profile_window(torch, lambda: model.prefill(prompts, s_max), pre_ms,
-                   f"prefill [{BATCH},{PROMPT}]")
+                   f"{arch} prefill [{BATCH},{PROMPT}]")
     tok = prompts[:, -1]
 
     def decode8():
@@ -358,45 +438,51 @@ def main_path(torch, dev):
     torch.cuda.synchronize()
     dec_ms = (time.perf_counter() - t0) * 1e3
     _, caches = model.prefill(prompts, s_max)
-    profile_window(torch, decode8, dec_ms, f"8 decode steps, batch {BATCH}")
+    profile_window(torch, decode8, dec_ms,
+                   f"{arch} 8 decode steps, batch {BATCH}")
     del model, caches
     torch.cuda.empty_cache()
     return launches
 
 
 # ------------------------------------------------------------ phase (d)
-def whole_model_checks(torch, dev) -> None:
+def whole_model_checks(torch, dev, arch: str, cut_lens, start: int) -> None:
+    """f32: a 2-layer full-width cut on the card against the plain path on
+    the CPU, from prompts of each length in ``cut_lens`` plus 3 decode
+    steps; then at full depth, decode logits against prefill of the
+    sequence so far, from a prompt of ``start`` tokens."""
     from repro_torch import configs
     from repro_torch.models import api
 
-    cfg = configs.get_config(ARCH).replace(dtype="float32")
+    cfg = configs.get_config(arch).replace(dtype="float32")
     gen = torch.Generator().manual_seed(2)
     prompt = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
 
-    # 2-layer full-width cut: card (kernels) against CPU (plain versions)
-    cut = cfg.replace(n_layers=2)
+    cut = cfg.replace(n_layers=2 * cfg.block_size)
     params = api.init(cut, torch.Generator().manual_seed(3), device="cpu")
     cpu_model = api.CausalLM(cut, params)
     gpu_model = api.CausalLM(cut, params).to(dev)
-    lc, cc = cpu_model.prefill(prompt, 24)
-    lg, cg = gpu_model.prefill(prompt.to(dev), 24)
-    err = float((lg.cpu() - lc).abs().max())
-    for _ in range(3):
-        tok = torch.argmax(lc, dim=-1)
-        lc, cc = cpu_model.decode_step(tok, cc)
-        lg, cg = gpu_model.decode_step(tok.to(dev), cg)
+    err = 0.0
+    for n in cut_lens:
+        lc, cc = cpu_model.prefill(prompt[:, :n], n + 8)
+        lg, cg = gpu_model.prefill(prompt[:, :n].to(dev), n + 8)
         err = max(err, float((lg.cpu() - lc).abs().max()))
-    log("d", f"2-layer f32, card vs plain path on the CPU: max abs logit "
-        f"err {err:.3e} (bound 1e-4)")
+        for _ in range(3):
+            tok = torch.argmax(lc, dim=-1)
+            lc, cc = cpu_model.decode_step(tok, cc)
+            lg, cg = gpu_model.decode_step(tok.to(dev), cg)
+            err = max(err, float((lg.cpu() - lc).abs().max()))
+    log("d", f"{arch} {cut.n_layers}-layer f32, prompts of {cut_lens} "
+        f"tokens, card vs plain path on the CPU: max abs logit err "
+        f"{err:.3e} (bound 1e-4)")
     if not err <= 1e-4:
-        raise AssertionError("card and CPU paths disagree")
+        raise AssertionError(f"{arch}: card and CPU paths disagree")
     del cpu_model, gpu_model, params
 
-    # 24 layers: decode logits against prefill of the sequence so far.  At
-    # 8 tokens or fewer no expert can pass the capacity floor of 8, so
-    # neither path drops an assignment.
+    # granite: at 8 tokens or fewer no expert can pass the capacity floor
+    # of 8, so neither path drops an assignment.
     model = api.CausalLM.random(cfg, seed=5, device=dev)
-    seq = prompt[:, :4].to(dev)
+    seq = prompt[:, :start].to(dev)
     logits, caches = model.prefill(seq, 16)
     err = 0.0
     for _ in range(4):
@@ -405,12 +491,50 @@ def whole_model_checks(torch, dev) -> None:
         seq = torch.cat([seq, tok[:, None]], dim=1)
         full, _ = model.prefill(seq, seq.shape[1])
         err = max(err, float((logits - full).abs().max()))
-    log("d", f"24-layer f32, prefill over prompt+generated vs decode "
-        f"logits: max abs err {err:.3e} (bound 1e-4)")
-    if not err <= 1e-4:
-        raise AssertionError("decode disagrees with prefill")
+    label = (f"{arch} {cfg.n_layers}-layer f32, prefill over prompt+generated "
+             f"vs decode logits from a {start}-token prompt: max abs err "
+             f"{err:.3e}")
+    if cfg.family == "ssm":
+        # Through 48 random mamba2 layers, f32 rounding is amplified past
+        # 1e-4 at the logits: the JAX reference misses 1e-4 on the same
+        # weights as well (PERF.md, section 6).  So the bound holds each
+        # layer, on the same inputs, instead.
+        log("d", f"{label} (measured; the bound is per layer, below)")
+        layerwise_decode_vs_prefill(torch, cfg, model.params, seq, start)
+    else:
+        log("d", f"{label} (bound 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"{arch}: decode disagrees with prefill")
     del model, caches
     torch.cuda.empty_cache()
+
+
+def layerwise_decode_vs_prefill(torch, cfg, params, seq, start: int) -> None:
+    """Every SSM layer of the full-depth model: prefill of the first
+    ``start`` tokens, then one decode step per further token, against the
+    layer's prefill over the whole sequence, on the same layer inputs (the
+    prefill path's), within 1e-4 + 1e-4 |out|."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssd
+    from repro_torch.models.transformer import block_params
+
+    x = L.embed(params, cfg, seq)
+    err = 0.0
+    with torch.no_grad():
+        for i in range(cfg.n_blocks):
+            p = block_params(params, i)["l0"]
+            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+            out, _ = ssd.ssm_prefill(p["ssm"], cfg, h)
+            _, cache = ssd.ssm_prefill(p["ssm"], cfg, h[:, :start])
+            for t in range(start, seq.shape[1]):
+                o, cache = ssd.ssm_decode(p["ssm"], cfg, h[:, t:t + 1], cache)
+                err = max(err, compare(f"layer {i} decode step {t}", o[:, 0],
+                                       out[:, t], "float32", tol=1e-4))
+            x = x + out
+    log("d", f"{cfg.name} each of {cfg.n_blocks} layers, decode steps "
+        f"{start}..{seq.shape[1] - 1} from a {start}-token prefill vs the "
+        f"layer's prefill on the same inputs: max abs err {err:.3e} "
+        f"(bound 1e-4 + 1e-4 |out|)")
 
 
 # ------------------------------------------------------------------ main
@@ -446,15 +570,21 @@ def main() -> int:
 
     errs = check_kernels(torch, ops, ref, dev)
     times = time_kernels(torch, ops, ref, dev)
-    launches = main_path(torch, dev)
-    whole_model_checks(torch, dev)
+    by_path = {arch: main_path(torch, dev, arch) for arch in (ARCH, SSM_ARCH)}
+    for name in build.KERNELS:
+        if not any(counts[name] for counts in by_path.values()):
+            raise AssertionError(f"{name}: no main path launched it")
+    whole_model_checks(torch, dev, ARCH, (16,), 4)
+    whole_model_checks(torch, dev, SSM_ARCH, (16, 2), 2)
 
     kernels = []
     for name in build.KERNELS:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {a: c[name] for a, c in by_path.items()},
             "max_abs_err": errs[name], **times[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

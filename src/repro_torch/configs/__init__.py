@@ -1,4 +1,4 @@
-"""Architecture config registry of the port (granite-moe-1b-a400m so far).
+"""Architecture config registry of the port (the families ported so far).
 
 Each module keeps the same name and values as its ``repro.configs``
 counterpart; the other architectures join as their families are ported.
@@ -12,6 +12,8 @@ from ..models.spec import ModelConfig
 
 ALIASES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 

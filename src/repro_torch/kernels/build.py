@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-KERNELS = ("rmsnorm", "flash_attention", "grouped_matmul")
+KERNELS = ("rmsnorm", "flash_attention", "grouped_matmul", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -42,6 +42,8 @@ _SIGNATURES = {
                         _P),
     # lhs, rhs, offsets, out, T, D, F, E, dtype, stream
     "grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, dt, a, B, C, y, state, BC, Q, H, P, N, stream (f32 only)
+    "ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

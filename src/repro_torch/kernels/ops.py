@@ -9,13 +9,14 @@ that reached the GPU, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build, ref
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
+SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (two blocks on an SM)
 
 
 def reset_launches() -> None:
@@ -115,3 +116,82 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
     build.check("grouped_matmul", rc)
     LAUNCHES["grouped_matmul"] += 1
     return out
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD terms in f32 (layouts of :func:`ref.ssd_chunk_ref`).
+
+    x [G,Q,P]; dt, a [G,Q]; B, C [G,Q,N] -> (y [G,Q,P], state [G,P,N]),
+    or the model's layout with B, C shared by the H heads of a cell:
+    x [BC,Q,H,P]; dt, a [BC,Q,H]; B, C [BC,Q,N] -> (y [BC,Q,H,P],
+    state [BC,H,P,N]).  Any Q from 1 to ``SSD_MAX_Q``; operands are read
+    as f32.
+    """
+    if x.ndim > 1 and x.shape[1] > SSD_MAX_Q:
+        raise ValueError(f"ssd_chunk: chunk length {x.shape[1]} above "
+                         f"{SSD_MAX_Q} is not built")
+    if not x.is_cuda:
+        return ref.ssd_chunk_ref(x, dt, a, B, C)
+    flat = x.ndim == 3
+    if flat:
+        x, dt, a = x[:, :, None], dt[..., None], a[..., None]
+    ref.check_ssd_shapes(x, dt, a, B, C)
+    x, dt, a, B, C = (t.float().contiguous() for t in (x, dt, a, B, C))
+    _cuda_args("ssd_chunk", x, dt, a, B, C)
+    BC, Q, H, P = x.shape
+    N = B.shape[-1]
+    y = torch.empty_like(x)
+    state = torch.empty((BC, H, P, N), dtype=torch.float32, device=x.device)
+    rc = build.launcher("ssd_chunk")(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), BC, Q, H, P, N,
+        _stream(x))
+    build.check("ssd_chunk", rc)
+    LAUNCHES["ssd_chunk"] += 1
+    if flat:
+        return y[:, :, 0], state[:, 0]
+    return y, state
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full SSD scan around the intra-chunk kernel (``repro.kernels.ops.
+    ssd_scan``).  x [b,S,H,P]; dt [b,S,H] (post-softplus); A_log [H];
+    B, C [b,S,N] -> (y [b,S,H,P] f32, final state [b,H,P,N] f32).
+
+    The chunk shrinks until it divides S.  The kernel reads x, dt and a
+    as ``[b*nc, Q, H, ...]`` views and B, C un-broadcast, so no operand is
+    copied per head.  The cross-chunk recurrence ``S_c = g_c S_{c-1} +
+    states_c`` is a loop over the ``nc`` chunks in plain torch, and the
+    off-diagonal term ``y += C_t exp(a_cum_t) S_prev`` one batched matmul.
+    """
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    while S % Q:
+        Q -= 1
+    nc = S // Q
+    f32 = torch.float32
+    x, dt, B, C = (t.to(f32).contiguous() for t in (x, dt, B, C))
+    a = dt * (-torch.exp(A_log.to(f32)))                      # [b,S,H]
+    y, states = ssd_chunk(x.view(b * nc, Q, H, P), dt.view(b * nc, Q, H),
+                          a.view(b * nc, Q, H), B.view(b * nc, Q, N),
+                          C.view(b * nc, Q, N))
+    y = y.reshape(b, nc, Q, H, P)
+    states = states.reshape(b, nc, H, P, N)
+
+    a_cum = ref.chunk_cumsum(a.view(b, nc, Q, H), 2)          # [b,nc,Q,H]
+    g = torch.exp(a_cum[:, :, -1])                            # [b,nc,H]
+    prev = torch.zeros_like(states)                 # state entering chunk c
+    for c in range(1, nc):
+        prev[:, c] = g[:, c - 1, :, None, None] * prev[:, c - 1] \
+            + states[:, c - 1]
+    final = g[:, -1, :, None, None] * prev[:, -1] + states[:, -1]
+    if nc > 1:
+        Cc = C.view(b, nc, Q, N)
+        y_off = Cc @ prev.reshape(b, nc, H * P, N).transpose(-1, -2)
+        y += y_off.view(b, nc, Q, H, P) * torch.exp(a_cum)[..., None]
+    return y.reshape(b, S, H, P), final

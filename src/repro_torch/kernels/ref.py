@@ -83,3 +83,65 @@ def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor,
             out[lo:hi] = (lhs[lo:hi].float() @ rhs[e].float()).to(lhs.dtype)
         lo = hi
     return out
+
+
+def chunk_cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive cumsum of f32 decays, summed in f64 and rounded once.
+
+    Over a 256-step chunk ``a_cum`` reaches about -180, where one f32 ulp
+    is 1.5e-5: two f32 scans in different orders would then disagree by
+    more than the kernel's tolerance in ``exp(a_cum[q] - a_cum[k])``.  The
+    f64 sum of f32 terms is exact for these ranges in any order, so the
+    CUDA kernel (which scans in f64 too) and this path get the same f32
+    ``a_cum``.
+    """
+    return torch.cumsum(a.double(), dim=dim).float()
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor):
+    """Intra-chunk SSD terms, in f32.
+
+    Two layouts, the same math:
+
+    * the JAX kernel's, with ``G = batch*chunks*heads`` cells: x [G,Q,P];
+      dt, a [G,Q]; B, C [G,Q,N] -> (y [G,Q,P], state [G,P,N]);
+    * the model's, heads kept minor and B, C shared by the heads of a
+      (batch, chunk): x [BC,Q,H,P]; dt, a [BC,Q,H]; B, C [BC,Q,N] ->
+      (y [BC,Q,H,P], state [BC,H,P,N]).
+
+    ``y[q] = sum_{k<=q} (C_q . B_k) exp(a_cum[q]-a_cum[k]) dt_k x[k]`` and
+    ``state = sum_k exp(a_cum[-1]-a_cum[k]) dt_k x[k] B_k^T``.
+    """
+    flat = x.ndim == 3
+    if flat:
+        x, dt, a = x[:, :, None], dt[..., None], a[..., None]
+    check_ssd_shapes(x, dt, a, B, C)
+    x, dt, B, C = x.float(), dt.float(), B.float(), C.float()
+    Q = x.shape[1]
+    cs = chunk_cumsum(a.float(), 1)                         # [BC,Q,H]
+    diff = cs[:, :, None, :] - cs[:, None, :, :]            # [BC,Q,K,H]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(mask[None, :, :, None], diff,
+                              torch.full_like(diff, -math.inf)))
+    CB = torch.einsum("bqn,bkn->bqk", C, B)
+    M = CB[..., None] * L * dt[:, None, :, :]               # [BC,Q,K,H]
+    y = torch.einsum("bqkh,bkhp->bqhp", M, x)
+    decay = torch.exp(cs[:, -1:] - cs)                      # [BC,Q,H]
+    state = torch.einsum("bqh,bqhp,bqn->bhpn", decay * dt, x, B)
+    if flat:
+        return y[:, :, 0], state[:, 0]
+    return y, state
+
+
+def check_ssd_shapes(x, dt, a, B, C) -> None:
+    """Reject what the ssd_chunk kernel does not take (model layout)."""
+    if x.ndim != 4:
+        raise ValueError(f"ssd_chunk: x [G,Q,P] or [BC,Q,H,P] expected, got "
+                         f"{tuple(x.shape)}")
+    BC, Q, H, P = x.shape
+    if (dt.shape != (BC, Q, H) or a.shape != (BC, Q, H) or B.ndim != 3
+            or B.shape[:2] != (BC, Q) or C.shape != B.shape or Q == 0):
+        raise ValueError(f"ssd_chunk: incompatible x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")

@@ -1,6 +1,7 @@
 """Model API of the port: init / prefill / decode_step and an ``nn.Module``.
 
-Counterpart of ``repro.models.api`` for the dense and MoE families.
+Counterpart of ``repro.models.api`` for the dense, MoE, SSM and hybrid
+families.
 """
 from __future__ import annotations
 
@@ -13,10 +14,13 @@ from ..device import resolve_device
 from ..weights import flatten, unflatten
 from . import transformer
 from .spec import ModelConfig, torch_dtype
+from .ssd import ssm_dims
 
-# Leaves the JAX code reads in f32 (router, norm scales): never rounded to
-# the activation dtype, so cast_for_serving leaves them alone.
-_F32_LEAVES = ("router", "ln1", "ln2", "final_norm", "q_norm", "k_norm")
+# Leaves the JAX code reads in f32 (router, norm scales, the SSM's decay,
+# skip, dt bias and gated norm): never rounded to the activation dtype, so
+# cast_for_serving leaves them alone.
+_F32_LEAVES = ("router", "ln1", "ln2", "final_norm", "q_norm", "k_norm",
+               "A_log", "D", "dt_bias", "norm")
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device=None):
@@ -48,43 +52,76 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
         "unembed": normal((D, cfg.vocab_size), fan_in=D),
         "final_norm": ones((D,)),
     }
-    attn = {
-        "wq": normal((nb, D, H, Dh), fan_in=D),
-        "wk": normal((nb, D, KV, Dh), fan_in=D),
-        "wv": normal((nb, D, KV, Dh), fan_in=D),
-        "wo": normal((nb, H, Dh, D), fan_in=H * Dh),
-    }
-    if cfg.qkv_bias:
-        attn.update(bq=zeros((nb, H, Dh)), bk=zeros((nb, KV, Dh)),
-                    bv=zeros((nb, KV, Dh)))
-    if cfg.qk_norm:
-        attn.update(q_norm=ones((nb, Dh)), k_norm=ones((nb, Dh)))
-    layer = {"ln1": ones((nb, D)), "attn": attn}
-    if transformer._has_ffn(cfg):
-        layer["ln2"] = ones((nb, D))
-        if transformer._layer_is_moe(cfg, 0):
-            E, F = cfg.n_experts, cfg.d_ff_expert
-            layer["moe"] = {
-                "router": normal((nb, D, E), fan_in=D),
-                "wi_gate": normal((nb, E, D, F), fan_in=D),
-                "wi_up": normal((nb, E, D, F), fan_in=D),
-                "wo": normal((nb, E, F, D), fan_in=F),
-            }
+
+    def attn():
+        p = {
+            "wq": normal((nb, D, H, Dh), fan_in=D),
+            "wk": normal((nb, D, KV, Dh), fan_in=D),
+            "wv": normal((nb, D, KV, Dh), fan_in=D),
+            "wo": normal((nb, H, Dh, D), fan_in=H * Dh),
+        }
+        if cfg.qkv_bias:
+            p.update(bq=zeros((nb, H, Dh)), bk=zeros((nb, KV, Dh)),
+                     bv=zeros((nb, KV, Dh)))
+        if cfg.qk_norm:
+            p.update(q_norm=ones((nb, Dh)), k_norm=ones((nb, Dh)))
+        return p
+
+    def ssm():                                   # repro.models.ssd.init_ssm
+        d_inner, Hs, _, N = ssm_dims(cfg)
+        K = cfg.ssm_conv
+        return {
+            "z_proj": normal((nb, D, d_inner), fan_in=D),
+            "x_proj": normal((nb, D, d_inner), fan_in=D),
+            "b_proj": normal((nb, D, N), fan_in=D),
+            "c_proj": normal((nb, D, N), fan_in=D),
+            "dt_proj": normal((nb, D, Hs), fan_in=D),
+            "conv_x": normal((nb, K, d_inner), std=0.5),
+            "conv_x_b": zeros((nb, d_inner)),
+            "conv_b": normal((nb, K, N), std=0.5),
+            "conv_b_b": zeros((nb, N)),
+            "conv_c": normal((nb, K, N), std=0.5),
+            "conv_c_b": zeros((nb, N)),
+            "A_log": normal((nb, Hs), std=0.1),
+            "D": zeros((nb, Hs)),
+            "dt_bias": zeros((nb, Hs)),
+            "norm": ones((nb, d_inner)),
+            "out_proj": normal((nb, d_inner, D), fan_in=d_inner),
+        }
+
+    blocks = {}
+    for pos, kind in enumerate(cfg.pattern):
+        layer = {"ln1": ones((nb, D))}
+        if kind == "attn":
+            layer["attn"] = attn()
         else:
-            F = cfg.d_ff
-            layer["mlp"] = {
-                "wi_gate": normal((nb, D, F), fan_in=D),
-                "wi_up": normal((nb, D, F), fan_in=D),
-                "wo": normal((nb, F, D), fan_in=F),
-            }
-    params["blocks"] = {"l0": layer}
+            layer["ssm"] = ssm()
+        if transformer._has_ffn(cfg):
+            layer["ln2"] = ones((nb, D))
+            if transformer._layer_is_moe(cfg, pos):
+                E, F = cfg.n_experts, cfg.d_ff_expert
+                layer["moe"] = {
+                    "router": normal((nb, D, E), fan_in=D),
+                    "wi_gate": normal((nb, E, D, F), fan_in=D),
+                    "wi_up": normal((nb, E, D, F), fan_in=D),
+                    "wo": normal((nb, E, F, D), fan_in=F),
+                }
+            else:
+                F = cfg.d_ff
+                layer["mlp"] = {
+                    "wi_gate": normal((nb, D, F), fan_in=D),
+                    "wi_up": normal((nb, D, F), fan_in=D),
+                    "wo": normal((nb, F, D), fan_in=F),
+                }
+        blocks[f"l{pos}"] = layer
+    params["blocks"] = blocks
     return params
 
 
 def cast_for_serving(cfg: ModelConfig, params):
     """Round once, at load, every weight the JAX code casts to the
     activation dtype at each use; the result is the same and each step
-    stops copying weights.  Router and norm scales stay as they are."""
+    stops copying weights.  The leaves it reads in f32 stay as they are."""
     act = torch_dtype(cfg.dtype)
     return unflatten({
         path: (t if path.split("/")[-1] in _F32_LEAVES else t.to(act))

@@ -89,8 +89,8 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
 def _no_window(window: int) -> None:
     if window > 0:
         raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP.md, queue "
-            "1, item 2)")
+            f"sliding-window attention (window {window}) is not ported yet "
+            f"(ROADMAP.md, queue 1, item 2)")
 
 
 def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor, s_max: int, *,

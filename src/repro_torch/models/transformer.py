@@ -1,17 +1,18 @@
 """Decoder-only LM assembly in PyTorch (counterpart of
-``repro.models.transformer``), for the attention-only pattern of the dense
-and MoE families.
+``repro.models.transformer``) for the dense, MoE, SSM and hybrid families.
 
-Parameters keep the JAX tree: ``blocks`` holds every leaf stacked over the
-blocks, so one loader maps a JAX params pytree onto the port.  The block
-loop that JAX runs under ``lax.scan`` is a Python loop over those stacks.
-Caches are ``{"l0": KVCache}`` with K/V stacked over blocks, as the JAX
-``prefill`` returns them; ``decode_step`` writes each new K/V row into them
-in place.
+Layers come in repeating blocks (the config's ``layer_pattern``; one
+``attn`` layer for homogeneous transformers, one ``mamba`` layer for
+mamba2, eight mixed layers for jamba).  Parameters keep the JAX tree:
+``blocks/l{pos}`` holds every leaf of pattern position ``pos`` stacked over
+the blocks, so one loader maps a JAX params pytree onto the port.  The
+block loop that JAX runs under ``lax.scan`` is a Python loop over those
+stacks.  Caches are ``{"l{pos}": KVCache | SSMCache}``, stacked over blocks
+as the JAX ``prefill`` returns them; ``decode_step`` advances them in place.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
@@ -19,18 +20,20 @@ from . import layers as L
 from .layers import KVCache
 from .moe import moe_gather
 from .spec import ModelConfig
+from .ssd import SSMCache, ssm_decode, ssm_prefill
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families this slice of the port does not run."""
+    """Raise for what this slice of the port does not run."""
     if cfg.is_encoder_decoder or cfg.n_img_tokens > 0:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and VLM models are not ported yet "
             f"(ROADMAP.md, queue 1, item 4)")
-    if cfg.pattern != ("attn",) or cfg.family not in ("dense", "moe"):
+    if any(kind not in ("attn", "mamba") for kind in cfg.pattern):
         raise NotImplementedError(
-            f"{cfg.name}: SSM and hybrid layer patterns are not ported yet "
-            f"(ROADMAP.md, queue 1, item 2)")
+            f"{cfg.name}: layer pattern {cfg.pattern} has a kind other "
+            f"than 'attn' and 'mamba'")
+    L._no_window(cfg.sliding_window)
 
 
 def _layer_is_moe(cfg: ModelConfig, global_idx: int) -> bool:
@@ -62,11 +65,14 @@ def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int) -> torch.Tensor:
 
 def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int):
     caches = {}
-    for pos, _ in enumerate(cfg.pattern):
+    for pos, kind in enumerate(cfg.pattern):
         p = bp[f"l{pos}"]
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        h, c = L.attention_prefill(p["attn"], cfg, h, s_max,
-                                   window=cfg.sliding_window)
+        if kind == "attn":
+            h, c = L.attention_prefill(p["attn"], cfg, h, s_max,
+                                       window=cfg.sliding_window)
+        else:
+            h, c = ssm_prefill(p["ssm"], cfg, h)
         caches[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):
@@ -76,16 +82,42 @@ def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int):
 
 def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches):
     new = {}
-    for pos, _ in enumerate(cfg.pattern):
+    for pos, kind in enumerate(cfg.pattern):
         p = bp[f"l{pos}"]
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        h, c = L.attention_decode(p["attn"], cfg, h, caches[f"l{pos}"],
-                                  window=cfg.sliding_window)
+        if kind == "attn":
+            h, c = L.attention_decode(p["attn"], cfg, h, caches[f"l{pos}"],
+                                      window=cfg.sliding_window)
+        else:
+            h, c = ssm_decode(p["ssm"], cfg, h, caches[f"l{pos}"])
         new[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):
             x = _ffn(cfg, p, x, pos)
     return x, new
+
+
+Cache = Union[KVCache, SSMCache]
+
+
+def _stack(cs) -> Cache:
+    if isinstance(cs[0], SSMCache):
+        return SSMCache(conv=torch.stack([c.conv for c in cs]),
+                        state=torch.stack([c.state for c in cs]))
+    return KVCache(k=torch.stack([c.k for c in cs]),
+                   v=torch.stack([c.v for c in cs]), length=cs[0].length)
+
+
+def _unstack(c: Cache, i: int) -> Cache:
+    if isinstance(c, SSMCache):
+        return SSMCache(conv=c.conv[i], state=c.state[i])
+    return KVCache(k=c.k[i], v=c.v[i], length=c.length)
+
+
+def _advance(c: Cache) -> Cache:
+    if isinstance(c, SSMCache):
+        return c
+    return KVCache(k=c.k, v=c.v, length=c.length + 1)
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int):
@@ -96,12 +128,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int):
     for i in range(cfg.n_blocks):
         x, c = _block_prefill(cfg, block_params(params, i), x, s_max)
         per_block.append(c)
-    caches: Dict[str, KVCache] = {}
-    for name in per_block[0]:
-        cs = [c[name] for c in per_block]
-        caches[name] = KVCache(k=torch.stack([c.k for c in cs]),
-                               v=torch.stack([c.v for c in cs]),
-                               length=cs[0].length)
+    caches: Dict[str, Cache] = {
+        name: _stack([c[name] for c in per_block]) for name in per_block[0]}
     logits = L.unembed(params, cfg, x[:, -1:])
     return logits[:, 0], caches
 
@@ -111,10 +139,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches):
     check_supported(cfg)
     x = L.embed(params, cfg, token[:, None])
     for i in range(cfg.n_blocks):
-        block_cache = {name: KVCache(k=c.k[i], v=c.v[i], length=c.length)
-                       for name, c in caches.items()}
+        block_cache = {name: _unstack(c, i) for name, c in caches.items()}
         x, _ = _block_decode(cfg, block_params(params, i), x, block_cache)
-    new = {name: KVCache(k=c.k, v=c.v, length=c.length + 1)
-           for name, c in caches.items()}
+    new = {name: _advance(c) for name, c in caches.items()}
     logits = L.unembed(params, cfg, x)
     return logits[:, 0], new

@@ -77,6 +77,8 @@ def test_entry_points_refuse_without_gpu():
         CausalLM.random(configs.get_smoke_config("granite-moe-1b-a400m"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "mamba2-780m", "--smoke"])
     assert resolve_device("cpu").type == "cpu"
 
 
