@@ -10,9 +10,11 @@ exits non-zero:
     CUDA kernels from ``src/repro_torch/kernels/csrc`` and its time;
 (b) each kernel against its plain PyTorch version on the card, in f32
     (tolerance 2e-5) and bf16 (2e-2; ssd_chunk is f32 only), at the main
-    paths' shapes and the kernel tests' shapes, with times for the kernel,
-    the plain version, the nearest single PyTorch call and the least time
-    the card could take;
+    paths' shapes, the kernel tests' shapes and the tile edges of the
+    tensor-core grouped_matmul and flash_attention; a bf16 grouped_matmul
+    with D % 8 != 0 must raise.  Then times for the kernel, the plain
+    version, the nearest single PyTorch call and the least time the card
+    could take;
 (c) the two main paths, each at full width and full depth, bf16, seeded
     random weights, prefill of 8 prompts of 512 tokens then 32 greedy
     tokens: granite-moe-1b-a400m (rmsnorm, flash_attention,
@@ -67,8 +69,21 @@ SSD_MAIN = (BATCH * PROMPT // 256, 256, 48, 64, 128)
 ATTN_SHAPES = [(1, 128, 128, 4, 4, 64, True), (2, 256, 256, 8, 2, 64, True),
                (1, 256, 256, 4, 1, 128, True), (2, 128, 128, 4, 4, 128, False),
                (1, 512, 512, 2, 2, 64, True)]
+# the tensor-core attention's tile edges: Sq 61, 100, 128, 129, 512 about
+# its 64-key tiles and 16-row warp tiles, both head dims, causal, and
+# non-causal with Sk != Sq
+ATTN_EDGES = [(2, 61, 61, 16, 8, 64, True), (1, 100, 300, 4, 2, 64, False),
+              (1, 100, 100, 4, 2, 128, True), (2, 129, 129, 16, 8, 64, True),
+              (1, 129, 129, 4, 2, 128, True), (2, 129, 77, 6, 3, 64, False),
+              (1, 61, 200, 8, 1, 128, False), (1, 512, 512, 4, 2, 128, True)]
 GMM_SHAPES = [(256, 64, 128, 4), (512, 128, 256, 8), (128, 256, 128, 2),
               (384, 64, 128, 6)]
+# the grouped matmul's tile edges: an uncovered head of 5 rows, an empty
+# first expert, groups of 1, 15, 17, 127, 128 and 129 rows (each after the
+# first starts mid-tile), an uncovered tail of 7; and a decode-sized case
+# (T <= 16 E) with a 17-row group, empty groups and K, F past a tile
+GMM_EDGE_SIZES = (0, 1, 15, 17, 127, 128, 129)
+GMM_DECODE_EDGE = (64, 136, 200, 8, [3, 4, 4, 21, 30, 40, 41, 41, 60])
 # ssd_chunk as (BC, Q, H, P, N): test_kernels.SSD_SHAPES cut into chunks,
 # its intra-chunk test (JAX layout, H = 1), an odd Q, one step, and P, N
 # past one tile
@@ -177,10 +192,13 @@ def ssd_cost(BC: int, Q: int, H: int, P: int, N: int):
 # ------------------------------------------------------------ phase (b)
 def check_kernels(torch, ops, ref, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
+    # The tile-edge cases draw from a generator of their own, so that the
+    # other checks see the same inputs as before they were added.
+    edge_gen = torch.Generator(device=dev).manual_seed(3)
     errs = {}          # kernel -> max err at the main path's bf16 shapes
 
-    def randn(*shape, dtype):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+    def randn(*shape, dtype, g=None):
+        return torch.randn(*shape, generator=g or gen, device=dev).to(dtype)
 
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
@@ -195,13 +213,13 @@ def check_kernels(torch, ops, ref, dev):
             if dname == "bfloat16" and D == 1024 and T in (BATCH * PROMPT,
                                                            BATCH):
                 errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), e)
-        for B, Sq, Sk, H, KV, Dh, causal in (
-                [(BATCH, PROMPT, PROMPT, 16, 8, 64, True),
-                 (2, 61, 61, 16, 8, 64, True), (1, 100, 300, 4, 2, 64, False)]
+        for i, (B, Sq, Sk, H, KV, Dh, causal) in enumerate(
+                [(BATCH, PROMPT, PROMPT, 16, 8, 64, True)] + ATTN_EDGES
                 + ATTN_SHAPES):
-            q, k, v = (randn(B, Sq, H, Dh, dtype=dt),
-                       randn(B, Sk, KV, Dh, dtype=dt),
-                       randn(B, Sk, KV, Dh, dtype=dt))
+            g = edge_gen if 3 <= i < 1 + len(ATTN_EDGES) else None
+            q, k, v = (randn(B, Sq, H, Dh, dtype=dt, g=g),
+                       randn(B, Sk, KV, Dh, dtype=dt, g=g),
+                       randn(B, Sk, KV, Dh, dtype=dt, g=g))
             e = compare("flash_attention",
                         ops.flash_attention(q, k, v, causal=causal),
                         ref.flash_attention_ref(q, k, v, causal=causal),
@@ -232,9 +250,23 @@ def check_kernels(torch, ops, ref, dev):
             gmm_cases.append((label, 256, 64, 128, 4,
                               torch.tensor(offs, dtype=torch.int32,
                                            device=dev), False))
-        for label, T, D, Fo, E, offs, main in gmm_cases:
-            lhs = randn(T, D, dtype=dt)
-            rhs = (randn(E, D, Fo, dtype=torch.float32) / math.sqrt(D)).to(dt)
+        edge = [5]
+        for n in GMM_EDGE_SIZES:
+            edge.append(edge[-1] + n)
+        for D in (64, 128, 1024):
+            gmm_cases.append((f"groups {GMM_EDGE_SIZES} D {D}", edge[-1] + 7,
+                              D, 192, len(GMM_EDGE_SIZES),
+                              torch.tensor(edge, dtype=torch.int32,
+                                           device=dev), False))
+        T, D, Fo, E, offs = GMM_DECODE_EDGE
+        gmm_cases.append((f"decode groups {offs}", T, D, Fo, E,
+                          torch.tensor(offs, dtype=torch.int32, device=dev),
+                          False))
+        for i, (label, T, D, Fo, E, offs, main) in enumerate(gmm_cases):
+            g = edge_gen if i >= len(gmm_cases) - 4 else None
+            lhs = randn(T, D, dtype=dt, g=g)
+            rhs = (randn(E, D, Fo, dtype=torch.float32, g=g)
+                   / math.sqrt(D)).to(dt)
             got = ops.grouped_matmul(lhs, rhs, offs)
             e = compare("grouped_matmul", got,
                         ref.grouped_matmul_ref(lhs, rhs, offs), dname)
@@ -247,6 +279,18 @@ def check_kernels(torch, ops, ref, dev):
             if dname == "bfloat16" and main:
                 errs["grouped_matmul"] = max(errs.get("grouped_matmul", 0.0),
                                              e)
+    # the bf16 kernels read rows with 16-byte copies: D % 8 != 0 is refused
+    lhs = torch.zeros(300, 100, dtype=torch.bfloat16, device=dev)
+    rhs = torch.zeros(4, 100, 64, dtype=torch.bfloat16, device=dev)
+    try:
+        ops.grouped_matmul(lhs, rhs, torch.tensor([0, 1, 2, 3, 300],
+                                                  dtype=torch.int32,
+                                                  device=dev))
+    except ValueError as err:
+        log("b", f"grouped_matmul bf16 D 100: raises ValueError ({err})")
+    else:
+        raise AssertionError("grouped_matmul bf16 with D % 8 != 0 did not "
+                             "raise")
     for shape in [SSD_MAIN] + SSD_SHAPES:
         args = ssd_inputs(torch, gen, *shape)
         got = ops.ssd_chunk(*args)
@@ -279,7 +323,7 @@ def time_kernels(torch, ops, ref, dev):
         log("b", f"time {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms:.4g} ms ({b_by})")
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
 
@@ -313,8 +357,9 @@ def time_kernels(torch, ops, ref, dev):
         (2 * B * S * H * Dh + 2 * B * S * KV * Dh) * es,
         4 * B * H * Dh * pairs)
 
-    # grouped matmul: the gate/up shape at prefill and at decode
+    # grouped matmul: the gate/up and the down shape at prefill and decode
     for T, D, Fo in ((BATCH * PROMPT * 8, 1024, 512),
+                     (BATCH * PROMPT * 8, 512, 1024),
                      (BATCH * 8, 1024, 512), (BATCH * 8, 512, 1024)):
         E = 32
         offs = random_offsets(torch, gen, T, E)

@@ -6,8 +6,11 @@ together, then loaded with :mod:`ctypes`.  No source includes PyTorch's
 headers, so the whole build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` binding costs, which matters because every
 fresh checkout builds at first use.  Libraries land in ``build/torch_ext/``
-of the checkout (listed in ``.gitignore``), named by a hash of their
-sources, so an edited kernel is rebuilt and an unchanged one is reused.
+of the checkout (listed in ``.gitignore``), named by a hash of the
+``.cu`` file, every header under ``csrc/`` and the compiler flags, so an
+edited kernel or helper header is rebuilt and an unchanged one is reused.
+The TMA tensor maps are encoded through the runtime's driver entry point
+(``csrc/hopper.cuh``), so no library links against ``libcuda``.
 
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.  A failed build raises with the compiler's output.
@@ -63,9 +66,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join([*NVCC_FLAGS, "-I", str(CSRC)]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -6,16 +6,39 @@
 // offset, so causal needs Sq == Sk (rejected otherwise); running max, sum and
 // accumulator in f32; a row with no valid key gives 0; out in q's dtype.
 //
-// Bound: at the prefill shape (Sq = Sk = 512, Dh = 64) the work is ~S*Dh*4
-// flops per q element against a few bytes, so it is bound by operations; this
-// first version uses the f32 FMA pipes (no tensor cores, so f32 inputs keep
-// full f32 precision) and is far from the bf16 tensor-core bound.
-// Design: one 256-thread block per (b*h, 64-row q block); 4 threads per query
-// row, each holding Dh/4 interleaved dims of q and of the accumulator, the
-// q.k partial dots summed with two xor shuffles.  K and V tiles of 32 keys are
-// staged in shared memory as f32; key tiles wholly above the diagonal are not
-// visited.  K/V are never repeated per q head.
+// bf16.  Bound: at the prefill shape (q [8,512,16,64], k/v [8,512,8,64],
+// causal) the function moves 25 MB (0.0075 ms at 3.35 TB/s) and needs 4.3
+// GFLOP for the pairs kj <= qi (0.0044 ms at 989 TFLOP/s), so bytes bound
+// it.  Design (FA2 on mma.sync m16n8k16): one block per (b, kv head, tile
+// of rows), where a row is a (query, q head of the GQA group) pair,
+// query-major, so the block serves every q head of the group from the same
+// K/V tiles.  Each warp owns 16 MT rows (MT = 2 at Dh 64, 1 at Dh 128):
+// each K and V fragment it loads from shared memory feeds MT mma tiles,
+// which halves the shared-memory reads per flop at Dh 64.  4 warps a
+// block: at Dh 64 a block has 128 rows (64 queries of granite's 2-head
+// groups) and two blocks share an SM, so one block's first loads and last
+// stores overlap the other's tiles; 8 warps (128 queries, each K/V byte
+// read half as often) measured slower, because one such block fills the
+// register file.  Q goes from shared memory to registers once (ldmatrix).
+// K/V tiles of 64 keys stream through a ring of cp.async 16-byte copies,
+// later tiles in flight while the tensor cores work on this one.  Row
+// tiles start in reverse order, so those with the most keys start first.
+// S = Q K^T lands in f32 registers; only tiles that cross a warp's
+// diagonal (or the end of the keys) are masked, and tiles wholly above it
+// are skipped.  The online softmax runs on the C-fragment rows with quad
+// shuffles and ex2.approx on a log2(e)-prescaled scale.  P is packed to
+// bf16 in registers as the A operand of P V (no shared-memory round trip),
+// and V goes through ldmatrix.trans.  The output is normalised, rounded
+// once to bf16, staged in the warp's own Q rows and stored in 16-byte rows.
+//
+// f32: the FMA kernel, so f32 inputs keep full f32 precision.  One
+// 256-thread block per (b*h, 64-row q block); 4 threads per query row, each
+// holding Dh/4 interleaved dims of q and of the accumulator, the q.k
+// partial dots summed with two xor shuffles.  K and V tiles of 32 keys are
+// staged in shared memory as f32; key tiles wholly above the diagonal are
+// not visited.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -105,6 +128,252 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- bf16 (tensor cores)
+constexpr int TK = 64;        // keys per K/V tile
+constexpr float kNegInf = -__builtin_huge_valf();
+
+template <int DH>
+struct MmaCfg {
+  static constexpr int MT = DH == 64 ? 2 : 1;     // m16 tiles per warp
+  static constexpr int NW = 4;                    // warps per block
+  static constexpr int WR = 16 * MT;              // rows per warp
+  static constexpr int ROWS = WR * NW;            // (query, head) rows
+  static constexpr int LD = DH + 8;               // padded smem row
+  static constexpr int Q_BYTES = ROWS * LD * 2;
+  static constexpr int KV_BYTES = TK * LD * 2;    // one K or V tile
+  static constexpr int NS = DH == 64 ? 4 : 3;     // K/V ring stages
+  static constexpr int SMEM = Q_BYTES + NS * 2 * KV_BYTES;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(MmaCfg<DH>::NW * 32, 1)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV,
+                 float scale_log2, int causal) {
+  using C = MmaCfg<DH>;
+  constexpr int NT = C::NW * 32, LD = C::LD, CH = DH / 8;  // 16-byte chunks
+  constexpr int MT = C::MT;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t sq = hw::smem_u32(smem_raw);
+  auto sk = [&](int buf) { return sq + C::Q_BYTES + buf * 2 * C::KV_BYTES; };
+  auto sv = [&](int buf) { return sk(buf) + C::KV_BYTES; };
+
+  const int G = H / KV;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  // row tiles in reverse, so the tiles with the most keys start first
+  const int p0 = (gridDim.y - 1 - blockIdx.y) * C::ROWS;  // first row
+  const int n_rows = Sq * G;
+  const int q_last = min(n_rows - 1, p0 + C::ROWS - 1) / G;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int n_tiles = (k_end + TK - 1) / TK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // global element offset of (query, head) row p (p < n_rows)
+  auto row_off = [&](int p) {
+    return (((size_t)b * Sq + p / G) * H + kvh * G + p % G) * DH;
+  };
+  auto load_kv = [&](int tile, int buf) {
+    for (int c = tid; c < TK * CH; c += NT) {
+      const int r = c / CH, d = (c % CH) * 8, kj = tile * TK + r;
+      const bool ok = kj < Sk;
+      const size_t off = (((size_t)b * Sk + (ok ? kj : 0)) * KV + kvh) * DH + d;
+      hw::cp_async16(sk(buf) + (r * LD + d) * 2, k + off, ok);
+      hw::cp_async16(sv(buf) + (r * LD + d) * 2, v + off, ok);
+    }
+  };
+
+  for (int c = tid; c < C::ROWS * CH; c += NT) {
+    const int r = c / CH, d = (c % CH) * 8, p = p0 + r;
+    const bool ok = p < n_rows;
+    hw::cp_async16(sq + (r * LD + d) * 2, q + (ok ? row_off(p) : 0) + d, ok);
+  }
+  // group s holds K/V tile s (and group 0 the Q tile too)
+#pragma unroll
+  for (int s = 0; s < C::NS - 1; ++s) {
+    if (s < n_tiles) load_kv(s, s);
+    hw::cp_async_commit();
+  }
+
+  // the warp's rows: this thread holds rows 16 mt + g and 16 mt + g + 8
+  const int wp = p0 + C::WR * warp;
+  const int w_first = wp / G, w_last = (wp + C::WR - 1) / G;
+  int qi[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    qi[mt][0] = (wp + 16 * mt + g) / G;
+    qi[mt][1] = (wp + 16 * mt + g + 8) / G;
+  }
+
+  uint32_t qf[MT][DH / 16][4];
+  float acc[MT][DH / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mt][r] = kNegInf;
+      l[mt][r] = 0.f;
+    }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j % C::NS;
+    hw::cp_async_wait<C::NS - 2>();
+    __syncthreads();                  // tile j landed; tile j - 1 is consumed
+    if (j + C::NS - 1 < n_tiles)
+      load_kv(j + C::NS - 1, (j + C::NS - 1) % C::NS);
+    hw::cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int ks = 0; ks < DH / 16; ++ks)
+          hw::ldmatrix_x4(qf[mt][ks],
+                          sq + ((C::WR * warp + 16 * mt + lane % 16) * LD
+                                + ks * 16 + (lane / 16) * 8) * 2);
+    }
+    const int kt0 = j * TK;
+    if (causal && kt0 > w_last) continue;   // wholly above the diagonal
+
+    // S = Q K^T: each K fragment feeds every m16 tile of the warp
+    float s[MT][TK / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < TK / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np) {
+        uint32_t kb[4];
+        hw::ldmatrix_x4(kb, sk(buf) + ((np * 16 + lane % 8 + 8 * (lane / 16))
+                                       * LD + ks * 16 + 8 * ((lane / 8) % 2))
+                                          * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          hw::mma_bf16(s[mt][2 * np], qf[mt][ks], kb[0], kb[1]);
+          hw::mma_bf16(s[mt][2 * np + 1], qf[mt][ks], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // online softmax on the fragment rows (log2 domain)
+    const bool need_mask = kt0 + TK > Sk || (causal && kt0 + TK - 1 > w_first);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[mt][i][e] * scale_log2;
+          if (need_mask) {
+            const int kj = kt0 + 8 * i + 2 * t + (e & 1);
+            if (kj >= Sk || (causal && kj > qi[mt][e / 2])) x = kNegInf;
+          }
+          s[mt][i][e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      }
+      float alpha[2], m_use[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[mt][r], mx[r]);
+        m_use[r] = m_new == kNegInf ? 0.f : m_new;
+        alpha[r] = hw::ex2(m[mt][r] - m_use[r]);
+        m[mt][r] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][i][e] = hw::ex2(s[mt][i][e] - m_use[e / 2]);
+          rs[e / 2] += s[mt][i][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        acc[mt][i][0] *= alpha[0];
+        acc[mt][i][1] *= alpha[0];
+        acc[mt][i][2] *= alpha[1];
+        acc[mt][i][3] *= alpha[1];
+      }
+    }
+
+    // O += P V: P packed to bf16 A fragments in registers; each V fragment
+    // feeds every m16 tile of the warp
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = hw::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][1] = hw::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        pa[mt][2] = hw::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][3] = hw::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t vb[4];
+        hw::ldmatrix_x4_trans(vb, sv(buf) + ((kk * 16 + lane % 16) * LD
+                                             + dp * 16 + 8 * (lane / 16)) * 2);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          hw::mma_bf16(acc[mt][2 * dp], pa[mt], vb[0], vb[1]);
+          hw::mma_bf16(acc[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  // normalise, round once, stage in this warp's own Q rows, store rows
+  hw::cp_async_wait<0>();
+  __syncthreads();                    // no copy into Q is still in flight
+  __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(smem_raw)
+                       + C::WR * warp * LD;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lt = l[mt][r];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      inv[r] = lt > 0.f ? 1.f / lt : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      const int col = 8 * i + 2 * t, row = 16 * mt + g;
+      *reinterpret_cast<uint32_t*>(stg + row * LD + col) =
+          hw::pack_bf16(acc[mt][i][0] * inv[0], acc[mt][i][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(stg + (row + 8) * LD + col) =
+          hw::pack_bf16(acc[mt][i][2] * inv[1], acc[mt][i][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < C::WR * CH; c += 32) {
+    const int r = c / CH, d = (c % CH) * 8, p = wp + r;
+    if (p < n_rows)
+      *reinterpret_cast<uint4*>(o + row_off(p) + d) =
+          *reinterpret_cast<const uint4*>(stg + r * LD + d);
+  }
+}
+
 template <typename T, int DH>
 void launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
             int Sk, int H, int KV, float scale, int causal, cudaStream_t s) {
@@ -115,18 +384,50 @@ void launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
       causal);
 }
 
-template <typename T>
-int dispatch_dh(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int KV, int Dh, float scale, int causal,
-                cudaStream_t s) {
+template <int DH>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Sk, int H, int KV, float scale, int causal,
+               cudaStream_t s) {
+  using C = MmaCfg<DH>;
+  static bool smem_ok = false;        // set once per instantiation
+  if (!smem_ok) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_ok = true;
+  }
+  const long rows = (long)Sq * (H / KV);
+  dim3 grid(B * KV, (unsigned)((rows + C::ROWS - 1) / C::ROWS));
+  flash_mma_kernel<DH><<<grid, C::NW * 32, C::SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Sq, Sk, H, KV, scale * 1.4426950408889634f, causal);
+  return 0;
+}
+
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
+                 int Sq, int Sk, int H, int KV, int Dh, float scale,
+                 int causal, cudaStream_t s) {
   if (Dh == 64) {
-    launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
   } else if (Dh == 128) {
-    launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                  int Sq, int Sk, int H, int KV, int Dh, float scale,
+                  int causal, cudaStream_t s) {
+  if (Dh == 64)
+    return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+  if (Dh == 128)
+    return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -144,10 +445,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == rt::kF32) {
-    rc = dispatch_dh<float>(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, s);
+    rc = dispatch_f32(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, s);
   } else if (dtype == rt::kBF16) {
-    rc = dispatch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale,
-                                    causal, s);
+    rc = dispatch_bf16(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -92,6 +92,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def check_gmm_bf16_shape(D: int, F: int) -> None:
+    """The bf16 grouped_matmul kernels read rows of D and F elements with
+    16-byte copies (TMA's stride rule and ``cp.async``), so both must be
+    multiples of 8.  Raises ``ValueError`` otherwise: there is no other
+    route for such a call."""
+    if D % 8 or F % 8:
+        raise ValueError(f"grouped_matmul: bf16 on the GPU needs D and F "
+                         f"divisible by 8, got D={D}, F={F}")
+
+
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
                    group_offsets: torch.Tensor) -> torch.Tensor:
     """lhs: [T,D] sorted by group; rhs: [E,D,F]; offsets: [E+1] -> [T,F].
@@ -109,6 +119,8 @@ def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor,
     offs = group_offsets.to(device=lhs.device, dtype=torch.int32).contiguous()
     T, D = lhs.shape
     E, _, F = rhs.shape
+    if lhs.dtype == torch.bfloat16:
+        check_gmm_bf16_shape(D, F)
     out = torch.empty((T, F), dtype=lhs.dtype, device=lhs.device)
     rc = build.launcher("grouped_matmul")(
         lhs.data_ptr(), rhs.data_ptr(), offs.data_ptr(), out.data_ptr(), T, D,

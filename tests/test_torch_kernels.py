@@ -157,6 +157,17 @@ def test_grouped_matmul_decode_shape():
                                atol=2e-5)
 
 
+def test_gmm_bf16_shape_rule():
+    """The bf16 kernels read rows of D and F elements with 16-byte copies:
+    both must be multiples of 8, and a call that breaks the rule raises
+    instead of taking another route."""
+    for D, F in [(1024, 512), (512, 1024), (64, 128), (8, 8), (136, 200)]:
+        ops.check_gmm_bf16_shape(D, F)
+    for D, F in [(100, 64), (64, 100), (1001, 512), (4, 8)]:
+        with pytest.raises(ValueError, match="divisible by 8"):
+            ops.check_gmm_bf16_shape(D, F)
+
+
 # ------------------------------------------------------------------ build
 def test_build_names_libraries_by_source_and_raises_without_nvcc(
         monkeypatch, tmp_path):
@@ -175,6 +186,34 @@ def test_build_names_libraries_by_source_and_raises_without_nvcc(
     monkeypatch.setattr(build.Path, "is_file", lambda self: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_all()
+
+
+def test_build_hash_covers_every_header(monkeypatch, tmp_path):
+    """A library's name hashes its .cu file and every header under csrc/,
+    so an edited helper header rebuilds the libraries that include it."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build._lib_path(name) for name in build.KERNELS}
+    headers = sorted(csrc.glob("*.cuh"))
+    assert {h.name for h in headers} >= {"common.cuh", "hopper.cuh"}
+    for header in headers:
+        text = header.read_text()
+        header.write_text(text + "\n// edited\n")
+        after = {name: build._lib_path(name) for name in build.KERNELS}
+        assert all(after[n] != before[n] for n in build.KERNELS), header.name
+        header.write_text(text)
+    assert {name: build._lib_path(name) for name in build.KERNELS} == before
+    # a new header counts too; an edited .cu renames only its own library
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(build._lib_path(n) != before[n] for n in build.KERNELS)
+    (csrc / "extra.cuh").unlink()
+    src = csrc / "rmsnorm.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    after = {name: build._lib_path(name) for name in build.KERNELS}
+    assert [n for n in build.KERNELS if after[n] != before[n]] == ["rmsnorm"]
 
 
 # ------------------------------------------------------- on the card only
@@ -204,5 +243,26 @@ def test_cuda_kernels_match_plain():
                             device=dev)
         torch.testing.assert_close(ops.grouped_matmul(lhs, rhs, offs),
                                    ref.grouped_matmul_ref(lhs, rhs, offs),
+                                   rtol=tol, atol=tol)
+        # ragged groups of 1, 17 and 129 rows about the 128- and 16-row
+        # tiles, after an uncovered head, at prefill (T > 16 E) and decode
+        # (T <= 16 E) sizes
+        for T, E, offs in [(160, 3, [4, 5, 22, 151]),
+                           (160, 10, [4, 5, 22, 151] + [151] * 7)]:
+            lhs = torch.randn(T, 128, generator=gen, device=dev).to(dt)
+            rhs = (torch.randn(E, 128, 96, generator=gen, device=dev)
+                   / 128 ** 0.5).to(dt)
+            offs = torch.tensor(offs, dtype=torch.int32, device=dev)
+            got = ops.grouped_matmul(lhs, rhs, offs)
+            torch.testing.assert_close(got,
+                                       ref.grouped_matmul_ref(lhs, rhs, offs),
+                                       rtol=tol, atol=tol)
+            assert bool((got[:4] == 0).all()) and bool((got[151:] == 0).all())
+        # head dim 128 and Sq 129 across the 64-key and 16-row tiles
+        q = torch.randn(1, 129, 4, 128, generator=gen, device=dev).to(dt)
+        k = torch.randn(1, 129, 2, 128, generator=gen, device=dev).to(dt)
+        v = torch.randn(1, 129, 2, 128, generator=gen, device=dev).to(dt)
+        torch.testing.assert_close(ops.flash_attention(q, k, v),
+                                   ref.flash_attention_ref(q, k, v),
                                    rtol=tol, atol=tol)
     torch.cuda.synchronize()
