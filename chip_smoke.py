@@ -11,8 +11,11 @@ exits non-zero:
 (b) each kernel against its plain PyTorch version on the card, in f32
     (tolerance 2e-5) and bf16 (2e-2; ssd_chunk is f32 only), at the main
     paths' shapes, the kernel tests' shapes and the tile edges of the
-    tensor-core grouped_matmul and flash_attention; a bf16 grouped_matmul
-    with D % 8 != 0 must raise.  Then times for the kernel, the plain
+    tensor-core grouped_matmul and flash_attention, and the routes and tiles
+    of the warp-per-row rmsnorm and the grouped ssd_chunk; a bf16
+    grouped_matmul with D % 8 != 0 must raise.  Every ssd_chunk output is
+    also held to an f64 evaluation of the plain version, within f32's
+    worst-case rounding of its terms.  Then times for the kernel, the plain
     version, the nearest single PyTorch call and the least time the card
     could take;
 (c) the two main paths, each at full width and full depth, bf16, seeded
@@ -90,6 +93,20 @@ GMM_DECODE_EDGE = (64, 136, 200, 8, [3, 4, 4, 21, 30, 40, 41, 41, 60])
 SSD_SHAPES = [(4, 16, 2, 16, 16), (8, 32, 4, 32, 64), (4, 64, 2, 64, 128),
               (6, 32, 1, 16, 24), (3, 13, 48, 64, 128), (2, 1, 3, 8, 16),
               (1, 200, 2, 130, 300)]
+# rmsnorm's routes about its warp-per-row design: a row held in registers
+# (D 1536), one walked in pieces (D 12288), the scalar route (D 1001); then
+# x as a contiguous view that starts one element in (not 16-byte aligned,
+# so the scalar route too)
+RMS_EDGES = [(37, 1001), (300, 1536), (64, 12288)]
+RMS_UNALIGNED = [(300, 1024), (64, 3072)]
+# ssd_chunk about its tiling: groups of up to 16 heads (H 1, 3, 13, 50), its
+# 64-row q-tiles (Q 1, 13, 64, 65, 256), its panel of 4 k-tiles and groups
+# of 8 past Q 512 (Q 1024), P and N past one tile (P 130, N 300), and rows
+# that cp.async cannot copy (P 30, N 18)
+SSD_EDGES = [(2, 256, 1, 64, 128), (2, 256, 3, 64, 128), (2, 65, 13, 64, 128),
+             (1, 64, 50, 64, 128), (3, 1, 13, 64, 128), (2, 13, 50, 130, 300),
+             (1, 1024, 13, 64, 128), (1, 1024, 3, 130, 300),
+             (2, 100, 9, 30, 18)]
 
 
 def log(phase: str, msg: str) -> None:
@@ -128,6 +145,17 @@ def compare(name: str, got, want, dtype: str, tol=None) -> float:
         raise AssertionError(f"{name} {dtype}: max_abs_err {err:.3e} "
                              f"exceeds tolerance {tol}")
     return err
+
+
+def compare_f64(name: str, got, want, bound) -> float:
+    """``got`` against an f64 evaluation ``want`` within ``bound`` (both
+    from ``ref.ssd_chunk_f64``); returns max |got - want| / bound."""
+    diff = (got.double() - want).abs()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"{name}: exceeds its f64 bound")
+    if not diff.numel():
+        return 0.0
+    return float((diff / bound.clamp_min(1e-300)).max())
 
 
 def random_offsets(torch, gen, T: int, E: int, top_k: int = 8):
@@ -195,6 +223,9 @@ def check_kernels(torch, ops, ref, dev):
     # The tile-edge cases draw from a generator of their own, so that the
     # other checks see the same inputs as before they were added.
     edge_gen = torch.Generator(device=dev).manual_seed(3)
+    # and the checks of the warp-per-row rmsnorm and the grouped ssd_chunk
+    # from another, so that the earlier checks keep their inputs too
+    new_gen = torch.Generator(device=dev).manual_seed(4)
     errs = {}          # kernel -> max err at the main path's bf16 shapes
 
     def randn(*shape, dtype, g=None):
@@ -213,6 +244,20 @@ def check_kernels(torch, ops, ref, dev):
             if dname == "bfloat16" and D == 1024 and T in (BATCH * PROMPT,
                                                            BATCH):
                 errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), e)
+        for (T, D), unaligned in ([(td, False) for td in RMS_EDGES]
+                                  + [(td, True) for td in RMS_UNALIGNED]):
+            w = randn(D, dtype=torch.float32, g=new_gen)
+            if unaligned:
+                x = randn(T * D + 1, dtype=dt, g=new_gen)[1:].view(T, D)
+                if x.data_ptr() % 16 == 0 or not x.is_contiguous():
+                    raise AssertionError("rmsnorm: the view is not offset")
+            else:
+                x = randn(T, D, dtype=dt, g=new_gen)
+            e = compare("rmsnorm", ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                        dname)
+            where = " one element in" if unaligned else ""
+            log("b", f"rmsnorm [{T},{D}]{where} {dname}: max_abs_err "
+                f"{e:.3e} (tol {TOL[dname]})")
         for i, (B, Sq, Sk, H, KV, Dh, causal) in enumerate(
                 [(BATCH, PROMPT, PROMPT, 16, 8, 64, True)] + ATTN_EDGES
                 + ATTN_SHAPES):
@@ -291,8 +336,10 @@ def check_kernels(torch, ops, ref, dev):
     else:
         raise AssertionError("grouped_matmul bf16 with D % 8 != 0 did not "
                              "raise")
-    for shape in [SSD_MAIN] + SSD_SHAPES:
-        args = ssd_inputs(torch, gen, *shape)
+    ssd_cases = []
+    for i, shape in enumerate([SSD_MAIN] + SSD_SHAPES + SSD_EDGES):
+        args = ssd_inputs(torch, gen if i <= len(SSD_SHAPES) else new_gen,
+                          *shape)
         got = ops.ssd_chunk(*args)
         want = ref.ssd_chunk_ref(*args)
         e = max(compare(f"ssd_chunk {name}", g, w, "float32")
@@ -301,6 +348,16 @@ def check_kernels(torch, ops, ref, dev):
             f"{e:.3e} (tol {TOL['float32']})")
         if shape == SSD_MAIN:
             errs["ssd_chunk"] = e
+        ssd_cases.append((shape, args, got))
+    # the same outputs against the plain version evaluated in f64, within
+    # f32's worst-case rounding of their terms (ref.ssd_chunk_f64)
+    for shape, args, got in ssd_cases:
+        y64, s64, y_bound, s_bound = ref.ssd_chunk_f64(*args)
+        r = max(compare_f64(f"ssd_chunk {shape} y", got[0], y64, y_bound),
+                compare_f64(f"ssd_chunk {shape} state", got[1], s64, s_bound))
+        log("b", f"ssd_chunk (BC,Q,H,P,N)={shape} against f64: max "
+            f"err/bound {r:.3e} (bound (N+Q+32) 2^-24 sum |terms|)")
+    del ssd_cases
     torch.cuda.synchronize()
     return errs
 

@@ -1,87 +1,208 @@
 // RMSNorm forward for Hopper: out[t, :] = x[t, :] * rsqrt(mean(x[t, :]^2) + eps) * w.
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py (_rmsnorm_kernel /
-// rmsnorm_kernel).  Bound by bytes: each element is read once for the sum of
-// squares and once more (from L1/L2, the row is at most a few KB) for the
-// scaled write, so the kernel moves T*D*(in + out) bytes from device memory.
-// Design: one 128-thread block per row (no T % block_rows condition), 16-byte
-// vector loads and stores when the row is 16-byte aligned, f32 sum of squares
-// reduced with warp shuffles and one shared-memory step across the 4 warps.
+// rmsnorm_kernel).  Bound by bytes: the kernel moves T*D*(in + out) bytes
+// from device memory, and at the main path's rows (D 1024 to 3072, 2 to 6 KB
+// in bf16) what limits it is how many of those bytes each SM keeps in flight,
+// not arithmetic.
+// Design: one warp per row, kWarps rows per block (4096 rows of D 1024 fit
+// in one wave on 132 SMs), and no barrier or shared-memory sum between a
+// row's loads and its reduction.  On the aligned route each lane issues all of its
+// 16-byte loads of the row before it reduces (NV vectors a lane, a template
+// parameter, so the row stays in registers), the sum of squares is reduced
+// with shuffles only, and the row is scaled and written from registers.
+// Meanwhile the block copies w into shared memory with cp.async, so the
+// scale reads it as float4 from there instead of waiting on a second trip
+// to device memory after the reduction.  Rows wider than kMaxNV vectors a
+// lane (D above 4096 in bf16, 2048 in f32) are walked in register-sized
+// pieces: the first pass sums the squares, the second reads x again (from
+// L2) and writes.  A row that is not 16-byte aligned takes the scalar route.
+// The arithmetic is (x * inv) * w in f32, rounded once, as in
+// _rmsnorm_kernel.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;        // rows per block, a warp each
+constexpr int kMaxNV = 16;       // 16-byte vectors a lane holds in registers
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ out, int D, float eps, int vec) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
-  const size_t base = (size_t)blockIdx.x * D;
-  const T* xr = x + base;
-  T* orow = out + base;
-  const uint4* xv = reinterpret_cast<const uint4*>(xr);
-  uint4* ov = reinterpret_cast<uint4*>(orow);
+struct Vec {
+  static constexpr int V = 16 / sizeof(T);  // elements per 16-byte vector
+};
 
+// (x * inv) * w for the V elements of one vector; w4 points at its weights.
+template <typename T>
+__device__ __forceinline__ uint4 scale_vec(const uint4& raw, float inv,
+                                           const float4* __restrict__ w4) {
+  constexpr int V = Vec<T>::V;
+  float wv[V];
+#pragma unroll
+  for (int j = 0; j < V / 4; ++j) {
+    const float4 f = w4[j];
+    wv[4 * j] = f.x; wv[4 * j + 1] = f.y; wv[4 * j + 2] = f.z; wv[4 * j + 3] = f.w;
+  }
+  uint4 res;
+  const T* e = reinterpret_cast<const T*>(&raw);
+  T* r = reinterpret_cast<T*>(&res);
+#pragma unroll
+  for (int j = 0; j < V; ++j) r[j] = rt::from_f<T>((rt::to_f(e[j]) * inv) * wv[j]);
+  return res;
+}
+
+template <typename T>
+__device__ __forceinline__ float sum_sq(const uint4& raw, float ss) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < Vec<T>::V; ++j) {
+    const float f = rt::to_f(e[j]);
+    ss = fmaf(f, f, ss);
+  }
+  return ss;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Aligned route, the row in registers (nvec = D / V <= 32 * NV vectors): w
+// is copied into shared memory while the row's loads are in flight, so the
+// scaled write after the reduction reads it from there.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   T* __restrict__ out, int T_, int D, float eps) {
+  extern __shared__ float4 w_s[];  // [D / 4]
+  constexpr int V = Vec<T>::V;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = row < T_;
+  const int nvec = D / V;
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  for (int i = threadIdx.x; i < D / 4; i += kWarps * 32)
+    hw::cp_async16(hw::smem_u32(w_s + i), w4 + i, true);
+  hw::cp_async_commit();
+  const uint4* xv = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+  uint4* ov = reinterpret_cast<uint4*>(out + (size_t)row * D);
+  uint4 reg[NV];
   float ss = 0.f;
-  if (vec) {
-    for (int i = threadIdx.x; i < D / V; i += kThreads) {
-      uint4 raw = xv[i];
-      const T* e = reinterpret_cast<const T*>(&raw);
+  // every load of the row issued before the reduction
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float f = rt::to_f(e[j]);
-        ss = fmaf(f, f, ss);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < D; i += kThreads) {
-      const float f = rt::to_f(xr[i]);
-      ss = fmaf(f, f, ss);
-    }
+  for (int i = 0; i < NV; ++i) {
+    const int v = lane + 32 * i;
+    if (live && v < nvec) reg[i] = xv[v];
   }
-
-  __shared__ float warp_sums[kThreads / 32];
-  __shared__ float s_inv;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = ss;
+  for (int i = 0; i < NV; ++i)
+    if (live && lane + 32 * i < nvec) ss = sum_sq<T>(reg[i], ss);
+  const float inv = rsqrtf(warp_sum(ss) / (float)D + eps);
+  hw::cp_async_wait<0>();
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = 0.f;
+  if (!live) return;
 #pragma unroll
-    for (int i = 0; i < kThreads / 32; ++i) t += warp_sums[i];
-    s_inv = rsqrtf(t / (float)D + eps);
+  for (int i = 0; i < NV; ++i) {
+    const int v = lane + 32 * i;
+    if (v < nvec) ov[v] = scale_vec<T>(reg[i], inv, w_s + v * (V / 4));
   }
-  __syncthreads();
-  const float inv = s_inv;
+}
 
-  if (vec) {
-    for (int i = threadIdx.x; i < D / V; i += kThreads) {
-      uint4 raw = xv[i];
-      uint4 res;
-      const T* e = reinterpret_cast<const T*>(&raw);
-      T* r = reinterpret_cast<T*>(&res);
+// Aligned route for rows wider than kMaxNV vectors a lane: pieces of
+// 32 * kMaxNV vectors, twice (the second pass reads x again).
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+rmsnorm_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                    T* __restrict__ out, int T_, int D, float eps) {
+  constexpr int V = Vec<T>::V, NV = kMaxNV;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= T_) return;
+  const int nvec = D / V;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+  uint4* ov = reinterpret_cast<uint4*>(out + (size_t)row * D);
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  uint4 reg[NV];
+  float ss = 0.f;
+  for (int base = 0; base < nvec; base += 32 * NV) {
 #pragma unroll
-      for (int j = 0; j < V; ++j)
-        r[j] = rt::from_f<T>((rt::to_f(e[j]) * inv) * w[i * V + j]);
-      ov[i] = res;
+    for (int i = 0; i < NV; ++i) {
+      const int v = base + lane + 32 * i;
+      if (v < nvec) reg[i] = xv[v];
     }
-  } else {
-    for (int i = threadIdx.x; i < D; i += kThreads)
-      orow[i] = rt::from_f<T>((rt::to_f(xr[i]) * inv) * w[i]);
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (base + lane + 32 * i < nvec) ss = sum_sq<T>(reg[i], ss);
   }
+  const float inv = rsqrtf(warp_sum(ss) / (float)D + eps);
+  for (int base = 0; base < nvec; base += 32 * NV) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = base + lane + 32 * i;
+      if (v < nvec) reg[i] = xv[v];
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int v = base + lane + 32 * i;
+      if (v < nvec) ov[v] = scale_vec<T>(reg[i], inv, w4 + v * (V / 4));
+    }
+  }
+}
+
+// Unaligned route: one element at a time, the second pass reads x again.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+rmsnorm_scalar_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                      T* __restrict__ out, int T_, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= T_) return;
+  const T* xr = x + (size_t)row * D;
+  T* orow = out + (size_t)row * D;
+  float ss = 0.f;
+  for (int i = lane; i < D; i += 32) {
+    const float f = rt::to_f(xr[i]);
+    ss = fmaf(f, f, ss);
+  }
+  const float inv = rsqrtf(warp_sum(ss) / (float)D + eps);
+  for (int i = lane; i < D; i += 32)
+    orow[i] = rt::from_f<T>((rt::to_f(xr[i]) * inv) * w[i]);
 }
 
 template <typename T>
 void launch(const void* x, const void* w, void* out, int T_, int D, float eps,
             cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const float* wp = static_cast<const float*>(w);
+  T* op = static_cast<T*>(out);
+  const dim3 grid((unsigned)((T_ + kWarps - 1) / kWarps)), block(kWarps * 32);
   const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
+                   ((uintptr_t)w % 16 == 0) &&
                    (((size_t)D * sizeof(T)) % 16 == 0);
-  rmsnorm_kernel<T><<<T_, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<T*>(out), D, eps, vec ? 1 : 0);
+  if (!vec) {
+    rmsnorm_scalar_kernel<T><<<grid, block, 0, stream>>>(xp, wp, op, T_, D, eps);
+    return;
+  }
+  // the fewest registers that hold the row; wider rows go in pieces
+  const int per_lane = (D / Vec<T>::V + 31) / 32;
+  const size_t ws = (size_t)D * sizeof(float);
+  if (per_lane <= 1)
+    rmsnorm_reg_kernel<T, 1><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+  else if (per_lane <= 2)
+    rmsnorm_reg_kernel<T, 2><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+  else if (per_lane <= 4)
+    rmsnorm_reg_kernel<T, 4><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+  else if (per_lane <= 6)
+    rmsnorm_reg_kernel<T, 6><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+  else if (per_lane <= 8)
+    rmsnorm_reg_kernel<T, 8><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+  else if (per_lane <= 12)
+    rmsnorm_reg_kernel<T, 12><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+  else if (per_lane <= kMaxNV)
+    rmsnorm_reg_kernel<T, kMaxNV><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+  else
+    rmsnorm_wide_kernel<T><<<grid, block, 0, stream>>>(xp, wp, op, T_, D, eps);
 }
 
 }  // namespace

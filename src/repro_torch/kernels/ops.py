@@ -16,7 +16,7 @@ import torch
 from . import build, ref
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
-SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (two blocks on an SM)
+SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (its shared-memory plan)
 
 
 def reset_launches() -> None:

@@ -134,6 +134,48 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state
 
 
+def ssd_chunk_f64(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor):
+    """:func:`ssd_chunk_ref` evaluated in f64, with the error bound an f32
+    evaluation of it must meet.
+
+    Takes the layouts of :func:`ssd_chunk_ref` and the same f32 ``a_cum``
+    (:func:`chunk_cumsum`, the kernel's contract).  Returns ``(y, state,
+    y_bound, state_bound)``: the f64 terms and, per output, ``(N + Q + 32)
+    * 2**-24`` times the sum of the absolute values of the products summed
+    into it (``|C_qn B_kn| L_qk |dt_k x_kp|`` for y, ``|w_k x_kp B_kn|``
+    for the state).  That is the worst case of f32 rounding for sums of
+    ``N + Q`` products in any order (Higham's gamma_n), with 32 units of
+    slack for ``exp`` and the f32 exponent ``a_cum[q] - a_cum[k]``; a wrong
+    or missing term exceeds it, f32 rounding does not.
+    """
+    flat = x.ndim == 3
+    if flat:
+        x, dt, a = x[:, :, None], dt[..., None], a[..., None]
+    check_ssd_shapes(x, dt, a, B, C)
+    f64 = torch.float64
+    cs = chunk_cumsum(a.float(), 1).to(f64)                 # [BC,Q,H]
+    x, dt, B, C = (t.to(f64) for t in (x, dt, B, C))
+    Q, N = x.shape[1], B.shape[-1]
+    diff = cs[:, :, None, :] - cs[:, None, :, :]            # [BC,Q,K,H]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(mask[None, :, :, None], diff,
+                              torch.full_like(diff, -math.inf)))
+    CB = torch.einsum("bqn,bkn->bqk", C, B)
+    CBabs = torch.einsum("bqn,bkn->bqk", C.abs(), B.abs())
+    y = torch.einsum("bqkh,bkhp->bqhp", CB[..., None] * L * dt[:, None], x)
+    y_mag = torch.einsum("bqkh,bkhp->bqhp",
+                         CBabs[..., None] * L * dt.abs()[:, None], x.abs())
+    w = torch.exp(cs[:, -1:] - cs) * dt                     # [BC,Q,H]
+    state = torch.einsum("bqh,bqhp,bqn->bhpn", w, x, B)
+    s_mag = torch.einsum("bqh,bqhp,bqn->bhpn", w.abs(), x.abs(), B.abs())
+    gamma = (N + Q + 32) * 2.0 ** -24
+    y_bound, s_bound = gamma * y_mag, gamma * s_mag
+    if flat:
+        return y[:, :, 0], state[:, 0], y_bound[:, :, 0], s_bound[:, 0]
+    return y, state, y_bound, s_bound
+
+
 def check_ssd_shapes(x, dt, a, B, C) -> None:
     """Reject what the ssd_chunk kernel does not take (model layout)."""
     if x.ndim != 4:

@@ -37,7 +37,9 @@ def _close(t_out, j_out, dtype: str):
 
 
 # ------------------------------------------------------------------ rmsnorm
-@pytest.mark.parametrize("T,D", [(256, 64), (512, 1024), (256, 3072)])
+@pytest.mark.parametrize("T,D", [(256, 64), (512, 1024), (256, 3072),
+                                 (256, 1536),     # mamba2's d_model
+                                 (256, 12288)])   # wider than the registers
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_matches_jax_kernel(T, D, dtype):
     rng = np.random.default_rng(T * D)
@@ -227,6 +229,21 @@ def test_cuda_kernels_match_plain():
     gen = torch.Generator(device=dev).manual_seed(0)
     for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         x = torch.randn(300, 1024, generator=gen, device=dev).to(dt)
+        w = torch.randn(1024, generator=gen, device=dev)
+        torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                                   rtol=tol, atol=tol)
+        # a warp a row: rows held in registers (D 1536), rows walked in
+        # pieces (D 12288), the scalar route (D 1001), and a contiguous x
+        # that starts one element in (not 16-byte aligned: scalar route)
+        for T, D in ((37, 1536), (9, 12288), (37, 1001)):
+            x = torch.randn(T, D, generator=gen, device=dev).to(dt)
+            w = torch.randn(D, generator=gen, device=dev)
+            torch.testing.assert_close(ops.rmsnorm(x, w),
+                                       ref.rmsnorm_ref(x, w),
+                                       rtol=tol, atol=tol)
+        buf = torch.randn(300 * 1024 + 1, generator=gen, device=dev).to(dt)
+        x = buf[1:].view(300, 1024)
+        assert x.is_contiguous() and x.data_ptr() % 16
         w = torch.randn(1024, generator=gen, device=dev)
         torch.testing.assert_close(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
                                    rtol=tol, atol=tol)

@@ -138,6 +138,65 @@ def test_ssd_chunk_rejects_bad_shapes():
                       torch.zeros(1, Q, 16))
 
 
+def _mamba2_chunk_inputs(BC, Q, H, P, N, seed):
+    """The main path's distributions (chip_smoke.ssd_inputs): dt =
+    softplus(.), a = -exp(A_log) dt with A_log ~ N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BC, Q, H, P), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((BC, Q, H)))).astype(np.float32)
+    a = (-dt * np.exp(0.1 * rng.standard_normal(H))).astype(np.float32)
+    B = rng.standard_normal((BC, Q, N)).astype(np.float32)
+    C = rng.standard_normal((BC, Q, N)).astype(np.float32)
+    return tuple(torch.from_numpy(t) for t in (x, dt, a, B, C))
+
+
+@pytest.mark.parametrize("BC,Q,H,P,N", [
+    (1, 200, 2, 130, 300),  # where f32 misses 2e-5 + 2e-5 |y| against f64
+    (2, 256, 48, 64, 128),  # mamba2's chunk (2 of the main path's 16 cells)
+])
+def test_ssd_chunk_f64_bound_holds_plain_f32(BC, Q, H, P, N):
+    """The f64 evaluation's bound is not below f32's own rounding: the
+    plain f32 version meets it with room to spare."""
+    args = _mamba2_chunk_inputs(BC, Q, H, P, N, Q + H)
+    y64, s64, y_bound, s_bound = ref.ssd_chunk_f64(*args)
+    assert y64.dtype == torch.float64 and y64.shape == (BC, Q, H, P)
+    assert s64.shape == s_bound.shape == (BC, H, P, N)
+    y, s = ref.ssd_chunk_ref(*args)
+    for got, want, bound in ((y, y64, y_bound), (s, s64, s_bound)):
+        ratio = float(((got.double() - want).abs() / bound).max())
+        assert ratio < 0.1, ratio
+
+
+def test_ssd_chunk_f64_bound_catches_a_missing_term():
+    """A fault as small as one missing key exceeds the bound: the plain
+    version with x zeroed at key 100 (for y) and at the last key (for the
+    state, where earlier keys are decayed by up to exp(-100)), against the
+    f64 terms of the real inputs."""
+    args = _mamba2_chunk_inputs(1, 200, 2, 130, 300, 7)
+    y64, s64, y_bound, s_bound = ref.ssd_chunk_f64(*args)
+    x = args[0].clone()
+    x[:, 100] = 0.0
+    x[:, 199] = 0.0
+    y, s = ref.ssd_chunk_ref(x, *args[1:])
+    assert bool(((y.double() - y64).abs() > y_bound)[:, 100:].any())
+    assert bool(((s.double() - s64).abs() > s_bound).any())
+    assert bool(((y.double() - y64).abs() <= y_bound)[:, :100].all())
+    assert bool(((y.double() - y64).abs() > y_bound)[:, 199].any())
+
+
+def test_ssd_chunk_f64_matches_jax_kernel():
+    """The f64 evaluation agrees with the Pallas kernel (interpret mode) in
+    the JAX layout, and takes that layout's shapes."""
+    args = _chunk_inputs(6, 32, 16, 24, 3)
+    y_k, s_k = ssd_chunk_kernel(*map(jnp.asarray, args), interpret=True)
+    y64, s64, y_bound, s_bound = ref.ssd_chunk_f64(
+        *map(torch.from_numpy, args))
+    assert y64.shape == y_bound.shape == (6, 32, 16)
+    assert s64.shape == s_bound.shape == (6, 16, 24)
+    np.testing.assert_allclose(y64.numpy(), np.asarray(y_k), **SSD_TOL)
+    np.testing.assert_allclose(s64.numpy(), np.asarray(s_k), **SSD_TOL)
+
+
 # -------------------------------------------------------------- ssd_scan
 @pytest.mark.parametrize("b,S,H,P,N,chunk", [
     (1, 64, 2, 16, 16, 16),     # test_kernels.SSD_SHAPES
@@ -291,8 +350,12 @@ def test_cuda_ssd_chunk_matches_plain():
                     "python3 chip_smoke.py covers the same checks)")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the last five cross the kernel's groups of 8 heads (H 13, 50), its
+    # 64-row tiles (Q 1, 65) and its panel of 4 k-tiles (Q 1024)
     for BC, Q, H, P, N in ((4, 256, 3, 64, 128), (2, 13, 5, 64, 128),
-                           (6, 32, 1, 16, 24)):
+                           (6, 32, 1, 16, 24), (2, 65, 13, 64, 128),
+                           (1, 64, 50, 64, 128), (3, 1, 13, 64, 128),
+                           (2, 13, 50, 130, 300), (1, 1024, 3, 64, 128)):
         x = torch.randn(BC, Q, H, P, generator=gen, device=dev)
         dt = torch.nn.functional.softplus(
             torch.randn(BC, Q, H, generator=gen, device=dev))
