@@ -15,24 +15,37 @@ exits non-zero:
     of the warp-per-row rmsnorm and the grouped ssd_chunk; a bf16
     grouped_matmul with D % 8 != 0 must raise.  Every ssd_chunk output is
     also held to an f64 evaluation of the plain version, within f32's
-    worst-case rounding of its terms.  Then times for the kernel, the plain
-    version, the nearest single PyTorch call and the least time the card
-    could take;
-(c) the two main paths, each at full width and full depth, bf16, seeded
-    random weights, prefill of 8 prompts of 512 tokens then 32 greedy
-    tokens: granite-moe-1b-a400m (rmsnorm, flash_attention,
-    grouped_matmul) and mamba2-780m (rmsnorm, ssd_chunk).  Each path's
-    launch counts are set to 0 just before it and checked against the
-    config just after; each gets one profiled prefill and decode window
-    (top device ops, device idle share);
-(d) whole-model checks in f32 for both models: the card against the plain
-    path on the CPU (2-layer full-width cut), and decode against prefill
-    over the prompt plus generated tokens at full depth.  For granite the
-    bound holds the logits; for mamba2 it holds every layer on the same
-    inputs, and the end-to-end logit error is printed as a measurement
-    (48 random layers amplify f32 rounding past the bound; PERF.md).
-    mamba2 also prefills 2 tokens, so its conv-tail padding (S < K-1)
-    runs on the card.
+    worst-case rounding of its terms.  qwen3-1.7b's serving shapes and
+    the calibration harness's slices are checked too, and the harness's
+    ssd_scan against the same function on the CPU.  Then times for the
+    kernel, the plain version, the nearest single PyTorch call and the
+    least time the card could take;
+(c) the three serving paths, each at full width and full depth, bf16,
+    seeded random weights, prefill of 8 prompts of 512 tokens then 32
+    greedy tokens: granite-moe-1b-a400m (rmsnorm, flash_attention,
+    grouped_matmul), mamba2-780m (rmsnorm, ssd_chunk) and the dense
+    qwen3-1.7b (rmsnorm with qk-norm, flash_attention; its FFN is
+    ``torch.matmul``).  Each path's launch counts are set to 0 just before
+    it and checked against the config just after; each gets one profiled
+    prefill and decode window (top device ops, device idle share);
+(d) whole-model checks in f32 for the three models: the card against the
+    plain path on the CPU (2-layer full-width cut), and decode against
+    prefill over the prompt plus generated tokens at full depth.  For
+    granite and qwen3 the bound holds the logits; for mamba2 it holds
+    every layer on the same inputs, and the end-to-end logit error is
+    printed as a measurement (48 random layers amplify f32 rounding past
+    the bound; PERF.md).  mamba2 also prefills 2 tokens, so its conv-tail
+    padding (S < K-1) runs on the card;
+(e) the calibration harness (``repro_torch.workloads.calibrate``) at
+    decode_32k on 16 GPUs for granite-moe-1b-a400m and qwen3-moe-235b-a22b
+    (fig13cal's pair), mamba2-780m (ssm_mixer) and qwen3-1.7b (dense_ffn),
+    20 timed calls a kernel.  Each profile must say ``interpret`` False,
+    hold the roofline anchor within 1e-9, round-trip through its JSON
+    (written under ``build/calibration/``), and each measured phase must
+    have launched its kernels 21 times.  A window is device time (events
+    queued behind a spin kernel): 2 ms of host time before an empty launch
+    must stay out of it.  The time of an empty launch, taken the same way,
+    gives each window's launch share.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -56,7 +69,11 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-ARCH, SSM_ARCH = "granite-moe-1b-a400m", "mamba2-780m"
+ARCH, SSM_ARCH, DENSE_ARCH = ("granite-moe-1b-a400m", "mamba2-780m",
+                              "qwen3-1.7b")
+CAL_ARCHS = ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "mamba2-780m",
+             "qwen3-1.7b")
+CAL_SHAPE, CAL_GPUS, CAL_REPS = "decode_32k", 16, 20
 BATCH, PROMPT, TOKENS = 8, 512, 32
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REPLACES = {
@@ -217,6 +234,39 @@ def ssd_cost(BC: int, Q: int, H: int, P: int, N: int):
     return nbytes, flops
 
 
+def dense_and_slice_shapes():
+    """Kernel shapes of the qwen3-1.7b serving path and of the calibration
+    harness's slices for CAL_ARCHS (``calibrate.slice_shape``): rmsnorm
+    [T,D], flash_attention (B,Sq,Sk,H,KV,Dh,causal), grouped_matmul
+    (T,D,F,E) and ssd_scan (S,chunk,H,P,N), each without repeats."""
+    from repro_torch import configs
+    from repro_torch.workloads.calibrate import (ffn_phase, mixer_phase,
+                                                 slice_shape)
+    cfg = configs.get_config(DENSE_ARCH)
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    # ln1, ln2 and the final norm at prefill and decode, then the qk-norm
+    # rows of q and k at prefill and decode
+    rms = [(BATCH * PROMPT, D), (BATCH, D), (BATCH * PROMPT * H, Dh),
+           (BATCH * PROMPT * KV, Dh), (BATCH * H, Dh), (BATCH * KV, Dh)]
+    attn = [(BATCH, PROMPT, PROMPT, H, KV, Dh, True)]
+    gmm, scan = [], []
+    for arch in CAL_ARCHS:
+        cfg = configs.get_config(arch)
+        phases = {f(cfg, i) for i in range(cfg.n_layers)
+                  for f in (mixer_phase, ffn_phase)}
+        for phase in sorted(phases):
+            shape = slice_shape(cfg, phase)
+            if phase == "attn_mixer":
+                T, D, S, H, KV, Dh = shape
+                rms.append((T, D))
+                attn.append((1, S, S, H, KV, Dh, True))
+            elif phase == "ssm_mixer":
+                scan.append(shape)
+            else:
+                gmm.append(shape)
+    return tuple(list(dict.fromkeys(xs)) for xs in (rms, attn, gmm, scan))
+
+
 # ------------------------------------------------------------ phase (b)
 def check_kernels(torch, ops, ref, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -358,8 +408,71 @@ def check_kernels(torch, ops, ref, dev):
         log("b", f"ssd_chunk (BC,Q,H,P,N)={shape} against f64: max "
             f"err/bound {r:.3e} (bound (N+Q+32) 2^-24 sum |terms|)")
     del ssd_cases
+    check_dense_and_slices(torch, ops, ref, dev)
     torch.cuda.synchronize()
     return errs
+
+
+def check_dense_and_slices(torch, ops, ref, dev) -> None:
+    """qwen3-1.7b's serving shapes and the calibration harness's slices
+    (``dense_and_slice_shapes``), in f32 and bf16, against the plain
+    versions; ssd_scan, f32 only, against the same function on the CPU
+    (its ssd_chunk the plain version), and its kernel's operands against
+    the f64 evaluation.  From a generator of their own, so that every
+    earlier check keeps its inputs."""
+    from repro_torch.workloads.calibrate import ffn_offsets
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rms, attn, gmm, scan = dense_and_slice_shapes()
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for T, D in rms:
+            x, w = randn(T, D, dtype=dt), randn(D)
+            e = compare("rmsnorm", ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w),
+                        dname)
+            log("b", f"rmsnorm [{T},{D}] {dname} (qwen3-1.7b / harness): "
+                f"max_abs_err {e:.3e} (tol {TOL[dname]})")
+        for shape in attn:
+            B, Sq, Sk, H, KV, Dh, causal = shape
+            q, k, v = (randn(B, Sq, H, Dh, dtype=dt),
+                       randn(B, Sk, KV, Dh, dtype=dt),
+                       randn(B, Sk, KV, Dh, dtype=dt))
+            e = compare("flash_attention",
+                        ops.flash_attention(q, k, v, causal=causal),
+                        ref.flash_attention_ref(q, k, v, causal=causal),
+                        dname)
+            log("b", f"flash_attention {shape} {dname} (qwen3-1.7b / "
+                f"harness): max_abs_err {e:.3e} (tol {TOL[dname]})")
+        for T, D, Fo, E in gmm:
+            offs = ffn_offsets(T, E).to(dev)
+            lhs = randn(T, D, dtype=dt)
+            rhs = (randn(E, D, Fo) / math.sqrt(D)).to(dt)
+            e = compare("grouped_matmul", ops.grouped_matmul(lhs, rhs, offs),
+                        ref.grouped_matmul_ref(lhs, rhs, offs), dname)
+            log("b", f"grouped_matmul [{T},{D}]x[{E},{D},{Fo}] {dname} "
+                f"(harness): max_abs_err {e:.3e} (tol {TOL[dname]})")
+    for S, Q, H, P, N in scan:
+        x = randn(1, S, H, P)
+        dt = torch.nn.functional.softplus(randn(1, S, H))
+        A_log = randn(H) * 0.5
+        B, C = randn(1, S, N) / math.sqrt(N), randn(1, S, N) / math.sqrt(N)
+        got = ops.ssd_scan(x, dt, A_log, B, C, chunk=Q)
+        want = ops.ssd_scan(*(t.cpu() for t in (x, dt, A_log, B, C)),
+                            chunk=Q)
+        e = max(compare(f"ssd_scan {name}", g.cpu(), w, "float32")
+                for name, g, w in zip(("y", "state"), got, want))
+        args = ssd_inputs(torch, gen, S // Q, Q, H, P, N)
+        y, st = ops.ssd_chunk(*args)
+        y64, s64, y_bound, s_bound = ref.ssd_chunk_f64(*args)
+        r = max(compare_f64("ssd_chunk y", y, y64, y_bound),
+                compare_f64("ssd_chunk state", st, s64, s_bound))
+        log("b", f"ssd_scan (S,chunk,H,P,N)={(S, Q, H, P, N)} float32 "
+            f"(harness): max_abs_err {e:.3e} against the CPU (tol "
+            f"{TOL['float32']}); its ssd_chunk {(S // Q, Q, H, P, N)} "
+            f"against f64: max err/bound {r:.3e}")
 
 
 def time_kernels(torch, ops, ref, dev):
@@ -639,6 +752,69 @@ def layerwise_decode_vs_prefill(torch, cfg, params, seq, start: int) -> None:
         f"(bound 1e-4 + 1e-4 |out|)")
 
 
+# ------------------------------------------------------------ phase (e)
+def calibration_profiles(torch, dev):
+    """The calibration harness on the card for CAL_ARCHS; returns the
+    launch counts of its runs, by kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.calibrate import (
+        ComputeProfile, _time_call, calibrate, default_cache_path)
+
+    root = ROOT / "build" / "calibration"
+    # one empty launch, timed as the windows are (torch.cuda._sleep(0) is a
+    # kernel that spins for 0 cycles)
+    empty_ns = _time_call(lambda: torch.cuda._sleep(0), CAL_REPS, dev)
+    log("e", f"empty launch: {empty_ns:.0f} ns (best of {CAL_REPS}, device "
+        f"time by CUDA events behind a spin kernel)")
+    # a window is device time: 2 ms on the host ahead of that empty launch
+    # must stay out of it
+    host_ns = _time_call(lambda: (time.sleep(2e-3), torch.cuda._sleep(0)),
+                         CAL_REPS, dev)
+    log("e", f"2 ms of host time, then an empty launch: {host_ns:.0f} ns")
+    if not host_ns < 2e5:
+        raise AssertionError("calibration windows hold host time")
+    total = {name: 0 for name in ops.LAUNCHES}
+    for arch in CAL_ARCHS:
+        path = default_cache_path(arch, CAL_SHAPE, CAL_GPUS, root=root)
+        ops.reset_launches()
+        prof = calibrate(arch, CAL_SHAPE, n_gpus=CAL_GPUS, reps=CAL_REPS,
+                         cache_path=path, force=True, device=dev)
+        launches = dict(ops.LAUNCHES)
+        want = {name: 0 for name in ops.LAUNCHES}
+        for w in prof.phases.values():
+            for k in w.kernels:
+                # ssd_scan launches the ssd_chunk kernel once a call
+                want[{"ssd_scan": "ssd_chunk"}.get(k, k)] += CAL_REPS + 1
+        log("e", f"{arch} {CAL_SHAPE} g{CAL_GPUS} (ep={prof.ep} tp={prof.tp} "
+            f"dp={prof.dp}) -> {path.relative_to(ROOT)}: launches "
+            f"{launches}, expected {want}")
+        if launches != want:
+            raise AssertionError(f"{arch}: calibration launches {launches} "
+                                 f"!= {want}")
+        if prof.interpret:
+            raise AssertionError(f"{arch}: profile says interpret=True")
+        for name, w in sorted(prof.phases.items()):
+            log("e", f"  {name:<11s} x{w.layers:3d} layers: roofline "
+                f"{w.roofline_ns:.3f} ns, measured {w.measured_wall_ns:.0f} "
+                f"ns over {len(w.kernels)} call(s) ({'+'.join(w.kernels)}), "
+                f"calibrated {w.calibrated_ns:.3f} ns; one empty launch is "
+                f"{100 * empty_ns / w.measured_wall_ns:.1f}% of the window")
+            if not w.measured_wall_ns > 0 or (
+                    w.roofline_ns > 0 and not w.calibrated_ns > 0):
+                raise AssertionError(f"{arch} {name}: empty window")
+        roof = sum(w.layers * w.roofline_ns for w in prof.phases.values())
+        calib = sum(w.layers * w.calibrated_ns for w in prof.phases.values())
+        if not math.isclose(calib, roof, rel_tol=1e-9):
+            raise AssertionError(f"{arch}: anchor broken, {calib} != {roof}")
+        if ComputeProfile.load(path) != prof:
+            raise AssertionError(f"{arch}: the JSON does not round-trip")
+        log("e", f"  anchor: sum layers*calibrated {calib:.6f} ns, sum "
+            f"layers*roofline {roof:.6f} ns")
+        for name in total:
+            total[name] += launches[name]
+    return total
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -672,12 +848,15 @@ def main() -> int:
 
     errs = check_kernels(torch, ops, ref, dev)
     times = time_kernels(torch, ops, ref, dev)
-    by_path = {arch: main_path(torch, dev, arch) for arch in (ARCH, SSM_ARCH)}
-    for name in build.KERNELS:
-        if not any(counts[name] for counts in by_path.values()):
-            raise AssertionError(f"{name}: no main path launched it")
+    serving = (ARCH, SSM_ARCH, DENSE_ARCH)
+    by_path = {arch: main_path(torch, dev, arch) for arch in serving}
     whole_model_checks(torch, dev, ARCH, (16,), 4)
     whole_model_checks(torch, dev, SSM_ARCH, (16, 2), 2)
+    whole_model_checks(torch, dev, DENSE_ARCH, (16,), 4)
+    by_path["calibrate"] = calibration_profiles(torch, dev)
+    for name in build.KERNELS:
+        if not any(by_path[arch][name] for arch in serving):
+            raise AssertionError(f"{name}: no serving path launched it")
 
     kernels = []
     for name in build.KERNELS:

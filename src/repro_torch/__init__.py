@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["configs", "device", "kernels", "launch", "models", "weights"]
+__all__ = ["configs", "device", "kernels", "launch", "models", "weights",
+           "workloads"]
 
 
 def __getattr__(name: str):

@@ -2,6 +2,9 @@
 
 Each module keeps the same name and values as its ``repro.configs``
 counterpart; the other architectures join as their families are ported.
+mistral-large-123b and qwen3-moe-235b-a22b do not fit one card at full
+size: they serve at smoke size, and the calibration harness reads only
+their dimensions.
 """
 from __future__ import annotations
 
@@ -9,9 +12,16 @@ import importlib
 from typing import List
 
 from ..models.spec import ModelConfig
+# Re-exported shape registry, as ``repro.configs`` does.
+from .shapes import SHAPES, ShapeSpec, shape_applicable  # noqa: F401
 
 ALIASES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "mistral-large-123b": "mistral_large_123b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "qwen3-14b": "qwen3_14b",
+    "qwen3-1.7b": "qwen3_1_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "mamba2-780m": "mamba2_780m",
 }

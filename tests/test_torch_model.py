@@ -33,7 +33,10 @@ from repro_torch.weights import from_jax_params  # noqa: E402
 
 LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ["granite-moe-1b-a400m", "qwen3-1.7b"]   # MoE; dense with qk-norm
+# MoE; dense with qk-norm; dense with QKV bias; dense without either; MoE
+# with qk-norm
+ARCHS = ["granite-moe-1b-a400m", "qwen3-1.7b", "qwen2-1.5b",
+         "mistral-large-123b", "qwen3-moe-235b-a22b"]
 
 
 @pytest.fixture(autouse=True)
@@ -50,8 +53,21 @@ def _cfgs(arch: str):
     return jcfg, ModelConfig(**dataclasses.asdict(jcfg))
 
 
+def _seed_qkv_bias(tree, rng):
+    """JAX initialises the QKV biases to zero, which would leave the
+    port's bias branch untested: give them seeded non-zero values."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: (jnp.asarray(rng.standard_normal(v.shape), v.dtype)
+                if k in ("bq", "bk", "bv") else _seed_qkv_bias(v, rng))
+            for k, v in tree.items()}
+
+
 def _params(jcfg, seed=0):
     jp, _ = japi.init(jcfg, jax.random.PRNGKey(seed))
+    if jcfg.qkv_bias:
+        jp = _seed_qkv_bias(jp, np.random.default_rng(seed))
+        assert float(jnp.abs(jp["blocks"]["l0"]["attn"]["bk"]).min()) > 0
     tree = jax.tree.map(np.asarray, jp)
     return jp, from_jax_params(tree)
 
@@ -68,7 +84,9 @@ def test_registry_copies_reference_configs():
     """The port's ModelConfig and registry entries are copies of the JAX
     ones."""
     assert configs.list_archs() == [
-        "granite-moe-1b-a400m", "jamba-1.5-large-398b", "mamba2-780m"]
+        "granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "mistral-large-123b",
+        "qwen2-1.5b", "qwen3-14b", "qwen3-1.7b", "jamba-1.5-large-398b",
+        "mamba2-780m"]
     for arch in configs.list_archs():
         for get in ("get_config", "get_smoke_config"):
             ours = getattr(configs, get)(arch)
@@ -76,8 +94,13 @@ def test_registry_copies_reference_configs():
             assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert [f.name for f in dataclasses.fields(ModelConfig)] == [
         f.name for f in dataclasses.fields(type(theirs))]
-    with pytest.raises(ValueError, match="not yet ported"):
-        configs.get_config("whisper-medium")
+    for arch in ("whisper-medium", "phi-3-vision-4.2b"):
+        with pytest.raises(ValueError, match="not yet ported"):
+            configs.get_config(arch)
+    assert configs.SHAPES.keys() == jconfigs.SHAPES.keys()
+    for name, spec in jconfigs.SHAPES.items():
+        assert dataclasses.asdict(configs.SHAPES[name]) == \
+            dataclasses.asdict(spec)
 
 
 # ------------------------------------------------------------------- layers
