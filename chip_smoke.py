@@ -19,19 +19,32 @@ exits non-zero:
     the calibration harness's slices are checked too, and the harness's
     ssd_scan against the same function on the CPU.  Then times for the
     kernel, the plain version, the nearest single PyTorch call and the
-    least time the card could take;
-(c) the three serving paths, each at full width and full depth, bf16,
-    seeded random weights, prefill of 8 prompts of 512 tokens then 32
-    greedy tokens: granite-moe-1b-a400m (rmsnorm, flash_attention,
-    grouped_matmul), mamba2-780m (rmsnorm, ssd_chunk) and the dense
-    qwen3-1.7b (rmsnorm with qk-norm, flash_attention; its FFN is
-    ``torch.matmul``).  Each path's launch counts are set to 0 just before
-    it and checked against the config just after; each gets one profiled
-    prefill and decode window (top device ops, device idle share);
-(d) whole-model checks in f32 for the three models: the card against the
-    plain path on the CPU (2-layer full-width cut), and decode against
-    prefill over the prompt plus generated tokens at full depth.  For
-    granite and qwen3 the bound holds the logits; for mamba2 it holds
+    least time the card could take.  flash_attention is also held, and
+    timed, at the new paths' shapes (its own generator, seed 6): the
+    whisper encoder (q[8,1500,16,64], not causal), its cross-attention at
+    prefill and decode (Sq 224 and 1 against 1500 frames), phi-3-vision
+    (q[8,768,32,96], causal), a sliding window at jamba's head layout (64
+    heads, 8 KV heads, Dh 128, S 8192, window 4096, so key tiles are
+    skipped), Dh 96 tile edges, and windows of 1, past the sequence (which
+    must equal no window, bit for bit) and not a multiple of a tile;
+(c) the five serving paths, each at full width and full depth, bf16,
+    seeded random weights, prefill of 8 prompts of 512 tokens (whisper:
+    224, after 1500 frames of ``enc_embeds``; phi-3-vision: after 256
+    image tokens of ``img_embeds``) then 32 greedy tokens:
+    granite-moe-1b-a400m (rmsnorm, flash_attention, grouped_matmul),
+    mamba2-780m (rmsnorm, ssd_chunk), the dense qwen3-1.7b (rmsnorm with
+    qk-norm, flash_attention; its FFN is ``torch.matmul``), whisper-medium
+    (rmsnorm; flash_attention for the encoder, the decoder's prefill and
+    every cross-attention) and phi-3-vision-4.2b (rmsnorm, flash_attention
+    at Dh 96).  Each path's launch counts are set to 0 just before it and
+    checked against the config just after; each gets one profiled prefill
+    and decode window (top device ops, device idle share);
+(d) whole-model checks in f32 for the five models and a windowed
+    qwen3-1.7b (sliding_window 20, prompts of 200 and 80 tokens, decode
+    past the window): the card against the plain path on the CPU (2-layer
+    full-width cut; whisper 2 + 2 layers on 1500 frames), and decode
+    against prefill over the prompt plus generated tokens at full depth.
+    For all but mamba2 the bound holds the logits; for mamba2 it holds
     every layer on the same inputs, and the end-to-end logit error is
     printed as a measurement (48 random layers amplify f32 rounding past
     the bound; PERF.md).  mamba2 also prefills 2 tokens, so its conv-tail
@@ -71,10 +84,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 ARCH, SSM_ARCH, DENSE_ARCH = ("granite-moe-1b-a400m", "mamba2-780m",
                               "qwen3-1.7b")
+ENCDEC_ARCH, VLM_ARCH = "whisper-medium", "phi-3-vision-4.2b"
+SERVING = (ARCH, SSM_ARCH, DENSE_ARCH, ENCDEC_ARCH, VLM_ARCH)
 CAL_ARCHS = ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "mamba2-780m",
              "qwen3-1.7b")
 CAL_SHAPE, CAL_GPUS, CAL_REPS = "decode_32k", 16, 20
 BATCH, PROMPT, TOKENS = 8, 512, 32
+PROMPTS = {ENCDEC_ARCH: 224}          # whisper's decoder prompt; else PROMPT
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
@@ -114,6 +130,26 @@ SSD_SHAPES = [(4, 16, 2, 16, 16), (8, 32, 4, 32, 64), (4, 64, 2, 64, 128),
 # (D 1536), one walked in pieces (D 12288), the scalar route (D 1001); then
 # x as a contiguous view that starts one element in (not 16-byte aligned,
 # so the scalar route too)
+# flash_attention at the new paths' shapes, as (B, Sq, Sk, H, KV, Dh, causal,
+# window): the whisper encoder, its cross-attention at prefill and decode,
+# phi-3-vision's prefill, and a sliding window at jamba's head layout; each
+# is timed too
+ATTN_NEW = [(8, 1500, 1500, 16, 16, 64, False, 0),
+            (8, 224, 1500, 16, 16, 64, False, 0),
+            (8, 1, 1500, 16, 16, 64, False, 0),
+            (8, 768, 768, 32, 32, 96, True, 0),
+            (1, 8192, 8192, 64, 8, 128, True, 4096)]
+# Dh 96 about the 64-key and 16-row tiles, causal and not (Sq != Sk); then
+# windows of 1, not a multiple of a tile (65, 100), equal to S and past it
+ATTN_NEW_EDGES = [(2, 61, 61, 8, 8, 96, True, 0),
+                  (2, 129, 129, 8, 4, 96, True, 0),
+                  (2, 129, 77, 8, 4, 96, False, 0),
+                  (1, 128, 128, 4, 4, 96, True, 0),
+                  (2, 300, 300, 8, 2, 64, True, 1),
+                  (1, 1000, 1000, 4, 2, 96, True, 100),
+                  (1, 257, 257, 8, 1, 128, True, 65),
+                  (2, 300, 300, 8, 2, 64, True, 300),
+                  (1, 200, 200, 4, 4, 96, True, 1000)]
 RMS_EDGES = [(37, 1001), (300, 1536), (64, 12288)]
 RMS_UNALIGNED = [(300, 1024), (64, 3072)]
 # ssd_chunk about its tiling: groups of up to 16 heads (H 1, 3, 13, 50), its
@@ -187,10 +223,21 @@ def random_offsets(torch, gen, T: int, E: int, top_k: int = 8):
 
 
 def expected_launches(cfg, n_tokens: int):
-    """Kernel launches for one prefill and n_tokens - 1 decode steps."""
+    """Kernel launches for one prefill and n_tokens - 1 decode steps.  An
+    image prefix changes no count (a launch covers every position)."""
     from repro_torch.models.transformer import _has_ffn, _layer_is_moe
     want = {"rmsnorm": n_tokens, "flash_attention": 0, "grouped_matmul": 0,
             "ssd_chunk": 0}                           # final norm each token
+    if cfg.is_encoder_decoder:
+        qk = 2 if cfg.qk_norm else 0
+        # encoder, prefill only: ln1 (+ qk-norm), ln2, attention; enc_norm
+        want["rmsnorm"] += cfg.n_enc_layers * (2 + qk) + 1
+        want["flash_attention"] += cfg.n_enc_layers
+        # decoder: ln1 (+ qk-norm), ln_x, ln2 each token; self-attention
+        # through the kernel at prefill, cross-attention at every token
+        want["rmsnorm"] += cfg.n_layers * (3 + qk) * n_tokens
+        want["flash_attention"] += cfg.n_layers * (1 + n_tokens)
+        return want
     for i in range(cfg.n_layers):
         kind = cfg.pattern[i % cfg.block_size]
         norms = 1                                     # ln1
@@ -564,6 +611,98 @@ def time_kernels(torch, ops, ref, dev):
     return out
 
 
+def attention_plain(torch, ref, q, k, v, causal: bool, window: int):
+    """The plain version one KV head (and its q heads) at a time, so that
+    its f32 scores stay a few GB at S 8192; the same function."""
+    G = q.shape[2] // k.shape[2]
+    return torch.cat([ref.flash_attention_ref(
+        q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
+        causal=causal, window=window) for h in range(k.shape[2])], dim=2)
+
+
+def attention_cost(B, Sq, Sk, H, KV, Dh, causal, window, es):
+    """(bytes, flops) of attention: q, k, v read once, out written once;
+    4 Dh flops for each (query, key) pair the mask keeps, per head."""
+    if not causal:
+        pairs = Sq * Sk
+    else:
+        w = window if window > 0 else Sq
+        pairs = sum(min(i + 1, w) for i in range(Sq))
+    return (2 * B * Sq * H * Dh + 2 * B * Sk * KV * Dh) * es, \
+        4 * B * H * Dh * pairs
+
+
+def check_new_attention(torch, ops, ref, dev) -> None:
+    """flash_attention at ATTN_NEW and ATTN_NEW_EDGES, f32 and bf16,
+    against the plain version (``attention_plain``); a window of S or more
+    must give the unwindowed kernel's output bit for bit.  Its own
+    generator (seed 6), so every earlier check keeps its inputs."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for shape in ATTN_NEW + ATTN_NEW_EDGES:
+            B, Sq, Sk, H, KV, Dh, causal, window = shape
+            q, k, v = (torch.randn(*sh, generator=gen, device=dev).to(dt)
+                       for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
+                                  (B, Sk, KV, Dh)))
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            e = compare("flash_attention", got,
+                        attention_plain(torch, ref, q, k, v, causal, window),
+                        dname)
+            log("b", f"flash_attention {shape} {dname}: max_abs_err {e:.3e} "
+                f"(tol {TOL[dname]})")
+            if window >= Sq:
+                same = torch.equal(got, ops.flash_attention(q, k, v,
+                                                            causal=True))
+                log("b", f"flash_attention {shape} {dname}: equals the "
+                    f"kernel without a window: {same}")
+                if not same:
+                    raise AssertionError("a window past S changed the output")
+            del q, k, v, got
+    torch.cuda.synchronize()
+
+
+def time_new_attention(torch, ops, ref, dev):
+    """Times of flash_attention at ATTN_NEW in bf16 (kernel, plain, SDPA
+    and bound); returns their records."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    out = []
+    for B, Sq, Sk, H, KV, Dh, causal, window in ATTN_NEW:
+        q, k, v = (torch.randn(*sh, generator=gen, device=dev).to(
+            torch.bfloat16) for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
+                                       (B, Sk, KV, Dh)))
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        mask = None
+        if window:
+            i = torch.arange(Sq, device=dev)[:, None]
+            j = torch.arange(Sk, device=dev)[None, :]
+            mask = (j <= i) & (j > i - window)
+        ms = timed_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=causal, window=window), flush)
+        plain_ms = timed_ms(torch, lambda: attention_plain(
+            torch, ref, q, k, v, causal, window), flush, iters=5, warmup=1)
+        lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and not window),
+            flush)
+        b_ms, b_by = bound(*attention_cost(B, Sq, Sk, H, KV, Dh, causal,
+                                           window, 2), "bfloat16")
+        shape = (f"q[{B},{Sq},{H},{Dh}] k[{B},{Sk},{KV},{Dh}] "
+                 f"{'causal' if causal else 'not causal'}"
+                 + (f" window {window}" if window else ""))
+        log("b", f"time flash_attention {shape} bfloat16: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms (one KV head at a time), SDPA "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by})")
+        out.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+        del q, k, v, qt, kt, vt, mask
+    del flush
+    return out
+
+
 # ------------------------------------------------------------ phase (c)
 def profile_window(torch, fn, wall_ms: float, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
@@ -599,24 +738,27 @@ def main_path(torch, dev, arch: str):
     """Serve ``arch`` at full width; returns the path's launch counts."""
     from repro_torch import configs
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.launch.serve import generate, make_embeds, make_prompts
     from repro_torch.models.api import CausalLM
 
     cfg = configs.get_config(arch)
+    prompt = PROMPTS.get(arch, PROMPT)
     model = CausalLM.random(cfg, seed=0, device=dev)
-    prompts = make_prompts(cfg, BATCH, PROMPT, seed=1, device=dev)
-    generate(model, prompts[:, :16], 2)            # warm-up: cuBLAS, caches
+    prompts = make_prompts(cfg, BATCH, prompt, seed=1, device=dev)
+    embeds = make_embeds(cfg, BATCH, seed=2, device=dev)
+    generate(model, prompts[:, :16], 2, **embeds)  # warm-up: cuBLAS, caches
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
-    res = generate(model, prompts, TOKENS)
+    res = generate(model, prompts, TOKENS, **embeds)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     rate = BATCH * (TOKENS - 1) / res.decode_s
-    log("c", f"{arch} bf16 batch {BATCH} prompt {PROMPT} tokens {TOKENS}: "
-        f"prefill {res.prefill_s * 1e3:.3f} ms, decode {rate:.1f} tok/s, "
-        f"peak memory {peak:.2f} GiB")
+    extra = "".join(f", {name} {list(t.shape)}" for name, t in embeds.items())
+    log("c", f"{arch} bf16 batch {BATCH} prompt {prompt}{extra} tokens "
+        f"{TOKENS}: prefill {res.prefill_s * 1e3:.3f} ms, decode "
+        f"{rate:.1f} tok/s, peak memory {peak:.2f} GiB")
     want = expected_launches(cfg, TOKENS)
     log("c", f"{arch} launches {launches}, expected {want}")
     if launches != want:
@@ -626,20 +768,21 @@ def main_path(torch, dev, arch: str):
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"bad generated tokens {tuple(toks.shape)}")
     log("c", f"sequence 0: {toks[0].tolist()}")
-    logits, _ = model.prefill(prompts, PROMPT)
+    s_full = cfg.n_img_tokens + prompt
+    logits, _ = model.prefill(prompts, s_full, **embeds)
     if logits.shape != (BATCH, cfg.vocab_size) or not bool(
             torch.isfinite(logits.float()).all()):
         raise AssertionError("prefill logits not finite or misshapen")
 
     # profiled windows: one prefill, then 8 decode steps
-    s_max = PROMPT + 16
+    s_max = s_full + 16
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, caches = model.prefill(prompts, s_max)
+    _, caches = model.prefill(prompts, s_max, **embeds)
     torch.cuda.synchronize()
     pre_ms = (time.perf_counter() - t0) * 1e3
-    profile_window(torch, lambda: model.prefill(prompts, s_max), pre_ms,
-                   f"{arch} prefill [{BATCH},{PROMPT}]")
+    profile_window(torch, lambda: model.prefill(prompts, s_max, **embeds),
+                   pre_ms, f"{arch} prefill [{BATCH},{prompt}]{extra}")
     tok = prompts[:, -1]
 
     def decode8():
@@ -652,63 +795,81 @@ def main_path(torch, dev, arch: str):
     decode8()
     torch.cuda.synchronize()
     dec_ms = (time.perf_counter() - t0) * 1e3
-    _, caches = model.prefill(prompts, s_max)
+    _, caches = model.prefill(prompts, s_max, **embeds)
     profile_window(torch, decode8, dec_ms,
                    f"{arch} 8 decode steps, batch {BATCH}")
-    del model, caches
+    del model, caches, embeds
     torch.cuda.empty_cache()
     return launches
 
 
 # ------------------------------------------------------------ phase (d)
-def whole_model_checks(torch, dev, arch: str, cut_lens, start: int) -> None:
-    """f32: a 2-layer full-width cut on the card against the plain path on
-    the CPU, from prompts of each length in ``cut_lens`` plus 3 decode
-    steps; then at full depth, decode logits against prefill of the
-    sequence so far, from a prompt of ``start`` tokens."""
+def whole_model_checks(torch, dev, arch: str, cut_lens, start: int,
+                       window: int = 0) -> None:
+    """f32: a 2-layer full-width cut (whisper: 2 encoder and 2 decoder
+    layers) on the card against the plain path on the CPU, from prompts of
+    each length in ``cut_lens`` plus 3 decode steps; then at full depth,
+    decode logits against prefill of the sequence so far, from a prompt of
+    ``start`` tokens.  The same frame or image embeddings throughout;
+    ``window`` > 0 sets the config's sliding window."""
     from repro_torch import configs
+    from repro_torch.launch.serve import make_embeds
     from repro_torch.models import api
 
     cfg = configs.get_config(arch).replace(dtype="float32")
+    name = arch
+    if window:
+        cfg = cfg.replace(sliding_window=window)
+        name = f"{arch} sliding_window {window}"
     gen = torch.Generator().manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (2, max(16, *cut_lens, start)),
+                           generator=gen)
+    embeds = make_embeds(cfg, 2, seed=4, device="cpu")
+    gpu_embeds = {k: t.to(dev) for k, t in embeds.items()}
+    n_img = cfg.n_img_tokens
 
-    cut = cfg.replace(n_layers=2 * cfg.block_size)
+    cut = cfg.replace(n_layers=2 * cfg.block_size,
+                      n_enc_layers=min(cfg.n_enc_layers, 2))
     params = api.init(cut, torch.Generator().manual_seed(3), device="cpu")
     cpu_model = api.CausalLM(cut, params)
     gpu_model = api.CausalLM(cut, params).to(dev)
     err = 0.0
     for n in cut_lens:
-        lc, cc = cpu_model.prefill(prompt[:, :n], n + 8)
-        lg, cg = gpu_model.prefill(prompt[:, :n].to(dev), n + 8)
+        lc, cc = cpu_model.prefill(prompt[:, :n], n_img + n + 8, **embeds)
+        lg, cg = gpu_model.prefill(prompt[:, :n].to(dev), n_img + n + 8,
+                                   **gpu_embeds)
         err = max(err, float((lg.cpu() - lc).abs().max()))
         for _ in range(3):
             tok = torch.argmax(lc, dim=-1)
             lc, cc = cpu_model.decode_step(tok, cc)
             lg, cg = gpu_model.decode_step(tok.to(dev), cg)
             err = max(err, float((lg.cpu() - lc).abs().max()))
-    log("d", f"{arch} {cut.n_layers}-layer f32, prompts of {cut_lens} "
-        f"tokens, card vs plain path on the CPU: max abs logit err "
-        f"{err:.3e} (bound 1e-4)")
+    layers = f"{cut.n_layers}-layer" + (
+        f" (+{cut.n_enc_layers} encoder)" if cut.n_enc_layers else "")
+    log("d", f"{name} {layers} f32, prompts of {cut_lens} tokens, card vs "
+        f"plain path on the CPU: max abs logit err {err:.3e} (bound 1e-4)")
     if not err <= 1e-4:
-        raise AssertionError(f"{arch}: card and CPU paths disagree")
-    del cpu_model, gpu_model, params
+        raise AssertionError(f"{name}: card and CPU paths disagree")
+    del cpu_model, gpu_model, params, cc, cg
 
     # granite: at 8 tokens or fewer no expert can pass the capacity floor
     # of 8, so neither path drops an assignment.
     model = api.CausalLM.random(cfg, seed=5, device=dev)
     seq = prompt[:, :start].to(dev)
-    logits, caches = model.prefill(seq, 16)
+    logits, caches = model.prefill(seq, n_img + max(16, start + 8),
+                                   **gpu_embeds)
     err = 0.0
     for _ in range(4):
         tok = torch.argmax(logits, dim=-1)
         logits, caches = model.decode_step(tok, caches)
         seq = torch.cat([seq, tok[:, None]], dim=1)
-        full, _ = model.prefill(seq, seq.shape[1])
+        full, _ = model.prefill(seq, n_img + seq.shape[1], **gpu_embeds)
         err = max(err, float((logits - full).abs().max()))
-    label = (f"{arch} {cfg.n_layers}-layer f32, prefill over prompt+generated "
-             f"vs decode logits from a {start}-token prompt: max abs err "
-             f"{err:.3e}")
+    layers = f"{cfg.n_layers}-layer" + (
+        f" (+{cfg.n_enc_layers} encoder)" if cfg.n_enc_layers else "")
+    what = "image+prompt+generated" if n_img else "prompt+generated"
+    label = (f"{name} {layers} f32, prefill over {what} vs decode logits "
+             f"from a {start}-token prompt: max abs err {err:.3e}")
     if cfg.family == "ssm":
         # Through 48 random mamba2 layers, f32 rounding is amplified past
         # 1e-4 at the logits: the JAX reference misses 1e-4 on the same
@@ -719,8 +880,8 @@ def whole_model_checks(torch, dev, arch: str, cut_lens, start: int) -> None:
     else:
         log("d", f"{label} (bound 1e-4)")
         if not err <= 1e-4:
-            raise AssertionError(f"{arch}: decode disagrees with prefill")
-    del model, caches
+            raise AssertionError(f"{name}: decode disagrees with prefill")
+    del model, caches, gpu_embeds
     torch.cuda.empty_cache()
 
 
@@ -847,15 +1008,20 @@ def main() -> int:
                 log("a", f"ptxas {name}: {line.strip()}")
 
     errs = check_kernels(torch, ops, ref, dev)
+    check_new_attention(torch, ops, ref, dev)
     times = time_kernels(torch, ops, ref, dev)
-    serving = (ARCH, SSM_ARCH, DENSE_ARCH)
-    by_path = {arch: main_path(torch, dev, arch) for arch in serving}
+    times["flash_attention"]["by_shape"] = time_new_attention(torch, ops,
+                                                              ref, dev)
+    by_path = {arch: main_path(torch, dev, arch) for arch in SERVING}
     whole_model_checks(torch, dev, ARCH, (16,), 4)
     whole_model_checks(torch, dev, SSM_ARCH, (16, 2), 2)
     whole_model_checks(torch, dev, DENSE_ARCH, (16,), 4)
+    whole_model_checks(torch, dev, ENCDEC_ARCH, (16,), 4)
+    whole_model_checks(torch, dev, VLM_ARCH, (16,), 4)
+    whole_model_checks(torch, dev, DENSE_ARCH, (200,), 80, window=20)
     by_path["calibrate"] = calibration_profiles(torch, dev)
     for name in build.KERNELS:
-        if not any(by_path[arch][name] for arch in serving):
+        if not any(by_path[arch][name] for arch in SERVING):
             raise AssertionError(f"{name}: no serving path launched it")
 
     kernels = []

@@ -1,10 +1,10 @@
-"""Architecture config registry of the port (the families ported so far).
+"""Architecture config registry of the port: every architecture of
+``repro.configs``, in its order.
 
 Each module keeps the same name and values as its ``repro.configs``
-counterpart; the other architectures join as their families are ported.
-mistral-large-123b and qwen3-moe-235b-a22b do not fit one card at full
-size: they serve at smoke size, and the calibration harness reads only
-their dimensions.
+counterpart.  mistral-large-123b, qwen3-moe-235b-a22b and jamba do not fit
+one card at full size: they serve at smoke size, and the calibration
+harness reads only their dimensions.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from ..models.spec import ModelConfig
 from .shapes import SHAPES, ShapeSpec, shape_applicable  # noqa: F401
 
 ALIASES = {
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "mistral-large-123b": "mistral_large_123b",
@@ -23,6 +24,7 @@ ALIASES = {
     "qwen3-14b": "qwen3_14b",
     "qwen3-1.7b": "qwen3_1_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "whisper-medium": "whisper_medium",
     "mamba2-780m": "mamba2_780m",
 }
 
@@ -30,8 +32,8 @@ ALIASES = {
 def _module(name: str):
     mod = ALIASES.get(name, name)
     if mod not in ALIASES.values():
-        raise ValueError(f"unknown or not yet ported architecture {name!r}; "
-                         f"ported: {sorted(ALIASES)}")
+        raise ValueError(f"unknown architecture {name!r}; known: "
+                         f"{sorted(ALIASES)}")
     return importlib.import_module(f".{mod}", __package__)
 
 

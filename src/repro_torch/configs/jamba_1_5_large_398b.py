@@ -5,7 +5,7 @@ vocab=65536, MoE 16e top-2 on alternating layers; attention every 8th
 layer.  SSM layers use the unified SSD formulation (d_state=16 per the
 Jamba paper).  At 398B it does not fit one card: the port runs it only at
 smoke size, where it holds the hybrid layer pattern.  The long_500k
-variant's 4096 sliding window is not ported yet.
+variant's 4096 sliding window runs through the windowed flash_attention.
 """
 from ..models.spec import ModelConfig
 from ._smoke import reduce_config

@@ -40,9 +40,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, out, T, D, eps, dtype, stream
     "rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
-    # q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, dtype, stream
+    # q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, window, dtype, stream
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                        _P),
+                        _I, _P),
     # lhs, rhs, offsets, out, T, D, F, E, dtype, stream
     "grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, dt, a, B, C, y, state, BC, Q, H, P, N, stream (f32 only)

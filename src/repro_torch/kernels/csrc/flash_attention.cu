@@ -5,6 +5,10 @@
 // [B,Sk,KV,Dh]; GQA kv head = h / (H/KV); causal masks kj <= qi with no Sk-Sq
 // offset, so causal needs Sq == Sk (rejected otherwise); running max, sum and
 // accumulator in f32; a row with no valid key gives 0; out in q's dtype.
+// Beyond the TPU kernel: a sliding window (window > 0, causal only) also
+// masks kj <= qi - window, as repro.models.layers._causal_mask does; key
+// tiles wholly below every row's window are not visited, as tiles wholly
+// above the diagonal are not.  Head dims 64, 96 and 128 are built.
 //
 // bf16.  Bound: at the prefill shape (q [8,512,16,64], k/v [8,512,8,64],
 // causal) the function moves 25 MB (0.0075 ms at 3.35 TB/s) and needs 4.3
@@ -24,19 +28,24 @@
 // later tiles in flight while the tensor cores work on this one.  Row
 // tiles start in reverse order, so those with the most keys start first.
 // S = Q K^T lands in f32 registers; only tiles that cross a warp's
-// diagonal (or the end of the keys) are masked, and tiles wholly above it
-// are skipped.  The online softmax runs on the C-fragment rows with quad
+// diagonal, a window's edge or the end of the keys are masked, and tiles
+// wholly above the diagonal or below the window are skipped.  The online softmax runs on the C-fragment rows with quad
 // shuffles and ex2.approx on a log2(e)-prescaled scale.  P is packed to
 // bf16 in registers as the A operand of P V (no shared-memory round trip),
 // and V goes through ldmatrix.trans.  The output is normalised, rounded
 // once to bf16, staged in the warp's own Q rows and stored in 16-byte rows.
 //
+// Dh 96 (phi-3-vision): the same tiling as Dh 128, one m16 tile a warp; Q K^T
+// takes 6 k-steps of 16 and P V 12 n-tiles of 8; a 192-byte row is 12
+// cp.async copies, and the padded 208-byte smem row keeps ldmatrix free of
+// bank conflicts.
+//
 // f32: the FMA kernel, so f32 inputs keep full f32 precision.  One
 // 256-thread block per (b*h, 64-row q block); 4 threads per query row, each
 // holding Dh/4 interleaved dims of q and of the accumulator, the q.k
 // partial dots summed with two xor shuffles.  K and V tiles of 32 keys are
-// staged in shared memory as f32; key tiles wholly above the diagonal are
-// not visited.
+// staged in shared memory as f32; key tiles wholly above the diagonal, or
+// wholly below the window of the block's first row, are not visited.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -52,7 +61,7 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, float scale, int causal) {
+                 int H, int KV, float scale, int causal, int window) {
   constexpr int DP = DH / G;
   __shared__ float Ks[BK][DH];
   __shared__ float Vs[BK][DH];
@@ -74,8 +83,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = NEG_INF, l = 0.f;
 
+  const bool windowed = causal && window > 0;
+  // the first key of the block's first row's window, down to its tile
+  const int k_begin = windowed ? max(0, q0 - window + 1) / BK * BK : 0;
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
     for (int idx = threadIdx.x; idx < BK * DH; idx += NT) {
       const int j = idx / DH, d = idx % DH;
@@ -97,7 +109,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kj = k0 + j;
-      const bool ok = kj < Sk && (!causal || kj <= qi);
+      const bool ok = kj < Sk && (!causal || kj <= qi) &&
+                      (!windowed || kj > qi - window);
       s[j] = ok ? dot * scale : NEG_INF;
       tmax = fmaxf(tmax, s[j]);
     }
@@ -134,6 +147,7 @@ constexpr float kNegInf = -__builtin_huge_valf();
 
 template <int DH>
 struct MmaCfg {
+  // Dh 96 and 128 hold one m16 tile a warp: two would not fit the registers
   static constexpr int MT = DH == 64 ? 2 : 1;     // m16 tiles per warp
   static constexpr int NW = 4;                    // warps per block
   static constexpr int WR = 16 * MT;              // rows per warp
@@ -151,7 +165,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV,
-                 float scale_log2, int causal) {
+                 float scale_log2, int causal, int window) {
   using C = MmaCfg<DH>;
   constexpr int NT = C::NW * 32, LD = C::LD, CH = DH / 8;  // 16-byte chunks
   constexpr int MT = C::MT;
@@ -167,7 +181,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_rows = Sq * G;
   const int q_last = min(n_rows - 1, p0 + C::ROWS - 1) / G;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const bool windowed = causal && window > 0;
+  // tiles j0 .. n_tiles - 1: from the tile of the first key in the window of
+  // the block's first row, to the diagonal of its last
+  const int j0 = windowed ? max(0, p0 / G - window + 1) / TK : 0;
   const int n_tiles = (k_end + TK - 1) / TK;
+  const int nt = n_tiles - j0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
 
@@ -190,10 +209,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const bool ok = p < n_rows;
     hw::cp_async16(sq + (r * LD + d) * 2, q + (ok ? row_off(p) : 0) + d, ok);
   }
-  // group s holds K/V tile s (and group 0 the Q tile too)
+  // group s holds K/V tile j0 + s (and group 0 the Q tile too)
 #pragma unroll
   for (int s = 0; s < C::NS - 1; ++s) {
-    if (s < n_tiles) load_kv(s, s);
+    if (s < nt) load_kv(j0 + s, s);
     hw::cp_async_commit();
   }
 
@@ -224,14 +243,14 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       l[mt][r] = 0.f;
     }
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j % C::NS;
+  for (int jj = 0; jj < nt; ++jj) {
+    const int buf = jj % C::NS;
     hw::cp_async_wait<C::NS - 2>();
-    __syncthreads();                  // tile j landed; tile j - 1 is consumed
-    if (j + C::NS - 1 < n_tiles)
-      load_kv(j + C::NS - 1, (j + C::NS - 1) % C::NS);
+    __syncthreads();          // tile j0 + jj landed; the one before is consumed
+    if (jj + C::NS - 1 < nt)
+      load_kv(j0 + jj + C::NS - 1, (jj + C::NS - 1) % C::NS);
     hw::cp_async_commit();
-    if (j == 0) {
+    if (jj == 0) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -240,8 +259,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           sq + ((C::WR * warp + 16 * mt + lane % 16) * LD
                                 + ks * 16 + (lane / 16) * 8) * 2);
     }
-    const int kt0 = j * TK;
+    const int kt0 = (j0 + jj) * TK;
     if (causal && kt0 > w_last) continue;   // wholly above the diagonal
+    // wholly below the window of every row of the warp
+    if (windowed && kt0 + TK - 1 <= w_first - window) continue;
 
     // S = Q K^T: each K fragment feeds every m16 tile of the warp
     float s[MT][TK / 8][4];
@@ -268,7 +289,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // online softmax on the fragment rows (log2 domain)
-    const bool need_mask = kt0 + TK > Sk || (causal && kt0 + TK - 1 > w_first);
+    const bool need_mask = kt0 + TK > Sk || (causal && kt0 + TK - 1 > w_first)
+                           || (windowed && kt0 <= w_last - window);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       float mx[2] = {kNegInf, kNegInf};
@@ -279,7 +301,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           float x = s[mt][i][e] * scale_log2;
           if (need_mask) {
             const int kj = kt0 + 8 * i + 2 * t + (e & 1);
-            if (kj >= Sk || (causal && kj > qi[mt][e / 2])) x = kNegInf;
+            const int qr = qi[mt][e / 2];
+            if (kj >= Sk || (causal && kj > qr) ||
+                (windowed && kj <= qr - window))
+              x = kNegInf;
           }
           s[mt][i][e] = x;
           mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -376,18 +401,19 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <typename T, int DH>
 void launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-            int Sk, int H, int KV, float scale, int causal, cudaStream_t s) {
+            int Sk, int H, int KV, float scale, int causal, int window,
+            cudaStream_t s) {
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, DH><<<grid, NT, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, scale,
-      causal);
+      causal, window);
 }
 
 template <int DH>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int Sq, int Sk, int H, int KV, float scale, int causal,
-               cudaStream_t s) {
+               int window, cudaStream_t s) {
   using C = MmaCfg<DH>;
   static bool smem_ok = false;        // set once per instantiation
   if (!smem_ok) {
@@ -403,17 +429,19 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, H, KV, scale * 1.4426950408889634f, causal);
+      Sq, Sk, H, KV, scale * 1.4426950408889634f, causal, window);
   return 0;
 }
 
 int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
                  int Sq, int Sk, int H, int KV, int Dh, float scale,
-                 int causal, cudaStream_t s) {
+                 int causal, int window, cudaStream_t s) {
   if (Dh == 64) {
-    launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, s);
+  } else if (Dh == 96) {
+    launch<float, 96>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, s);
   } else if (Dh == 128) {
-    launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -422,32 +450,41 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                   int Sq, int Sk, int H, int KV, int Dh, float scale,
-                  int causal, cudaStream_t s) {
+                  int causal, int window, cudaStream_t s) {
   if (Dh == 64)
-    return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
+                          s);
+  if (Dh == 96)
+    return launch_mma<96>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
+                          s);
   if (Dh == 128)
-    return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, s);
+    return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
+                           s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, o: [B,Sq,H,Dh]; k, v: [B,Sk,KV,Dh]; all contiguous, one dtype (code).
-// Returns the CUDA error code of the launch (0 = launched).
+// q, o: [B,Sq,H,Dh]; k, v: [B,Sk,KV,Dh]; all contiguous, one dtype (code);
+// window 0, or > 0 with causal.  Returns the CUDA error code of the launch
+// (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int H, int KV, int Dh,
-                                      float scale, int causal, int dtype,
-                                      void* stream) {
-  if (KV <= 0 || H % KV != 0 || (causal && Sq != Sk) || B * H > 65535)
+                                      float scale, int causal, int window,
+                                      int dtype, void* stream) {
+  if (KV <= 0 || H % KV != 0 || (causal && Sq != Sk) || B * H > 65535 ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == rt::kF32) {
-    rc = dispatch_f32(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, s);
+    rc = dispatch_f32(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, window,
+                      s);
   } else if (dtype == rt::kBF16) {
-    rc = dispatch_bf16(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, s);
+    rc = dispatch_bf16(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, window,
+                       s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -17,6 +17,7 @@ from . import build, ref
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.KERNELS}
 SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (its shared-memory plan)
+ATTN_HEAD_DIMS = (64, 96, 128)   # csrc/flash_attention.cu: its dispatches
 
 
 def reset_launches() -> None:
@@ -65,28 +66,31 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
+                    causal: bool = True, window: int = 0,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,Sq,H,Dh]; k, v: [B,Sk,KV,Dh] -> [B,Sq,H,Dh] in q.dtype.
 
-    Causal attention needs ``Sq == Sk`` (the kernel's mask has no offset).
+    Causal attention needs ``Sq == Sk`` (the kernel's mask has no offset);
+    ``window`` > 0 (causal only) keeps the keys ``qi - window < kj <= qi``.
+    The kernel is built for head dims ``ATTN_HEAD_DIMS``.
     """
-    ref.check_attention_shapes(q, k, v, causal)
+    ref.check_attention_shapes(q, k, v, causal, window)
     if not q.is_cuda:
-        return ref.flash_attention_ref(q, k, v, causal=causal,
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        sm_scale=sm_scale)
     B, Sq, H, Dh = q.shape
     _, Sk, KV, _ = k.shape
-    if Dh not in (64, 128):
+    if Dh not in ATTN_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {Dh} not built "
-                         f"(64 or 128)")
+                         f"({ATTN_HEAD_DIMS})")
     code = _cuda_args("flash_attention", q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(Dh)
     out = torch.empty_like(q)
     rc = build.launcher("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, Dh, float(sm_scale), int(causal), code, _stream(q))
+        H, KV, Dh, float(sm_scale), int(causal), int(window), code,
+        _stream(q))
     build.check("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return out

@@ -24,16 +24,18 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
+                        causal: bool = True, window: int = 0,
                         sm_scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,Sq,H,Dh]; k, v: [B,Sk,KV,Dh] -> [B,Sq,H,Dh] in q.dtype.
 
     The kernel's causal mask is ``kj <= qi`` with no ``Sk - Sq`` offset, so
     causal attention is only defined for ``Sq == Sk``; anything else raises.
+    A ``window`` > 0 (causal only) also masks ``kj <= qi - window``, as
+    ``repro.models.layers._causal_mask`` does.  Any head dim.
     """
     B, Sq, H, Dh = q.shape
     _, Sk, KV, _ = k.shape
-    check_attention_shapes(q, k, v, causal)
+    check_attention_shapes(q, k, v, causal, window)
     group = H // KV
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(Dh)
@@ -42,13 +44,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal:
         qi = torch.arange(Sq, device=q.device)[:, None]
         kj = torch.arange(Sk, device=q.device)[None, :]
-        s = torch.where(kj <= qi, s, torch.full_like(s, NEG_INF))
+        keep = kj <= qi
+        if window > 0:
+            keep &= kj > qi - window
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
-def check_attention_shapes(q, k, v, causal: bool) -> None:
+def check_attention_shapes(q, k, v, causal: bool, window: int = 0) -> None:
     """Reject what the flash-attention kernel does not take."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q [B,Sq,H,Dh], k/v [B,Sk,KV,Dh] "
@@ -63,6 +68,9 @@ def check_attention_shapes(q, k, v, causal: bool) -> None:
         raise ValueError(
             f"flash_attention: causal attention needs Sq == Sk (got Sq={Sq}, "
             f"Sk={Sk}); the kernel masks kj <= qi with no Sk-Sq offset")
+    if window < 0 or (window > 0 and not causal):
+        raise ValueError(f"flash_attention: a window ({window}) must be 0, "
+                         f"or positive with causal=True")
 
 
 def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor,

@@ -5,13 +5,17 @@
 
 runs the full-width model with seeded random weights on the card;
 ``--smoke --device cpu`` runs the reduced config on the CPU (the plain
-versions of the kernels).  Counterpart of ``repro.launch.serve``.
+versions of the kernels).  whisper-medium gets seeded frame embeddings
+``enc_embeds`` [B, enc_frames, d_model] and phi-3-vision-4.2b seeded image
+embeddings ``img_embeds`` [B, n_img_tokens, d_model], as the frontends the
+JAX package stubs would give them.  Counterpart of ``repro.launch.serve``.
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import dataclass
+from typing import Dict
 
 import torch
 
@@ -40,14 +44,35 @@ def make_prompts(cfg, batch: int, prompt_len: int, seed: int,
                          generator=gen).to(device)
 
 
-def generate(model: CausalLM, prompts: torch.Tensor,
-             n_tokens: int) -> ServeResult:
-    """Prefill ``prompts`` [B, S], then greedy-decode to ``n_tokens`` ids."""
+def make_embeds(cfg, batch: int, seed: int,
+                device) -> Dict[str, torch.Tensor]:
+    """The stub frontends' outputs the model needs besides its prompts,
+    standard normal from a seeded generator, drawn on the host:
+    ``img_embeds`` for a VLM, ``enc_embeds`` for an encoder-decoder."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    if cfg.n_img_tokens > 0:
+        out["img_embeds"] = torch.randn(batch, cfg.n_img_tokens, cfg.d_model,
+                                        generator=gen)
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = torch.randn(batch, cfg.enc_frames, cfg.d_model,
+                                        generator=gen)
+    return {name: t.to(device) for name, t in out.items()}
+
+
+def generate(model: CausalLM, prompts: torch.Tensor, n_tokens: int,
+             **embeds: torch.Tensor) -> ServeResult:
+    """Prefill ``prompts`` [B, S] (with ``embeds``: ``img_embeds`` or
+    ``enc_embeds``), then greedy-decode to ``n_tokens`` ids.
+
+    The cache holds the image tokens too: ``s_max`` is n_img_tokens +
+    prompt + n_tokens + 8.  (``repro.launch.serve`` leaves the image tokens
+    out, which only its smoke configs' 8 image tokens fit.)"""
     dev = model.device
-    s_max = prompts.shape[1] + n_tokens + 8
+    s_max = model.cfg.n_img_tokens + prompts.shape[1] + n_tokens + 8
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(prompts, s_max)
+    logits, caches = model.prefill(prompts, s_max, **embeds)
     tok = torch.argmax(logits, dim=-1)
     _sync(dev)
     t1 = time.perf_counter()
@@ -83,11 +108,14 @@ def main(argv=None) -> int:
     model = CausalLM.random(cfg, seed=args.seed, device=dev)
     prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed + 1,
                            dev)
-    res = generate(model, prompts, args.tokens)
+    embeds = make_embeds(cfg, args.batch, args.seed + 2, dev)
+    res = generate(model, prompts, args.tokens, **embeds)
     rate = args.batch * (args.tokens - 1) / max(res.decode_s, 1e-9)
-    print(f"{cfg.name} on {dev}: prefill [{args.batch}x{args.prompt_len}] "
-          f"{res.prefill_s * 1e3:.3f} ms; decoded {args.tokens} tok "
-          f"x{args.batch} ({rate:.1f} tok/s)")
+    extra = "".join(f", {name} {list(t.shape)}"
+                    for name, t in embeds.items())
+    print(f"{cfg.name} on {dev}: prefill [{args.batch}x{args.prompt_len}"
+          f"{extra}] {res.prefill_s * 1e3:.3f} ms; decoded {args.tokens} "
+          f"tok x{args.batch} ({rate:.1f} tok/s)")
     print("sequence 0:", res.tokens[0].tolist())
     return 0
 

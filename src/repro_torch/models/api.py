@@ -1,34 +1,39 @@
 """Model API of the port: init / prefill / decode_step and an ``nn.Module``.
 
-Counterpart of ``repro.models.api`` for the dense, MoE, SSM and hybrid
-families.
+Counterpart of ``repro.models.api`` for serving: the encoder-decoder family
+dispatches to :mod:`.encdec`, every other family to :mod:`.transformer`.
+``prefill`` takes the reference's batch dict: ``inputs`` [B, S], plus
+``img_embeds`` [B, n_img, D] for a VLM or ``enc_embeds`` [B, F, D] for an
+encoder-decoder.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ..device import resolve_device
 from ..weights import flatten, unflatten
-from . import transformer
+from . import encdec, transformer
 from .spec import ModelConfig, torch_dtype
 from .ssd import ssm_dims
 
 # Leaves the JAX code reads in f32 (router, norm scales, the SSM's decay,
 # skip, dt bias and gated norm): never rounded to the activation dtype, so
 # cast_for_serving leaves them alone.
-_F32_LEAVES = ("router", "ln1", "ln2", "final_norm", "q_norm", "k_norm",
-               "A_log", "D", "dt_bias", "norm")
+_F32_LEAVES = ("router", "ln1", "ln2", "ln_x", "final_norm", "enc_norm",
+               "q_norm", "k_norm", "A_log", "D", "dt_bias", "norm")
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random params in ``cfg.param_dtype``, mirroring ``ParamBuilder``:
     normal with std ``1/sqrt(fan_in)`` (``tok_embed``: std 1.0), ones for
     norm scales, zeros for biases.  ``blocks`` leaves are stacked over the
-    blocks.  The numbers differ from ``jax.random``'s; the shapes and
-    scales do not."""
+    blocks (``transformer.init_lm``), ``enc`` and ``dec`` leaves over the
+    encoder and decoder layers (``encdec.init_encdec``).  The numbers
+    differ from ``jax.random``'s; the shapes and scales do not."""
     transformer.check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg.param_dtype)
@@ -53,19 +58,39 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
         "final_norm": ones((D,)),
     }
 
-    def attn():
+    def attn(n=nb):
         p = {
-            "wq": normal((nb, D, H, Dh), fan_in=D),
-            "wk": normal((nb, D, KV, Dh), fan_in=D),
-            "wv": normal((nb, D, KV, Dh), fan_in=D),
-            "wo": normal((nb, H, Dh, D), fan_in=H * Dh),
+            "wq": normal((n, D, H, Dh), fan_in=D),
+            "wk": normal((n, D, KV, Dh), fan_in=D),
+            "wv": normal((n, D, KV, Dh), fan_in=D),
+            "wo": normal((n, H, Dh, D), fan_in=H * Dh),
         }
         if cfg.qkv_bias:
-            p.update(bq=zeros((nb, H, Dh)), bk=zeros((nb, KV, Dh)),
-                     bv=zeros((nb, KV, Dh)))
+            p.update(bq=zeros((n, H, Dh)), bk=zeros((n, KV, Dh)),
+                     bv=zeros((n, KV, Dh)))
         if cfg.qk_norm:
-            p.update(q_norm=ones((nb, Dh)), k_norm=ones((nb, Dh)))
+            p.update(q_norm=ones((n, Dh)), k_norm=ones((n, Dh)))
         return p
+
+    def mlp(n=nb):
+        F = cfg.d_ff
+        return {
+            "wi_gate": normal((n, D, F), fan_in=D),
+            "wi_up": normal((n, D, F), fan_in=D),
+            "wo": normal((n, F, D), fan_in=F),
+        }
+
+    if cfg.is_encoder_decoder:
+        ne, nd = cfg.n_enc_layers, cfg.n_layers
+        params["enc_norm"] = ones((D,))
+        params["enc"] = {"ln1": ones((ne, D)), "attn": attn(ne),
+                         "ln2": ones((ne, D)), "mlp": mlp(ne)}
+        params["dec"] = {"ln1": ones((nd, D)), "attn": attn(nd),
+                         "ln_x": ones((nd, D)), "xattn": attn(nd),
+                         "ln2": ones((nd, D)), "mlp": mlp(nd)}
+        return params
+    if cfg.n_img_tokens > 0:
+        params["mm_proj"] = normal((D, D), fan_in=D)
 
     def ssm():                                   # repro.models.ssd.init_ssm
         d_inner, Hs, _, N = ssm_dims(cfg)
@@ -107,12 +132,7 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
                     "wo": normal((nb, E, F, D), fan_in=F),
                 }
             else:
-                F = cfg.d_ff
-                layer["mlp"] = {
-                    "wi_gate": normal((nb, D, F), fan_in=D),
-                    "wi_up": normal((nb, D, F), fan_in=D),
-                    "wo": normal((nb, F, D), fan_in=F),
-                }
+                layer["mlp"] = mlp()
         blocks[f"l{pos}"] = layer
     params["blocks"] = blocks
     return params
@@ -128,13 +148,23 @@ def cast_for_serving(cfg: ModelConfig, params):
         for path, t in flatten(params).items()})
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int):
-    """tokens [B, S] -> (last-token logits [B, V], caches)."""
-    return transformer.prefill(cfg, params, tokens, s_max)
+def prefill(cfg: ModelConfig, params, batch, s_max: int):
+    """batch ``{"inputs": [B, S]}`` (+ ``img_embeds`` or ``enc_embeds``)
+    -> (last-token logits [B, V], caches)."""
+    if cfg.is_encoder_decoder:
+        if "enc_embeds" not in batch:
+            raise ValueError(f"{cfg.name}: the batch needs enc_embeds "
+                             f"[B, F, {cfg.d_model}]")
+        return encdec.prefill(cfg, params, batch["inputs"],
+                              batch["enc_embeds"], s_max)
+    return transformer.prefill(cfg, params, batch["inputs"], s_max,
+                               img_embeds=batch.get("img_embeds"))
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches):
     """token [B] -> (logits [B, V], caches advanced in place)."""
+    if cfg.is_encoder_decoder:
+        return encdec.decode_step(cfg, params, token, caches)
     return transformer.decode_step(cfg, params, token, caches)
 
 
@@ -170,8 +200,15 @@ class CausalLM(nn.Module):
         return self.tok_embed.device
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, s_max: int):
-        return prefill(self.cfg, self.params, tokens, s_max)
+    def prefill(self, tokens: torch.Tensor, s_max: int, *,
+                img_embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None):
+        batch = {"inputs": tokens}
+        for name, t in (("img_embeds", img_embeds),
+                        ("enc_embeds", enc_embeds)):
+            if t is not None:
+                batch[name] = t
+        return prefill(self.cfg, self.params, batch, s_max)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, caches):

@@ -1,0 +1,102 @@
+"""Whisper-style encoder-decoder in PyTorch (counterpart of
+``repro.models.encdec``) for serving: ``encode``, ``prefill`` and
+``decode_step``.
+
+As in the JAX package the audio frontend is a stub: ``enc_embeds``
+[B, F, D] (precomputed frame embeddings) enter the encoder directly.  The
+encoder is bidirectional attention with RoPE over frame positions; the
+decoder is causal self-attention, then cross-attention to the encoder
+output, then the SwiGLU FFN.  Parameters keep the JAX tree: ``enc`` and
+``dec`` hold every leaf stacked over their layers, ``enc_norm`` ends the
+encoder.  Prefill computes each decoder layer's cross-attention K/V once
+and keeps them, stacked, for every decode step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import layers as L
+from .layers import KVCache
+from .spec import ModelConfig, torch_dtype
+from .transformer import layer_slice
+
+
+class EncDecCaches(NamedTuple):
+    self_kv: KVCache          # stacked over decoder layers: [Ld,B,S_max,KV,Dh]
+    cross_k: torch.Tensor     # [Ld, B, F, KV, Dh]
+    cross_v: torch.Tensor
+
+
+def encode(cfg: ModelConfig, params, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """enc_embeds [B, F, D] (the stub frontend's output) -> encoder states."""
+    if enc_embeds.ndim != 3 or enc_embeds.shape[-1] != cfg.d_model:
+        raise ValueError(f"{cfg.name}: enc_embeds [B, F, {cfg.d_model}] "
+                         f"expected, got {list(enc_embeds.shape)}")
+    x = enc_embeds.to(torch_dtype(cfg.dtype))
+    for i in range(cfg.n_enc_layers):
+        bp = layer_slice(params["enc"], i)
+        h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+        x = x + L.attention(bp["attn"], cfg, h, causal=False)
+        h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        x = x + L.mlp(bp["mlp"], h)
+    return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_block(cfg: ModelConfig, bp, x: torch.Tensor, enc_k: torch.Tensor,
+               enc_v: torch.Tensor, cache=None, s_max=None):
+    """One decoder layer: prefill when ``cache`` is None (a cache padded to
+    ``s_max`` comes back), else one decode step that writes into
+    ``cache`` in place."""
+    h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    if cache is None:
+        h, cache = L.attention_prefill(bp["attn"], cfg, h, s_max)
+    else:
+        h, cache = L.attention_decode(bp["attn"], cfg, h, cache)
+    x = x + h
+    h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
+    x = x + L.cross_attention(bp["xattn"], cfg, h, enc_k, enc_v)
+    h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h), cache
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
+            enc_embeds: torch.Tensor, s_max: int):
+    """tokens [B, S], enc_embeds [B, F, D] -> (last-token logits [B, V],
+    :class:`EncDecCaches`)."""
+    enc = encode(cfg, params, enc_embeds)
+    x = L.embed(params, cfg, tokens)
+    B, F = enc.shape[:2]
+    # each layer's cross K/V go straight into the stacked buffers that
+    # decode reads, so they are never held twice
+    shape = (cfg.n_layers, B, F, cfg.n_kv_heads, cfg.d_head)
+    cross_k, cross_v = enc.new_empty(shape), enc.new_empty(shape)
+    kvs = []
+    for i in range(cfg.n_layers):
+        bp = layer_slice(params["dec"], i)
+        cross_k[i], cross_v[i] = L.encode_kv(bp["xattn"], cfg, enc)
+        x, kv = _dec_block(cfg, bp, x, cross_k[i], cross_v[i], s_max=s_max)
+        kvs.append(kv)
+    logits = L.unembed(params, cfg, x[:, -1:])
+    self_kv = KVCache(k=torch.stack([c.k for c in kvs]),
+                      v=torch.stack([c.v for c in kvs]),
+                      length=kvs[0].length)
+    return logits[:, 0], EncDecCaches(self_kv=self_kv, cross_k=cross_k,
+                                      cross_v=cross_v)
+
+
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
+                caches: EncDecCaches):
+    """token [B] -> (logits [B, V], caches advanced by one position; the
+    self-attention caches are written in place)."""
+    x = L.embed(params, cfg, token[:, None])
+    kv = caches.self_kv
+    for i in range(cfg.n_layers):
+        bp = layer_slice(params["dec"], i)
+        x, _ = _dec_block(cfg, bp, x, caches.cross_k[i], caches.cross_v[i],
+                          cache=KVCache(k=kv.k[i], v=kv.v[i],
+                                        length=kv.length))
+    logits = L.unembed(params, cfg, x)
+    return logits[:, 0], caches._replace(
+        self_kv=KVCache(k=kv.k, v=kv.v, length=kv.length + 1))

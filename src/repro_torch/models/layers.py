@@ -3,9 +3,10 @@
 Every function takes the parameter sub-tree (a dict of tensors under the
 JAX package's names) and casts weights to the activation dtype at use, as
 the JAX code does; a weight already in that dtype is not copied.  RMSNorm
-and prefill attention go through the port's CUDA kernels (:mod:`..kernels.
-ops`); the dense projections stay plain ``torch.matmul``, as the JAX package
-leaves them to XLA.
+and every full-sequence attention (prefill, the encoder, cross-attention)
+go through the port's CUDA kernels (:mod:`..kernels.ops`); the dense
+projections stay plain ``torch.matmul``, as the JAX package leaves them to
+XLA, and so does single-token decode attention over the cache.
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, rope: bool = True):
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -81,29 +82,40 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _no_window(window: int) -> None:
-    if window > 0:
-        raise NotImplementedError(
-            f"sliding-window attention (window {window}) is not ported yet "
-            f"(ROADMAP.md, queue 1, item 2)")
+def _self_attention(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool,
+                    rope: bool, window: int):
+    """Attention of ``x`` [B,S,D] over itself through the kernel; returns
+    (out [B,S,D], k, v)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _project_qkv(p, cfg, x, positions, rope)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window)
+    return _out_proj(out, p["wo"]), k, v
+
+
+def attention(p, cfg: ModelConfig, x: torch.Tensor, *, causal: bool = True,
+              rope: bool = True, window: int = 0) -> torch.Tensor:
+    """Full-sequence attention (the whisper encoder: ``causal=False``, RoPE
+    over frame positions).  x: [B,S,D]."""
+    out, _, _ = _self_attention(p, cfg, x, causal=causal, rope=rope,
+                                window=window)
+    return out
 
 
 def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor, s_max: int, *,
                       window: int = 0) -> Tuple[torch.Tensor, KVCache]:
     """Causal prefill (Sq == Sk, through the flash-attention kernel) that
     also returns a KV cache padded to ``s_max``."""
-    _no_window(window)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True)
-    out = _out_proj(out, p["wo"])
+    out, k, v = _self_attention(p, cfg, x, causal=True, rope=True,
+                                window=window)
     kc = k.new_zeros((B, s_max) + k.shape[2:])
     vc = v.new_zeros((B, s_max) + v.shape[2:])
     kc[:, :S] = k
@@ -132,18 +144,43 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: KVCache, *,
 
     Writes the new K/V row into ``cache`` at ``length`` *in place* (the JAX
     code returns an updated copy; updating in place keeps one cache alive),
-    then attends over all ``S_max`` slots with ``j <= length``.
+    then attends over all ``S_max`` slots with ``j <= length`` (and ``j >
+    length - window`` for a window > 0).
     """
-    _no_window(window)
     B = x.shape[0]
     pos = torch.full((B, 1), cache.length, dtype=torch.long, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, pos)
     cache.k[:, cache.length] = k[:, 0].to(cache.k.dtype)
     cache.v[:, cache.length] = v[:, 0].to(cache.v.dtype)
-    valid = torch.arange(cache.k.shape[1], device=x.device) <= cache.length
+    j = torch.arange(cache.k.shape[1], device=x.device)
+    valid = j <= cache.length
+    if window > 0:
+        valid &= j > cache.length - window
     out = _sdpa_masked(q, cache.k, cache.v, valid)
     out = _out_proj(out, p["wo"])
     return out, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+
+
+def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder-to-encoder attention (whisper), through the kernel: no RoPE,
+    no mask.  x: [B,S,D]; enc_k, enc_v: [B,F,KV,Dh] -> [B,S,D]."""
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    out = ops.flash_attention(q.contiguous(), enc_k.contiguous(),
+                              enc_v.contiguous(), causal=False)
+    return _out_proj(out, p["wo"])
+
+
+def encode_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
+    """Cross-attention K and V of the encoder states: [B,F,KV,Dh] each."""
+    k = _proj(enc_out, p["wk"])
+    v = _proj(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(enc_out.dtype)
+        v = v + p["bv"].to(enc_out.dtype)
+    return k, v
 
 
 # -------------------------------------------------------------- SwiGLU MLP

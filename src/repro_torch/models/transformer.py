@@ -1,5 +1,8 @@
 """Decoder-only LM assembly in PyTorch (counterpart of
-``repro.models.transformer``) for the dense, MoE, SSM and hybrid families.
+``repro.models.transformer``) for the dense, MoE, SSM, hybrid and VLM
+families.  A VLM (phi-3-vision) projects its image embeddings with
+``mm_proj`` and puts them ahead of the token embeddings; decode positions
+then continue after both.
 
 Layers come in repeating blocks (the config's ``layer_pattern``; one
 ``attn`` layer for homogeneous transformers, one ``mamba`` layer for
@@ -24,16 +27,12 @@ from .ssd import SSMCache, ssm_decode, ssm_prefill
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run."""
-    if cfg.is_encoder_decoder or cfg.n_img_tokens > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and VLM models are not ported yet "
-            f"(ROADMAP.md, queue 1, item 4)")
+    """Raise for a layer kind other than 'attn' and 'mamba' (the reference
+    would build an SSM layer for it without a word)."""
     if any(kind not in ("attn", "mamba") for kind in cfg.pattern):
         raise NotImplementedError(
             f"{cfg.name}: layer pattern {cfg.pattern} has a kind other "
             f"than 'attn' and 'mamba'")
-    L._no_window(cfg.sliding_window)
 
 
 def _layer_is_moe(cfg: ModelConfig, global_idx: int) -> bool:
@@ -46,12 +45,16 @@ def _has_ffn(cfg: ModelConfig) -> bool:
     return cfg.d_ff > 0 or cfg.n_experts > 0
 
 
+def layer_slice(tree, i: int):
+    """Entry ``i`` of every leaf of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def block_params(params, i: int):
     """Block ``i`` of the stacked ``blocks`` tree (views, no copies)."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[i]
-    return take(params["blocks"])
+    return layer_slice(params["blocks"], i)
 
 
 def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int) -> torch.Tensor:
@@ -120,10 +123,27 @@ def _advance(c: Cache) -> Cache:
     return KVCache(k=c.k, v=c.v, length=c.length + 1)
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int):
-    """tokens: [B, S] -> (last-token logits [B, V], caches)."""
-    check_supported(cfg)
+def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 img_embeds=None) -> torch.Tensor:
+    """Token embeddings [B,S,D], after the projected image embeddings
+    [B,n_img,D] for a VLM (``einsum('bnd,de->bne')`` with ``mm_proj``)."""
     x = L.embed(params, cfg, tokens)
+    if cfg.n_img_tokens <= 0:
+        return x
+    want = [tokens.shape[0], cfg.n_img_tokens, cfg.d_model]
+    got = None if img_embeds is None else list(img_embeds.shape)
+    if got != want:
+        raise ValueError(f"{cfg.name}: img_embeds {want} expected, got {got}")
+    img = img_embeds.to(x.dtype) @ params["mm_proj"].to(x.dtype)
+    return torch.cat([img, x], dim=1)
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int,
+            img_embeds=None):
+    """tokens: [B, S] (after ``img_embeds`` [B, n_img, D] for a VLM) ->
+    (last-token logits [B, V], caches over all n_img + S positions)."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, params, tokens, img_embeds)
     per_block = []
     for i in range(cfg.n_blocks):
         x, c = _block_prefill(cfg, block_params(params, i), x, s_max)

@@ -116,23 +116,38 @@ def test_shape_rule_and_pod_fields_are_copies():
     assert tderive.tier0_group(tderive.PodSpec(topology="two_tier")) == 4
 
 
-def test_harness_shapes_are_built_on_the_card():
+def test_harness_shapes_are_built_on_the_card(fixed_measurers):
     """Every registry entry that the harness accepts meets the CUDA
     kernels' build rules at its measured shapes: flash_attention is built
-    for head dims 64 and 128, and the bf16 grouped_matmul needs D and F
-    divisible by 8."""
+    for head dims 64, 96 and 128, and the bf16 grouped_matmul needs D and F
+    divisible by 8.  whisper-medium and phi-3-vision-4.2b are accepted or
+    refused exactly as ``repro.workloads.calibrate`` accepts or refuses
+    them (the same fixed measurements in both: the same JSON), and
+    phi-3-vision's attention slice (Dh 96) is measured on the CPU."""
+    assert ops.ATTN_HEAD_DIMS == (64, 96, 128)
     for a in configs.list_archs():
         cfg = configs.get_config(a)
         spec = configs.SHAPES["decode_32k"]
         pod = tderive.resolve_pod(tderive.PodSpec(), cfg, spec.kind)
         phases, _ = tcal._phase_rooflines(cfg, spec, pod)
         if "attn_mixer" in phases:
-            assert tcal.slice_shape(cfg, "attn_mixer")[-1] in (64, 128), a
+            assert tcal.slice_shape(cfg, "attn_mixer")[-1] in \
+                ops.ATTN_HEAD_DIMS, a
         for phase in {"moe_ffn", "dense_ffn"} & set(phases):
             _, D, F, _ = tcal.slice_shape(cfg, phase)
             ops.check_gmm_bf16_shape(D, F)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tcal.calibrate("phi-3-vision-4.2b", "decode_32k", device="cpu")
+    for arch in ("whisper-medium", "phi-3-vision-4.2b"):
+        theirs = _outcome(lambda: jcal.calibrate(
+            arch, "decode_32k", n_gpus=16).to_json())
+        ours = _outcome(lambda: tcal.calibrate(
+            arch, "decode_32k", n_gpus=16, device="cpu").to_json())
+        assert ours == theirs, arch
+    cfg = configs.get_config("phi-3-vision-4.2b")
+    assert tcal.slice_shape(cfg, "attn_mixer")[-1] == 96
+    wall, flops, kernels = tcal._measure_attn_mixer(cfg, 1,
+                                                    torch.device("cpu"))
+    assert wall > 0 and flops > 0
+    assert kernels == ("rmsnorm", "flash_attention")
 
 
 # ------------------------------------------- calibrate: identical JSON

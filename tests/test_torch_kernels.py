@@ -68,6 +68,8 @@ ATTN_SHAPES = [
     (1, 128, 128, 4, 4, 64, True),
     (2, 256, 256, 8, 2, 64, True),      # GQA group=4
     (2, 128, 128, 4, 4, 128, False),    # bidirectional
+    (1, 128, 128, 4, 4, 96, True),      # phi-3-vision's head dim
+    (2, 128, 256, 4, 2, 96, False),     # cross-attention: Sq != Sk
 ]
 
 
@@ -95,6 +97,29 @@ def test_flash_attention_rejects_causal_offset():
         ref.flash_attention_ref(q, kv, kv, causal=True)
     # bidirectional attention takes any Sk
     assert ops.flash_attention(q, kv, kv, causal=False).shape == q.shape
+
+
+def test_flash_attention_window_rules():
+    """A window needs causal attention and is not negative; a window that
+    covers the sequence changes nothing, and window 1 attends to the
+    diagonal alone (out = v of the row's own key)."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 40, 4, 16),
+                                                    np.float32))
+               for _ in range(3))
+    for kw in (dict(causal=False, window=8), dict(causal=True, window=-1)):
+        with pytest.raises(ValueError, match="window"):
+            ops.flash_attention(q, k, v, **kw)
+        with pytest.raises(ValueError, match="window"):
+            ref.flash_attention_ref(q, k, v, **kw)
+    full = ops.flash_attention(q, k, v, causal=True)
+    for w in (40, 1000):
+        torch.testing.assert_close(
+            ops.flash_attention(q, k, v, causal=True, window=w), full,
+            rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=True, window=1), v,
+        rtol=2e-5, atol=2e-5)
 
 
 # ----------------------------------------------------------- grouped matmul
@@ -282,4 +307,33 @@ def test_cuda_kernels_match_plain():
         torch.testing.assert_close(ops.flash_attention(q, k, v),
                                    ref.flash_attention_ref(q, k, v),
                                    rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_window_and_head_dim_96():
+    """The CUDA flash_attention at head dim 96, with windows (1, not a
+    multiple of the 64-key tile, past the sequence) and non-causal with
+    Sq != Sk, against its plain version, in f32 and bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100: "
+                    "python3 chip_smoke.py covers the same checks)")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(2, 129, 129, 8, 4, 96, True, 0),
+             (2, 129, 77, 8, 4, 96, False, 0),
+             (1, 300, 300, 4, 2, 96, True, 100),
+             (2, 300, 300, 8, 2, 64, True, 1),
+             (1, 257, 257, 8, 1, 128, True, 65),
+             (1, 200, 200, 4, 4, 96, True, 1000)]
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for B, Sq, Sk, H, KV, Dh, causal, window in cases:
+            q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, Sk, KV, Dh, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, Sk, KV, Dh, generator=gen, device=dev).to(dt)
+            torch.testing.assert_close(
+                ops.flash_attention(q, k, v, causal=causal, window=window),
+                ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window),
+                rtol=tol, atol=tol)
     torch.cuda.synchronize()

@@ -26,6 +26,7 @@ from repro.models import layers as jL  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models.base import set_logical_rules  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import api, layers as L, moe  # noqa: E402
 from repro_torch.models.spec import ModelConfig  # noqa: E402
 from repro_torch.models.transformer import block_params  # noqa: E402
@@ -81,12 +82,11 @@ def _block0(tree):
 
 
 def test_registry_copies_reference_configs():
-    """The port's ModelConfig and registry entries are copies of the JAX
-    ones."""
-    assert configs.list_archs() == [
-        "granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "mistral-large-123b",
-        "qwen2-1.5b", "qwen3-14b", "qwen3-1.7b", "jamba-1.5-large-398b",
-        "mamba2-780m"]
+    """The port's ModelConfig and registry are copies of the JAX ones: the
+    same architectures in the same order, each entry (full and smoke) field
+    for field; an unknown name raises."""
+    assert configs.list_archs() == jconfigs.list_archs()
+    assert len(configs.list_archs()) == 10
     for arch in configs.list_archs():
         for get in ("get_config", "get_smoke_config"):
             ours = getattr(configs, get)(arch)
@@ -94,9 +94,8 @@ def test_registry_copies_reference_configs():
             assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert [f.name for f in dataclasses.fields(ModelConfig)] == [
         f.name for f in dataclasses.fields(type(theirs))]
-    for arch in ("whisper-medium", "phi-3-vision-4.2b"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            configs.get_config(arch)
+    with pytest.raises(ValueError, match="unknown architecture"):
+        configs.get_config("gpt-2")
     assert configs.SHAPES.keys() == jconfigs.SHAPES.keys()
     for name, spec in jconfigs.SHAPES.items():
         assert dataclasses.asdict(configs.SHAPES[name]) == \
@@ -183,7 +182,8 @@ def test_prefill_and_decode_match_reference(arch):
 
     lj, cj = jax.jit(lambda p, t: japi.prefill(jcfg, p, {"inputs": t},
                                                s_max))(jp, jnp.asarray(tokens))
-    lt, ct = api.prefill(cfg, tp, torch.from_numpy(tokens), s_max)
+    lt, ct = api.prefill(cfg, tp, {"inputs": torch.from_numpy(tokens)},
+                         s_max)
     np.testing.assert_allclose(_np(lt), np.asarray(lj), **LOGIT_TOL)
     np.testing.assert_allclose(_np(ct["l0"].k), np.asarray(cj["l0"].k),
                                **LOGIT_TOL)
@@ -223,13 +223,127 @@ def test_decode_agrees_with_prefill_over_generated_tokens():
 
 
 def test_unported_families_raise():
-    """Encoder-decoder, VLM and sliding-window attention still raise,
-    naming their ROADMAP item."""
-    cfgs = [_cfgs(arch)[1] for arch in ("whisper-medium", "phi-3-vision-4.2b")]
-    cfgs.append(_cfgs("granite-moe-1b-a400m")[1].replace(sliding_window=16))
-    for cfg in cfgs:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    """What the port still refuses: a layer kind other than 'attn' and
+    'mamba' (init, the module and prefill raise); a VLM prefill without its
+    image embeddings; a window on non-causal attention."""
+    _, cfg = _cfgs("granite-moe-1b-a400m")
+    odd = cfg.replace(layer_pattern=("attn", "conv"))
+    with pytest.raises(NotImplementedError, match="'conv'"):
+        api.init(odd, torch.Generator().manual_seed(0), device="cpu")
+    params = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError, match="other than 'attn'"):
+        api.CausalLM(odd, params)
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="other than 'attn'"):
+        api.prefill(odd, params, {"inputs": tokens}, 8)
+    _, vlm = _cfgs("phi-3-vision-4.2b")
+    model = api.CausalLM.random(vlm, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="img_embeds"):
+        model.prefill(torch.zeros(2, 4, dtype=torch.long), 16)
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, causal=False, window=4)
+
+
+# ------------------------------------------------------------ VLM (phi-3)
+def test_vlm_prefill_and_decode_match_reference():
+    """phi-3-vision: the image embeddings, projected by ``mm_proj``, go
+    ahead of the prompt; the logits of prefill and of 4 decode steps (whose
+    positions continue from n_img + S) match ``repro.models.transformer``."""
+    jcfg, cfg = _cfgs("phi-3-vision-4.2b")
+    jp, tp = _params(jcfg)
+    rng = np.random.default_rng(6)
+    B, S, n_steps = 2, 12, 4
+    n_img = cfg.n_img_tokens
+    s_max = n_img + S + n_steps + 4
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    img = rng.standard_normal((B, n_img, cfg.d_model), np.float32)
+    step_tokens = rng.integers(0, cfg.vocab_size, (n_steps, B))
+
+    lj, cj = jax.jit(lambda p, t, e: japi.prefill(
+        jcfg, p, {"inputs": t, "img_embeds": e}, s_max))(
+            jp, jnp.asarray(tokens), jnp.asarray(img))
+    lt, ct = api.prefill(cfg, tp, {"inputs": torch.from_numpy(tokens),
+                                   "img_embeds": torch.from_numpy(img)},
+                         s_max)
+    np.testing.assert_allclose(_np(lt), np.asarray(lj), **LOGIT_TOL)
+    np.testing.assert_allclose(_np(ct["l0"].k), np.asarray(cj["l0"].k),
+                               **LOGIT_TOL)
+    assert ct["l0"].length == n_img + S
+    jstep = jax.jit(lambda p, t, c: japi.decode_step(jcfg, p, t, c))
+    for i in range(n_steps):
+        lj, cj = jstep(jp, jnp.asarray(step_tokens[i]), cj)
+        lt, ct = api.decode_step(cfg, tp, torch.from_numpy(step_tokens[i]),
+                                 ct)
+        np.testing.assert_allclose(_np(lt), np.asarray(lj), **LOGIT_TOL,
+                                   err_msg=f"decode step {i}")
+    assert ct["l0"].length == n_img + S + n_steps
+
+
+# ---------------------------------------------------------- sliding window
+@pytest.mark.parametrize("window", [1, 5, 16, 24, 40])
+def test_flash_attention_ref_window_matches_reference_masks(window):
+    """``ref.flash_attention_ref(window=)`` keeps the keys that
+    ``layers._causal_mask`` keeps, and equals ``layers._blocked_sdpa`` (its
+    q-chunked scan too, at q_chunk 8) within 2e-5; windows of 1, under,
+    equal to and past the 24-token sequence."""
+    jcfg, _ = _cfgs("granite-moe-1b-a400m")
+    rng = np.random.default_rng(window)
+    B, S, H, KV, Dh = 2, 24, 4, 2, 16
+    q = rng.standard_normal((B, S, H, Dh), np.float32)
+    k = rng.standard_normal((B, S, KV, Dh), np.float32)
+    v = rng.standard_normal((B, S, KV, Dh), np.float32)
+    got = _np(ref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                      causal=True, window=window))
+    for q_chunk in (S, 8):
+        want = jL._blocked_sdpa(jcfg, *map(jnp.asarray, (q, k, v)),
+                                causal=True, window=window, q_chunk=q_chunk)
+        np.testing.assert_allclose(got, np.asarray(want), **LAYER_TOL)
+    mask = np.asarray(jL._causal_mask(S, S, window))[0, 0]
+    assert mask.sum() == sum(min(i + 1, window) for i in range(S))
+    # a key the reference masks out for a row has no effect on that row
+    qi, kj = np.nonzero(~mask)
+    if len(qi):
+        v_far = v.copy()
+        v_far[:, kj[0]] += 100.0
+        after = _np(ref.flash_attention_ref(
+            *map(torch.from_numpy, (q, k, v_far)), causal=True,
+            window=window))
+        np.testing.assert_array_equal(after[:, qi[0]], got[:, qi[0]])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen3-1.7b"])
+def test_sliding_window_prefill_and_decode_match_reference(arch):
+    """``sliding_window=16`` (the smoke value of a windowed config): a
+    24-token prompt, longer than the window, then 6 decode steps that
+    carry it further, against the reference's windowed prefill and decode
+    (``_causal_mask`` and the decode length mask)."""
+    jcfg, cfg = _cfgs(arch)
+    jcfg, cfg = (c.replace(sliding_window=16) for c in (jcfg, cfg))
+    jp, tp = _params(jcfg)
+    rng = np.random.default_rng(7)
+    B, S, n_steps = 2, 24, 6
+    s_max = S + n_steps + 2
+    tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    step_tokens = rng.integers(0, cfg.vocab_size, (n_steps, B))
+    lj, cj = jax.jit(lambda p, t: japi.prefill(jcfg, p, {"inputs": t},
+                                               s_max))(jp, jnp.asarray(tokens))
+    lt, ct = api.prefill(cfg, tp, {"inputs": torch.from_numpy(tokens)},
+                         s_max)
+    np.testing.assert_allclose(_np(lt), np.asarray(lj), **LOGIT_TOL)
+    jstep = jax.jit(lambda p, t, c: japi.decode_step(jcfg, p, t, c))
+    for i in range(n_steps):
+        lj, cj = jstep(jp, jnp.asarray(step_tokens[i]), cj)
+        lt, ct = api.decode_step(cfg, tp, torch.from_numpy(step_tokens[i]),
+                                 ct)
+        np.testing.assert_allclose(_np(lt), np.asarray(lj), **LOGIT_TOL,
+                                   err_msg=f"decode step {i}")
+    # the window changes the answer: without it the logits differ
+    full, _ = api.prefill(cfg.replace(sliding_window=0), tp,
+                          {"inputs": torch.from_numpy(tokens)}, s_max)
+    windowed, _ = api.prefill(cfg, tp, {"inputs": torch.from_numpy(tokens)},
+                              s_max)
+    assert float((full - windowed).abs().max()) > 1e-3
 
 
 def test_serve_cli_smoke_cpu(capsys):
@@ -241,3 +355,16 @@ def test_serve_cli_smoke_cpu(capsys):
     assert "tok/s" in out
     seq = out.split("sequence 0:")[1].strip()
     assert len(json.loads(seq)) == 3
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "qwen3-1.7b"])
+def test_serve_cli_vlm_and_dense_smoke_cpu(arch, capsys):
+    """The CLI at smoke size: phi-3-vision gets seeded image embeddings
+    and its cache holds them (n_img + prompt + tokens + 8 slots)."""
+    from repro_torch.launch import serve
+    rc = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                     "--batch", "2", "--prompt-len", "8", "--tokens", "3"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "tok/s" in out
+    assert ("img_embeds [2, 8, 64]" in out) == arch.startswith("phi")
+    assert len(json.loads(out.split("sequence 0:")[1].strip())) == 3

@@ -290,7 +290,8 @@ def test_prefill_and_decode_match_reference(arch):
 
     lj, cj = jax.jit(lambda p, t: japi.prefill(jcfg, p, {"inputs": t},
                                                s_max))(jp, jnp.asarray(tokens))
-    lt, ct = api.prefill(cfg, tp, torch.from_numpy(tokens), s_max)
+    lt, ct = api.prefill(cfg, tp, {"inputs": torch.from_numpy(tokens)},
+                         s_max)
     np.testing.assert_allclose(_np(lt), np.asarray(lj), **SSD_TOL)
     jstep = jax.jit(lambda p, t, c: japi.decode_step(jcfg, p, t, c))
     for i in range(n_steps):
