@@ -58,7 +58,27 @@ exits non-zero:
     have launched its kernels 21 times.  A window is device time (events
     queued behind a spin kernel): 2 ms of host time before an empty launch
     must stay out of it.  The time of an empty launch, taken the same way,
-    gives each window's launch share.
+    gives each window's launch share;
+(f) training on the card.  The backward kernels (rmsnorm_bwd,
+    flash_attention_bwd from the forward's row logsumexp, grouped_matmul's
+    dX through the forward kernel on W^T and grouped_matmul_dw) against
+    their plain versions (f32: 2e-5, attention 1e-4; bf16 2e-2; each
+    relative to max|ref|) at granite's training shapes, qwen3-1.7b's Dh
+    128, phi-3's Dh 96, the whisper encoder and its cross-attention, a
+    window at jamba's head layout and tile edges (S off the tiles, experts
+    with no rows, uncovered rows: zero dX, nothing in dW); each twice, bit
+    for bit; the forward with the logsumexp equal to the forward without
+    it, bit for bit; ssd_chunk with an operand that requires grad raises.
+    Times of each backward kernel, its plain version, one PyTorch call
+    (SDPA's backward, F.rms_norm's backward, a padded bmm) and its bound.
+    Then gradients in f32, the card against the CPU (granite cut to 2
+    layers at full width, whisper to 2 + 2): the loss and every parameter
+    leaf within 1e-4 of its max |g|, each finite and not all zero.  Then
+    granite-moe-1b-a400m trains at full width and depth through
+    ``repro_torch.runtime.Trainer`` (bf16 working params, f32 master,
+    AdamW, batch 8 x 512, remat on) for 6 steps, the first untimed: step
+    time, tokens/s, peak memory, the losses, launches per kernel against
+    the config, and one profiled step.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -97,7 +117,39 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:27",
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:25",
     "ssd_chunk": "src/repro/kernels/ssd_scan.py:28",
+    # a backward kernel computes the gradient of the TPU kernel's function
+    # (the TPU package has none: its models train through plain jnp)
+    "rmsnorm_bwd": "src/repro/kernels/rmsnorm.py:18",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:27",
+    "grouped_matmul_dx": "src/repro/kernels/grouped_matmul.py:25",
+    "grouped_matmul_dw": "src/repro/kernels/grouped_matmul.py:25",
 }
+# backward kernel -> its forward kernel, whose source file holds it
+SOURCES = {"rmsnorm_bwd": "rmsnorm", "flash_attention_bwd": "flash_attention",
+           "grouped_matmul_dx": "grouped_matmul",
+           "grouped_matmul_dw": "grouped_matmul"}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+SPIN_CYCLES = 2_000_000      # about 1 ms of spin at the H100's clocks
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash_attention_bwd checks as (B, Sq, Sk, H, KV, Dh, causal, window):
+# granite's training shape, qwen3-1.7b (Dh 128), phi-3-vision (Dh 96), the
+# whisper encoder (not causal, S 1500) and its cross-attention (224 queries
+# against 1500 frames), a window at jamba's head layout (S cut to 1024), and
+# tile edges: S off the 64- and 32-row tiles, causal and not
+ATTN_BWD = [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 64, True, 0),
+            (2, 512, 512, 16, 8, 128, True, 0),
+            (2, 768, 768, 32, 32, 96, True, 0),
+            (2, 1500, 1500, 16, 16, 64, False, 0),
+            (2, 224, 1500, 16, 16, 64, False, 0),
+            (1, 1024, 1024, 64, 8, 128, True, 256),
+            (2, 61, 61, 8, 2, 64, True, 0),
+            (1, 129, 77, 6, 3, 96, False, 0),
+            (1, 200, 200, 4, 1, 128, True, 33)]
+# rmsnorm_bwd as [T, D]: granite's training rows, qwen3-1.7b's, mamba2's,
+# qwen3's qk-norm rows, and edges (D off the vectors, few rows)
+RMS_BWD = [(TRAIN_BATCH * TRAIN_SEQ, 1024), (4096, 2048), (4096, 1536),
+           (4096 * 16, 128), (37, 1001), (5, 64)]
 # mamba2-780m's SSD at the main path's prefill: b 8, S 512, chunk 256,
 # 48 heads of P 64, N 128 -> 16 (batch, chunk) cells of 48 heads each
 SSD_MAIN = (BATCH * PROMPT // 256, 256, 48, 64, 128)
@@ -167,15 +219,21 @@ def log(phase: str, msg: str) -> None:
 
 
 # ----------------------------------------------------------------- helpers
-def timed_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
+def timed_ms(torch, fn, flush, iters: int = 20, warmup: int = 3,
+             spin: bool = False) -> float:
     """Mean device time of ``fn`` in ms, by CUDA events around each call,
-    with L2 flushed before each (the main path meets its weights cold)."""
+    with L2 flushed before each (the main path meets its weights cold).
+    With ``spin``, a spin kernel of about 1 ms is queued ahead of each
+    start event, so that the host's dispatch of a call made of many
+    launches (an autograd backward) stays out of its window."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -225,9 +283,10 @@ def random_offsets(torch, gen, T: int, E: int, top_k: int = 8):
 def expected_launches(cfg, n_tokens: int):
     """Kernel launches for one prefill and n_tokens - 1 decode steps.  An
     image prefix changes no count (a launch covers every position)."""
+    from repro_torch.kernels import ops
     from repro_torch.models.transformer import _has_ffn, _layer_is_moe
-    want = {"rmsnorm": n_tokens, "flash_attention": 0, "grouped_matmul": 0,
-            "ssd_chunk": 0}                           # final norm each token
+    want = {name: 0 for name in ops.KERNEL_NAMES}
+    want["rmsnorm"] = n_tokens                        # final norm each token
     if cfg.is_encoder_decoder:
         qk = 2 if cfg.qk_norm else 0
         # encoder, prefill only: ln1 (+ qk-norm), ln2, attention; enc_norm
@@ -253,6 +312,31 @@ def expected_launches(cfg, n_tokens: int):
                 want["grouped_matmul"] += 3 * n_tokens
         want["rmsnorm"] += norms * n_tokens
     return want
+
+
+def expected_train_launches(cfg, steps: int):
+    """Kernel launches of ``steps`` training steps of an attention model:
+    each layer's forward kernels run twice with remat (the forward, then
+    again in the backward pass), each backward kernel once; the final norm
+    is outside the remat."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import _has_ffn, _layer_is_moe
+    per = {name: 0 for name in ops.KERNEL_NAMES}
+    per["rmsnorm"] = per["rmsnorm_bwd"] = 1           # the final norm
+    again = 2 if cfg.remat else 1
+    for i in range(cfg.n_layers):
+        norms = 1 + (2 if cfg.qk_norm else 0)         # ln1 (+ qk-norm)
+        per["flash_attention"] += again
+        per["flash_attention_bwd"] += 1
+        if _has_ffn(cfg):
+            norms += 1                                # ln2
+            if _layer_is_moe(cfg, i % cfg.block_size):
+                per["grouped_matmul"] += 3 * again
+                per["grouped_matmul_dx"] += 3
+                per["grouped_matmul_dw"] += 3
+        per["rmsnorm"] += norms * again
+        per["rmsnorm_bwd"] += norms
+    return {name: n * steps for name, n in per.items()}
 
 
 def ssd_inputs(torch, gen, BC: int, Q: int, H: int, P: int, N: int):
@@ -704,7 +788,8 @@ def time_new_attention(torch, ops, ref, dev):
 
 
 # ------------------------------------------------------------ phase (c)
-def profile_window(torch, fn, wall_ms: float, label: str) -> None:
+def profile_window(torch, fn, wall_ms: float, label: str,
+                   phase: str = "c") -> None:
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -724,14 +809,15 @@ def profile_window(torch, fn, wall_ms: float, label: str) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
-        log("c", f"profile {label}: wall {wall_ms:.3f} ms (unprofiled), "
+        log(phase, f"profile {label}: wall {wall_ms:.3f} ms (unprofiled), "
             f"device time not measured (the profiler saw no kernel)")
         return
-    log("c", f"profile {label}: wall {wall_ms:.3f} ms (unprofiled), kernels "
-        f"{busy:.3f} ms in {sum(r[1] for r in rows)} launches (profiled "
-        f"run), device idle {max(0.0, 1 - busy / wall_ms) * 100:.1f}%")
+    log(phase, f"profile {label}: wall {wall_ms:.3f} ms (unprofiled), "
+        f"kernels {busy:.3f} ms in {sum(r[1] for r in rows)} launches "
+        f"(profiled run), device idle "
+        f"{max(0.0, 1 - busy / wall_ms) * 100:.1f}%")
     for t, n, key in rows[:12]:
-        log("c", f"  {t:10.3f} ms {n:6d}x {key[:90]}")
+        log(phase, f"  {t:10.3f} ms {n:6d}x {key[:90]}")
 
 
 def main_path(torch, dev, arch: str):
@@ -976,6 +1062,364 @@ def calibration_profiles(torch, dev):
     return total
 
 
+# ------------------------------------------------------------ phase (f)
+def compare_rel(name: str, got, want, tol: float):
+    """max |got - want| within ``tol`` times max |want|; returns (max abs
+    err, that err over max |want|)."""
+    want = want.float()
+    scale = max(float(want.abs().max()), 1e-30) if want.numel() else 1.0
+    err = float((got.float() - want).abs().max()) if want.numel() else 0.0
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max err {err:.3e} exceeds {tol} x "
+                             f"max|ref| {scale:.3e}")
+    return err, err / scale
+
+
+def same_bits(torch, name: str, a, b) -> None:
+    """Two calls' outputs (tuples of tensors) equal bit for bit."""
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two calls differ")
+
+
+def check_backward_kernels(torch, ops, ref, dev):
+    """Phase (f): each backward kernel against its plain version (and
+    twice, bit for bit), the LSE forward against the plain forward kernel
+    bit for bit, and the ssd_chunk guard.  Its own generator (seed 9).
+    Returns the errors at granite's bf16 training shapes."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    errs = {}
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for T, D in RMS_BWD:
+            x, dy = randn(T, D, dtype=dt), randn(T, D, dtype=dt)
+            w = randn(D, dtype=torch.float32)
+            got = ops.rmsnorm_bwd(x, w, dy, 1e-6)
+            want = ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6)
+            e, r = map(max, zip(*(
+                compare_rel(f"rmsnorm_bwd {n} [{T},{D}] {dname}", g, w_,
+                            BWD_TOL[dname])
+                for n, g, w_ in zip(("dx", "dw"), got, want))))
+            same_bits(torch, f"rmsnorm_bwd [{T},{D}] {dname}", got,
+                      ops.rmsnorm_bwd(x, w, dy, 1e-6))
+            log("f", f"rmsnorm_bwd [{T},{D}] {dname}: max_abs_err {e:.3e}, "
+                f"err/max|ref| {r:.3e} (tol {BWD_TOL[dname]}); "
+                f"deterministic")
+            if dname == "bfloat16" and (T, D) == RMS_BWD[0]:
+                errs["rmsnorm_bwd"] = e
+            del x, dy, got, want
+        for shape in ATTN_BWD:
+            B, Sq, Sk, H, KV, Dh, causal, window = shape
+            q, do = randn(B, Sq, H, Dh, dtype=dt), randn(B, Sq, H, Dh, dtype=dt)
+            k, v = randn(B, Sk, KV, Dh, dtype=dt), randn(B, Sk, KV, Dh, dtype=dt)
+            kw = dict(causal=causal, window=window)
+            o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+            if not torch.equal(o, ops.flash_attention_fwd(q, k, v, **kw)[0]):
+                raise AssertionError(f"flash_attention {shape}: the forward "
+                                     f"with the LSE differs")
+            got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+            e, r = map(max, zip(*(
+                compare_rel(f"flash_attention_bwd {n} {shape} {dname}", g,
+                            w_, ATTN_BWD_TOL[dname])
+                for n, g, w_ in zip(("dq", "dk", "dv"), got, want))))
+            same_bits(torch, f"flash_attention_bwd {shape} {dname}", got,
+                      ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+            log("f", f"flash_attention_bwd {shape} {dname}: max_abs_err "
+                f"{e:.3e}, err/max|ref| {r:.3e} (tol {ATTN_BWD_TOL[dname]}); "
+                f"deterministic; the LSE forward equals the forward bit for "
+                f"bit")
+            if dname == "bfloat16" and shape == ATTN_BWD[0]:
+                errs["flash_attention_bwd"] = e
+            del q, k, v, do, o, lse, got, want
+        cases = []
+        for T, D, Fo in ((TRAIN_BATCH * TRAIN_SEQ * 8, 1024, 512),
+                         (TRAIN_BATCH * TRAIN_SEQ * 8, 512, 1024)):
+            cases.append((f"training [{T},{D}]x[32,{D},{Fo}]", T, D, Fo, 32,
+                          random_offsets(torch, gen, T, 32), True))
+        # an uncovered head of 5 rows, experts with no rows, groups off
+        # the 32-row steps, an uncovered tail; D and F off the 64 tiles
+        edge = [5, 5, 6, 38, 38, 171, 300]
+        cases.append((f"edges {edge}", 310, 136, 200, 6,
+                      torch.tensor(edge, dtype=torch.int32, device=dev),
+                      False))
+        cases.append(("all rows uncovered", 64, 64, 64, 3,
+                      torch.zeros(4, dtype=torch.int32, device=dev), False))
+        for label, T, D, Fo, E, offs, main in cases:
+            lhs, dy = randn(T, D, dtype=dt), randn(T, Fo, dtype=dt)
+            rhs = (randn(E, D, Fo, dtype=torch.float32) / math.sqrt(D)).to(dt)
+            got = ops.grouped_matmul_bwd(lhs, rhs, offs, dy)
+            want = ref.grouped_matmul_bwd_ref(lhs, rhs, offs, dy)
+            e_dx, r_dx = compare_rel(f"grouped_matmul_dx {label} {dname}",
+                                     got[0], want[0], BWD_TOL[dname])
+            e_dw, r_dw = compare_rel(f"grouped_matmul_dw {label} {dname}",
+                                     got[1], want[1], BWD_TOL[dname])
+            same_bits(torch, f"grouped_matmul bwd {label} {dname}", got,
+                      ops.grouped_matmul_bwd(lhs, rhs, offs, dy))
+            lo, hi = int(offs[0]), int(offs[-1])
+            counts = (offs[1:] - offs[:-1]).tolist()
+            if bool((got[0][:lo] != 0).any()) or bool(
+                    (got[0][hi:] != 0).any()):
+                raise AssertionError(f"grouped_matmul_dx {label}: uncovered "
+                                     f"rows are not zero")
+            if any(bool((got[1][e] != 0).any())
+                   for e, n in enumerate(counts) if n <= 0):
+                raise AssertionError(f"grouped_matmul_dw {label}: an expert "
+                                     f"with no rows is not zero")
+            log("f", f"grouped_matmul bwd {label} {dname}: dX max_abs_err "
+                f"{e_dx:.3e} (err/max|ref| {r_dx:.3e}), dW {e_dw:.3e} "
+                f"({r_dw:.3e}) (tol {BWD_TOL[dname]}); "
+                f"uncovered rows {lo + T - hi} (zero dX), experts with no "
+                f"rows {sum(1 for n in counts if n <= 0)} (zero dW); "
+                f"deterministic")
+            if dname == "bfloat16" and main:
+                errs["grouped_matmul_dx"] = max(
+                    errs.get("grouped_matmul_dx", 0.0), e_dx)
+                errs["grouped_matmul_dw"] = max(
+                    errs.get("grouped_matmul_dw", 0.0), e_dw)
+            del lhs, dy, rhs, got, want
+    # ssd_chunk has no backward kernel: with grad it must raise on the card
+    x = torch.randn(2, 16, 3, 8, device=dev, requires_grad=True)
+    dt_ = torch.rand(2, 16, 3, device=dev)
+    Bm = torch.randn(2, 16, 4, device=dev)
+    try:
+        ops.ssd_chunk(x, dt_, -dt_, Bm, Bm)
+    except RuntimeError as err:
+        log("f", f"ssd_chunk with requires_grad on the card raises "
+            f"RuntimeError ({str(err)[:60]}...)")
+    else:
+        raise AssertionError("ssd_chunk with requires_grad did not raise")
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_backward_kernels(torch, ops, ref, dev):
+    """Times of the backward kernels at granite's training shapes, bf16:
+    kernel, plain version, one PyTorch call computing the same function
+    (backward alone, from a graph kept for it), and the bound.  Device
+    time: each window opens behind a spin kernel (``timed_ms``)."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(10)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    bf, es = torch.bfloat16, 2
+    out = {}
+
+    def record(name, shape, fn, plain, lib, nbytes, flops, dtype="bfloat16"):
+        ms = timed_ms(torch, fn, flush, spin=True)
+        plain_ms = timed_ms(torch, plain, flush, iters=5, warmup=1, spin=True)
+        lib_ms = (timed_ms(torch, lib, flush, spin=True) if lib is not None
+                  else None)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        log("f", f"time {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4g} ms ({b_by})")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
+
+    T, D = TRAIN_BATCH * TRAIN_SEQ, 1024
+    x = torch.randn(T, D, generator=gen, device=dev).to(bf)
+    dy = torch.randn(T, D, generator=gen, device=dev).to(bf)
+    w = torch.ones(D, device=dev)
+    xl = x.clone().requires_grad_()
+    wl = w.to(bf).requires_grad_()
+    yl = F.rms_norm(xl, (D,), wl, 1e-6)
+    out["rmsnorm_bwd"] = record(
+        "rmsnorm_bwd", f"[{T},{D}]", lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6),
+        lambda: ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6),
+        lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
+        3 * T * D * es + 8 * D, 10 * T * D)
+    del x, dy, xl, wl, yl
+
+    B, S, H, KV, Dh = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 64
+    q, do = (torch.randn(B, S, H, Dh, generator=gen, device=dev).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(H // KV, 2).transpose(1, 2).detach() \
+        .requires_grad_()
+    vt = v.repeat_interleave(H // KV, 2).transpose(1, 2).detach() \
+        .requires_grad_()
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    pairs = S * (S + 1) // 2
+    out["flash_attention_bwd"] = record(
+        "flash_attention_bwd", f"q[{B},{S},{H},{Dh}] causal",
+        lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+        lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True),
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+        # q, o, dO read and dq written at H heads; k, v read and dk, dv
+        # written at KV heads; the LSE read
+        (4 * B * S * H * Dh + 4 * B * S * KV * Dh) * es + 4 * B * H * S,
+        10 * B * H * Dh * pairs)
+    del q, do, k, v, o, lse, qt, kt, vt, ot, dot
+
+    for T, D, Fo in ((TRAIN_BATCH * TRAIN_SEQ * 8, 1024, 512),
+                     (TRAIN_BATCH * TRAIN_SEQ * 8, 512, 1024)):
+        E = 32
+        offs = random_offsets(torch, gen, T, E)
+        lhs = torch.randn(T, D, generator=gen, device=dev).to(bf)
+        dyo = torch.randn(T, Fo, generator=gen, device=dev).to(bf)
+        rhs = (torch.randn(E, D, Fo, generator=gen, device=dev)
+               / math.sqrt(D)).to(bf)
+        counts = (offs[1:] - offs[:-1]).tolist()
+        cmax = max(counts)
+        px, pdy = lhs.new_zeros(E, cmax, D), dyo.new_zeros(E, cmax, Fo)
+        for e, (lo, n) in enumerate(zip(offs[:-1].tolist(), counts)):
+            px[e, :n] = lhs[lo:lo + n]
+            pdy[e, :n] = dyo[lo:lo + n]
+        rows = int(offs[-1] - offs[0])
+        used = sum(1 for n in counts if n)
+        shape = f"[{T},{D}]x[{E},{D},{Fo}]"
+        rec = record(
+            "grouped_matmul_dx", f"dY[{T},{Fo}] W^T of {shape}",
+            lambda: ops.grouped_matmul_bwd(lhs, rhs, offs, dyo, need_dw=False),
+            lambda: ref.grouped_matmul_ref(dyo, rhs.transpose(1, 2), offs),
+            lambda: torch.bmm(pdy, rhs.transpose(1, 2)),
+            (rows * Fo + used * D * Fo + rows * D) * es + 4 * (E + 1),
+            2 * rows * D * Fo)
+        out.setdefault("grouped_matmul_dx", rec)
+        rec = record(
+            "grouped_matmul_dw", f"X^T dY of {shape}",
+            lambda: ops.grouped_matmul_dw(lhs, dyo, offs, E),
+            lambda: ref.grouped_matmul_dw_ref(lhs, dyo, offs, E),
+            lambda: torch.bmm(px.transpose(1, 2), pdy),
+            (rows * D + rows * Fo + E * D * Fo) * es + 4 * (E + 1),
+            2 * rows * D * Fo)
+        out.setdefault("grouped_matmul_dw", rec)
+        del lhs, dyo, rhs, px, pdy
+    del flush
+    return out
+
+
+def grads_card_vs_cpu(torch, dev, arch: str, B: int, S: int) -> None:
+    """f32 loss and gradients of a 2-layer full-width cut (whisper: 2
+    encoder and 2 decoder layers) on the card, through the kernels and
+    their backward kernels, against the plain path on the CPU: the loss
+    within 1e-4 relative, every leaf within 1e-4 of its max |g|, and every
+    leaf on the card finite and not all zero."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import as_trainable
+    from repro_torch.models import api
+    from repro_torch.weights import flatten, tree_map
+
+    cfg = configs.get_config(arch).replace(dtype="float32")
+    cfg = cfg.replace(n_layers=2 * cfg.block_size,
+                      n_enc_layers=min(cfg.n_enc_layers, 2))
+    params = api.init(cfg, torch.Generator().manual_seed(11), device="cpu")
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.randn(B, cfg.enc_frames, cfg.d_model,
+                                          generator=gen)
+
+    def loss_and_grads(p, b):
+        p = as_trainable(p)
+        loss, _ = api.loss_fn(cfg, p, b)
+        flat = flatten(p)
+        return loss, dict(zip(flat, torch.autograd.grad(
+            loss, list(flat.values()))))
+
+    lc, gc = loss_and_grads(params, batch)
+    ops.reset_launches()
+    lg, gg = loss_and_grads(tree_map(lambda t: t.to(dev), params),
+                            {k: t.to(dev) for k, t in batch.items()})
+    launched = {n: ops.LAUNCHES[n] for n in ops.KERNEL_NAMES
+                if ops.LAUNCHES[n]}
+    # each forward kernel the model ran has its backward kernels run too
+    if any(launched.get(SOURCES[n]) and not launched.get(n) for n in SOURCES):
+        raise AssertionError(f"{arch}: a backward kernel was not launched "
+                             f"({launched})")
+    l_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst, worst_path = 0.0, ""
+    for path, g in gg.items():
+        g = g.cpu()
+        if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0:
+            raise AssertionError(f"{arch}: gradient {path} is not finite or "
+                                 f"all zero on the card")
+        scale = max(float(gc[path].abs().max()), 1e-30)
+        e = float((g - gc[path]).abs().max()) / scale
+        if e > worst:
+            worst, worst_path = e, path
+    layers = f"{cfg.n_layers}-layer" + (
+        f" (+{cfg.n_enc_layers} encoder)" if cfg.n_enc_layers else "")
+    log("f", f"{arch} {layers} f32 batch {B}x{S}: loss {float(lg):.6f} on "
+        f"the card, {float(lc):.6f} on the CPU (rel err {l_err:.3e}); "
+        f"{len(gg)} gradient leaves, max err/max|g| {worst:.3e} "
+        f"({worst_path}), every leaf finite and non-zero (bound 1e-4); "
+        f"launches {launched}")
+    if not (l_err <= 1e-4 and worst <= 1e-4):
+        raise AssertionError(f"{arch}: card and CPU gradients disagree")
+    del params, gc, gg
+    torch.cuda.empty_cache()
+
+
+def train_path(torch, dev):
+    """granite-moe-1b-a400m at full width and depth, trained 6 steps by the
+    port's Trainer; returns the run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.weights import tree_leaves
+
+    cfg = configs.get_config(ARCH)
+    # the CLI's learning rate and the Trainer's default warm-up (10 steps)
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, peak_lr=3e-4, log_every=1)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = trainer.run()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    timed = [h["sec"] for h in hist[1:]]
+    step_s = sum(timed) / len(timed)
+    n_params = sum(t.numel() for t in tree_leaves(out["state"]["params"]))
+    log("f", f"{ARCH} train bf16 params ({n_params} of them) + f32 master, "
+        f"AdamW, batch {TRAIN_BATCH}x{TRAIN_SEQ}, remat {cfg.remat}: "
+        f"{TRAIN_STEPS} steps, step {step_s * 1e3:.1f} ms (mean of steps "
+        f"1..{TRAIN_STEPS - 1}; step 0 {hist[0]['sec'] * 1e3:.1f} ms, "
+        f"untimed), {TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, peak "
+        f"memory {peak:.2f} GiB")
+    log("f", f"{ARCH} losses {[round(x, 4) for x in losses]}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"training losses {losses}")
+    want = expected_train_launches(cfg, TRAIN_STEPS)
+    log("f", f"{ARCH} train launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+
+    state = out["state"]
+    it = trainer.batches()
+    batch = trainer.to_device(next(it))
+
+    def one_step():
+        trainer.step(state["params"], state["opt"], state["comp"], batch)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    profile_window(torch, one_step, wall,
+                   f"{ARCH} one training step, batch {TRAIN_BATCH}x"
+                   f"{TRAIN_SEQ}", phase="f")
+    del trainer, out, state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -994,6 +1438,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1024,11 +1469,26 @@ def main() -> int:
         if not any(by_path[arch][name] for arch in SERVING):
             raise AssertionError(f"{name}: no serving path launched it")
 
+    t_f = time.perf_counter()
+    errs.update(check_backward_kernels(torch, ops, ref, dev))
+    times.update(time_backward_kernels(torch, ops, ref, dev))
+    grads_card_vs_cpu(torch, dev, ARCH, 2, 64)
+    grads_card_vs_cpu(torch, dev, ENCDEC_ARCH, 2, 32)
+    by_path["train"] = train_path(torch, dev)
+    for name in SOURCES:
+        if not by_path["train"][name]:
+            raise AssertionError(f"{name}: the training path did not "
+                                 f"launch it")
+    now = time.perf_counter()
+    log("f", f"phase (f) took {now - t_f:.1f} s; (a) to (f) "
+        f"{now - t_start:.1f} s")
+
     kernels = []
-    for name in build.KERNELS:
+    for name in ops.KERNEL_NAMES:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{SOURCES.get(name, name)}.cu",
             "replaces": REPLACES[name],
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {a: c[name] for a, c in by_path.items()},

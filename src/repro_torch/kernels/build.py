@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from ``kernels/csrc`` and load them.
 
-Each ``csrc/*.cu`` has a plain C entry point (``<name>_launch``) and is
-compiled by its own ``nvcc`` into a shared library, all of them started
+Each ``csrc/*.cu`` has plain C entry points (``<entry>_launch``: the
+forward, and for rmsnorm, flash_attention and grouped_matmul a backward
+beside it) and is compiled by its own ``nvcc`` into a shared library, all of them started
 together, then loaded with :mod:`ctypes`.  No source includes PyTorch's
 headers, so the whole build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` binding costs, which matters because every
@@ -31,6 +32,12 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("rmsnorm", "flash_attention", "grouped_matmul", "ssd_chunk")
+# entry point -> the source (library) that holds it
+ENTRIES = {"rmsnorm": "rmsnorm", "rmsnorm_bwd": "rmsnorm",
+           "flash_attention": "flash_attention",
+           "flash_attention_bwd": "flash_attention",
+           "grouped_matmul": "grouped_matmul",
+           "grouped_matmul_dw": "grouped_matmul", "ssd_chunk": "ssd_chunk"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -40,11 +47,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, out, T, D, eps, dtype, stream
     "rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
-    # q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, window, dtype, stream
-    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                        _I, _P),
+    # x, w, dy, dx, dw, r, partial, T, D, eps, dtype, stream
+    "rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, scale, causal, window, dtype,
+    # stream
+    "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                        _I, _I, _P),
+    # q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk, H, KV, Dh, scale,
+    # causal, window, dtype, stream
+    "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # lhs, rhs, offsets, out, T, D, F, E, dtype, stream
     "grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # lhs, dy, offsets, dw, T, D, F, E, dtype, stream
+    "grouped_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, dt, a, B, C, y, state, BC, Q, H, P, N, stream (f32 only)
     "ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
@@ -106,17 +122,19 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                            + "\n".join(failed))
     for name in todo:
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = list(_SIGNATURES[name])
-        fn.restype = ctypes.c_int
+        for entry, src in ENTRIES.items():
+            if src == name:
+                fn = getattr(lib, f"{entry}_launch")
+                fn.argtypes = list(_SIGNATURES[entry])
+                fn.restype = ctypes.c_int
         _LIBS[name] = lib
     BUILD_SECONDS = time.perf_counter() - t0
     return _LIBS
 
 
-def launcher(name: str):
-    """The C entry point ``<name>_launch`` of a built kernel library."""
-    return getattr(build_all()[name], f"{name}_launch")
+def launcher(entry: str):
+    """The C entry point ``<entry>_launch`` of a built kernel library."""
+    return getattr(build_all()[ENTRIES[entry]], f"{entry}_launch")
 
 
 def check(name: str, rc: int) -> None:

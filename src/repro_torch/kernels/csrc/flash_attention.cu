@@ -60,8 +60,9 @@ constexpr float NEG_INF = -1e30f;
 template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, float scale, int causal, int window) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 float scale, int causal, int window) {
   constexpr int DP = DH / G;
   __shared__ float Ks[BK][DH];
   __shared__ float Vs[BK][DH];
@@ -138,6 +139,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + (((size_t)b * Sq + qi) * H + h) * DH;
 #pragma unroll
     for (int i = 0; i < DP; ++i) op[part + G * i] = rt::from_f<T>(acc[i] / denom);
+    if (lse != nullptr && part == 0)
+      lse[((size_t)b * H + h) * Sq + qi] = l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
@@ -164,8 +167,9 @@ __global__ void __launch_bounds__(MmaCfg<DH>::NW * 32, 1)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV,
-                 float scale_log2, int causal, int window) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Sk, int H, int KV, float scale_log2, int causal,
+                 int window) {
   using C = MmaCfg<DH>;
   constexpr int NT = C::NW * 32, LD = C::LD, CH = DH / 8;  // 16-byte chunks
   constexpr int MT = C::MT;
@@ -380,6 +384,13 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       lt += __shfl_xor_sync(0xffffffffu, lt, 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       inv[r] = lt > 0.f ? 1.f / lt : 0.f;
+      // the row's logsumexp (natural log) for the backward: m is in log2
+      // units of the scaled scores
+      const int p = wp + 16 * mt + g + 8 * r;
+      if (lse != nullptr && t == 0 && p < n_rows)
+        lse[((size_t)b * H + kvh * G + p % G) * Sq + p / G] =
+            lt > 0.f ? (m[mt][r] + log2f(lt)) * 0.6931471805599453f
+                     : INFINITY;
     }
 #pragma unroll
     for (int i = 0; i < DH / 8; ++i) {
@@ -400,20 +411,20 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <typename T, int DH>
-void launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-            int Sk, int H, int KV, float scale, int causal, int window,
-            cudaStream_t s) {
+void launch(const void* q, const void* k, const void* v, void* o,
+            float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
+            int causal, int window, cudaStream_t s) {
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T, DH><<<grid, NT, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, H, KV, scale,
       causal, window);
 }
 
 template <int DH>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int KV, float scale, int causal,
-               int window, cudaStream_t s) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
+               int causal, int window, cudaStream_t s) {
   using C = MmaCfg<DH>;
   static bool smem_ok = false;        // set once per instantiation
   if (!smem_ok) {
@@ -429,50 +440,394 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, H, KV, scale * 1.4426950408889634f, causal, window);
+      lse, Sq, Sk, H, KV, scale * 1.4426950408889634f, causal, window);
   return 0;
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Sk, int H, int KV, int Dh, float scale,
-                 int causal, int window, cudaStream_t s) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Sk, int H, int KV, int Dh,
+                 float scale, int causal, int window, cudaStream_t s) {
   if (Dh == 64) {
-    launch<float, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, s);
+    launch<float, 64>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                      window, s);
   } else if (Dh == 96) {
-    launch<float, 96>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, s);
+    launch<float, 96>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                      window, s);
   } else if (Dh == 128) {
-    launch<float, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window, s);
+    launch<float, 128>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                       window, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
 
-int dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                  int Sq, int Sk, int H, int KV, int Dh, float scale,
-                  int causal, int window, cudaStream_t s) {
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int Sq, int Sk, int H, int KV, int Dh,
+                  float scale, int causal, int window, cudaStream_t s) {
   if (Dh == 64)
-    return launch_mma<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
-                          s);
+    return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                          window, s);
   if (Dh == 96)
-    return launch_mma<96>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
-                          s);
+    return launch_mma<96>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                          window, s);
   if (Dh == 128)
-    return launch_mma<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
-                           s);
+    return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                           window, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+
+// ------------------------------------------------------------- backward
+// FA2's backward, with P recomputed from the forward's row logsumexp:
+//   D_i = rowsum(dO o O),  P = exp(S scale - LSE),  dV = P^T dO,
+//   dP = dO V^T,  dS = P o (dP - D),  dQ = dS K scale,  dK = dS^T Q scale.
+// A simple design that is right first, for both dtypes: FMA loops in f32
+// on f32 tiles in shared memory (bf16 operands are widened as they are
+// staged), so the f32 route never touches TF32.  Bound: at granite's
+// training shape (q [8,512,16,64], causal, bf16) 5 matmuls over the kept
+// (query, key) pairs are 10.8 GFLOP (0.011 ms on the tensor cores) and
+// q, k, v, o, dO, the LSE and dq, dk, dv are 51 MB (0.015 ms at 3.35
+// TB/s), so bytes bound it; this FMA version runs far above that bound,
+// limited by its shared-memory loads (PERF.md).  Deterministic:
+// every output element is summed by one thread in a fixed order, with no
+// atomics.  Three kernels:
+//  * D: one warp a (b, query, head) row;
+//  * dK, dV: one block per (b, kv head, 64 keys); it walks the query tiles
+//    of every q head of the GQA group in turn (those the causal mask and
+//    window can reach), so the group's sum needs no atomics;
+//  * dQ: one block per (b, head, 64 queries), walking key tiles as the
+//    forward does.
+constexpr int BWD_NT = 256;      // threads per backward block
+constexpr int KB_KEYS = 64;      // keys per dK/dV block
+constexpr int KB_Q = 32;         // query rows per step of its loop
+constexpr int QB_Q = 64;         // query rows per dQ block
+constexpr int QB_KEYS = 32;      // keys per step of its loop
+
+template <int DH>
+struct BwdSmem {
+  static constexpr int LD = DH + 1;   // padded rows: conflict-free columns
+  static constexpr int DKDV = (2 * KB_KEYS * LD + 2 * KB_Q * LD
+                               + 2 * KB_Q * (KB_KEYS + 1) + 2 * KB_Q) * 4;
+  static constexpr int DQ = (2 * QB_Q * LD + 2 * QB_KEYS * LD
+                             + QB_Q * (QB_KEYS + 1) + 2 * QB_Q) * 4;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Dd[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d]
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT)
+flash_bwd_dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                     float* __restrict__ Dd, int B, int Sq, int H, int Dh) {
+  const long row = (long)blockIdx.x * (BWD_NT / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long)B * Sq * H) return;
+  const T* op = o + (size_t)row * Dh;
+  const T* gp = dout + (size_t)row * Dh;
+  float acc = 0.f;
+  for (int d = lane; d < Dh; d += 32)
+    acc = fmaf(rt::to_f(op[d]), rt::to_f(gp[d]), acc);
+  acc = warp_sum(acc);
+  if (lane == 0) {
+    const long b = row / ((long)Sq * H), i = (row / H) % Sq, h = row % H;
+    Dd[((size_t)b * H + h) * Sq + i] = acc;
+  }
+}
+
+// Rows [r0, r0 + n) of head h of x [B, S, NH, DH] into xs [n][LD] as f32
+// (zeros past S).
+template <typename T, int DH>
+__device__ __forceinline__ void stage_rows(float* xs, const T* x, int b,
+                                           int S, int NH, int h, int r0,
+                                           int n) {
+  constexpr int LD = DH + 1;
+  for (int idx = threadIdx.x; idx < n * DH; idx += BWD_NT) {
+    const int r = idx / DH, d = idx % DH, row = r0 + r;
+    const bool ok = row < S;
+    xs[r * LD + d] =
+        ok ? rt::to_f(x[(((size_t)b * S + row) * NH + h) * DH + d]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ bool kept(int qi, int kj, int Sq, int Sk,
+                                     int causal, int window) {
+  return qi < Sq && kj < Sk && (!causal || kj <= qi) &&
+         (window <= 0 || kj > qi - window);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(BWD_NT)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ Dd, T* __restrict__ dk,
+                      T* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                      float scale, int causal, int window) {
+  constexpr int LD = DH + 1, PL = KB_KEYS + 1, DP = DH / 4;
+  extern __shared__ float sm[];
+  float* Ks = sm;                       // [KB_KEYS][LD]
+  float* Vs = Ks + KB_KEYS * LD;        // [KB_KEYS][LD]
+  float* Qs = Vs + KB_KEYS * LD;        // [KB_Q][LD]
+  float* Gs = Qs + KB_Q * LD;           // dO, [KB_Q][LD]
+  float* Ps = Gs + KB_Q * LD;           // P, [KB_Q][PL]
+  float* Ss = Ps + KB_Q * PL;           // dS, [KB_Q][PL]
+  float* Ls = Ss + KB_Q * PL;           // LSE, [KB_Q]
+  float* Ds = Ls + KB_Q;                // D, [KB_Q]
+
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV, G = H / KV;
+  const int k0 = blockIdx.x * KB_KEYS;
+  const int tid = threadIdx.x;
+  stage_rows<T, DH>(Ks, k, b, Sk, KV, kvh, k0, KB_KEYS);
+  stage_rows<T, DH>(Vs, v, b, Sk, KV, kvh, k0, KB_KEYS);
+  // accumulators: key row jr, dims part + 4 i
+  const int jr = tid / 4, part = tid % 4;
+  float adk[DP], adv[DP];
+#pragma unroll
+  for (int i = 0; i < DP; ++i) adk[i] = adv[i] = 0.f;
+  // score pairs (ti + 16 a, tj + 16 c), a < 2, c < 4
+  const int ti = tid / 16, tj = tid % 16;
+  const int w = causal ? window : 0;
+  // queries that can see a key of this block: qi >= k0 (causal) and
+  // qi < k_last + window (a window)
+  const int q_begin = causal ? k0 / KB_Q * KB_Q : 0;
+  const int q_end = w > 0 ? min(Sq, min(Sk, k0 + KB_KEYS) - 1 + w) : Sq;
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = kvh * G + hh;
+    for (int q0 = q_begin; q0 < q_end; q0 += KB_Q) {
+      __syncthreads();          // the last step's tiles are no longer read
+      stage_rows<T, DH>(Qs, q, b, Sq, H, h, q0, KB_Q);
+      stage_rows<T, DH>(Gs, dout, b, Sq, H, h, q0, KB_Q);
+      if (tid < KB_Q) {
+        const int qi = q0 + tid;
+        const size_t off = ((size_t)b * H + h) * Sq + qi;
+        Ls[tid] = qi < Sq ? lse[off] : 0.f;
+        Ds[tid] = qi < Sq ? Dd[off] : 0.f;
+      }
+      __syncthreads();
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+      for (int d = 0; d < DH; ++d) {
+        float qa[2], ga[2], kc[4], vc[4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          qa[a] = Qs[(ti + 16 * a) * LD + d];
+          ga[a] = Gs[(ti + 16 * a) * LD + d];
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          kc[c] = Ks[(tj + 16 * c) * LD + d];
+          vc[c] = Vs[(tj + 16 * c) * LD + d];
+        }
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
+            dp[a][c] = fmaf(ga[a], vc[c], dp[a][c]);
+          }
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = ti + 16 * a, j = tj + 16 * c;
+          const float p = kept(q0 + i, k0 + j, Sq, Sk, causal, w)
+                              ? expf(s[a][c] * scale - Ls[i]) : 0.f;
+          Ps[i * PL + j] = p;
+          Ss[i * PL + j] = p * (dp[a][c] - Ds[i]);
+        }
+      __syncthreads();
+      for (int i = 0; i < KB_Q; ++i) {
+        const float p = Ps[i * PL + jr], ds = Ss[i * PL + jr];
+#pragma unroll
+        for (int e = 0; e < DP; ++e) {
+          adv[e] = fmaf(p, Gs[i * LD + part + 4 * e], adv[e]);
+          adk[e] = fmaf(ds, Qs[i * LD + part + 4 * e], adk[e]);
+        }
+      }
+    }
+  }
+  const int kj = k0 + jr;
+  if (kj < Sk) {
+    const size_t off = (((size_t)b * Sk + kj) * KV + kvh) * DH + part;
+#pragma unroll
+    for (int e = 0; e < DP; ++e) {
+      dk[off + 4 * e] = rt::from_f<T>(adk[e] * scale);
+      dv[off + 4 * e] = rt::from_f<T>(adv[e]);
+    }
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(BWD_NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ Dd, T* __restrict__ dq, int Sq,
+                    int Sk, int H, int KV, float scale, int causal,
+                    int window) {
+  constexpr int LD = DH + 1, PL = QB_KEYS + 1, DP = DH / 4;
+  extern __shared__ float sm[];
+  float* Qs = sm;                       // [QB_Q][LD]
+  float* Gs = Qs + QB_Q * LD;           // dO, [QB_Q][LD]
+  float* Ks = Gs + QB_Q * LD;           // [QB_KEYS][LD]
+  float* Vs = Ks + QB_KEYS * LD;        // [QB_KEYS][LD]
+  float* Ss = Vs + QB_KEYS * LD;        // dS, [QB_Q][PL]
+  float* Ls = Ss + QB_Q * PL;           // LSE, [QB_Q]
+  float* Ds = Ls + QB_Q;                // D, [QB_Q]
+
+  const int b = blockIdx.y / H, h = blockIdx.y % H, kvh = h / (H / KV);
+  const int q0 = blockIdx.x * QB_Q;
+  const int tid = threadIdx.x;
+  stage_rows<T, DH>(Qs, q, b, Sq, H, h, q0, QB_Q);
+  stage_rows<T, DH>(Gs, dout, b, Sq, H, h, q0, QB_Q);
+  if (tid < QB_Q) {
+    const int qi = q0 + tid;
+    const size_t off = ((size_t)b * H + h) * Sq + qi;
+    Ls[tid] = qi < Sq ? lse[off] : 0.f;
+    Ds[tid] = qi < Sq ? Dd[off] : 0.f;
+  }
+  // accumulators: query row ir, dims part + 4 i
+  const int ir = tid / 4, part = tid % 4;
+  float adq[DP];
+#pragma unroll
+  for (int i = 0; i < DP; ++i) adq[i] = 0.f;
+  // score pairs (ti + 16 a, tj + 16 c), a < 4, c < 2
+  const int ti = tid / 16, tj = tid % 16;
+  const int w = causal ? window : 0;
+  const int k_begin = w > 0 ? max(0, q0 - w + 1) / QB_KEYS * QB_KEYS : 0;
+  const int k_end = causal ? min(Sk, q0 + QB_Q) : Sk;
+  for (int k0 = k_begin; k0 < k_end; k0 += QB_KEYS) {
+    __syncthreads();            // the last step's tiles are no longer read
+    stage_rows<T, DH>(Ks, k, b, Sk, KV, kvh, k0, QB_KEYS);
+    stage_rows<T, DH>(Vs, v, b, Sk, KV, kvh, k0, QB_KEYS);
+    __syncthreads();
+    float s[4][2], dp[4][2];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) s[a][c] = dp[a][c] = 0.f;
+    for (int d = 0; d < DH; ++d) {
+      float qa[4], ga[4], kc[2], vc[2];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        qa[a] = Qs[(ti + 16 * a) * LD + d];
+        ga[a] = Gs[(ti + 16 * a) * LD + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        kc[c] = Ks[(tj + 16 * c) * LD + d];
+        vc[c] = Vs[(tj + 16 * c) * LD + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
+          dp[a][c] = fmaf(ga[a], vc[c], dp[a][c]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = ti + 16 * a, j = tj + 16 * c;
+        const float p = kept(q0 + i, k0 + j, Sq, Sk, causal, w)
+                            ? expf(s[a][c] * scale - Ls[i]) : 0.f;
+        Ss[i * PL + j] = p * (dp[a][c] - Ds[i]);
+      }
+    __syncthreads();
+    for (int j = 0; j < QB_KEYS; ++j) {
+      const float ds = Ss[ir * PL + j];
+#pragma unroll
+      for (int e = 0; e < DP; ++e)
+        adq[e] = fmaf(ds, Ks[j * LD + part + 4 * e], adq[e]);
+    }
+  }
+  const int qi = q0 + ir;
+  if (qi < Sq) {
+    const size_t off = (((size_t)b * Sq + qi) * H + h) * DH + part;
+#pragma unroll
+    for (int e = 0; e < DP; ++e) dq[off + 4 * e] = rt::from_f<T>(adq[e] * scale);
+  }
+}
+
+template <typename T, int DH>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, void* dq, void* dk,
+               void* dv, float* Dd, int B, int Sq, int Sk, int H, int KV,
+               float scale, int causal, int window, cudaStream_t s) {
+  using S = BwdSmem<DH>;
+  static bool smem_ok = false;        // set once per instantiation
+  if (!smem_ok) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<T, DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, S::DKDV);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 S::DQ);
+    if (err != cudaSuccess) return (int)err;
+    smem_ok = true;
+  }
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* gp = static_cast<const T*>(dout);
+  const long rows = (long)B * Sq * H;
+  flash_bwd_dot_kernel<T><<<(unsigned)((rows + BWD_NT / 32 - 1) / (BWD_NT / 32)),
+                            BWD_NT, 0, s>>>(static_cast<const T*>(o), gp, Dd,
+                                            B, Sq, H, DH);
+  if (Sk > 0) {
+    flash_bwd_dkdv_kernel<T, DH>
+        <<<dim3((Sk + KB_KEYS - 1) / KB_KEYS, B * KV), BWD_NT, S::DKDV, s>>>(
+            qp, kp, vp, gp, lse, Dd, static_cast<T*>(dk), static_cast<T*>(dv),
+            Sq, Sk, H, KV, scale, causal, window);
+  }
+  flash_bwd_dq_kernel<T, DH>
+      <<<dim3((Sq + QB_Q - 1) / QB_Q, B * H), BWD_NT, S::DQ, s>>>(
+          qp, kp, vp, gp, lse, Dd, static_cast<T*>(dq), Sq, Sk, H, KV, scale,
+          causal, window);
+  return 0;
+}
+
+template <typename T>
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* dq, void* dk,
+                 void* dv, float* Dd, int B, int Sq, int Sk, int H, int KV,
+                 int Dh, float scale, int causal, int window, cudaStream_t s) {
+  if (Dh == 64)
+    return launch_bwd<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk,
+                             H, KV, scale, causal, window, s);
+  if (Dh == 96)
+    return launch_bwd<T, 96>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk,
+                             H, KV, scale, causal, window, s);
+  if (Dh == 128)
+    return launch_bwd<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                              Sk, H, KV, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, o: [B,Sq,H,Dh]; k, v: [B,Sk,KV,Dh]; all contiguous, one dtype (code);
-// window 0, or > 0 with causal.  Returns the CUDA error code of the launch
-// (0 = launched).
+// window 0, or > 0 with causal.  lse: null (serving), or [B,H,Sq] f32 that
+// receives each row's logsumexp of the scaled, masked scores (+inf for a
+// row with no key), which the backward needs.  Returns the CUDA error code
+// of the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Sk, int H, int KV, int Dh,
-                                      float scale, int causal, int window,
-                                      int dtype, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int B, int Sq, int Sk, int H, int KV,
+                                      int Dh, float scale, int causal,
+                                      int window, int dtype, void* stream) {
   if (KV <= 0 || H % KV != 0 || (causal && Sq != Sk) || B * H > 65535 ||
       window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
@@ -480,11 +835,43 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == rt::kF32) {
-    rc = dispatch_f32(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, window,
-                      s);
+    rc = dispatch_f32(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KV,
+                      Dh, scale, causal, window, s);
   } else if (dtype == rt::kBF16) {
-    rc = dispatch_bf16(q, k, v, o, B, Sq, Sk, H, KV, Dh, scale, causal, window,
-                       s);
+    rc = dispatch_bf16(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KV,
+                       Dh, scale, causal, window, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+// Backward of flash_attention_launch.  q, o, dout, dq: [B,Sq,H,Dh]; k, v,
+// dk, dv: [B,Sk,KV,Dh]; all contiguous, one dtype (code); lse: [B,H,Sq] f32
+// from the forward; Dd: [B,H,Sq] f32 scratch.  The same masks and scale as
+// the forward.  dq, dk and dv are written, not accumulated.  Returns the
+// CUDA error code of the launches (0 = launched).
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* dk, void* dv, void* Dd,
+    int B, int Sq, int Sk, int H, int KV, int Dh, float scale, int causal,
+    int window, int dtype, void* stream) {
+  if (KV <= 0 || H % KV != 0 || (causal && Sq != Sk) || B * H > 65535 ||
+      window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(lse);
+  float* dp = static_cast<float*>(Dd);
+  int rc;
+  if (dtype == rt::kF32) {
+    rc = dispatch_bwd<float>(q, k, v, o, dout, lp, dq, dk, dv, dp, B, Sq, Sk,
+                             H, KV, Dh, scale, causal, window, s);
+  } else if (dtype == rt::kBF16) {
+    rc = dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, lp, dq, dk, dv, dp, B,
+                                     Sq, Sk, H, KV, Dh, scale, causal, window,
+                                     s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

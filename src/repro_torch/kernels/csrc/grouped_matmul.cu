@@ -521,6 +521,90 @@ int launch_bf16(const void* lhs, const void* rhs, const int* offsets,
   return 0;
 }
 
+// ------------------------------------------------------------- backward
+// dW[e] = X[rows of e]^T dY[rows of e] (dX = dY W^T per group is the
+// forward kernel on a contiguous [E, F, D] copy of W^T; ops.py).  An expert
+// with no rows gets zeros, and rows no group covers add nothing, so the
+// dropped MoE assignments (sorted past the last group) get no gradient.
+// Bound: at granite's training shape ([32768,1024] x [32768,512] over 32
+// experts, bf16) 34.4 GFLOP (0.035 ms on the tensor cores) against 134 MB
+// (0.040 ms), so bytes bound it, narrowly; this FMA version is far from
+// it.  A simple design that is right first, for both dtypes: one
+// 256-thread block per (64 x 64 tile of dW, expert) walks the expert's rows
+// in steps of 32 through shared memory, an FMA loop in f32 (no TF32 for
+// f32), 4 x 4 outputs a thread.  Deterministic: each output is summed by
+// one thread in row order; no atomics.
+constexpr int WD = 64;           // rows of dW (D) per block
+constexpr int WF = 64;           // columns of dW (F) per block
+constexpr int WR = 32;           // rows of the group per step
+constexpr int W_NT = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(W_NT)
+gmm_dw_kernel(const T* __restrict__ lhs, const T* __restrict__ dy,
+              const int* __restrict__ offsets, T* __restrict__ dw, int Tn,
+              int D, int F, int E) {
+  __shared__ float Xs[WR][WD];
+  __shared__ float Ys[WR][WF];
+  __shared__ int s_range[2];
+  const int e = blockIdx.z;
+  const int d0 = blockIdx.y * WD, f0 = blockIdx.x * WF;
+  if (threadIdx.x == 0) {
+    // expert e covers [max of the clamped offsets[0..e], max of [0..e+1]),
+    // as find_tile reads them
+    int lo = 0, hi = 0;
+    for (int g = 0; g <= e + 1; ++g) {
+      hi = max(hi, min(max(offsets[g], 0), Tn));
+      if (g == e) lo = hi;
+    }
+    s_range[0] = lo;
+    s_range[1] = hi;
+  }
+  __syncthreads();
+  const int lo = s_range[0], hi = s_range[1];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int r0 = lo; r0 < hi; r0 += WR) {
+    for (int idx = threadIdx.x; idx < WR * WD; idx += W_NT) {
+      const int r = idx / WD, c = idx % WD, row = r0 + r, d = d0 + c;
+      Xs[r][c] = (row < hi && d < D) ? rt::to_f(lhs[(size_t)row * D + d]) : 0.f;
+    }
+    for (int idx = threadIdx.x; idx < WR * WF; idx += W_NT) {
+      const int r = idx / WF, c = idx % WF, row = r0 + r, f = f0 + c;
+      Ys[r][c] = (row < hi && f < F) ? rt::to_f(dy[(size_t)row * F + f]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int r = 0; r < WR; ++r) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Xs[r][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Ys[r][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  T* out = dw + (size_t)e * D * F;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int d = d0 + ty + 16 * i;
+    if (d >= D) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int f = f0 + tx + 16 * j;
+      if (f < F) out[(size_t)d * F + f] = rt::from_f<T>(acc[i][j]);
+    }
+  }
+}
+
 }  // namespace
 
 // lhs: [T,D], rhs: [E,D,F], out: [T,F] contiguous, one dtype (code);
@@ -547,6 +631,34 @@ extern "C" int grouped_matmul_launch(const void* lhs, const void* rhs,
     if (D % 8 != 0 || F % 8 != 0) return (int)cudaErrorInvalidValue;
     const int rc = launch_bf16(lhs, rhs, offs, out, T, D, F, E, s);
     if (rc) return rc;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// dW of grouped_matmul_launch: lhs: [T,D], dy: [T,F], dw: [E,D,F]
+// contiguous, one dtype (code); offsets: [E+1] int32 on the device.  dw is
+// written, not accumulated.  Returns the CUDA error code (0 = ok).
+extern "C" int grouped_matmul_dw_launch(const void* lhs, const void* dy,
+                                        const void* offsets, void* dw, int T,
+                                        int D, int F, int E, int dtype,
+                                        void* stream) {
+  if (E <= 0 || E > 65535 || (D + WD - 1) / WD > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (D == 0 || F == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* offs = static_cast<const int*>(offsets);
+  const dim3 grid((F + WF - 1) / WF, (D + WD - 1) / WD, E);
+  if (dtype == rt::kF32) {
+    gmm_dw_kernel<float><<<grid, W_NT, 0, s>>>(
+        static_cast<const float*>(lhs), static_cast<const float*>(dy), offs,
+        static_cast<float*>(dw), T, D, F, E);
+  } else if (dtype == rt::kBF16) {
+    gmm_dw_kernel<__nv_bfloat16><<<grid, W_NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(lhs),
+        static_cast<const __nv_bfloat16*>(dy), offs,
+        static_cast<__nv_bfloat16*>(dw), T, D, F, E);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -205,6 +205,92 @@ void launch(const void* x, const void* w, void* out, int T_, int D, float eps,
     rmsnorm_wide_kernel<T><<<grid, block, 0, stream>>>(xp, wp, op, T_, D, eps);
 }
 
+// ------------------------------------------------------------- backward
+// dx = w r dy - x r^3 mean(dy w x) and dw = sum_rows dy x r, with
+// r = rsqrt(mean(x^2) + eps), all in f32.  Bound by bytes (x and dy read,
+// dx written).  A simple design that is right first: one warp a row for dx
+// (two passes over the row, the second from L1/L2), then dw in two fixed
+// orders and no atomics, so two calls give the same bits: a block of
+// threads, one a column, sums kDwRows rows each into a partial, and a
+// second kernel sums the partials of a column in order.
+constexpr int kDwRows = 64;      // rows a dw partial sums (ops.RMS_DW_ROWS)
+constexpr int kDwCols = 128;     // columns (threads) a dw block takes
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+rmsnorm_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                      const T* __restrict__ dy, T* __restrict__ dx,
+                      float* __restrict__ r_out, int T_, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= T_) return;
+  const T* xr = x + (size_t)row * D;
+  const T* gr = dy + (size_t)row * D;
+  float ss = 0.f, dot = 0.f;
+  for (int i = lane; i < D; i += 32) {
+    const float xf = rt::to_f(xr[i]);
+    ss = fmaf(xf, xf, ss);
+    dot = fmaf(rt::to_f(gr[i]) * w[i], xf, dot);
+  }
+  ss = warp_sum(ss);
+  dot = warp_sum(dot);
+  const float r = rsqrtf(ss / (float)D + eps);
+  const float c = r * r * r * (dot / (float)D);
+  T* orow = dx + (size_t)row * D;
+  for (int i = lane; i < D; i += 32)
+    orow[i] = rt::from_f<T>(w[i] * r * rt::to_f(gr[i]) - rt::to_f(xr[i]) * c);
+  if (lane == 0) r_out[row] = r;
+}
+
+// partial[c, d] = sum over rows c*kDwRows .. (c+1)*kDwRows - 1 of dy x r.
+template <typename T>
+__global__ void __launch_bounds__(kDwCols)
+rmsnorm_bwd_dw_partial_kernel(const T* __restrict__ x,
+                              const T* __restrict__ dy,
+                              const float* __restrict__ r,
+                              float* __restrict__ partial, int T_, int D) {
+  const int d = blockIdx.x * kDwCols + threadIdx.x;
+  const int c = blockIdx.y;
+  if (d >= D) return;
+  const int t1 = min(T_, (c + 1) * kDwRows);
+  float acc = 0.f;
+  for (int t = c * kDwRows; t < t1; ++t) {
+    const size_t off = (size_t)t * D + d;
+    acc = fmaf(rt::to_f(dy[off]) * rt::to_f(x[off]), r[t], acc);
+  }
+  partial[(size_t)c * D + d] = acc;
+}
+
+// dw[d] = sum over c of partial[c, d], in order of c.
+__global__ void __launch_bounds__(kDwCols)
+rmsnorm_bwd_dw_reduce_kernel(const float* __restrict__ partial,
+                             float* __restrict__ dw, int n_part, int D) {
+  const int d = blockIdx.x * kDwCols + threadIdx.x;
+  if (d >= D) return;
+  float acc = 0.f;
+  for (int c = 0; c < n_part; ++c) acc += partial[(size_t)c * D + d];
+  dw[d] = acc;
+}
+
+template <typename T>
+void launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+                void* dw, void* r, void* partial, int T_, int D, float eps,
+                cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(dy);
+  float* rp = static_cast<float*>(r);
+  float* pp = static_cast<float*>(partial);
+  rmsnorm_bwd_dx_kernel<T><<<(T_ + kWarps - 1) / kWarps, kWarps * 32, 0,
+                             stream>>>(xp, static_cast<const float*>(w), gp,
+                                       static_cast<T*>(dx), rp, T_, D, eps);
+  const int n_part = (T_ + kDwRows - 1) / kDwRows;
+  const int col_blocks = (D + kDwCols - 1) / kDwCols;
+  rmsnorm_bwd_dw_partial_kernel<T><<<dim3(col_blocks, n_part), kDwCols, 0,
+                                     stream>>>(xp, gp, rp, pp, T_, D);
+  rmsnorm_bwd_dw_reduce_kernel<<<col_blocks, kDwCols, 0, stream>>>(
+      pp, static_cast<float*>(dw), n_part, D);
+}
+
 }  // namespace
 
 // x, out: [T, D] contiguous, f32 or bf16 (dtype code); w: [D] f32.
@@ -217,6 +303,26 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out, int T,
     launch<float>(x, w, out, T, D, eps, s);
   } else if (dtype == rt::kBF16) {
     launch<__nv_bfloat16>(x, w, out, T, D, eps, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Backward of rmsnorm_launch.  x, dy, dx: [T, D] contiguous, f32 or bf16
+// (dtype code); w: [D] f32; dw: [D] f32 (written, not accumulated);
+// r: [T] f32 and partial: [ceil(T / 64), D] f32 are the wrapper's scratch.
+// Returns the CUDA error code of the launches (0 = launched).
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
+                                  const void* dy, void* dx, void* dw,
+                                  void* r, void* partial, int T, int D,
+                                  float eps, int dtype, void* stream) {
+  if (T <= 0 || D <= 0 || T > 65535 * kDwRows) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kF32) {
+    launch_bwd<float>(x, w, dy, dx, dw, r, partial, T, D, eps, s);
+  } else if (dtype == rt::kBF16) {
+    launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, r, partial, T, D, eps, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

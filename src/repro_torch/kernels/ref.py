@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels and of their backward
+kernels.
 
 Each computes what its CUDA kernel computes, by the kernel's contract:
 the CPU tests hold these against the JAX package's kernels, and
@@ -21,6 +22,20 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *,
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (y * w.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                    eps: float = 1e-6):
+    """Gradients (dx [T,D] in x.dtype, dw [D] in w.dtype) of
+    :func:`rmsnorm_ref` given ``dy``, in f32: with ``r = rsqrt(mean(x^2) +
+    eps)``, ``dx = w r dy - x r^3 mean(dy w x)`` and ``dw = sum_rows dy x
+    r``."""
+    xf, gf, wf = x.float(), dy.float(), w.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    dot = (gf * wf * xf).mean(dim=-1, keepdim=True)
+    dx = wf * r * gf - xf * (r * r * r) * dot
+    dw = (gf * xf * r).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -51,6 +66,56 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
+
+
+def _attention_keep(Sq: int, Sk: int, causal: bool, window: int, device):
+    """[Sq, Sk] mask of the (query, key) pairs the kernel keeps, or None."""
+    if not causal:
+        return None
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Sk, device=device)[None, :]
+    keep = kj <= qi
+    if window > 0:
+        keep &= kj > qi - window
+    return keep
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0,
+                            sm_scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_ref` given its
+    output ``o`` and the output's gradient ``do``, by FA2's formulas in f32:
+    ``D = rowsum(do * o)``, ``P = exp(S scale - LSE)``, ``dv = P^T do``,
+    ``dP = do v^T``, ``dS = P * (dP - D)``, ``dq = dS k scale``,
+    ``dk = dS^T q scale``.  GQA sums dk and dv over each group's heads.
+    Each is rounded once to its input's dtype."""
+    B, Sq, H, Dh = q.shape
+    _, Sk, KV, _ = k.shape
+    check_attention_shapes(q, k, v, causal, window)
+    G = H // KV
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(Dh)
+    qf = q.float().reshape(B, Sq, KV, G, Dh)
+    gf = do.float().reshape(B, Sq, KV, G, Dh)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * sm_scale
+    keep = _attention_keep(Sq, Sk, causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, -math.inf))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse)
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    D = (gf * o.float().reshape(B, Sq, KV, G, Dh)).sum(-1)   # [b,q,k,g]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, gf)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", gf, vf)
+    ds = p * (dp - D.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * sm_scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * sm_scale
+    return (dq.reshape(B, Sq, H, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def check_attention_shapes(q, k, v, causal: bool, window: int = 0) -> None:
@@ -91,6 +156,36 @@ def grouped_matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor,
             out[lo:hi] = (lhs[lo:hi].float() @ rhs[e].float()).to(lhs.dtype)
         lo = hi
     return out
+
+
+def grouped_matmul_dw_ref(lhs: torch.Tensor, dout: torch.Tensor,
+                          group_offsets: torch.Tensor, E: int) -> torch.Tensor:
+    """dW [E,D,F] of :func:`grouped_matmul_ref` given ``dout`` [T,F], in
+    f32: ``dW[e] = lhs[rows of e]^T dout[rows of e]``.  Rows no group covers
+    add nothing; an expert with no rows gets zeros.  Rounded once to
+    ``lhs.dtype``."""
+    T, D = lhs.shape
+    dw = torch.zeros((E, D, dout.shape[1]), dtype=torch.float32,
+                     device=lhs.device)
+    offs = [min(max(int(o), 0), T) for o in group_offsets.tolist()]
+    lo = offs[0]
+    for e in range(E):
+        hi = max(lo, offs[e + 1])
+        if hi > lo:
+            dw[e] = lhs[lo:hi].float().T @ dout[lo:hi].float()
+        lo = hi
+    return dw.to(lhs.dtype)
+
+
+def grouped_matmul_bwd_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+                           group_offsets: torch.Tensor, dout: torch.Tensor):
+    """Gradients (dlhs [T,D], drhs [E,D,F]) of :func:`grouped_matmul_ref`
+    given ``dout`` [T,F], in f32: ``dlhs[rows of e] = dout[rows] rhs[e]^T``
+    (the forward on ``rhs`` transposed, so rows no group covers get zeros)
+    and :func:`grouped_matmul_dw_ref`."""
+    dlhs = grouped_matmul_ref(dout, rhs.transpose(1, 2), group_offsets)
+    return dlhs, grouped_matmul_dw_ref(lhs, dout, group_offsets,
+                                       rhs.shape[0]).to(rhs.dtype)
 
 
 def chunk_cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:

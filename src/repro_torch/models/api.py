@@ -1,7 +1,8 @@
-"""Model API of the port: init / prefill / decode_step and an ``nn.Module``.
+"""Model API of the port: init / forward / loss_fn / prefill / decode_step
+and an ``nn.Module``.
 
-Counterpart of ``repro.models.api`` for serving: the encoder-decoder family
-dispatches to :mod:`.encdec`, every other family to :mod:`.transformer`.
+Counterpart of ``repro.models.api``: the encoder-decoder family dispatches
+to :mod:`.encdec`, every other family to :mod:`.transformer`.
 ``prefill`` takes the reference's batch dict: ``inputs`` [B, S], plus
 ``img_embeds`` [B, n_img, D] for a VLM or ``enc_embeds`` [B, F, D] for an
 encoder-decoder.
@@ -146,6 +147,23 @@ def cast_for_serving(cfg: ModelConfig, params):
     return unflatten({
         path: (t if path.split("/")[-1] in _F32_LEAVES else t.to(act))
         for path, t in flatten(params).items()})
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Training loss: batch ``inputs``, ``targets`` (+ ``mask``,
+    ``img_embeds`` or ``enc_embeds``) -> (loss, metrics)."""
+    if cfg.is_encoder_decoder:
+        return encdec.loss_fn(cfg, params, batch)
+    return transformer.loss_fn(cfg, params, batch)
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Training forward: -> (logits over every position, aux)."""
+    if cfg.is_encoder_decoder:
+        return encdec.forward(cfg, params, batch["inputs"],
+                              batch["enc_embeds"])
+    return transformer.forward(cfg, params, batch["inputs"],
+                               img_embeds=batch.get("img_embeds"))
 
 
 def prefill(cfg: ModelConfig, params, batch, s_max: int):

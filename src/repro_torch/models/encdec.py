@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder in PyTorch (counterpart of
-``repro.models.encdec``) for serving: ``encode``, ``prefill`` and
-``decode_step``.
+``repro.models.encdec``): ``encode``, ``forward`` and ``loss_fn`` for
+training, ``prefill`` and ``decode_step`` for serving.
 
 As in the JAX package the audio frontend is a stub: ``enc_embeds``
 [B, F, D] (precomputed frame embeddings) enter the encoder directly.  The
@@ -9,7 +9,9 @@ decoder is causal self-attention, then cross-attention to the encoder
 output, then the SwiGLU FFN.  Parameters keep the JAX tree: ``enc`` and
 ``dec`` hold every leaf stacked over their layers, ``enc_norm`` ends the
 encoder.  Prefill computes each decoder layer's cross-attention K/V once
-and keeps them, stacked, for every decode step.
+and keeps them, stacked, for every decode step.  With ``cfg.remat`` each
+encoder and decoder block runs under ``torch.utils.checkpoint`` when grad
+is enabled, as JAX checkpoints each scanned block.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from . import layers as L
 from .layers import KVCache
 from .spec import ModelConfig, torch_dtype
-from .transformer import layer_slice
+from .transformer import layer_slice, lm_nll, remat, unbind_layers
 
 
 class EncDecCaches(NamedTuple):
@@ -35,13 +37,49 @@ def encode(cfg: ModelConfig, params, enc_embeds: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{cfg.name}: enc_embeds [B, F, {cfg.d_model}] "
                          f"expected, got {list(enc_embeds.shape)}")
     x = enc_embeds.to(torch_dtype(cfg.dtype))
-    for i in range(cfg.n_enc_layers):
-        bp = layer_slice(params["enc"], i)
-        h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-        x = x + L.attention(bp["attn"], cfg, h, causal=False)
-        h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(bp["mlp"], h)
+    for bp in unbind_layers(params["enc"]):
+        x = remat(cfg, _enc_block, cfg, bp, x)
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_block(cfg: ModelConfig, bp, x: torch.Tensor) -> torch.Tensor:
+    h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    x = x + L.attention(bp["attn"], cfg, h, causal=False)
+    h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h)
+
+
+def _dec_train_block(cfg: ModelConfig, bp, x: torch.Tensor,
+                     enc: torch.Tensor) -> torch.Tensor:
+    """One decoder layer over the whole sequence (training): causal
+    self-attention, cross-attention to ``enc``, the FFN."""
+    enc_k, enc_v = L.encode_kv(bp["xattn"], cfg, enc)
+    h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    x = x + L.attention(bp["attn"], cfg, h, causal=True)
+    h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
+    x = x + L.cross_attention(bp["xattn"], cfg, h, enc_k, enc_v)
+    h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+    return x + L.mlp(bp["mlp"], h)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+            enc_embeds: torch.Tensor):
+    """Training forward: tokens [B, S], enc_embeds [B, F, D] -> (logits
+    [B, S, V], aux 0)."""
+    enc = encode(cfg, params, enc_embeds)
+    x = L.embed(params, cfg, tokens)
+    for bp in unbind_layers(params["dec"]):
+        x = remat(cfg, _dec_train_block, cfg, bp, x, enc)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed(params, cfg, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch ``inputs``, ``targets`` [B, S], ``enc_embeds`` (+ ``mask``)
+    -> (nll, {"nll", "aux", "tokens"}): no aux term."""
+    logits, aux = forward(cfg, params, batch["inputs"], batch["enc_embeds"])
+    nll, n = lm_nll(logits, batch)
+    return nll, {"nll": nll, "aux": aux, "tokens": n}
 
 
 def _dec_block(cfg: ModelConfig, bp, x: torch.Tensor, enc_k: torch.Tensor,

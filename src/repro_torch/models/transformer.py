@@ -12,18 +12,27 @@ the blocks, so one loader maps a JAX params pytree onto the port.  The
 block loop that JAX runs under ``lax.scan`` is a Python loop over those
 stacks.  Caches are ``{"l{pos}": KVCache | SSMCache}``, stacked over blocks
 as the JAX ``prefill`` returns them; ``decode_step`` advances them in place.
+
+Training: ``forward`` and ``loss_fn`` (next-token cross-entropy in f32 with
+the optional ``mask``, plus ``0.01 * aux`` for MoE; a VLM's image-token
+logits are sliced off).  With ``cfg.remat``, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant) when grad is enabled, as JAX
+remats ``_layer_forward``: only the layer's input is kept, and its forward
+runs again in the backward pass.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .layers import KVCache
 from .moe import moe_gather
 from .spec import ModelConfig
-from .ssd import SSMCache, ssm_decode, ssm_prefill
+from .ssd import SSMCache, ssm_decode, ssm_layer, ssm_prefill
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -52,20 +61,108 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def unbind_layers(tree):
+    """Every entry of a stacked tree, as a list of trees of views.
+
+    ``unbind``'s backward stacks the entries' gradients once; indexing the
+    stacked leaf once per layer would instead make each layer's gradient a
+    zero-filled stacked-size tensor, summed over the layers."""
+    if isinstance(tree, dict):
+        subs = {k: unbind_layers(v) for k, v in tree.items()}
+        n = len(next(iter(subs.values())))
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
 def block_params(params, i: int):
     """Block ``i`` of the stacked ``blocks`` tree (views, no copies)."""
     return layer_slice(params["blocks"], i)
 
 
-def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int) -> torch.Tensor:
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    and grad is enabled (serving runs it plainly)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int):
+    """x + FFN(rmsnorm(x)); returns (x, the MoE aux loss or None)."""
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if _layer_is_moe(cfg, pos):
-        h, _ = moe_gather(p["moe"], cfg, h)
+        h, aux = moe_gather(p["moe"], cfg, h)
     else:
-        h = L.mlp(p["mlp"], h)
-    return x + h
+        h, aux = L.mlp(p["mlp"], h), None
+    return x + h, aux
 
 
+# ------------------------------------------------------------------ forward
+def _layer_forward(cfg: ModelConfig, kind: str, pos: int, p,
+                   x: torch.Tensor):
+    """One layer (mixer + FFN), full sequence.  Returns (x, aux f32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        h = L.attention(p["attn"], cfg, h, causal=True,
+                        window=cfg.sliding_window)
+    else:
+        h = ssm_layer(p["ssm"], cfg, h)
+    x = x + h
+    if _has_ffn(cfg):
+        x, a = _ffn(cfg, p, x, pos)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def run_blocks(cfg: ModelConfig, params, x: torch.Tensor):
+    """The block stack, layer by layer (each under :func:`remat`).  Returns
+    (x, total aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in unbind_layers(params["blocks"]):
+        for pos, kind in enumerate(cfg.pattern):
+            f = functools.partial(_layer_forward, cfg, kind, pos)
+            x, a = remat(cfg, f, bp[f"l{pos}"], x)
+            aux = aux + a
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, img_embeds=None):
+    """tokens [B, S] -> (logits [B, n_img + S, V], aux); a VLM puts its
+    projected image embeddings ahead of the tokens."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, params, tokens, img_embeds)
+    x, aux = run_blocks(cfg, params, x)
+    return L.unembed(params, cfg, x), aux
+
+
+def lm_nll(logits: torch.Tensor, batch):
+    """Mean next-token negative log-likelihood in f32 over the ``mask``
+    (all ones when the batch has none).  Returns (nll, token count)."""
+    logits = logits.float()
+    targets = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = (torch.ones_like(logz) if mask is None
+            else mask.to(device=logz.device, dtype=torch.float32))
+    n = mask.sum()
+    return ((logz - gold) * mask).sum() / torch.clamp(n, min=1.0), n
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch ``inputs``, ``targets`` [B, S] (+ ``mask``, ``img_embeds``)
+    -> (loss, {"nll", "aux", "tokens"}); loss = nll + 0.01 aux."""
+    logits, aux = forward(cfg, params, batch["inputs"],
+                          img_embeds=batch.get("img_embeds"))
+    if cfg.n_img_tokens > 0:
+        logits = logits[:, cfg.n_img_tokens:]
+    nll, n = lm_nll(logits, batch)
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux, "tokens": n}
+
+
+# ------------------------------------------------------------ serving
 def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int):
     caches = {}
     for pos, kind in enumerate(cfg.pattern):
@@ -79,7 +176,7 @@ def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int):
         caches[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):
-            x = _ffn(cfg, p, x, pos)
+            x, _ = _ffn(cfg, p, x, pos)
     return x, caches
 
 
@@ -96,7 +193,7 @@ def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches):
         new[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):
-            x = _ffn(cfg, p, x, pos)
+            x, _ = _ffn(cfg, p, x, pos)
     return x, new
 
 

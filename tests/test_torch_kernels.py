@@ -13,11 +13,26 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.models import layers as jL  # noqa: E402
+from repro.models.base import set_logical_rules  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+
+
+
+@pytest.fixture(autouse=True)
+def _no_logical_rules():
+    # the windowed attention reference reads the global logical rules
+    # (base.py: set_logical_rules), which xdist workers share across files
+    set_logical_rules(None)
+    yield
+    set_logical_rules(None)
+
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
@@ -195,6 +210,144 @@ def test_gmm_bf16_shape_rule():
             ops.check_gmm_bf16_shape(D, F)
 
 
+# ---------------------------------------------------------------- backward
+# The plain backward versions against jax.vjp of the JAX oracles
+# (repro.kernels.ref) and against torch.autograd of the port's forward
+# versions, in f32: 2e-5, attention 1e-4 (the tolerance of its gradients,
+# sums of Sk products), relative to each output's max |ref|.
+def _rel_close(got, want, tol):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    if not want.size:
+        return
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert float(np.abs(got - want).max()) <= tol * scale
+
+
+def _autograd(fn, inputs, dout):
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    if not out.requires_grad:          # the output depends on no input
+        return [torch.zeros_like(t) for t in inputs]
+    return torch.autograd.grad(out, leaves, dout)
+
+
+@pytest.mark.parametrize("T,D", [(64, 64), (37, 1024), (16, 1001)])
+def test_rmsnorm_bwd_ref_matches_jax_vjp(T, D):
+    rng = np.random.default_rng(T + D)
+    x, dy = (rng.standard_normal((T, D), np.float32) for _ in range(2))
+    w = rng.standard_normal((D,), np.float32)
+    dx, dw = ref.rmsnorm_bwd_ref(*map(torch.from_numpy, (x, w, dy)),
+                                 eps=1e-6)
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b, eps=1e-6),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    _rel_close(dx, jdx, 2e-5)
+    _rel_close(dw, jdw, 2e-5)
+    adx, adw = _autograd(lambda a, b: ref.rmsnorm_ref(a, b, eps=1e-6),
+                         [torch.from_numpy(x), torch.from_numpy(w)],
+                         torch.from_numpy(dy))
+    _rel_close(dx, adx, 2e-5)
+    _rel_close(dw, adw, 2e-5)
+
+
+ATTN_BWD = [
+    # (B, Sq, Sk, H, KV, Dh, causal, window)
+    (2, 40, 40, 4, 2, 16, True, 0),       # GQA, causal
+    (1, 33, 33, 4, 4, 64, True, 0),
+    (2, 24, 56, 6, 3, 16, False, 0),      # not causal, Sq != Sk
+    (1, 48, 48, 8, 2, 16, True, 5),       # a window, GQA
+    (2, 16, 16, 2, 1, 96, True, 16),      # a window of the whole sequence
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dh,causal,window", ATTN_BWD)
+def test_flash_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, H, KV, Dh,
+                                                 causal, window):
+    rng = np.random.default_rng(B * Sq * Sk + H * Dh + window)
+    q = rng.standard_normal((B, Sq, H, Dh), np.float32)
+    k, v = (rng.standard_normal((B, Sk, KV, Dh), np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((B, Sq, H, Dh), np.float32)
+    qt, kt, vt, dot = map(torch.from_numpy, (q, k, v, do))
+    o = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    grads = ref.flash_attention_bwd_ref(qt, kt, vt, o, dot, causal=causal,
+                                        window=window)
+    if window:
+        # the JAX oracle has no window: the model's masked attention does
+        jcfg = jconfigs.get_smoke_config("granite-moe-1b-a400m").replace(
+            dtype="float32")
+        fn = lambda a, b, c: jL._blocked_sdpa(jcfg, a, b, c, causal=True,
+                                              window=window)
+    else:
+        fn = lambda a, b, c: jref.attention_ref(a, b, c, causal=causal)
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+    for got, want in zip(grads, vjp(jnp.asarray(do))):
+        _rel_close(got, want, 1e-4)
+    auto = _autograd(lambda a, b, c: ref.flash_attention_ref(
+        a, b, c, causal=causal, window=window), [qt, kt, vt], dot)
+    for got, want in zip(grads, auto):
+        _rel_close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("offs", [
+    [0, 30, 30, 70, 128],        # covered, with an empty expert
+    [5, 40, 40, 90, 120],        # an uncovered head and tail
+    [0, 0, 0, 0, 0],             # every row uncovered
+])
+def test_grouped_matmul_bwd_ref_matches_jax_vjp(offs):
+    """dX and dW against jax.vjp of the oracle.  The oracle clips rows no
+    group covers onto expert E-1, so it is fed a dY that is zero on those
+    rows; the port, fed any dY there, gives them a zero dX and adds nothing
+    of them to dW."""
+    T, D, F, E = 128, 32, 48, 4
+    rng = np.random.default_rng(sum(offs))
+    lhs = rng.standard_normal((T, D), np.float32)
+    rhs = rng.standard_normal((E, D, F), np.float32) / np.sqrt(D)
+    dy = rng.standard_normal((T, F), np.float32)
+    covered = np.zeros(T, bool)
+    covered[offs[0]:offs[-1]] = True
+    offs_t = torch.tensor(offs, dtype=torch.int32)
+    dx, dw = ref.grouped_matmul_bwd_ref(torch.from_numpy(lhs),
+                                        torch.from_numpy(rhs), offs_t,
+                                        torch.from_numpy(dy))
+    assert (dx.numpy()[~covered] == 0).all()
+    _, vjp = jax.vjp(lambda a, b: jref.grouped_matmul_ref(
+        a, b, jnp.asarray(offs, jnp.int32)), jnp.asarray(lhs),
+        jnp.asarray(rhs))
+    jdx, jdw = vjp(jnp.asarray(np.where(covered[:, None], dy, 0.0)))
+    _rel_close(dx.numpy()[covered], np.asarray(jdx)[covered], 2e-5)
+    _rel_close(dw, jdw, 2e-5)
+    adx, adw = _autograd(lambda a, b: ref.grouped_matmul_ref(a, b, offs_t),
+                         [torch.from_numpy(lhs), torch.from_numpy(rhs)],
+                         torch.from_numpy(dy))
+    _rel_close(dx, adx, 2e-5)
+    _rel_close(dw, adw, 2e-5)
+
+
+def test_cpu_ops_train_through_the_plain_versions():
+    """On the CPU the ops are the plain versions, so autograd reaches every
+    operand, and no kernel is counted."""
+    rng = np.random.default_rng(2)
+    before = dict(ops.LAUNCHES)
+    x = torch.from_numpy(rng.standard_normal((8, 32), np.float32))
+    w = torch.ones(32)
+    q = torch.from_numpy(rng.standard_normal((1, 8, 2, 16), np.float32))
+    lhs = torch.from_numpy(rng.standard_normal((8, 16), np.float32))
+    rhs = torch.from_numpy(rng.standard_normal((2, 16, 8), np.float32))
+    leaves = [t.requires_grad_() for t in (x, w, q, lhs, rhs)]
+    loss = (ops.rmsnorm(x, w).sum() + ops.flash_attention(q, q, q).sum()
+            + ops.grouped_matmul(lhs, rhs, torch.tensor([0, 3, 8])).sum())
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(g is not None and bool(g.abs().sum() > 0) for g in grads)
+    assert ops.LAUNCHES == before
+    assert set(ops.LAUNCHES) == {
+        "rmsnorm", "flash_attention", "grouped_matmul", "ssd_chunk",
+        "rmsnorm_bwd", "flash_attention_bwd", "grouped_matmul_dx",
+        "grouped_matmul_dw"}
+
+
 # ------------------------------------------------------------------ build
 def test_build_names_libraries_by_source_and_raises_without_nvcc(
         monkeypatch, tmp_path):
@@ -337,3 +490,102 @@ def test_cuda_flash_attention_window_and_head_dim_96():
                                         window=window),
                 rtol=tol, atol=tol)
     torch.cuda.synchronize()
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100: "
+                    "python3 chip_smoke.py covers the same checks)")
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernels_match_plain():
+    """rmsnorm_bwd, flash_attention_bwd (from the LSE forward) and
+    grouped_matmul's dX and dW on the card against the plain backward
+    versions (f32: 2e-5, attention 1e-4; bf16 2e-2; relative to max|ref|),
+    each deterministic, and through autograd."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape, dt):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    for dt, tol, atol_attn in ((torch.float32, 2e-5, 1e-4),
+                               (torch.bfloat16, 2e-2, 2e-2)):
+        for T, D in ((300, 1024), (37, 1001), (5, 64)):
+            x, dy = randn(T, D, dt=dt), randn(T, D, dt=dt)
+            w = randn(D, dt=torch.float32)
+            got = ops.rmsnorm_bwd(x, w, dy, 1e-6)
+            want = ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6)
+            for g, r in zip(got, want):
+                assert _rel_err(g, r) <= tol
+            again = ops.rmsnorm_bwd(x, w, dy, 1e-6)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for B, Sq, Sk, H, KV, Dh, causal, window in (
+                (2, 129, 129, 8, 4, 64, True, 0),
+                (1, 100, 77, 4, 2, 96, False, 0),
+                (1, 200, 200, 4, 1, 128, True, 50)):
+            q = randn(B, Sq, H, Dh, dt=dt)
+            k, v = randn(B, Sk, KV, Dh, dt=dt), randn(B, Sk, KV, Dh, dt=dt)
+            do = randn(B, Sq, H, Dh, dt=dt)
+            o, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                             window=window, with_lse=True)
+            plain_o = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window)[0]
+            assert torch.equal(o, plain_o)
+            got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                          window=window)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                               window=window)
+            for g, r in zip(got, want):
+                assert _rel_err(g, r) <= atol_attn
+            again = ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+        T, D, F, E = 300, 128, 96, 5
+        offs = torch.tensor([7, 60, 60, 61, 200, 290], dtype=torch.int32,
+                            device=dev)
+        lhs, dy = randn(T, D, dt=dt), randn(T, F, dt=dt)
+        rhs = (randn(E, D, F, dt=torch.float32) / D ** 0.5).to(dt)
+        got = ops.grouped_matmul_bwd(lhs, rhs, offs, dy)
+        want = ref.grouped_matmul_bwd_ref(lhs, rhs, offs, dy)
+        for g, r in zip(got, want):
+            assert _rel_err(g, r) <= tol
+        assert bool((got[0][:7] == 0).all()) and bool((got[0][290:] == 0).all())
+        assert bool((got[1][1] == 0).all())             # an expert, no rows
+        again = ops.grouped_matmul_bwd(lhs, rhs, offs, dy)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        # through autograd, every operand gets the kernels' gradient
+        leaves = [t.clone().requires_grad_() for t in (lhs, rhs)]
+        before = dict(ops.LAUNCHES)
+        out = ops.grouped_matmul(*leaves, offs)
+        gl, gr = torch.autograd.grad(out, leaves, dy)
+        assert torch.equal(gl, got[0]) and torch.equal(gr, got[1])
+        assert ops.LAUNCHES["grouped_matmul_dx"] == \
+            before["grouped_matmul_dx"] + 1
+        assert ops.LAUNCHES["grouped_matmul_dw"] == \
+            before["grouped_matmul_dw"] + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_refuses_grad():
+    """ssd_chunk has no backward kernel: on the card, with grad enabled and
+    an operand that requires grad, it raises; under no_grad it runs."""
+    dev = _cuda_or_skip()
+    x = torch.randn(2, 16, 3, 8, device=dev, requires_grad=True)
+    dt = torch.rand(2, 16, 3, device=dev)
+    a = -dt
+    B, C = torch.randn(2, 16, 4, device=dev), torch.randn(2, 16, 4, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_chunk(x, dt, a, B, C)
+    with torch.no_grad():
+        y, _ = ops.ssd_chunk(x, dt, a, B, C)
+    assert y.grad_fn is None and bool(torch.isfinite(y).all())
