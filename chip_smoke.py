@@ -7,7 +7,10 @@ Phases, each printing its own lines; any mismatch raises and the script
 exits non-zero:
 
 (a) the card's name and power limit (``nvidia-smi``), then the build of the
-    CUDA kernels from ``src/repro_torch/kernels/csrc`` and its time;
+    CUDA kernels from ``src/repro_torch/kernels/csrc`` and its time, each
+    kernel's registers and spills (``-Xptxas -v``), and the tensor-core
+    instructions in the SASS (``cuobjdump``) of the bf16 dW kernel (HGMMA)
+    and the attention backward kernels (HMMA), each of which must hold some;
 (b) each kernel against its plain PyTorch version on the card, in f32
     (tolerance 2e-5) and bf16 (2e-2; ssd_chunk is f32 only), at the main
     paths' shapes, the kernel tests' shapes and the tile edges of the
@@ -66,11 +69,17 @@ exits non-zero:
     relative to max|ref|) at granite's training shapes, qwen3-1.7b's Dh
     128, phi-3's Dh 96, the whisper encoder and its cross-attention, a
     window at jamba's head layout and tile edges (S off the tiles, experts
-    with no rows, uncovered rows: zero dX, nothing in dW); each twice, bit
-    for bit; the forward with the logsumexp equal to the forward without
-    it, bit for bit; ssd_chunk with an operand that requires grad raises.
-    Times of each backward kernel, its plain version, one PyTorch call
-    (SDPA's backward, F.rms_norm's backward, a padded bmm) and its bound.
+    with no rows, uncovered rows: zero dX, nothing in dW), and the edges of
+    the tensor-core tiles (Sq 65 and 127 at each head dim, a window of 1,
+    Sk 0 where no row keeps a key; dW groups of 1 to 129 rows off the
+    64-row slices with D and F off the 128 x 256 tile, a hot expert, an
+    empty expert between full ones); each twice, bit for bit, attention
+    finite; the forward with the logsumexp equal to the forward without
+    it, bit for bit; a bf16 dW with D % 8 != 0 and ssd_chunk with an
+    operand that requires grad raise.  Times of each backward kernel, its
+    plain version, one PyTorch call (SDPA's backward, F.rms_norm's
+    backward, a padded bmm) and its bound; flash_attention_bwd also at
+    qwen3-1.7b's Dh 128 and phi-3's Dh 96.
     Then gradients in f32, the card against the CPU (granite cut to 2
     layers at full width, whisper to 2 + 2): the loss and every parameter
     leaf within 1e-4 of its max |g|, each finite and not all zero.  Then
@@ -146,6 +155,36 @@ ATTN_BWD = [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 64, True, 0),
             (2, 61, 61, 8, 2, 64, True, 0),
             (1, 129, 77, 6, 3, 96, False, 0),
             (1, 200, 200, 4, 1, 128, True, 33)]
+# the tensor-core backward's tiles: Sq 65 and 127 about its 64-key
+# and 64- or 32-row tiles at each head dim, causal and not; a window of 1
+# with GQA (each row keeps its own key only, so dq and dk are 0 up to
+# rounding and are held against the size of the terms that cancel); and
+# Sk 0, where no row keeps a key (LSE +inf): zero dq, no NaN
+ATTN_BWD_EDGES = [(2, 65, 65, 8, 2, 64, True, 0),
+                  (2, 127, 127, 8, 4, 64, False, 0),
+                  (2, 65, 65, 8, 8, 96, False, 0),
+                  (1, 127, 127, 8, 2, 96, True, 0),
+                  (1, 65, 65, 4, 4, 128, True, 0),
+                  (2, 127, 127, 8, 2, 128, False, 0),
+                  (2, 300, 300, 8, 2, 64, True, 1),
+                  (1, 65, 0, 4, 2, 64, False, 0)]
+# flash_attention_bwd also timed at qwen3-1.7b's Dh 128 and phi-3's Dh 96,
+# as (B, S, H, KV, Dh), causal
+ATTN_BWD_TIMED = [(TRAIN_BATCH, TRAIN_SEQ, 16, 8, 64),
+                  (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128),
+                  (TRAIN_BATCH, 768, 32, 32, 96)]
+# grouped_matmul_dw about its wgmma tiles, as (label, T, D, F,
+# offsets): groups of 1, 63, 64, 65, 127, 128 and 129 rows, each starting
+# off a 64-row slice, with D and F off the 128 x 256 tile; one hot expert
+# with most of T; an empty expert between two full ones
+_SIZES = (1, 63, 64, 65, 127, 128, 129)
+GMM_DW_EDGES = [
+    (f"groups {list(_SIZES)} from row 3, D 200, F 328", 591, 200, 328,
+     [3 + sum(_SIZES[:i]) for i in range(len(_SIZES) + 1)]),
+    ("a hot expert", 4096, 256, 512, [0, 10, 20, 3900, 3950, 4000, 4030,
+                                      4060, 4096]),
+    ("an empty expert between two full ones", 700, 136, 200,
+     [0, 300, 300, 700])]
 # rmsnorm_bwd as [T, D]: granite's training rows, qwen3-1.7b's, mamba2's,
 # qwen3's qk-norm rows, and edges (D off the vectors, few rows)
 RMS_BWD = [(TRAIN_BATCH * TRAIN_SEQ, 1024), (4096, 2048), (4096, 1536),
@@ -396,6 +435,86 @@ def dense_and_slice_shapes():
             else:
                 gmm.append(shape)
     return tuple(list(dict.fromkeys(xs)) for xs in (rms, attn, gmm, scan))
+
+
+# ------------------------------------------------------------ phase (a)
+# kernels whose SASS must hold tensor-core instructions: (library, opcode,
+# kernel names); every instantiation of each is counted
+TENSOR_CORE_KERNELS = (
+    ("grouped_matmul", "HGMMA", ("gmm_dw_wgmma_kernel",)),
+    ("flash_attention", "HMMA", ("flash_bwd_dkdv_mma_kernel",
+                                 "flash_bwd_dq_mma_kernel")))
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_bwd_dq_mma_kernel<128>`` from a mangled kernel name."""
+    import re
+    # _ZN <len><anonymous namespace> <len><name> [I <template args> E] ...
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    i = m.end() + int(m.group(1))
+    m = re.match(r"\d+", mangled[i:])
+    if not m:
+        return mangled
+    start = i + m.end()
+    name = mangled[start:start + int(m.group(0))]
+    rest = mangled[start + int(m.group(0)):]
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"Li(\d+)E", rest)
+    if rest.startswith("If"):
+        args.insert(0, "f32")
+    elif rest.startswith("I13__nv_bfloat16"):
+        args.insert(0, "bf16")
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_report(text: str):
+    """(kernel, registers, spill line) for each entry in nvcc's ``-Xptxas
+    -v`` output."""
+    import re
+    out, kernel, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel, spills = kernel_label(m.group(1)), ""
+        elif "spill stores" in line:
+            spills = line.strip()
+        else:
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out.append((kernel, int(m.group(1)), spills))
+    return out
+
+
+def sass_counts(text: str, opcode: str):
+    """{kernel: number of ``opcode`` instructions} in cuobjdump's SASS."""
+    import re
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = kernel_label(m.group(1))
+            counts[cur] = 0
+        elif cur is not None and re.search(rf"\b{opcode}\.", line):
+            counts[cur] += 1
+    return counts
+
+
+def check_tensor_core_sass(build) -> None:
+    """Phase (a): the bf16 dW kernel's SASS holds HGMMA (wgmma) and the
+    attention backward kernels' HMMA (mma.sync), every instantiation."""
+    for lib, opcode, kernels in TENSOR_CORE_KERNELS:
+        counts = sass_counts(build.sass(lib), opcode)
+        for kernel in kernels:
+            found = {k: n for k, n in counts.items()
+                     if k.startswith(kernel + "<") or k == kernel}
+            log("a", f"SASS {kernel}: {opcode} "
+                f"{', '.join(f'{k} {n}' for k, n in sorted(found.items()))}")
+            if not found or min(found.values()) == 0:
+                raise AssertionError(f"{kernel}: no {opcode} in its SASS "
+                                     f"({found})")
 
 
 # ------------------------------------------------------------ phase (b)
@@ -1063,11 +1182,12 @@ def calibration_profiles(torch, dev):
 
 
 # ------------------------------------------------------------ phase (f)
-def compare_rel(name: str, got, want, tol: float):
-    """max |got - want| within ``tol`` times max |want|; returns (max abs
-    err, that err over max |want|)."""
+def compare_rel(name: str, got, want, tol: float, scale=None):
+    """max |got - want| within ``tol`` times max |want| (or times ``scale``
+    where given); returns (max abs err, that err over the scale)."""
     want = want.float()
-    scale = max(float(want.abs().max()), 1e-30) if want.numel() else 1.0
+    if scale is None:
+        scale = max(float(want.abs().max()), 1e-30) if want.numel() else 1.0
     err = float((got.float() - want).abs().max()) if want.numel() else 0.0
     if not err <= tol * scale:
         raise AssertionError(f"{name}: max err {err:.3e} exceeds {tol} x "
@@ -1081,16 +1201,62 @@ def same_bits(torch, name: str, a, b) -> None:
         raise AssertionError(f"{name}: two calls differ")
 
 
+def check_attention_bwd(torch, ops, ref, randn, shape, dname, dt) -> float:
+    """flash_attention_bwd at one shape against its plain version (each
+    output within ``ATTN_BWD_TOL`` of max|ref|, finite) and twice bit for
+    bit; the forward with the LSE equal to the forward without it.  With a
+    window of 1 each row keeps one key, P is 1 and dS = dP - D is 0 up to
+    rounding, so dq and dk are held against the size of what cancels:
+    max|D| max|k| scale for dq, G max|D| max|q| scale for dk.  Returns the
+    max abs error."""
+    B, Sq, Sk, H, KV, Dh, causal, window = shape
+    q, do = randn(B, Sq, H, Dh, dtype=dt), randn(B, Sq, H, Dh, dtype=dt)
+    k, v = randn(B, Sk, KV, Dh, dtype=dt), randn(B, Sk, KV, Dh, dtype=dt)
+    kw = dict(causal=causal, window=window)
+    o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    if not torch.equal(o, ops.flash_attention_fwd(q, k, v, **kw)[0]):
+        raise AssertionError(f"flash_attention {shape}: the forward with "
+                             f"the LSE differs")
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        raise AssertionError(f"flash_attention_bwd {shape} {dname}: not "
+                             f"finite")
+    scales = [None] * 3
+    if window == 1:
+        dd = float((do.float() * o.float()).sum(-1).abs().max())
+        sm = Dh ** -0.5
+        scales[0] = dd * float(k.float().abs().max()) * sm
+        scales[1] = H // KV * dd * float(q.float().abs().max()) * sm
+    e, r = map(max, zip(*(
+        compare_rel(f"flash_attention_bwd {n} {shape} {dname}", g, w_,
+                    ATTN_BWD_TOL[dname], scale=sc)
+        for n, g, w_, sc in zip(("dq", "dk", "dv"), got, want, scales))))
+    same_bits(torch, f"flash_attention_bwd {shape} {dname}", got,
+              ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    note = "; dq, dk against the cancelled terms" if window == 1 else ""
+    log("f", f"flash_attention_bwd {shape} {dname}: max_abs_err {e:.3e}, "
+        f"err/max|ref| {r:.3e} (tol {ATTN_BWD_TOL[dname]}){note}; finite; "
+        f"deterministic; the LSE forward equals the forward bit for bit")
+    return e
+
+
 def check_backward_kernels(torch, ops, ref, dev):
     """Phase (f): each backward kernel against its plain version (and
     twice, bit for bit), the LSE forward against the plain forward kernel
     bit for bit, and the ssd_chunk guard.  Its own generator (seed 9).
     Returns the errors at granite's bf16 training shapes."""
     gen = torch.Generator(device=dev).manual_seed(9)
+    # the tensor-core tiles' edges draw from a generator of their own, so
+    # that the earlier checks keep their inputs
+    edge_gen = torch.Generator(device=dev).manual_seed(13)
     errs = {}
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def edge_randn(*shape, dtype):
+        return torch.randn(*shape, generator=edge_gen, device=dev).to(dtype)
 
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
@@ -1112,29 +1278,11 @@ def check_backward_kernels(torch, ops, ref, dev):
                 errs["rmsnorm_bwd"] = e
             del x, dy, got, want
         for shape in ATTN_BWD:
-            B, Sq, Sk, H, KV, Dh, causal, window = shape
-            q, do = randn(B, Sq, H, Dh, dtype=dt), randn(B, Sq, H, Dh, dtype=dt)
-            k, v = randn(B, Sk, KV, Dh, dtype=dt), randn(B, Sk, KV, Dh, dtype=dt)
-            kw = dict(causal=causal, window=window)
-            o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
-            if not torch.equal(o, ops.flash_attention_fwd(q, k, v, **kw)[0]):
-                raise AssertionError(f"flash_attention {shape}: the forward "
-                                     f"with the LSE differs")
-            got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-            want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
-            e, r = map(max, zip(*(
-                compare_rel(f"flash_attention_bwd {n} {shape} {dname}", g,
-                            w_, ATTN_BWD_TOL[dname])
-                for n, g, w_ in zip(("dq", "dk", "dv"), got, want))))
-            same_bits(torch, f"flash_attention_bwd {shape} {dname}", got,
-                      ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
-            log("f", f"flash_attention_bwd {shape} {dname}: max_abs_err "
-                f"{e:.3e}, err/max|ref| {r:.3e} (tol {ATTN_BWD_TOL[dname]}); "
-                f"deterministic; the LSE forward equals the forward bit for "
-                f"bit")
+            e = check_attention_bwd(torch, ops, ref, randn, shape, dname, dt)
             if dname == "bfloat16" and shape == ATTN_BWD[0]:
                 errs["flash_attention_bwd"] = e
-            del q, k, v, do, o, lse, got, want
+        for shape in ATTN_BWD_EDGES:
+            check_attention_bwd(torch, ops, ref, edge_randn, shape, dname, dt)
         cases = []
         for T, D, Fo in ((TRAIN_BATCH * TRAIN_SEQ * 8, 1024, 512),
                          (TRAIN_BATCH * TRAIN_SEQ * 8, 512, 1024)):
@@ -1148,9 +1296,15 @@ def check_backward_kernels(torch, ops, ref, dev):
                       False))
         cases.append(("all rows uncovered", 64, 64, 64, 3,
                       torch.zeros(4, dtype=torch.int32, device=dev), False))
+        base_labels = {c[0] for c in cases}
+        for label, T, D, Fo, offs in GMM_DW_EDGES:
+            cases.append((label, T, D, Fo, len(offs) - 1,
+                          torch.tensor(offs, dtype=torch.int32, device=dev),
+                          False))
         for label, T, D, Fo, E, offs, main in cases:
-            lhs, dy = randn(T, D, dtype=dt), randn(T, Fo, dtype=dt)
-            rhs = (randn(E, D, Fo, dtype=torch.float32) / math.sqrt(D)).to(dt)
+            rnd = randn if label in base_labels else edge_randn
+            lhs, dy = rnd(T, D, dtype=dt), rnd(T, Fo, dtype=dt)
+            rhs = (rnd(E, D, Fo, dtype=torch.float32) / math.sqrt(D)).to(dt)
             got = ops.grouped_matmul_bwd(lhs, rhs, offs, dy)
             want = ref.grouped_matmul_bwd_ref(lhs, rhs, offs, dy)
             e_dx, r_dx = compare_rel(f"grouped_matmul_dx {label} {dname}",
@@ -1181,6 +1335,18 @@ def check_backward_kernels(torch, ops, ref, dev):
                 errs["grouped_matmul_dw"] = max(
                     errs.get("grouped_matmul_dw", 0.0), e_dw)
             del lhs, dy, rhs, got, want
+    try:
+        ops.grouped_matmul_dw(torch.zeros(64, 100, dtype=torch.bfloat16,
+                                          device=dev),
+                              torch.zeros(64, 64, dtype=torch.bfloat16,
+                                          device=dev),
+                              torch.tensor([0, 64], dtype=torch.int32,
+                                           device=dev), 1)
+    except ValueError as err:
+        log("f", f"grouped_matmul_dw bf16 D 100: raises ValueError ({err})")
+    else:
+        raise AssertionError("grouped_matmul_dw bf16 with D 100 did not "
+                             "raise")
     # ssd_chunk has no backward kernel: with grad it must raise on the card
     x = torch.randn(2, 16, 3, 8, device=dev, requires_grad=True)
     dt_ = torch.rand(2, 16, 3, device=dev)
@@ -1234,30 +1400,34 @@ def time_backward_kernels(torch, ops, ref, dev):
         3 * T * D * es + 8 * D, 10 * T * D)
     del x, dy, xl, wl, yl
 
-    B, S, H, KV, Dh = TRAIN_BATCH, TRAIN_SEQ, 16, 8, 64
-    q, do = (torch.randn(B, S, H, Dh, generator=gen, device=dev).to(bf)
-             for _ in range(2))
-    k, v = (torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(bf)
-            for _ in range(2))
-    o, lse = ops.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
-    qt = q.transpose(1, 2).detach().requires_grad_()
-    kt = k.repeat_interleave(H // KV, 2).transpose(1, 2).detach() \
-        .requires_grad_()
-    vt = v.repeat_interleave(H // KV, 2).transpose(1, 2).detach() \
-        .requires_grad_()
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    pairs = S * (S + 1) // 2
-    out["flash_attention_bwd"] = record(
-        "flash_attention_bwd", f"q[{B},{S},{H},{Dh}] causal",
-        lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
-        lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True),
-        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
-        # q, o, dO read and dq written at H heads; k, v read and dk, dv
-        # written at KV heads; the LSE read
-        (4 * B * S * H * Dh + 4 * B * S * KV * Dh) * es + 4 * B * H * S,
-        10 * B * H * Dh * pairs)
-    del q, do, k, v, o, lse, qt, kt, vt, ot, dot
+    attn = []
+    for B, S, H, KV, Dh in ATTN_BWD_TIMED:
+        q, do = (torch.randn(B, S, H, Dh, generator=gen, device=dev).to(bf)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, KV, Dh, generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt = k.repeat_interleave(H // KV, 2).transpose(1, 2).detach() \
+            .requires_grad_()
+        vt = v.repeat_interleave(H // KV, 2).transpose(1, 2).detach() \
+            .requires_grad_()
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        pairs = S * (S + 1) // 2
+        attn.append(record(
+            "flash_attention_bwd", f"q[{B},{S},{H},{Dh}] causal",
+            lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+            lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True),
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                        retain_graph=True),
+            # q, o, dO read and dq written at H heads; k, v read and dk, dv
+            # written at KV heads; the LSE read
+            (4 * B * S * H * Dh + 4 * B * S * KV * Dh) * es + 4 * B * H * S,
+            10 * B * H * Dh * pairs))
+        del q, do, k, v, o, lse, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    out["flash_attention_bwd"] = {**attn[0], "by_shape": attn[1:]}
 
     for T, D, Fo in ((TRAIN_BATCH * TRAIN_SEQ * 8, 1024, 512),
                      (TRAIN_BATCH * TRAIN_SEQ * 8, 512, 1024)):
@@ -1448,9 +1618,9 @@ def main() -> int:
     build.build_all()
     log("a", f"kernels built in {build.BUILD_SECONDS:.2f} s")
     for name, text in build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("a", f"ptxas {name}: {line.strip()}")
+        for kernel, regs, spills in ptxas_report(text):
+            log("a", f"ptxas {name}: {kernel}: {regs} registers, {spills}")
+    check_tensor_core_sass(build)
 
     errs = check_kernels(torch, ops, ref, dev)
     check_new_attention(torch, ops, ref, dev)

@@ -132,6 +132,16 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     return _LIBS
 
 
+def sass(name: str) -> str:
+    """The SASS of kernel library ``name`` (``cuobjdump --dump-sass``, from
+    the toolkit beside ``nvcc``): what each kernel compiled to."""
+    build_all()
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "--dump-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
 def launcher(entry: str):
     """The C entry point ``<entry>_launch`` of a built kernel library."""
     return getattr(build_all()[ENTRIES[entry]], f"{entry}_launch")

@@ -482,22 +482,51 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 // FA2's backward, with P recomputed from the forward's row logsumexp:
 //   D_i = rowsum(dO o O),  P = exp(S scale - LSE),  dV = P^T dO,
 //   dP = dO V^T,  dS = P o (dP - D),  dQ = dS K scale,  dK = dS^T Q scale.
-// A simple design that is right first, for both dtypes: FMA loops in f32
-// on f32 tiles in shared memory (bf16 operands are widened as they are
-// staged), so the f32 route never touches TF32.  Bound: at granite's
-// training shape (q [8,512,16,64], causal, bf16) 5 matmuls over the kept
-// (query, key) pairs are 10.8 GFLOP (0.011 ms on the tensor cores) and
-// q, k, v, o, dO, the LSE and dq, dk, dv are 51 MB (0.015 ms at 3.35
-// TB/s), so bytes bound it; this FMA version runs far above that bound,
-// limited by its shared-memory loads (PERF.md).  Deterministic:
-// every output element is summed by one thread in a fixed order, with no
-// atomics.  Three kernels:
+// Bound: at granite's training shape (q [8,512,16,64], causal, bf16) q, o,
+// dO, dq at 16 heads, k, v, dk, dv at 8 and the LSE are 51 MB (0.015 ms at
+// 3.35 TB/s) against 10.8 GFLOP for the 5 products over the kept pairs
+// (0.011 ms on the tensor cores), so bytes bound it.  Deterministic: every
+// output element is summed by one owner in a fixed order, with no atomics.
+// Three kernels, so that the GQA sum over a group's heads needs no atomics:
 //  * D: one warp a (b, query, head) row;
-//  * dK, dV: one block per (b, kv head, 64 keys); it walks the query tiles
-//    of every q head of the GQA group in turn (those the causal mask and
-//    window can reach), so the group's sum needs no atomics;
-//  * dQ: one block per (b, head, 64 queries), walking key tiles as the
-//    forward does.
+//  * dK, dV: one block per (b, kv head, tile of keys); it walks the rows of
+//    every q head of the GQA group that the causal mask and window let see
+//    a key of the tile;
+//  * dQ: one block per (b, kv head, tile of rows), rows as the forward's.
+//
+// bf16 (tensor cores; FA2's backward on mma.sync m16n8k16, bf16 in, f32
+// accumulate, with cp.async and ldmatrix as flash_mma_kernel).  D takes
+// 16-byte loads, a few lanes a row.  A row is a
+// (query, q head of the group) pair, query-major, as in the forward, so
+// one loop walks every head of the group and one K/V tile serves them all.
+//  * dK/dV: 4 warps a block, 16 keys a warp; K and V stay in shared memory
+//    (bf16, padded rows) and dK, dV in registers as mma fragments.  Q, dO,
+//    the LSE and D of BQ rows a step are double-buffered through cp.async.
+//    The products are taken transposed: S^T = K Q^T and dP^T = V dO^T (Q
+//    and dO as B through ldmatrix), then P^T = 2^(S^T scale log2e - LSE
+//    log2e) (ex2; the LSE is natural-log, so a row with no key (LSE +inf)
+//    gives P exactly 0), dS^T = P^T o (dP^T - D); P^T and dS^T go from
+//    their accumulators straight to bf16 A fragments (no shared-memory
+//    round trip, rounded as FA2 rounds them), and dV += P^T dO, dK += dS^T Q
+//    read dO and Q through ldmatrix.trans.  BQ = 64 at Dh 64, 32 at Dh 96
+//    and 128, so dK, dV (Dh floats a thread) and S^T, dP^T (BQ) fit the
+//    registers.  A warp skips the steps whose rows cannot see its keys.
+//  * dQ: 4 warps a block, 16 rows a warp (64 rows, as the forward at Dh 96
+//    and 128); Q and dO stay in shared memory, dQ in registers, and the
+//    block walks the 64-key tiles the mask keeps (double-buffered K, V):
+//    S = Q K^T, dP = dO V^T, P, dS as above, dQ += dS K with K as B through
+//    ldmatrix.trans.  Row tiles start in reverse, the longest first.
+//  Only tiles that cross a diagonal, a window's edge or the end of the rows
+//  or keys are masked element by element.  What holds them back: one
+//  ldmatrix.x4 for every two mma (each warp reads the whole Q and dO tile,
+//  twice), so shared-memory reads, and 2 or 3 blocks an SM for the
+//  registers; and the dQ kernel's recompute of S and dP, the price of no
+//  atomics.  Two m16 tiles a warp would feed each fragment to twice the
+//  mma, where the registers allow it.
+//
+// f32: FMA loops in f32 on f32 tiles in shared memory, so the f32 route
+// never touches TF32.  dK/dV blocks of 64 keys walk 32 query rows a step;
+// dQ blocks of 64 query rows walk 32 keys a step.
 constexpr int BWD_NT = 256;      // threads per backward block
 constexpr int KB_KEYS = 64;      // keys per dK/dV block
 constexpr int KB_Q = 32;         // query rows per step of its loop
@@ -760,6 +789,444 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- bf16 backward (mma.sync)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct BwdCfg {
+  static constexpr int NW = 4;                    // warps a block
+  static constexpr int KEYS = 16 * NW;            // dK/dV: keys a block
+  static constexpr int BQ = DH == 64 ? 64 : 32;   // dK/dV: rows a step
+  // dK/dV blocks an SM at Dh 64: 3 caps the registers at 168, with a
+  // 12-byte spill (measured faster than the 213 registers the compiler
+  // picks alone, which fit 2 blocks)
+  static constexpr int DKDV_MIN_BLOCKS = DH == 64 ? 3 : 1;
+  static constexpr int ROWS = 16 * NW;            // dQ: rows a block
+  static constexpr int TK = 64;                   // dQ: keys a step
+  static constexpr int LD = DH + 8;               // padded smem row
+  static constexpr int RB = LD * 2;               // its bytes
+  // dK/dV: K, V [KEYS][LD]; two buffers of Q, dO [BQ][LD], LSE, D [BQ] f32
+  static constexpr int QBUF = 2 * BQ * RB + 2 * BQ * 4;
+  static constexpr int DKDV_SMEM = 2 * KEYS * RB + 2 * QBUF;
+  // dQ: Q, dO [ROWS][LD]; two buffers of K, V [TK][LD]
+  static constexpr int DQ_SMEM = 2 * ROWS * RB + 2 * 2 * TK * RB;
+};
+
+// Dd[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d], bf16: L lanes a row
+// (the power of two >= Dh / 8), each lane 8 elements of O and of dO in one
+// 16-byte load each, summed in f32 by xor shuffles over the row's lanes.
+template <int DH>
+__global__ void __launch_bounds__(BWD_NT)
+flash_bwd_dot_bf16_kernel(const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ dout,
+                          float* __restrict__ Dd, long rows, int Sq, int H) {
+  constexpr int CH = DH / 8, L = CH <= 8 ? 8 : 16;
+  const long row = ((long)blockIdx.x * BWD_NT + threadIdx.x) / L;
+  const int c = threadIdx.x % L;
+  float acc = 0.f;
+  if (row < rows && c < CH) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * DH + 8 * c);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + row * DH + 8 * c);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(a2[j]), y = __bfloat1622float2(b2[j]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && c == 0) {
+    const long b = row / ((long)Sq * H), i = (row / H) % Sq, h = row % H;
+    Dd[((size_t)b * H + h) * Sq + i] = acc;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(BwdCfg<DH>::NW * 32,
+                                  BwdCfg<DH>::DKDV_MIN_BLOCKS)
+flash_bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ Dd,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                          int H, int KV, float scale_log2, float scale,
+                          int causal, int window) {
+  using C = BwdCfg<DH>;
+  constexpr int NT = C::NW * 32, LD = C::LD, CH = DH / 8, BQ = C::BQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t sk = hw::smem_u32(smem_raw), sv = sk + C::KEYS * C::RB;
+  auto sq = [&](int buf) { return sv + C::KEYS * C::RB + buf * C::QBUF; };
+  auto sg = [&](int buf) { return sq(buf) + BQ * C::RB; };
+  auto sl = [&](int buf) { return sg(buf) + BQ * C::RB; };   // LSE, then D
+  auto lds = [&](int buf) {
+    return reinterpret_cast<const float*>(smem_raw + (sl(buf) - sk));
+  };
+
+  const int G = H / KV;
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int k0 = blockIdx.x * C::KEYS;
+  const int n_rows = Sq * G;
+  const bool windowed = causal && window > 0;
+  // rows that can see a key of the block: queries >= k0 (causal) and
+  // queries < the last key + window (a window)
+  const int p_begin = causal ? k0 * G : 0;
+  const int p_end = windowed
+      ? min(Sq, min(Sk, k0 + C::KEYS) - 1 + window) * G : n_rows;
+  const int n_steps = p_end > p_begin ? (p_end - p_begin + BQ - 1) / BQ : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  auto row_off = [&](int p) {
+    return (((size_t)b * Sq + p / G) * H + kvh * G + p % G) * DH;
+  };
+  auto stat_off = [&](int p) {
+    return ((size_t)b * H + kvh * G + p % G) * Sq + p / G;
+  };
+  auto load_step = [&](int st, int buf) {
+    const int p0 = p_begin + st * BQ;
+    for (int c = tid; c < BQ * CH; c += NT) {
+      const int r = c / CH, d = (c % CH) * 8, p = p0 + r;
+      const bool ok = p < n_rows;
+      const size_t off = (ok ? row_off(p) : 0) + d;
+      hw::cp_async16(sq(buf) + (r * LD + d) * 2, q + off, ok);
+      hw::cp_async16(sg(buf) + (r * LD + d) * 2, dout + off, ok);
+    }
+    for (int r = tid; r < BQ; r += NT) {
+      const int p = p0 + r;
+      const bool ok = p < n_rows;
+      const size_t off = ok ? stat_off(p) : 0;
+      hw::cp_async4(sl(buf) + 4 * r, lse + off, ok);
+      hw::cp_async4(sl(buf) + 4 * (BQ + r), Dd + off, ok);
+    }
+  };
+
+  for (int c = tid; c < C::KEYS * CH; c += NT) {
+    const int r = c / CH, d = (c % CH) * 8, kj = k0 + r;
+    const bool ok = kj < Sk;
+    const size_t off = (((size_t)b * Sk + (ok ? kj : 0)) * KV + kvh) * DH + d;
+    hw::cp_async16(sk + (r * LD + d) * 2, k + off, ok);
+    hw::cp_async16(sv + (r * LD + d) * 2, v + off, ok);
+  }
+  if (n_steps > 0) load_step(0, 0);
+  hw::cp_async_commit();              // group 0: K, V and step 0
+
+  const int wk0 = k0 + 16 * warp;     // the warp's first key
+  const int kj[2] = {wk0 + g, wk0 + g + 8};   // this thread's keys
+  float adk[DH / 8][4], adv[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[i][e] = adv[i][e] = 0.f;
+
+  for (int st = 0; st < n_steps; ++st) {
+    const int buf = st & 1;
+    __syncthreads();                  // step st - 1's buffer is consumed
+    if (st + 1 < n_steps) load_step(st + 1, buf ^ 1);
+    hw::cp_async_commit();
+    hw::cp_async_wait<1>();
+    __syncthreads();                  // step st landed
+    const int p0 = p_begin + st * BQ;
+    const int q_lo = p0 / G, q_hi = (min(p0 + BQ, n_rows) - 1) / G;
+    if (wk0 >= Sk) continue;                           // no key of the warp
+    if (causal && wk0 > q_hi) continue;                // above the diagonal
+    if (windowed && wk0 + 15 <= q_lo - window) continue;   // below the window
+    const bool need_mask = p0 + BQ > n_rows || wk0 + 16 > Sk ||
+                           (causal && wk0 + 15 > q_lo) ||
+                           (windowed && wk0 <= q_hi - window);
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ rows
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      uint32_t ka[4], va[4];
+      const uint32_t a_off = ((16 * warp + lane % 16) * LD + ks * 16
+                              + (lane / 16) * 8) * 2;
+      hw::ldmatrix_x4(ka, sk + a_off);
+      hw::ldmatrix_x4(va, sv + a_off);
+#pragma unroll
+      for (int np = 0; np < BQ / 16; ++np) {
+        uint32_t qb[4], gb[4];
+        const uint32_t b_off = ((np * 16 + lane % 8 + 8 * (lane / 16)) * LD
+                                + ks * 16 + 8 * ((lane / 8) % 2)) * 2;
+        hw::ldmatrix_x4(qb, sq(buf) + b_off);
+        hw::ldmatrix_x4(gb, sg(buf) + b_off);
+        hw::mma_bf16(s[2 * np], ka, qb[0], qb[1]);
+        hw::mma_bf16(s[2 * np + 1], ka, qb[2], qb[3]);
+        hw::mma_bf16(dp[2 * np], va, gb[0], gb[1]);
+        hw::mma_bf16(dp[2 * np + 1], va, gb[2], gb[3]);
+      }
+    }
+
+    // P^T and dS^T in place: element e of tile i is key kj[e / 2], row
+    // p0 + 8 i + 2 t + (e & 1)
+    const float* ls = lds(buf);
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * i + 2 * t);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(ls + BQ + 8 * i + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lv = (e & 1) ? l2.y : l2.x, dv_ = (e & 1) ? d2.y : d2.x;
+        float pe = hw::ex2(s[i][e] * scale_log2 - lv * kLog2e);
+        if (need_mask) {
+          const int p = p0 + 8 * i + 2 * t + (e & 1), key = kj[e / 2];
+          const int qi = p / G;
+          if (p >= n_rows || key >= Sk || (causal && key > qi) ||
+              (windowed && key <= qi - window))
+            pe = 0.f;
+        }
+        s[i][e] = pe;
+        dp[i][e] = pe * (dp[i][e] - dv_);
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q: P^T, dS^T as A fragments in registers
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      pa[0] = hw::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = hw::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = hw::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = hw::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      da[0] = hw::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      da[1] = hw::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      da[2] = hw::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      da[3] = hw::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+      for (int dpi = 0; dpi < DH / 16; ++dpi) {
+        uint32_t gb[4], qb[4];
+        const uint32_t b_off = ((kk * 16 + lane % 16) * LD + dpi * 16
+                                + 8 * (lane / 16)) * 2;
+        hw::ldmatrix_x4_trans(gb, sg(buf) + b_off);
+        hw::ldmatrix_x4_trans(qb, sq(buf) + b_off);
+        hw::mma_bf16(adv[2 * dpi], pa, gb[0], gb[1]);
+        hw::mma_bf16(adv[2 * dpi + 1], pa, gb[2], gb[3]);
+        hw::mma_bf16(adk[2 * dpi], da, qb[0], qb[1]);
+        hw::mma_bf16(adk[2 * dpi + 1], da, qb[2], qb[3]);
+      }
+    }
+  }
+
+  // round once, stage in the warp's own K and V rows (no other warp reads
+  // them), store rows of 16 bytes
+  hw::cp_async_wait<0>();
+  __syncthreads();                    // every copy into K and V has landed
+  __nv_bfloat16* stk = reinterpret_cast<__nv_bfloat16*>(smem_raw)
+                       + 16 * warp * LD;
+  __nv_bfloat16* stv = stk + C::KEYS * LD;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    *reinterpret_cast<uint32_t*>(stk + g * LD + col) =
+        hw::pack_bf16(adk[i][0] * scale, adk[i][1] * scale);
+    *reinterpret_cast<uint32_t*>(stk + (g + 8) * LD + col) =
+        hw::pack_bf16(adk[i][2] * scale, adk[i][3] * scale);
+    *reinterpret_cast<uint32_t*>(stv + g * LD + col) =
+        hw::pack_bf16(adv[i][0], adv[i][1]);
+    *reinterpret_cast<uint32_t*>(stv + (g + 8) * LD + col) =
+        hw::pack_bf16(adv[i][2], adv[i][3]);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, d = (c % CH) * 8, key = wk0 + r;
+    if (key < Sk) {
+      const size_t off = (((size_t)b * Sk + key) * KV + kvh) * DH + d;
+      *reinterpret_cast<uint4*>(dk + off) =
+          *reinterpret_cast<const uint4*>(stk + r * LD + d);
+      *reinterpret_cast<uint4*>(dv + off) =
+          *reinterpret_cast<const uint4*>(stv + r * LD + d);
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(BwdCfg<DH>::NW * 32)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ Dd,
+                        __nv_bfloat16* __restrict__ dq, int Sq, int Sk,
+                        int H, int KV, float scale_log2, float scale,
+                        int causal, int window) {
+  using C = BwdCfg<DH>;
+  constexpr int NT = C::NW * 32, LD = C::LD, CH = DH / 8, TK = C::TK;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t sq = hw::smem_u32(smem_raw), sg = sq + C::ROWS * C::RB;
+  auto sk = [&](int buf) {
+    return sg + C::ROWS * C::RB + buf * 2 * TK * C::RB;
+  };
+  auto sv = [&](int buf) { return sk(buf) + TK * C::RB; };
+
+  const int G = H / KV;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  // row tiles in reverse, so the tiles with the most keys start first
+  const int p0 = (gridDim.y - 1 - blockIdx.y) * C::ROWS;
+  const int n_rows = Sq * G;
+  const int q_last = min(n_rows - 1, p0 + C::ROWS - 1) / G;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const bool windowed = causal && window > 0;
+  const int j0 = windowed ? max(0, p0 / G - window + 1) / TK : 0;
+  const int nt = max(0, (k_end + TK - 1) / TK - j0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  auto row_off = [&](int p) {
+    return (((size_t)b * Sq + p / G) * H + kvh * G + p % G) * DH;
+  };
+  auto load_kv = [&](int tile, int buf) {
+    for (int c = tid; c < TK * CH; c += NT) {
+      const int r = c / CH, d = (c % CH) * 8, kj = tile * TK + r;
+      const bool ok = kj < Sk;
+      const size_t off = (((size_t)b * Sk + (ok ? kj : 0)) * KV + kvh) * DH + d;
+      hw::cp_async16(sk(buf) + (r * LD + d) * 2, k + off, ok);
+      hw::cp_async16(sv(buf) + (r * LD + d) * 2, v + off, ok);
+    }
+  };
+  for (int c = tid; c < C::ROWS * CH; c += NT) {
+    const int r = c / CH, d = (c % CH) * 8, p = p0 + r;
+    const bool ok = p < n_rows;
+    const size_t off = (ok ? row_off(p) : 0) + d;
+    hw::cp_async16(sq + (r * LD + d) * 2, q + off, ok);
+    hw::cp_async16(sg + (r * LD + d) * 2, dout + off, ok);
+  }
+  if (nt > 0) load_kv(j0, 0);
+  hw::cp_async_commit();              // group 0: Q, dO and K/V tile j0
+
+  // the warp's rows; this thread holds rows wp + g and wp + g + 8
+  const int wp = p0 + 16 * warp;
+  const bool w_rows = wp < n_rows;
+  const int w_first = wp / G, w_last = (min(wp + 16, n_rows) - 1) / G;
+  int pr[2], qi[2];
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    pr[r] = wp + g + 8 * r;
+    qi[r] = pr[r] / G;
+    const bool ok = pr[r] < n_rows;
+    const size_t off = ((size_t)b * H + kvh * G + pr[r] % G) * Sq + qi[r];
+    lse2[r] = ok ? lse[off] * kLog2e : 0.f;
+    dd[r] = ok ? Dd[off] : 0.f;
+  }
+  float adq[DH / 8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adq[i][e] = 0.f;
+
+  for (int jj = 0; jj < nt; ++jj) {
+    const int buf = jj & 1;
+    __syncthreads();                  // tile jj - 1's buffer is consumed
+    if (jj + 1 < nt) load_kv(j0 + jj + 1, buf ^ 1);
+    hw::cp_async_commit();
+    hw::cp_async_wait<1>();
+    __syncthreads();                  // tile jj (and Q, dO) landed
+    const int kt0 = (j0 + jj) * TK;
+    if (!w_rows) continue;
+    if (causal && kt0 > w_last) continue;             // above the diagonal
+    if (windowed && kt0 + TK - 1 <= w_first - window) continue;
+    const bool need_mask = kt0 + TK > Sk || wp + 16 > n_rows ||
+                           (causal && kt0 + TK - 1 > w_first) ||
+                           (windowed && kt0 <= w_last - window);
+
+    // S = Q K^T and dP = dO V^T: 16 rows x TK keys
+    float s[TK / 8][4], dp[TK / 8][4];
+#pragma unroll
+    for (int i = 0; i < TK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) {
+      uint32_t qa[4], ga[4];
+      const uint32_t a_off = ((16 * warp + lane % 16) * LD + ks * 16
+                              + (lane / 16) * 8) * 2;
+      hw::ldmatrix_x4(qa, sq + a_off);
+      hw::ldmatrix_x4(ga, sg + a_off);
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np) {
+        uint32_t kb[4], vb[4];
+        const uint32_t b_off = ((np * 16 + lane % 8 + 8 * (lane / 16)) * LD
+                                + ks * 16 + 8 * ((lane / 8) % 2)) * 2;
+        hw::ldmatrix_x4(kb, sk(buf) + b_off);
+        hw::ldmatrix_x4(vb, sv(buf) + b_off);
+        hw::mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        hw::mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        hw::mma_bf16(dp[2 * np], ga, vb[0], vb[1]);
+        hw::mma_bf16(dp[2 * np + 1], ga, vb[2], vb[3]);
+      }
+    }
+    // dS in place of dP: element e of tile i is row pr[e / 2], key
+    // kt0 + 8 i + 2 t + (e & 1)
+#pragma unroll
+    for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e / 2;
+        float pe = hw::ex2(s[i][e] * scale_log2 - lse2[r]);
+        if (need_mask) {
+          const int key = kt0 + 8 * i + 2 * t + (e & 1);
+          if (pr[r] >= n_rows || key >= Sk || (causal && key > qi[r]) ||
+              (windowed && key <= qi[r] - window))
+            pe = 0.f;
+        }
+        dp[i][e] = pe * (dp[i][e] - dd[r]);
+      }
+    }
+    // dQ += dS K: dS as A fragments in registers, K as B through
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      uint32_t da[4];
+      da[0] = hw::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      da[1] = hw::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      da[2] = hw::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      da[3] = hw::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+      for (int dpi = 0; dpi < DH / 16; ++dpi) {
+        uint32_t kb[4];
+        hw::ldmatrix_x4_trans(kb, sk(buf) + ((kk * 16 + lane % 16) * LD
+                                             + dpi * 16 + 8 * (lane / 16)) * 2);
+        hw::mma_bf16(adq[2 * dpi], da, kb[0], kb[1]);
+        hw::mma_bf16(adq[2 * dpi + 1], da, kb[2], kb[3]);
+      }
+    }
+  }
+
+  // round once, stage in the warp's own Q rows, store rows of 16 bytes
+  hw::cp_async_wait<0>();
+  __syncthreads();                    // every copy into Q has landed
+  __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(smem_raw)
+                       + 16 * warp * LD;
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    *reinterpret_cast<uint32_t*>(stg + g * LD + col) =
+        hw::pack_bf16(adq[i][0] * scale, adq[i][1] * scale);
+    *reinterpret_cast<uint32_t*>(stg + (g + 8) * LD + col) =
+        hw::pack_bf16(adq[i][2] * scale, adq[i][3] * scale);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, d = (c % CH) * 8, p = wp + r;
+    if (p < n_rows)
+      *reinterpret_cast<uint4*>(dq + row_off(p) + d) =
+          *reinterpret_cast<const uint4*>(stg + r * LD + d);
+  }
+}
+
 template <typename T, int DH>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk,
@@ -799,20 +1266,82 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return 0;
 }
 
-template <typename T>
-int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, void* dq, void* dk,
-                 void* dv, float* Dd, int B, int Sq, int Sk, int H, int KV,
-                 int Dh, float scale, int causal, int window, cudaStream_t s) {
+template <int DH>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, void* dq, void* dk,
+                   void* dv, float* Dd, int B, int Sq, int Sk, int H, int KV,
+                   float scale, int causal, int window, cudaStream_t s) {
+  using C = BwdCfg<DH>;
+  static bool smem_ok = false;        // set once per instantiation
+  if (!smem_ok) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_mma_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::DKDV_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel<DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 C::DQ_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_ok = true;
+  }
+  using bf = __nv_bfloat16;
+  const bf* qp = static_cast<const bf*>(q);
+  const bf* kp = static_cast<const bf*>(k);
+  const bf* vp = static_cast<const bf*>(v);
+  const bf* gp = static_cast<const bf*>(dout);
+  const float scale_log2 = scale * kLog2e;
+  const long rows = (long)B * Sq * H;
+  constexpr int L = DH / 8 <= 8 ? 8 : 16;     // lanes a row
+  flash_bwd_dot_bf16_kernel<DH>
+      <<<(unsigned)((rows * L + BWD_NT - 1) / BWD_NT), BWD_NT, 0, s>>>(
+          static_cast<const bf*>(o), gp, Dd, rows, Sq, H);
+  if (Sk > 0) {
+    flash_bwd_dkdv_mma_kernel<DH>
+        <<<dim3((Sk + C::KEYS - 1) / C::KEYS, B * KV), C::NW * 32,
+           C::DKDV_SMEM, s>>>(qp, kp, vp, gp, lse, Dd, static_cast<bf*>(dk),
+                              static_cast<bf*>(dv), Sq, Sk, H, KV,
+                              scale_log2, scale, causal, window);
+  }
+  const long grows = (long)Sq * (H / KV);
+  flash_bwd_dq_mma_kernel<DH>
+      <<<dim3(B * KV, (unsigned)((grows + C::ROWS - 1) / C::ROWS)),
+         C::NW * 32, C::DQ_SMEM, s>>>(qp, kp, vp, gp, lse, Dd,
+                                      static_cast<bf*>(dq), Sq, Sk, H, KV,
+                                      scale_log2, scale, causal, window);
+  return 0;
+}
+
+int dispatch_bwd_f32(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     void* dq, void* dk, void* dv, float* Dd, int B, int Sq,
+                     int Sk, int H, int KV, int Dh, float scale, int causal,
+                     int window, cudaStream_t s) {
   if (Dh == 64)
-    return launch_bwd<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk,
-                             H, KV, scale, causal, window, s);
+    return launch_bwd<float, 64>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                                 Sk, H, KV, scale, causal, window, s);
   if (Dh == 96)
-    return launch_bwd<T, 96>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk,
-                             H, KV, scale, causal, window, s);
+    return launch_bwd<float, 96>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                                 Sk, H, KV, scale, causal, window, s);
   if (Dh == 128)
-    return launch_bwd<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+    return launch_bwd<float, 128>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B,
+                                  Sq, Sk, H, KV, scale, causal, window, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_bwd_bf16(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, void* dk, void* dv, float* Dd, int B, int Sq,
+                      int Sk, int H, int KV, int Dh, float scale, int causal,
+                      int window, cudaStream_t s) {
+  if (Dh == 64)
+    return launch_bwd_mma<64>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
                               Sk, H, KV, scale, causal, window, s);
+  if (Dh == 96)
+    return launch_bwd_mma<96>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                              Sk, H, KV, scale, causal, window, s);
+  if (Dh == 128)
+    return launch_bwd_mma<128>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                               Sk, H, KV, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -866,12 +1395,11 @@ extern "C" int flash_attention_bwd_launch(
   float* dp = static_cast<float*>(Dd);
   int rc;
   if (dtype == rt::kF32) {
-    rc = dispatch_bwd<float>(q, k, v, o, dout, lp, dq, dk, dv, dp, B, Sq, Sk,
-                             H, KV, Dh, scale, causal, window, s);
+    rc = dispatch_bwd_f32(q, k, v, o, dout, lp, dq, dk, dv, dp, B, Sq, Sk, H,
+                          KV, Dh, scale, causal, window, s);
   } else if (dtype == rt::kBF16) {
-    rc = dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, lp, dq, dk, dv, dp, B,
-                                     Sq, Sk, H, KV, Dh, scale, causal, window,
-                                     s);
+    rc = dispatch_bwd_bf16(q, k, v, o, dout, lp, dq, dk, dv, dp, B, Sq, Sk, H,
+                           KV, Dh, scale, causal, window, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

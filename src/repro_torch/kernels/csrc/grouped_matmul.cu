@@ -295,7 +295,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         const uint64_t da = hw::wgmma_desc(sa(s) + wg * 8192 + kk * 32, 16,
                                            1024);
         const uint64_t db = hw::wgmma_desc(sb(s) + kk * 2048, B_HALF, 1024);
-        hw::wgmma_ss_tb(acc, da, db, it > 0 || kk > 0);   // m64n<WN>k16
+        hw::wgmma_ss<0>(acc, da, db, it > 0 || kk > 0);   // m64n<WN>k16
       }
       hw::wgmma_commit();
       hw::wgmma_wait<1>();                // slice it - 1 is done with smem
@@ -523,21 +523,56 @@ int launch_bf16(const void* lhs, const void* rhs, const int* offsets,
 
 // ------------------------------------------------------------- backward
 // dW[e] = X[rows of e]^T dY[rows of e] (dX = dY W^T per group is the
-// forward kernel on a contiguous [E, F, D] copy of W^T; ops.py).  An expert
-// with no rows gets zeros, and rows no group covers add nothing, so the
-// dropped MoE assignments (sorted past the last group) get no gradient.
+// forward kernel on a contiguous [E, F, D] copy of W^T; ops.py).  Expert e
+// covers [lo, hi): lo is the running maximum of the clamped offsets[0..e],
+// hi that of offsets[0..e+1], as find_tile reads them.  An expert with no
+// rows gets zeros, and rows no group covers add nothing, so the dropped MoE
+// assignments (sorted past the last group) get no gradient.  Deterministic:
+// each output is summed by one owner in row order; no atomics, no split-K.
+//
 // Bound: at granite's training shape ([32768,1024] x [32768,512] over 32
-// experts, bf16) 34.4 GFLOP (0.035 ms on the tensor cores) against 134 MB
-// (0.040 ms), so bytes bound it, narrowly; this FMA version is far from
-// it.  A simple design that is right first, for both dtypes: one
-// 256-thread block per (64 x 64 tile of dW, expert) walks the expert's rows
-// in steps of 32 through shared memory, an FMA loop in f32 (no TF32 for
-// f32), 4 x 4 outputs a thread.  Deterministic: each output is summed by
-// one thread in row order; no atomics.
+// experts, bf16) 134 MB (0.040 ms at 3.35 TB/s) against 34.4 GFLOP (0.035
+// ms on the tensor cores), so bytes bound it, narrowly; f32 FMA alone
+// would cap it at 0.51 ms.
+//
+// bf16: a grouped GEMM on wgmma with M = D, N = F and K = the expert's
+// rows.  X_e [K, D] and dY_e [K, F] are both row-major, so both operands
+// are MN-major and wgmma reads them in place through its two transpose
+// bits.  Each block owns one 128 (D) x 256 (F) tile of one expert (blockIdx
+// z is the expert, so an expert's tiles run together and its rows come from
+// device memory about once) and walks the expert's rows in 64-row K slices.
+// The ring is the forward's: one producer thread issues TMA loads (128-byte
+// swizzle) of two 64-column spans of X and four of dY a slice into 4
+// stages, with mbarriers for full and empty stages; two consumer
+// warpgroups each issue wgmma m64n256k16 on their 64 columns of X against
+// the whole dY slice.  TMA takes any start row, so a slice starts at lo;
+// the expert's last slice runs past hi into the next expert's rows, and the
+// consumers zero those rows of every span before its wgmma (in an MN-major
+// tile with 128-byte swizzle a K row is one 128-byte line, so whole rows
+// are zeroed whatever the swizzle), then fence.proxy.async and a barrier
+// of both warpgroups.  TMA fills rows >= T, and D or F past the edge, with
+// zeros.  Epilogue: f32 -> bf16 once, staged in the ring, 16-byte rows.
+// D % 8 == 0 and F % 8 == 0 (TMA strides); the wrapper raises otherwise.
+//
+// f32: an FMA loop, so f32 stays exact f32 (no TF32).  One 256-thread
+// block per (64 x 64 tile of dW, expert) walks the expert's rows in steps
+// of 32 through shared memory, 4 x 4 outputs a thread.
 constexpr int WD = 64;           // rows of dW (D) per block
 constexpr int WF = 64;           // columns of dW (F) per block
 constexpr int WR = 32;           // rows of the group per step
 constexpr int W_NT = 256;
+
+// Expert e's rows [lo, hi) into s_range, by one thread.
+__device__ __forceinline__ void expert_range(const int* offsets, int e,
+                                             int Tn, int* s_range) {
+  int lo = 0, hi = 0;
+  for (int g = 0; g <= e + 1; ++g) {
+    hi = max(hi, min(max(offsets[g], 0), Tn));
+    if (g == e) lo = hi;
+  }
+  s_range[0] = lo;
+  s_range[1] = hi;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(W_NT)
@@ -549,17 +584,7 @@ gmm_dw_kernel(const T* __restrict__ lhs, const T* __restrict__ dy,
   __shared__ int s_range[2];
   const int e = blockIdx.z;
   const int d0 = blockIdx.y * WD, f0 = blockIdx.x * WF;
-  if (threadIdx.x == 0) {
-    // expert e covers [max of the clamped offsets[0..e], max of [0..e+1]),
-    // as find_tile reads them
-    int lo = 0, hi = 0;
-    for (int g = 0; g <= e + 1; ++g) {
-      hi = max(hi, min(max(offsets[g], 0), Tn));
-      if (g == e) lo = hi;
-    }
-    s_range[0] = lo;
-    s_range[1] = hi;
-  }
+  if (threadIdx.x == 0) expert_range(offsets, e, Tn, s_range);
   __syncthreads();
   const int lo = s_range[0], hi = s_range[1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -605,6 +630,150 @@ gmm_dw_kernel(const T* __restrict__ lhs, const T* __restrict__ dy,
   }
 }
 
+// bf16 dW on wgmma: block (x, y, z) owns columns [256 x, +256) and rows
+// [128 y, +128) of dW[z].  The stage layout is the forward's: six 8 KB
+// spans of 64 K rows x 64 columns, two of X (A) then four of dY (B).
+__global__ void __launch_bounds__(W_THREADS, 1)
+gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_dy,
+                    const int* __restrict__ offsets,
+                    __nv_bfloat16* __restrict__ dw, int Tn, int D, int F) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ int s_range[2];
+  const int e = blockIdx.z;
+  const int d0 = blockIdx.y * WM, f0 = blockIdx.x * WN;
+  if (threadIdx.x == 0) expert_range(offsets, e, Tn, s_range);
+  __syncthreads();
+  const int lo = s_range[0], hi = s_range[1];
+  __nv_bfloat16* out = dw + (size_t)e * D * F;
+  const int nk = (hi - lo + WK - 1) / WK;
+  if (nk == 0) {                     // an expert with no rows: zeros
+    zero_tile_bf16(out, d0, min(D, d0 + WM), f0, WN, F, W_THREADS);
+    return;
+  }
+
+  // Swizzled tiles need 1024-byte alignment.
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t bars = base + WSTAGES * STAGE_BYTES;
+  auto sa = [&](int s) { return base + s * STAGE_BYTES; };
+  auto sb = [&](int s) { return base + s * STAGE_BYTES + A_BYTES; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (WSTAGES + s); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      hw::mbar_init(full(s), 1);
+      hw::mbar_init(empty(s), 2);    // one arrival per consumer warpgroup
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread keeps up to WSTAGES slices in flight
+    if (threadIdx.x == 256) {
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % WSTAGES, r = lo + it * WK;
+        if (it >= WSTAGES) hw::mbar_wait(empty(s), ((it / WSTAGES) - 1) & 1);
+        hw::mbar_expect_tx(full(s), STAGE_BYTES);
+#pragma unroll
+        for (int h = 0; h < WM / 64; ++h)
+          hw::tma_load_2d(sa(s) + h * B_HALF, &map_x, full(s), d0 + 64 * h, r);
+#pragma unroll
+        for (int h = 0; h < B_SPANS; ++h)
+          hw::tma_load_2d(sb(s) + h * B_HALF, &map_dy, full(s), f0 + 64 * h,
+                          r);
+      }
+    }
+  } else {
+    // rows of the last slice that belong to the expert (1..WK)
+    const int tail = hi - lo - (nk - 1) * WK;
+    float acc[WN / 2];               // the first wgmma overwrites it
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % WSTAGES;
+      hw::mbar_wait(full(s), (it / WSTAGES) & 1);
+      if (it == nk - 1 && tail < WK) {
+        // zero K rows tail..WK-1 (the next expert's) of all six spans
+        constexpr int SPANS = STAGE_BYTES / B_HALF;
+        const int per_span = (WK - tail) * 8;      // 16-byte chunks
+        for (int c = threadIdx.x; c < SPANS * per_span; c += 256)
+          hw::st_shared_zero16(sa(s) + (c / per_span) * B_HALF + tail * 128
+                               + (c % per_span) * 16);
+        hw::fence_proxy_async();
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      }
+      hw::fence_regs(acc);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WK / 16; ++kk) {
+        // A: this warpgroup's 64 columns of X, one span; B: the four spans
+        // of dY, 8 KB apart.  Both MN-major: 8-row K groups 1024 B apart,
+        // a k16 step is 16 rows (2048 B).
+        const uint64_t da = hw::wgmma_desc(sa(s) + wg * B_HALF + kk * 2048,
+                                           B_HALF, 1024);
+        const uint64_t db = hw::wgmma_desc(sb(s) + kk * 2048, B_HALF, 1024);
+        hw::wgmma_ss<1>(acc, da, db, it > 0 || kk > 0);   // m64n<WN>k16
+      }
+      hw::wgmma_commit();
+      hw::wgmma_wait<1>();                // slice it - 1 is done with smem
+      hw::fence_regs(acc);
+      if (it > 0 && threadIdx.x % 128 == 0)
+        hw::mbar_arrive(empty((it - 1) % WSTAGES));
+    }
+    hw::wgmma_wait<0>();
+    hw::fence_regs(acc);
+
+    // epilogue, as the forward's: f32 -> bf16 into this warpgroup's staging
+    // rows in the ring (once both warpgroups are done with it), then
+    // 16-byte stores of the rows and columns inside [D, F]
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    __nv_bfloat16* stg = reinterpret_cast<__nv_bfloat16*>(gbase)
+                         + wg * 64 * EPI_LD;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, q = lane % 4;
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j) {
+      const int row = 16 * warp + g, col = 8 * j + 2 * q;
+      *reinterpret_cast<uint32_t*>(stg + row * EPI_LD + col) =
+          hw::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(stg + (row + 8) * EPI_LD + col) =
+          hw::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+    for (int c = t; c < 64 * (WN / 8); c += 128) {
+      const int r = c / (WN / 8), cc = (c % (WN / 8)) * 8;
+      const int row = d0 + 64 * wg + r, col = f0 + cc;
+      if (row < D && col < F)
+        *reinterpret_cast<uint4*>(out + (size_t)row * F + col) =
+            *reinterpret_cast<const uint4*>(stg + r * EPI_LD + cc);
+    }
+  }
+}
+
+int launch_dw_bf16(const void* lhs, const void* dy, const int* offsets,
+                   void* dw, int Tn, int D, int F, int E, cudaStream_t s) {
+  if (Tn == 0)
+    return (int)cudaMemsetAsync(dw, 0, (size_t)E * D * F * 2, s);
+  // X as a [T, D] map and dY as [T, F], both in 64-column x 64-row boxes
+  CUtensorMap map_x, map_dy;
+  const uint64_t dims_x[2] = {(uint64_t)D, (uint64_t)Tn};
+  const uint64_t dims_dy[2] = {(uint64_t)F, (uint64_t)Tn};
+  const uint32_t box[2] = {64, WK};
+  if (!hw::encode_bf16(&map_x, lhs, 2, dims_x, box) ||
+      !hw::encode_bf16(&map_dy, dy, 2, dims_dy, box))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_ok = false;
+  const cudaError_t err = allow_smem(gmm_dw_wgmma_kernel, W_SMEM, &smem_ok);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((F + WN - 1) / WN, (D + WM - 1) / WM, E);
+  gmm_dw_wgmma_kernel<<<grid, W_THREADS, W_SMEM, s>>>(
+      map_x, map_dy, offsets, static_cast<__nv_bfloat16*>(dw), Tn, D, F);
+  return 0;
+}
+
 }  // namespace
 
 // lhs: [T,D], rhs: [E,D,F], out: [T,F] contiguous, one dtype (code);
@@ -638,8 +807,9 @@ extern "C" int grouped_matmul_launch(const void* lhs, const void* rhs,
 }
 
 // dW of grouped_matmul_launch: lhs: [T,D], dy: [T,F], dw: [E,D,F]
-// contiguous, one dtype (code); offsets: [E+1] int32 on the device.  dw is
-// written, not accumulated.  Returns the CUDA error code (0 = ok).
+// contiguous, one dtype (code); offsets: [E+1] int32 on the device.  bf16
+// needs D % 8 == 0 and F % 8 == 0.  dw is written, not accumulated.
+// Returns the CUDA error code (0 = ok).
 extern "C" int grouped_matmul_dw_launch(const void* lhs, const void* dy,
                                         const void* offsets, void* dw, int T,
                                         int D, int F, int E, int dtype,
@@ -649,16 +819,15 @@ extern "C" int grouped_matmul_dw_launch(const void* lhs, const void* dy,
   if (D == 0 || F == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* offs = static_cast<const int*>(offsets);
-  const dim3 grid((F + WF - 1) / WF, (D + WD - 1) / WD, E);
   if (dtype == rt::kF32) {
+    const dim3 grid((F + WF - 1) / WF, (D + WD - 1) / WD, E);
     gmm_dw_kernel<float><<<grid, W_NT, 0, s>>>(
         static_cast<const float*>(lhs), static_cast<const float*>(dy), offs,
         static_cast<float*>(dw), T, D, F, E);
   } else if (dtype == rt::kBF16) {
-    gmm_dw_kernel<__nv_bfloat16><<<grid, W_NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(lhs),
-        static_cast<const __nv_bfloat16*>(dy), offs,
-        static_cast<__nv_bfloat16*>(dw), T, D, F, E);
+    if (D % 8 != 0 || F % 8 != 0) return (int)cudaErrorInvalidValue;
+    const int rc = launch_dw_bf16(lhs, dy, offs, dw, T, D, F, E, s);
+    if (rc) return rc;
   } else {
     return (int)cudaErrorInvalidValue;
   }

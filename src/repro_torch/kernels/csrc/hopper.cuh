@@ -1,9 +1,9 @@
 // Inline-PTX helpers for the bf16 tensor-core kernels (sm_90a): shared
-// addresses, cp.async 16-byte copies, ldmatrix and mma.sync m16n8k16,
-// mbarriers, TMA tile loads, and wgmma m64n256k16 with shared-memory
-// descriptors.  Host side: cuTensorMapEncodeTiled, taken
-// through the runtime's driver entry point so that no library links
-// against libcuda.
+// addresses, cp.async 16- and 4-byte copies, ldmatrix and mma.sync
+// m16n8k16, mbarriers, TMA tile loads, and wgmma m64n256k16 with
+// shared-memory descriptors (A K-major or MN-major, B MN-major).  Host
+// side: cuTensorMapEncodeTiled, taken through the runtime's driver entry
+// point so that no library links against libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -29,6 +29,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// 4-byte copy global -> shared (both 4-byte aligned); src_bytes 0 fills
+// zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -104,6 +113,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// 16 zero bytes at a shared address, then (after all of a tile's stores)
+// the fence that lets the async proxy (wgmma, TMA) see generic stores.
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr),
+               "r"(0)
+               : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ----------------------------------------------------------------- TMA
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
@@ -158,14 +178,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 // wgmma m64n256k16:
 // d[64xN] = A[64x16] B[16xN] (+ d if accumulate), N = 256, bf16, f32
-// accumulate;
-// A K-major, B MN-major (transpose bit set), both from shared memory.  d
-// follows the mma.sync C layout per warp: warp w of the warpgroup owns rows
-// 16w..16w+15 and d[4j..4j+3] covers columns 8j..8j+7.
-__device__ __forceinline__ void wgmma_ss_tb(float (&d)[128],
-                                                       uint64_t da,
-                                                       uint64_t db,
-                                                       int accumulate) {
+// accumulate, both operands from shared memory; B MN-major (transpose bit
+// set), A K-major (TA = 0: the forward's lhs rows) or MN-major (TA = 1: dW
+// = X^T dY, with X [rows, D] row-major).  d follows the mma.sync C
+// layout per warp: warp w of the warpgroup owns rows 16w..16w+15 and
+// d[4j..4j+3] covers columns 8j..8j+7.
+template <int TA>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -188,7 +208,7 @@ __device__ __forceinline__ void wgmma_ss_tb(float (&d)[128],
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n"
+      "%128, %129, p, 1, 1, %131, 1;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -217,7 +237,7 @@ __device__ __forceinline__ void wgmma_ss_tb(float (&d)[128],
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA));
 }
 
 // ----------------------------------------------------------- host side

@@ -220,10 +220,10 @@ class _FlashAttention(torch.autograd.Function):
 
 # ----------------------------------------------------------- grouped matmul
 def check_gmm_bf16_shape(D: int, F: int) -> None:
-    """The bf16 grouped_matmul kernels read rows of D and F elements with
-    16-byte copies (TMA's stride rule and ``cp.async``), so both must be
-    multiples of 8.  Raises ``ValueError`` otherwise: there is no other
-    route for such a call."""
+    """The bf16 grouped_matmul kernels (and the bf16 dW kernel) read rows of
+    D and F elements with 16-byte copies (TMA's stride rule and
+    ``cp.async``), so both must be multiples of 8.  Raises ``ValueError``
+    otherwise: there is no other route for such a call."""
     if D % 8 or F % 8:
         raise ValueError(f"grouped_matmul: bf16 on the GPU needs D and F "
                          f"divisible by 8, got D={D}, F={F}")
@@ -271,7 +271,8 @@ def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_offsets: torch.Tensor,
 def grouped_matmul_dw(lhs: torch.Tensor, dout: torch.Tensor,
                       group_offsets: torch.Tensor, E: int) -> torch.Tensor:
     """dW [E,D,F] = per group, lhs[rows]^T dout[rows], through its kernel
-    (an expert with no rows gets zeros; uncovered rows add nothing)."""
+    (an expert with no rows gets zeros; uncovered rows add nothing).  bf16
+    needs D and F divisible by 8 (:func:`check_gmm_bf16_shape`)."""
     code = _cuda_args("grouped_matmul_dw", lhs, dout)
     offs = _offsets(group_offsets, lhs)
     if offs.shape != (E + 1,):
@@ -279,6 +280,8 @@ def grouped_matmul_dw(lhs: torch.Tensor, dout: torch.Tensor,
                          f"got {tuple(offs.shape)}")
     T, D = lhs.shape
     F = dout.shape[1]
+    if lhs.dtype == torch.bfloat16:
+        check_gmm_bf16_shape(D, F)
     dw = torch.empty((E, D, F), dtype=lhs.dtype, device=lhs.device)
     _launch("grouped_matmul_dw", "grouped_matmul_dw", lhs.data_ptr(),
             dout.data_ptr(), offs.data_ptr(), dw.data_ptr(), T, D, F, E, code,

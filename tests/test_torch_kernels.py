@@ -215,13 +215,15 @@ def test_gmm_bf16_shape_rule():
 # (repro.kernels.ref) and against torch.autograd of the port's forward
 # versions, in f32: 2e-5, attention 1e-4 (the tolerance of its gradients,
 # sums of Sk products), relative to each output's max |ref|.
-def _rel_close(got, want, tol):
+def _rel_close(got, want, tol, scale=None):
+    """max |got - want| within tol x max |want| (or tol x ``scale``)."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape
     if not want.size:
         return
-    scale = max(float(np.abs(want).max()), 1e-30)
+    if scale is None:
+        scale = max(float(np.abs(want).max()), 1e-30)
     assert float(np.abs(got - want).max()) <= tol * scale
 
 
@@ -259,7 +261,26 @@ ATTN_BWD = [
     (2, 24, 56, 6, 3, 16, False, 0),      # not causal, Sq != Sk
     (1, 48, 48, 8, 2, 16, True, 5),       # a window, GQA
     (2, 16, 16, 2, 1, 96, True, 16),      # a window of the whole sequence
+    # the tensor-core backward's tiles: Sq 65 about its 64-key and 64- or
+    # 32-row tiles, at Dh 64 and 128; a window of 1 with GQA
+    (1, 65, 65, 4, 2, 64, True, 0),
+    (1, 65, 65, 2, 1, 128, True, 0),
+    (1, 40, 40, 4, 2, 16, True, 1),
 ]
+
+
+def _attn_bwd_scales(q, k, o, do, window):
+    """Scales for dq, dk, dv in ``_rel_close`` (None: max |want|).  With a
+    window of 1 each row keeps its own key only: P is 1 and dS = dP - D is
+    0 up to rounding (JAX's vjp gives exactly 0), so dq and dk are held
+    against the size of the terms that cancel, max|D| max|k| / sqrt(Dh)
+    and G max|D| max|q| / sqrt(Dh), with D = rowsum(dO * O)."""
+    if window != 1:
+        return [None] * 3
+    Dh, G = q.shape[-1], q.shape[2] // k.shape[2]
+    dd = float(np.abs((np.asarray(do) * np.asarray(o)).sum(-1)).max())
+    return [dd * float(np.abs(k).max()) / np.sqrt(Dh),
+            G * dd * float(np.abs(q).max()) / np.sqrt(Dh), None]
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,Dh,causal,window", ATTN_BWD)
@@ -283,25 +304,28 @@ def test_flash_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, H, KV, Dh,
     else:
         fn = lambda a, b, c: jref.attention_ref(a, b, c, causal=causal)
     _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
-    for got, want in zip(grads, vjp(jnp.asarray(do))):
-        _rel_close(got, want, 1e-4)
+    scales = _attn_bwd_scales(q, k, o.numpy(), do, window)
+    for got, want, sc in zip(grads, vjp(jnp.asarray(do)), scales):
+        _rel_close(got, want, 1e-4, sc)
     auto = _autograd(lambda a, b, c: ref.flash_attention_ref(
         a, b, c, causal=causal, window=window), [qt, kt, vt], dot)
-    for got, want in zip(grads, auto):
-        _rel_close(got, want, 1e-4)
+    for got, want, sc in zip(grads, auto, scales):
+        _rel_close(got, want, 1e-4, sc)
 
 
 @pytest.mark.parametrize("offs", [
     [0, 30, 30, 70, 128],        # covered, with an empty expert
     [5, 40, 40, 90, 120],        # an uncovered head and tail
     [0, 0, 0, 0, 0],             # every row uncovered
+    [3, 66, 130, 195, 200],      # groups of 63, 64, 65 rows off 64-row slices
+    [0, 1, 300, 303, 310],       # a hot expert
 ])
 def test_grouped_matmul_bwd_ref_matches_jax_vjp(offs):
     """dX and dW against jax.vjp of the oracle.  The oracle clips rows no
     group covers onto expert E-1, so it is fed a dY that is zero on those
     rows; the port, fed any dY there, gives them a zero dX and adds nothing
     of them to dW."""
-    T, D, F, E = 128, 32, 48, 4
+    T, D, F, E = max(128, offs[-1]), 32, 48, 4
     rng = np.random.default_rng(sum(offs))
     lhs = rng.standard_normal((T, D), np.float32)
     rhs = rng.standard_normal((E, D, F), np.float32) / np.sqrt(D)
@@ -531,7 +555,15 @@ def test_cuda_backward_kernels_match_plain():
         for B, Sq, Sk, H, KV, Dh, causal, window in (
                 (2, 129, 129, 8, 4, 64, True, 0),
                 (1, 100, 77, 4, 2, 96, False, 0),
-                (1, 200, 200, 4, 1, 128, True, 50)):
+                (1, 200, 200, 4, 1, 128, True, 50),
+                # the tensor-core tiles' edges: Sq 65 and 127, a window of
+                # 1 with GQA, and Sk 0 (no row keeps a key)
+                (1, 65, 65, 4, 2, 64, True, 0),
+                (1, 65, 65, 2, 1, 128, True, 0),
+                (2, 127, 127, 8, 2, 96, True, 0),
+                (1, 127, 77, 4, 4, 128, False, 0),
+                (2, 300, 300, 8, 2, 64, True, 1),
+                (1, 65, 0, 4, 2, 64, False, 0)):
             q = randn(B, Sq, H, Dh, dt=dt)
             k, v = randn(B, Sk, KV, Dh, dt=dt), randn(B, Sk, KV, Dh, dt=dt)
             do = randn(B, Sq, H, Dh, dt=dt)
@@ -544,8 +576,11 @@ def test_cuda_backward_kernels_match_plain():
                                           window=window)
             want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                                window=window)
-            for g, r in zip(got, want):
-                assert _rel_err(g, r) <= atol_attn
+            scales = _attn_bwd_scales(*(t.float().cpu().numpy()
+                                        for t in (q, k, o, do)), window)
+            for g, r, sc in zip(got, want, scales):
+                assert bool(torch.isfinite(g).all())
+                _rel_close(g.float().cpu(), r.float().cpu(), atol_attn, sc)
             again = ops.flash_attention_bwd(q, k, v, o, lse, do,
                                             causal=causal, window=window)
             assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -562,6 +597,16 @@ def test_cuda_backward_kernels_match_plain():
         assert bool((got[1][1] == 0).all())             # an expert, no rows
         again = ops.grouped_matmul_bwd(lhs, rhs, offs, dy)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+        # dW's wgmma tiles: groups of 63, 64 and 65 rows off the 64-row
+        # slices with D and F off the 128 x 256 tile, and a hot expert
+        for o_, Dw, Fw in (([3, 66, 130, 195, 200], 200, 328),
+                           ([0, 1, 1000, 1003, 1010], 256, 512)):
+            offs_w = torch.tensor(o_, dtype=torch.int32, device=dev)
+            xw, dyw = randn(o_[-1], Dw, dt=dt), randn(o_[-1], Fw, dt=dt)
+            dw = ops.grouped_matmul_dw(xw, dyw, offs_w, 4)
+            assert _rel_err(dw, ref.grouped_matmul_dw_ref(xw, dyw, offs_w,
+                                                          4)) <= tol
+            assert torch.equal(dw, ops.grouped_matmul_dw(xw, dyw, offs_w, 4))
         # through autograd, every operand gets the kernels' gradient
         leaves = [t.clone().requires_grad_() for t in (lhs, rhs)]
         before = dict(ops.LAUNCHES)
