@@ -9,8 +9,10 @@ exits non-zero:
 (a) the card's name and power limit (``nvidia-smi``), then the build of the
     CUDA kernels from ``src/repro_torch/kernels/csrc`` and its time, each
     kernel's registers and spills (``-Xptxas -v``), and the tensor-core
-    instructions in the SASS (``cuobjdump``) of the bf16 dW kernel (HGMMA)
-    and the attention backward kernels (HMMA), each of which must hold some;
+    instructions in the SASS (``cuobjdump``) of the bf16 grouped_matmul
+    kernel in both of its B layouts (the forward's MN-major and dX's
+    K-major) and the bf16 dW kernel (HGMMA), and of the attention backward
+    kernels (HMMA), each of which must hold some;
 (b) each kernel against its plain PyTorch version on the card, in f32
     (tolerance 2e-5) and bf16 (2e-2; ssd_chunk is f32 only), at the main
     paths' shapes, the kernel tests' shapes and the tile edges of the
@@ -63,8 +65,8 @@ exits non-zero:
     must stay out of it.  The time of an empty launch, taken the same way,
     gives each window's launch share;
 (f) training on the card.  The backward kernels (rmsnorm_bwd,
-    flash_attention_bwd from the forward's row logsumexp, grouped_matmul's
-    dX through the forward kernel on W^T and grouped_matmul_dw) against
+    flash_attention_bwd from the forward's row logsumexp, grouped_matmul_dx
+    reading W^T in place and grouped_matmul_dw) against
     their plain versions (f32: 2e-5, attention 1e-4; bf16 2e-2; each
     relative to max|ref|) at granite's training shapes, qwen3-1.7b's Dh
     128, phi-3's Dh 96, the whisper encoder and its cross-attention, a
@@ -73,13 +75,18 @@ exits non-zero:
     the tensor-core tiles (Sq 65 and 127 at each head dim, a window of 1,
     Sk 0 where no row keeps a key; dW groups of 1 to 129 rows off the
     64-row slices with D and F off the 128 x 256 tile, a hot expert, an
-    empty expert between full ones); each twice, bit for bit, attention
-    finite; the forward with the logsumexp equal to the forward without
-    it, bit for bit; a bf16 dW with D % 8 != 0 and ssd_chunk with an
-    operand that requires grad raise.  Times of each backward kernel, its
-    plain version, one PyTorch call (SDPA's backward, F.rms_norm's
-    backward, a padded bmm) and its bound; flash_attention_bwd also at
-    qwen3-1.7b's Dh 128 and phi-3's Dh 96.
+    empty expert between full ones; dX on the decode route, T <= 16 E;
+    rmsnorm_bwd on each of its routes: a row group of 4, 8, 16 or 32
+    lanes, 1 to 8 vectors a lane, the wide route aligned and not, one
+    block or many); each twice, bit for bit, attention finite; the forward
+    with the logsumexp equal to the forward without it, bit for bit; dX
+    at granite's training shape allocating no more than its output (no
+    copy of W^T); a bf16 dW with D % 8 != 0 and ssd_chunk with an operand
+    that requires grad raise.  Times of each backward kernel, its plain
+    version, one PyTorch call (SDPA's backward, F.rms_norm's backward, a
+    padded bmm) and its bound, with each kernel's share of rmsnorm_bwd
+    and dX from the profiler; flash_attention_bwd also at qwen3-1.7b's Dh
+    128 and phi-3's Dh 96, rmsnorm_bwd at every ``RMS_BWD`` shape.
     Then gradients in f32, the card against the CPU (granite cut to 2
     layers at full width, whisper to 2 + 2): the loss and every parameter
     leaf within 1e-4 of its max |g|, each finite and not all zero.  Then
@@ -88,6 +95,11 @@ exits non-zero:
     AdamW, batch 8 x 512, remat on) for 6 steps, the first untimed: step
     time, tokens/s, peak memory, the losses, launches per kernel against
     the config, and one profiled step.
+
+``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
+step: ``train_path`` of the checkout at PARENT (an unpacked ``git
+archive`` of the parent commit) against this checkout's, each in a fresh
+process, in turns parent, change, change, parent.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -189,6 +201,17 @@ GMM_DW_EDGES = [
 # qwen3's qk-norm rows, and edges (D off the vectors, few rows)
 RMS_BWD = [(TRAIN_BATCH * TRAIN_SEQ, 1024), (4096, 2048), (4096, 1536),
            (4096 * 16, 128), (37, 1001), (5, 64)]
+# rmsnorm_bwd about its routes: rows not a multiple of a block's (D 1001 off
+# the vectors, T 4097), row groups of 16 and 4 lanes (D 128, 24), 2 vectors
+# a lane (D 512), the wide route with aligned rows (D 3072 in bf16; 2048 in
+# f32), one row; then RMS_UNALIGNED's x, one element in (not 16-byte
+# aligned)
+RMS_BWD_EDGES = [(300, 1001), (129, 128), (5, 3072), (4097, 1024),
+                 (70, 24), (33, 512), (600, 2048), (1, 1024)]
+# grouped_matmul_dx on its decode route (T <= 16 E), as (T, D, F, E):
+# dY[T,F] W^T with W [E,D,F], granite's two expert shapes and D, F off the
+# 64-column tiles, with an uncovered head and tail
+GMM_DX_DECODE = [(64, 1024, 512, 32), (64, 512, 1024, 32), (48, 136, 200, 6)]
 # mamba2-780m's SSD at the main path's prefill: b 8, S 512, chunk 256,
 # 48 heads of P 64, N 128 -> 16 (batch, chunk) cells of 48 heads each
 SSD_MAIN = (BATCH * PROMPT // 256, 256, 48, 64, 128)
@@ -441,7 +464,7 @@ def dense_and_slice_shapes():
 # kernels whose SASS must hold tensor-core instructions: (library, opcode,
 # kernel names); every instantiation of each is counted
 TENSOR_CORE_KERNELS = (
-    ("grouped_matmul", "HGMMA", ("gmm_dw_wgmma_kernel",)),
+    ("grouped_matmul", "HGMMA", ("gmm_wgmma_kernel", "gmm_dw_wgmma_kernel")),
     ("flash_attention", "HMMA", ("flash_bwd_dkdv_mma_kernel",
                                  "flash_bwd_dq_mma_kernel")))
 
@@ -503,8 +526,10 @@ def sass_counts(text: str, opcode: str):
 
 
 def check_tensor_core_sass(build) -> None:
-    """Phase (a): the bf16 dW kernel's SASS holds HGMMA (wgmma) and the
-    attention backward kernels' HMMA (mma.sync), every instantiation."""
+    """Phase (a): the bf16 grouped_matmul kernel's SASS (both B layouts:
+    ``<0>`` the forward, ``<1>`` dX) and the dW kernel's hold HGMMA (wgmma),
+    and the attention backward kernels' HMMA (mma.sync), every
+    instantiation."""
     for lib, opcode, kernels in TENSOR_CORE_KERNELS:
         counts = sass_counts(build.sass(lib), opcode)
         for kernel in kernels:
@@ -1241,6 +1266,24 @@ def check_attention_bwd(torch, ops, ref, randn, shape, dname, dt) -> float:
     return e
 
 
+def check_rmsnorm_bwd(torch, ops, ref, x, w, dy, label: str,
+                      dname: str) -> float:
+    """rmsnorm_bwd against its plain version (dx and dw within
+    ``BWD_TOL`` of max|ref|) and twice bit for bit; returns the max abs
+    error."""
+    got = ops.rmsnorm_bwd(x, w, dy, 1e-6)
+    want = ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6)
+    e, r = map(max, zip(*(
+        compare_rel(f"rmsnorm_bwd {n} {label} {dname}", g, w_,
+                    BWD_TOL[dname])
+        for n, g, w_ in zip(("dx", "dw"), got, want))))
+    same_bits(torch, f"rmsnorm_bwd {label} {dname}", got,
+              ops.rmsnorm_bwd(x, w, dy, 1e-6))
+    log("f", f"rmsnorm_bwd {label} {dname}: max_abs_err {e:.3e}, "
+        f"err/max|ref| {r:.3e} (tol {BWD_TOL[dname]}); deterministic")
+    return e
+
+
 def check_backward_kernels(torch, ops, ref, dev):
     """Phase (f): each backward kernel against its plain version (and
     twice, bit for bit), the LSE forward against the plain forward kernel
@@ -1248,8 +1291,10 @@ def check_backward_kernels(torch, ops, ref, dev):
     Returns the errors at granite's bf16 training shapes."""
     gen = torch.Generator(device=dev).manual_seed(9)
     # the tensor-core tiles' edges draw from a generator of their own, so
-    # that the earlier checks keep their inputs
+    # that the earlier checks keep their inputs, and the routes of the
+    # one-pass rmsnorm_bwd and dX's decode route from another
     edge_gen = torch.Generator(device=dev).manual_seed(13)
+    route_gen = torch.Generator(device=dev).manual_seed(14)
     errs = {}
 
     def randn(*shape, dtype):
@@ -1258,25 +1303,31 @@ def check_backward_kernels(torch, ops, ref, dev):
     def edge_randn(*shape, dtype):
         return torch.randn(*shape, generator=edge_gen, device=dev).to(dtype)
 
+    def route_randn(*shape, dtype):
+        return torch.randn(*shape, generator=route_gen,
+                           device=dev).to(dtype)
+
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
         for T, D in RMS_BWD:
             x, dy = randn(T, D, dtype=dt), randn(T, D, dtype=dt)
             w = randn(D, dtype=torch.float32)
-            got = ops.rmsnorm_bwd(x, w, dy, 1e-6)
-            want = ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6)
-            e, r = map(max, zip(*(
-                compare_rel(f"rmsnorm_bwd {n} [{T},{D}] {dname}", g, w_,
-                            BWD_TOL[dname])
-                for n, g, w_ in zip(("dx", "dw"), got, want))))
-            same_bits(torch, f"rmsnorm_bwd [{T},{D}] {dname}", got,
-                      ops.rmsnorm_bwd(x, w, dy, 1e-6))
-            log("f", f"rmsnorm_bwd [{T},{D}] {dname}: max_abs_err {e:.3e}, "
-                f"err/max|ref| {r:.3e} (tol {BWD_TOL[dname]}); "
-                f"deterministic")
+            e = check_rmsnorm_bwd(torch, ops, ref, x, w, dy, f"[{T},{D}]",
+                                  dname)
             if dname == "bfloat16" and (T, D) == RMS_BWD[0]:
                 errs["rmsnorm_bwd"] = e
-            del x, dy, got, want
+            del x, dy
+        for T, D in RMS_BWD_EDGES + RMS_UNALIGNED:
+            x = route_randn(T * D + 1, dtype=dt)
+            label = f"[{T},{D}]"
+            if (T, D) in RMS_UNALIGNED:             # x one element in
+                x, label = x[1:].view(T, D), label + " x unaligned"
+            else:
+                x = x[:T * D].view(T, D)
+            dy = route_randn(T, D, dtype=dt)
+            w = route_randn(D, dtype=torch.float32)
+            check_rmsnorm_bwd(torch, ops, ref, x, w, dy, label, dname)
+            del x, dy
         for shape in ATTN_BWD:
             e = check_attention_bwd(torch, ops, ref, randn, shape, dname, dt)
             if dname == "bfloat16" and shape == ATTN_BWD[0]:
@@ -1301,8 +1352,17 @@ def check_backward_kernels(torch, ops, ref, dev):
             cases.append((label, T, D, Fo, len(offs) - 1,
                           torch.tensor(offs, dtype=torch.int32, device=dev),
                           False))
+        # dX's decode route, with uncovered rows ahead (2) and behind
+        route_labels = set()
+        for T, D, Fo, E in GMM_DX_DECODE:
+            label = f"decode route dY[{T},{Fo}] W^T, W [{E},{D},{Fo}]"
+            route_labels.add(label)
+            cases.append((label, T, D, Fo, E,
+                          random_offsets(torch, route_gen, T - 5, E) + 2,
+                          False))
         for label, T, D, Fo, E, offs, main in cases:
-            rnd = randn if label in base_labels else edge_randn
+            rnd = (randn if label in base_labels else
+                   route_randn if label in route_labels else edge_randn)
             lhs, dy = rnd(T, D, dtype=dt), rnd(T, Fo, dtype=dt)
             rhs = (rnd(E, D, Fo, dtype=torch.float32) / math.sqrt(D)).to(dt)
             got = ops.grouped_matmul_bwd(lhs, rhs, offs, dy)
@@ -1335,6 +1395,26 @@ def check_backward_kernels(torch, ops, ref, dev):
                 errs["grouped_matmul_dw"] = max(
                     errs.get("grouped_matmul_dw", 0.0), e_dw)
             del lhs, dy, rhs, got, want
+    # dX reads W in place: at granite's training shape the call allocates
+    # its output and nothing else (a copy of W^T would add 32 MiB)
+    T, D, Fo, E = TRAIN_BATCH * TRAIN_SEQ * 8, 1024, 512, 32
+    dyo = torch.zeros(T, Fo, dtype=torch.bfloat16, device=dev)
+    rhs = torch.zeros(E, D, Fo, dtype=torch.bfloat16, device=dev)
+    offs = random_offsets(torch, route_gen, T, E)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    dx, _ = ops.grouped_matmul_bwd(dyo, rhs, offs, dyo, need_dw=False)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - before
+    limit = dx.numel() * dx.element_size() + (1 << 20)
+    log("f", f"grouped_matmul_dx bf16 dY[{T},{Fo}] W^T, W [{E},{D},{Fo}]: "
+        f"peak memory +{extra} bytes (dX {dx.numel() * dx.element_size()}, "
+        f"limit {limit}; a copy of W^T would add {rhs.numel() * 2})")
+    if extra > limit:
+        raise AssertionError(f"grouped_matmul_dx allocated {extra} bytes "
+                             f"beyond its inputs (limit {limit})")
+    del dyo, rhs, dx
     try:
         ops.grouped_matmul_dw(torch.zeros(64, 100, dtype=torch.bfloat16,
                                           device=dev),
@@ -1362,11 +1442,37 @@ def check_backward_kernels(torch, ops, ref, dev):
     return errs
 
 
+def kernel_split(torch, fn, flush, label: str, calls: int = 5) -> None:
+    """Logs the device time a launch of each kernel that ``fn`` runs, from
+    the profiler over ``calls`` calls with L2 flushed before each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total",
+                    getattr(evt, "self_cuda_time_total", 0.0))
+        if (evt.device_type == DeviceType.CUDA and t > 0
+                and "FillFunctor" not in evt.key):       # the flush
+            name = evt.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+            parts.append(f"{name} {t / 1e3 / evt.count:.4f} ms a launch "
+                         f"({evt.count} seen)")
+    log("f", f"profile {label} ({calls} calls, L2 flushed): "
+        f"{'; '.join(parts) or 'device time not measured'}")
+
+
 def time_backward_kernels(torch, ops, ref, dev):
-    """Times of the backward kernels at granite's training shapes, bf16:
-    kernel, plain version, one PyTorch call computing the same function
-    (backward alone, from a graph kept for it), and the bound.  Device
-    time: each window opens behind a spin kernel (``timed_ms``)."""
+    """Times of the backward kernels at granite's training shapes, bf16
+    (rmsnorm_bwd at every ``RMS_BWD`` shape): kernel, plain version, one
+    PyTorch call computing the same function (backward alone, from a
+    graph kept for it), and the bound.  Device time: each window opens
+    behind a spin kernel (``timed_ms``)."""
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(10)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
@@ -1386,19 +1492,25 @@ def time_backward_kernels(torch, ops, ref, dev):
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "shape": shape}
 
-    T, D = TRAIN_BATCH * TRAIN_SEQ, 1024
-    x = torch.randn(T, D, generator=gen, device=dev).to(bf)
-    dy = torch.randn(T, D, generator=gen, device=dev).to(bf)
-    w = torch.ones(D, device=dev)
-    xl = x.clone().requires_grad_()
-    wl = w.to(bf).requires_grad_()
-    yl = F.rms_norm(xl, (D,), wl, 1e-6)
-    out["rmsnorm_bwd"] = record(
-        "rmsnorm_bwd", f"[{T},{D}]", lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6),
-        lambda: ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6),
-        lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
-        3 * T * D * es + 8 * D, 10 * T * D)
-    del x, dy, xl, wl, yl
+    rms = []
+    for T, D in RMS_BWD:
+        x = torch.randn(T, D, generator=gen, device=dev).to(bf)
+        dy = torch.randn(T, D, generator=gen, device=dev).to(bf)
+        w = torch.ones(D, device=dev)
+        xl = x.clone().requires_grad_()
+        wl = w.to(bf).requires_grad_()
+        yl = F.rms_norm(xl, (D,), wl, 1e-6)
+        rms.append(record(
+            "rmsnorm_bwd", f"[{T},{D}]",
+            lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6),
+            lambda: ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6),
+            lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
+            3 * T * D * es + 8 * D, 10 * T * D))
+        if (T, D) in (RMS_BWD[0], (37, 1001)):
+            kernel_split(torch, lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6),
+                         flush, f"rmsnorm_bwd [{T},{D}] bfloat16")
+        del x, dy, xl, wl, yl
+    out["rmsnorm_bwd"] = {**rms[0], "by_shape": rms[1:]}
 
     attn = []
     for B, S, H, KV, Dh in ATTN_BWD_TIMED:
@@ -1429,6 +1541,7 @@ def time_backward_kernels(torch, ops, ref, dev):
         torch.cuda.empty_cache()
     out["flash_attention_bwd"] = {**attn[0], "by_shape": attn[1:]}
 
+    gmm = {"grouped_matmul_dx": [], "grouped_matmul_dw": []}
     for T, D, Fo in ((TRAIN_BATCH * TRAIN_SEQ * 8, 1024, 512),
                      (TRAIN_BATCH * TRAIN_SEQ * 8, 512, 1024)):
         E = 32
@@ -1453,7 +1566,10 @@ def time_backward_kernels(torch, ops, ref, dev):
             lambda: torch.bmm(pdy, rhs.transpose(1, 2)),
             (rows * Fo + used * D * Fo + rows * D) * es + 4 * (E + 1),
             2 * rows * D * Fo)
-        out.setdefault("grouped_matmul_dx", rec)
+        gmm["grouped_matmul_dx"].append(rec)
+        kernel_split(torch, lambda: ops.grouped_matmul_bwd(
+            lhs, rhs, offs, dyo, need_dw=False), flush,
+            f"grouped_matmul_dx dY[{T},{Fo}] W^T bfloat16")
         rec = record(
             "grouped_matmul_dw", f"X^T dY of {shape}",
             lambda: ops.grouped_matmul_dw(lhs, dyo, offs, E),
@@ -1461,8 +1577,10 @@ def time_backward_kernels(torch, ops, ref, dev):
             lambda: torch.bmm(px.transpose(1, 2), pdy),
             (rows * D + rows * Fo + E * D * Fo) * es + 4 * (E + 1),
             2 * rows * D * Fo)
-        out.setdefault("grouped_matmul_dw", rec)
+        gmm["grouped_matmul_dw"].append(rec)
         del lhs, dyo, rhs, px, pdy
+    for name, recs in gmm.items():
+        out[name] = {**recs[0], "by_shape": recs[1:]}
     del flush
     return out
 
@@ -1590,6 +1708,27 @@ def train_path(torch, dev):
     return launches
 
 
+def train_ab(parent: str) -> int:
+    """``--train-ab PARENT``: granite's training step, ``train_path`` of
+    the checkout at PARENT against this one's, each in a fresh process, in
+    turns parent, change, change, parent; prints each run's lines."""
+    code = ("import sys, torch; sys.path[:0] = ['src', '.']; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            "import chip_smoke as c; c.train_path(torch, torch.device('cuda'))")
+    for label, root in (("parent", parent), ("change", str(ROOT)),
+                        ("change", str(ROOT)), ("parent", parent)):
+        run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        for line in run.stdout.splitlines():
+            if "train bf16" in line or "profile" in line or "losses" in line:
+                print(f"(ab) {label}: {line}", flush=True)
+        if run.returncode:
+            print(run.stderr[-3000:], file=sys.stderr)
+            return 1
+    return 0
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1602,6 +1741,12 @@ def main() -> int:
               "port on the GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--train-ab"] and len(sys.argv) == 3:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True, timeout=60)
+        print(smi.stdout.strip().splitlines()[0], flush=True)
+        return train_ab(sys.argv[2])
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, ops, ref
 

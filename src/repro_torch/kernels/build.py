@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels from ``kernels/csrc`` and load them.
 
 Each ``csrc/*.cu`` has plain C entry points (``<entry>_launch``: the
-forward, and for rmsnorm, flash_attention and grouped_matmul a backward
-beside it) and is compiled by its own ``nvcc`` into a shared library, all of them started
-together, then loaded with :mod:`ctypes`.  No source includes PyTorch's
+forward, and for rmsnorm, flash_attention and grouped_matmul the backward
+beside it: dX and dW for grouped_matmul) and is compiled by its own
+``nvcc`` into a shared library, all of them started together, then loaded
+with :mod:`ctypes`.  No source includes PyTorch's
 headers, so the whole build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` binding costs, which matters because every
 fresh checkout builds at first use.  Libraries land in ``build/torch_ext/``
@@ -37,6 +38,7 @@ ENTRIES = {"rmsnorm": "rmsnorm", "rmsnorm_bwd": "rmsnorm",
            "flash_attention": "flash_attention",
            "flash_attention_bwd": "flash_attention",
            "grouped_matmul": "grouped_matmul",
+           "grouped_matmul_dx": "grouped_matmul",
            "grouped_matmul_dw": "grouped_matmul", "ssd_chunk": "ssd_chunk"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -47,8 +49,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, out, T, D, eps, dtype, stream
     "rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
-    # x, w, dy, dx, dw, r, partial, T, D, eps, dtype, stream
-    "rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, w, dy, dx, dw, partial, T, D, eps, dtype, stream
+    "rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     # q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, scale, causal, window, dtype,
     # stream
     "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -59,6 +61,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # lhs, rhs, offsets, out, T, D, F, E, dtype, stream
     "grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dy, w, offsets, dx, T, D, F, E, dtype, stream
+    "grouped_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # lhs, dy, offsets, dw, T, D, F, E, dtype, stream
     "grouped_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, dt, a, B, C, y, state, BC, Q, H, P, N, stream (f32 only)

@@ -53,6 +53,18 @@
 // the 16-byte copies); the wrapper raises otherwise (ops.py).  f32: a plain
 // shared-memory tiled FMA loop (BM x 64 output tile, 16-deep K slices, 256
 // threads; BM = 16 at decode, 64 otherwise), so f32 inputs stay exact f32.
+//
+// dX = dY W^T per group (the backward, grouped_matmul_dx_launch) runs the
+// same three kernels with B's layout as a template argument KB: the kernels
+// compute out [T, N] = lhs [T, K] B_e, where B_e is rhs[e] of rhs [E, K, N]
+// (KB = 0, the forward: K = D, N = F) or rhs[e]^T of rhs [E, N, K] read in
+// place (KB = 1, dX: lhs = dY [T, F], rhs = W [E, D, F], K = F, N = D).
+// W_e [D, F] row-major holds each output column's K elements contiguously,
+// which is wgmma's K-major B: a TMA box of 64 K elements (the 128-byte
+// swizzle's row) by 256 N rows, one load a stage in place of four, and the
+// descriptor of A's form; for mma.sync it is the native B layout, loaded by
+// ldmatrix without .trans from [64 N rows x 64 K] panels.  No copy of W^T
+// is made.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -138,15 +150,15 @@ constexpr int BN = 64;
 constexpr int BK = 16;
 constexpr int NT = 256;
 
-template <typename T, int BM>
+template <typename T, int BM, int KB>
 __global__ void __launch_bounds__(NT)
 gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
            const int* __restrict__ offsets, T* __restrict__ out, int Tn,
-           int D, int F, int E) {
+           int K, int N, int E) {
   constexpr int RM = BM / 16;  // output rows per thread
   __shared__ int s_off[kMaxExperts + 1];
   __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
+  __shared__ float Bs[BK][BN + 1];   // padded: the K-major fill runs down k
   __shared__ int s_tile[3];
 
   int group, r0, r1;
@@ -163,17 +175,20 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   if (group >= 1 && group <= E) {
-    const T* W = rhs + (size_t)(group - 1) * D * F;
-    for (int k0 = 0; k0 < D; k0 += BK) {
+    const T* W = rhs + (size_t)(group - 1) * K * N;
+    for (int k0 = 0; k0 < K; k0 += BK) {
       for (int idx = threadIdx.x; idx < BM * BK; idx += NT) {
         const int r = idx / BK, kk = idx % BK;
         const int row = r0 + r, kx = k0 + kk;
-        As[kk][r] = (row < r1 && kx < D) ? rt::to_f(lhs[(size_t)row * D + kx]) : 0.f;
+        As[kk][r] = (row < r1 && kx < K) ? rt::to_f(lhs[(size_t)row * K + kx]) : 0.f;
       }
+      // neighbouring threads read neighbouring elements of W in both layouts
       for (int idx = threadIdx.x; idx < BK * BN; idx += NT) {
-        const int kk = idx / BN, n = idx % BN;
+        const int kk = KB ? idx % BK : idx / BN, n = KB ? idx / BK : idx % BN;
         const int kx = k0 + kk, col = n0 + n;
-        Bs[kk][n] = (kx < D && col < F) ? rt::to_f(W[(size_t)kx * F + col]) : 0.f;
+        Bs[kk][n] = (kx < K && col < N)
+                        ? rt::to_f(W[KB ? (size_t)col * K + kx : (size_t)kx * N + col])
+                        : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -199,7 +214,7 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = n0 + tx + 16 * j;
-      if (col < F) out[(size_t)row * F + col] = rt::from_f<T>(acc[i][j]);
+      if (col < N) out[(size_t)row * N + col] = rt::from_f<T>(acc[i][j]);
     }
   }
 }
@@ -211,7 +226,7 @@ constexpr int WM = 128, WN = 256, WK = 64, WSTAGES = 4;
 constexpr int W_THREADS = 288;
 constexpr int A_BYTES = WM * WK * 2;           // 16 KB
 constexpr int B_HALF = WK * 64 * 2;            // one 64-column span, 8 KB
-constexpr int B_SPANS = WN / 64;
+constexpr int B_SPANS = WN / 64;               // (K-major B: one 32 KB box)
 constexpr int STAGE_BYTES = A_BYTES + B_SPANS * B_HALF;
 constexpr int EPI_LD = WN + 8;                 // staged row, bf16 elements
 constexpr int EPI_BYTES = 64 * EPI_LD * 2;     // per consumer warpgroup
@@ -219,11 +234,14 @@ constexpr int W_SMEM = 1024 + WSTAGES * STAGE_BYTES + 2 * WSTAGES * 8;
 static_assert(2 * EPI_BYTES <= WSTAGES * STAGE_BYTES,
               "the epilogue is staged in the ring");
 
+// KB = 0: B MN-major, rhs [E, K, N] in 64-column spans; KB = 1: B K-major,
+// rhs [E, N, K] in one box of 256 N rows by 64 K a stage.
+template <int KB>
 __global__ void __launch_bounds__(W_THREADS, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const int* __restrict__ offsets,
-                 __nv_bfloat16* __restrict__ out, int Tn, int D, int F,
+                 __nv_bfloat16* __restrict__ out, int Tn, int K, int N,
                  int E) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ int s_off[kMaxExperts + 1];
@@ -237,7 +255,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   if (group < 0) return;
   const int n0 = blockIdx.x * WN;
   if (group == 0 || group == E + 1) {
-    zero_tile_bf16(out, r0, r1, n0, WN, F, W_THREADS);
+    zero_tile_bf16(out, r0, r1, n0, WN, N, W_THREADS);
     return;
   }
 
@@ -260,7 +278,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
 
-  const int nk = (D + WK - 1) / WK;
+  const int nk = (K + WK - 1) / WK;
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
     // producer: one thread keeps up to WSTAGES slices in flight
@@ -271,10 +289,14 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         if (it >= WSTAGES) hw::mbar_wait(empty(s), ((it / WSTAGES) - 1) & 1);
         hw::mbar_expect_tx(full(s), STAGE_BYTES);
         hw::tma_load_2d(sa(s), &map_a, full(s), it * WK, r0);
+        if (KB) {
+          hw::tma_load_3d(sb(s), &map_b, full(s), it * WK, n0, e);
+        } else {
 #pragma unroll
-        for (int h = 0; h < B_SPANS; ++h)
-          hw::tma_load_3d(sb(s) + h * B_HALF, &map_b, full(s), n0 + 64 * h,
-                          it * WK, e);
+          for (int h = 0; h < B_SPANS; ++h)
+            hw::tma_load_3d(sb(s) + h * B_HALF, &map_b, full(s), n0 + 64 * h,
+                            it * WK, e);
+        }
       }
     }
   } else {
@@ -289,13 +311,15 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int kk = 0; kk < WK / 16; ++kk) {
         // A: rows 64 wg.., K-major, 128-byte rows, 8-row groups 1024 B
-        // apart; a k16 step is 32 bytes along the row.  B: MN-major, the
+        // apart; a k16 step is 32 bytes along the row.  B MN-major: the
         // 64-column spans 8 KB apart, 8-row K groups 1024 B apart; a k16
-        // step is 16 rows.
+        // step is 16 rows.  B K-major: A's form over 256 N rows.
         const uint64_t da = hw::wgmma_desc(sa(s) + wg * 8192 + kk * 32, 16,
                                            1024);
-        const uint64_t db = hw::wgmma_desc(sb(s) + kk * 2048, B_HALF, 1024);
-        hw::wgmma_ss<0>(acc, da, db, it > 0 || kk > 0);   // m64n<WN>k16
+        const uint64_t db =
+            KB ? hw::wgmma_desc(sb(s) + kk * 32, 16, 1024)
+               : hw::wgmma_desc(sb(s) + kk * 2048, B_HALF, 1024);
+        hw::wgmma_ss<0, KB ? 0 : 1>(acc, da, db, it > 0 || kk > 0);
       }
       hw::wgmma_commit();
       hw::wgmma_wait<1>();                // slice it - 1 is done with smem
@@ -326,8 +350,8 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     for (int c = t; c < 64 * (WN / 8); c += 128) {
       const int r = c / (WN / 8), cc = (c % (WN / 8)) * 8;
       const int row = r0 + 64 * wg + r, col = n0 + cc;
-      if (row < r1 && col < F)
-        *reinterpret_cast<uint4*>(out + (size_t)row * F + col) =
+      if (row < r1 && col < N)
+        *reinterpret_cast<uint4*>(out + (size_t)row * N + col) =
             *reinterpret_cast<const uint4*>(stg + r * EPI_LD + cc);
     }
   }
@@ -335,39 +359,47 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 
 // ---------------------------------------------- bf16 decode (mma.sync)
 constexpr int DM = 16, DN = 64, DK = 64, DSTAGES = 6, D_THREADS = 128;
-constexpr int LDA = DK + 8, LDB = DN + 8;      // padded rows (bf16 elements)
+// padded rows (bf16 elements); a B row is 64 columns (KB = 0) or 64 K (1)
+constexpr int LDA = DK + 8, LDB = DN + 8;
+static_assert(DN == DK, "both B layouts fill the same stage");
 constexpr int DA_BYTES = DM * LDA * 2, DB_BYTES = DK * LDB * 2;
 constexpr int D_STAGE = DA_BYTES + DB_BYTES;
 constexpr int D_SMEM = DSTAGES * D_STAGE;
 
 // One block per (group, 64 columns): the expert is known from blockIdx, so
 // the first weight slices are requested before the offsets arrive.  The
-// group's rows go through in 16-row tiles (at decode there is one).
+// group's rows go through in 16-row tiles (at decode there is one).  A
+// stage of B is [64 K rows x 64 columns] of rhs[e] (KB = 0, read by
+// ldmatrix.trans) or [64 N rows x 64 K] of rhs[e] [N, K] (KB = 1, read by
+// ldmatrix: mma.sync's own B layout).
+template <int KB>
 __global__ void __launch_bounds__(D_THREADS)
 gmm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
                const __nv_bfloat16* __restrict__ rhs,
                const int* __restrict__ offsets,
-               __nv_bfloat16* __restrict__ out, int Tn, int D, int F, int E) {
+               __nv_bfloat16* __restrict__ out, int Tn, int K, int N, int E) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ int s_range[2];
   const int grp = blockIdx.x;         // 0 head, 1..E experts, E + 1 tail
   const int n0 = blockIdx.y * DN;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const uint32_t base = hw::smem_u32(smem_raw);
-  const int nk = (D + DK - 1) / DK;
+  const int nk = (K + DK - 1) / DK;
   const bool expert = grp >= 1 && grp <= E;
-  const __nv_bfloat16* W = rhs + (size_t)(expert ? grp - 1 : 0) * D * F;
+  const __nv_bfloat16* W = rhs + (size_t)(expert ? grp - 1 : 0) * K * N;
 
   auto load_b = [&](int slice, int st) {
     const uint32_t b_s = base + st * D_STAGE + DA_BYTES;
 #pragma unroll
     for (int i = 0; i < DK * DN / 8 / D_THREADS; ++i) {
       const int idx = tid + D_THREADS * i;
-      const int kr = idx / (DN / 8), c = (idx % (DN / 8)) * 8;
-      const int k = slice * DK + kr, n = n0 + c;
-      const bool ok = k < D && n < F;
-      hw::cp_async16(b_s + (kr * LDB + c) * 2,
-                     ok ? W + (size_t)k * F + n : W, ok);
+      // stage row sr, 16-byte chunk c of it: a K row (KB = 0) or an N row
+      const int sr = idx / 8, c = (idx % 8) * 8;
+      const int k = slice * DK + (KB ? c : sr), n = n0 + (KB ? sr : c);
+      const bool ok = k < K && n < N;
+      hw::cp_async16(b_s + (sr * LDB + c) * 2,
+                     ok ? W + (KB ? (size_t)n * K + k : (size_t)k * N + n) : W,
+                     ok);
     }
   };
   auto load_a = [&](int slice, int st, int r0) {
@@ -375,9 +407,9 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
     for (int idx = tid; idx < DM * DK / 8; idx += D_THREADS) {
       const int r = idx / (DK / 8), c = (idx % (DK / 8)) * 8;
       const int row = r0 + r, k = slice * DK + c;
-      const bool ok = row < Tn && k < D;
+      const bool ok = row < Tn && k < K;
       hw::cp_async16(a_s + (r * LDA + c) * 2,
-                     ok ? lhs + (size_t)row * D + k : lhs, ok);
+                     ok ? lhs + (size_t)row * K + k : lhs, ok);
     }
   };
 
@@ -405,7 +437,7 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
   __syncthreads();
   const int lo = s_range[0], hi = s_range[1];
   if (!expert || lo >= hi) {
-    if (!expert) zero_tile_bf16(out, lo, hi, n0, DN, F, D_THREADS);
+    if (!expert) zero_tile_bf16(out, lo, hi, n0, DN, N, D_THREADS);
     hw::cp_async_wait<0>();
     return;
   }
@@ -444,9 +476,15 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
         uint32_t a[4], b[4];
         hw::ldmatrix_x4(a, a_s + ((lane % 16) * LDA + kk * 16 + (lane / 16) * 8)
                                      * 2);
-        hw::ldmatrix_x4_trans(
-            b, b_s + ((kk * 16 + lane % 16) * LDB + 16 * warp + (lane / 16) * 8)
-                         * 2);
+        // b[0..1]: columns 16 warp + 0..7 at k 0..7, 8..15; b[2..3]: + 8..15
+        if (KB)
+          hw::ldmatrix_x4(
+              b, b_s + ((16 * warp + (lane / 16) * 8 + lane % 8) * LDB
+                        + kk * 16 + ((lane / 8) % 2) * 8) * 2);
+        else
+          hw::ldmatrix_x4_trans(
+              b, b_s + ((kk * 16 + lane % 16) * LDB + 16 * warp
+                        + (lane / 16) * 8) * 2);
         hw::mma_bf16(acc[0], a, b[0], b[1]);
         hw::mma_bf16(acc[1], a, b[2], b[3]);
       }
@@ -455,12 +493,12 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int col = n0 + 16 * warp + 8 * j + 2 * q;
-      if (col >= F) continue;
+      if (col >= N) continue;
       if (r0 + g < r1)
-        *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g) * F + col) =
+        *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g) * N + col) =
             hw::pack_bf16(acc[j][0], acc[j][1]);
       if (r0 + g + 8 < r1)
-        *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g + 8) * F + col) =
+        *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + g + 8) * N + col) =
             hw::pack_bf16(acc[j][2], acc[j][3]);
     }
   }
@@ -468,13 +506,14 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ lhs,
 }
 
 // ------------------------------------------------------------ launchers
-template <int BM>
+// out [T, N] = lhs [T, K] B_e per group, B_e as the kernels' KB says.
+template <int BM, int KB>
 void launch_f32(const void* lhs, const void* rhs, const int* offsets,
-                void* out, int Tn, int D, int F, int E, cudaStream_t s) {
-  dim3 grid((Tn + BM - 1) / BM + E + 2, (F + BN - 1) / BN);
-  gmm_kernel<float, BM><<<grid, NT, 0, s>>>(
+                void* out, int Tn, int K, int N, int E, cudaStream_t s) {
+  dim3 grid((Tn + BM - 1) / BM + E + 2, (N + BN - 1) / BN);
+  gmm_kernel<float, BM, KB><<<grid, NT, 0, s>>>(
       static_cast<const float*>(lhs), static_cast<const float*>(rhs), offsets,
-      static_cast<float*>(out), Tn, D, F, E);
+      static_cast<float*>(out), Tn, K, N, E);
 }
 
 // Allows `bytes` of dynamic shared memory for `kernel`, once.
@@ -487,43 +526,75 @@ cudaError_t allow_smem(K kernel, int bytes, bool* done) {
   return err;
 }
 
+template <int KB>
 int launch_bf16(const void* lhs, const void* rhs, const int* offsets,
-                void* out, int Tn, int D, int F, int E, cudaStream_t s) {
+                void* out, int Tn, int K, int N, int E, cudaStream_t s) {
   auto* o = static_cast<__nv_bfloat16*>(out);
-  if (D == 0) return (int)cudaMemsetAsync(out, 0, (size_t)Tn * F * 2, s);
+  if (K == 0) return (int)cudaMemsetAsync(out, 0, (size_t)Tn * N * 2, s);
   if (Tn <= 16 * E) {
     static bool smem_ok = false;
-    const cudaError_t err = allow_smem(gmm_mma_kernel, D_SMEM, &smem_ok);
+    const cudaError_t err = allow_smem(gmm_mma_kernel<KB>, D_SMEM, &smem_ok);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(E + 2, (F + DN - 1) / DN);
-    gmm_mma_kernel<<<grid, D_THREADS, D_SMEM, s>>>(
+    dim3 grid(E + 2, (N + DN - 1) / DN);
+    gmm_mma_kernel<KB><<<grid, D_THREADS, D_SMEM, s>>>(
         static_cast<const __nv_bfloat16*>(lhs),
-        static_cast<const __nv_bfloat16*>(rhs), offsets, o, Tn, D, F, E);
+        static_cast<const __nv_bfloat16*>(rhs), offsets, o, Tn, K, N, E);
     return 0;
   }
-  // lhs as a [T, D] map in 64 x 128 boxes; rhs as [E, D, F] in 64 x 64 x 1
+  // lhs as a [T, K] map in 64 x 128 boxes; rhs as [E, K, N] in 64 x 64 x 1
+  // boxes (KB = 0) or as [E, N, K] in 64 (K) x 256 (N) x 1 boxes (KB = 1)
   CUtensorMap map_a, map_b;
-  const uint64_t dims_a[2] = {(uint64_t)D, (uint64_t)Tn};
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)Tn};
   const uint32_t box_a[2] = {WK, WM};
-  const uint64_t dims_b[3] = {(uint64_t)F, (uint64_t)D, (uint64_t)E};
-  const uint32_t box_b[3] = {64, WK, 1};
+  const uint64_t dims_b[3] = {(uint64_t)(KB ? K : N), (uint64_t)(KB ? N : K),
+                              (uint64_t)E};
+  const uint32_t box_b[3] = {KB ? WK : 64, KB ? WN : WK, 1};
   if (!hw::encode_bf16(&map_a, lhs, 2, dims_a, box_a) ||
       !hw::encode_bf16(&map_b, rhs, 3, dims_b, box_b))
     return (int)cudaErrorInvalidValue;
   static bool smem_ok = false;
-  const cudaError_t err = allow_smem(gmm_wgmma_kernel, W_SMEM, &smem_ok);
+  const cudaError_t err = allow_smem(gmm_wgmma_kernel<KB>, W_SMEM, &smem_ok);
   if (err != cudaSuccess) return (int)err;
   const long row_tiles = (Tn + WM - 1) / WM + E + 2;
   if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((F + WN - 1) / WN, (unsigned)row_tiles);
-  gmm_wgmma_kernel<<<grid, W_THREADS, W_SMEM, s>>>(map_a, map_b, offsets, o,
-                                                   Tn, D, F, E);
+  dim3 grid((N + WN - 1) / WN, (unsigned)row_tiles);
+  gmm_wgmma_kernel<KB><<<grid, W_THREADS, W_SMEM, s>>>(map_a, map_b, offsets,
+                                                       o, Tn, K, N, E);
   return 0;
+}
+
+// The checks and the route of both entry points.
+template <int KB>
+int launch_gmm(const void* lhs, const void* rhs, const void* offsets,
+               void* out, int T, int K, int N, int E, int dtype,
+               void* stream) {
+  if (E <= 0 || E > kMaxExperts || (N + BN - 1) / BN > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (T == 0 || N == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* offs = static_cast<const int*>(offsets);
+  if (dtype == rt::kF32) {
+    // Few rows per group (decode): small row tiles waste fewer FMAs on rows
+    // that belong to no group of the tile.
+    if (T <= 16 * E) {
+      launch_f32<16, KB>(lhs, rhs, offs, out, T, K, N, E, s);
+    } else {
+      launch_f32<64, KB>(lhs, rhs, offs, out, T, K, N, E, s);
+    }
+  } else if (dtype == rt::kBF16) {
+    if (K % 8 != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
+    const int rc = launch_bf16<KB>(lhs, rhs, offs, out, T, K, N, E, s);
+    if (rc) return rc;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- backward
 // dW[e] = X[rows of e]^T dY[rows of e] (dX = dY W^T per group is the
-// forward kernel on a contiguous [E, F, D] copy of W^T; ops.py).  Expert e
+// forward's kernels with B K-major, reading W in place: see the top of this
+// file and grouped_matmul_dx_launch).  Expert e
 // covers [lo, hi): lo is the running maximum of the clamped offsets[0..e],
 // hi that of offsets[0..e+1], as find_tile reads them.  An expert with no
 // rows gets zeros, and rows no group covers add nothing, so the dropped MoE
@@ -715,7 +786,7 @@ gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
         const uint64_t da = hw::wgmma_desc(sa(s) + wg * B_HALF + kk * 2048,
                                            B_HALF, 1024);
         const uint64_t db = hw::wgmma_desc(sb(s) + kk * 2048, B_HALF, 1024);
-        hw::wgmma_ss<1>(acc, da, db, it > 0 || kk > 0);   // m64n<WN>k16
+        hw::wgmma_ss<1, 1>(acc, da, db, it > 0 || kk > 0);   // m64n<WN>k16
       }
       hw::wgmma_commit();
       hw::wgmma_wait<1>();                // slice it - 1 is done with smem
@@ -783,27 +854,19 @@ extern "C" int grouped_matmul_launch(const void* lhs, const void* rhs,
                                      const void* offsets, void* out, int T,
                                      int D, int F, int E, int dtype,
                                      void* stream) {
-  if (E <= 0 || E > kMaxExperts || (F + BN - 1) / BN > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (T == 0 || F == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* offs = static_cast<const int*>(offsets);
-  if (dtype == rt::kF32) {
-    // Few rows per group (decode): small row tiles waste fewer FMAs on rows
-    // that belong to no group of the tile.
-    if (T <= 16 * E) {
-      launch_f32<16>(lhs, rhs, offs, out, T, D, F, E, s);
-    } else {
-      launch_f32<64>(lhs, rhs, offs, out, T, D, F, E, s);
-    }
-  } else if (dtype == rt::kBF16) {
-    if (D % 8 != 0 || F % 8 != 0) return (int)cudaErrorInvalidValue;
-    const int rc = launch_bf16(lhs, rhs, offs, out, T, D, F, E, s);
-    if (rc) return rc;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_gmm<0>(lhs, rhs, offsets, out, T, D, F, E, dtype, stream);
+}
+
+// dX of grouped_matmul_launch: dx[rows of e] = dy[rows of e] w[e]^T, with
+// w [E,D,F] read in place (no transposed copy); rows no group covers get
+// zeros.  dy: [T,F], w: [E,D,F], dx: [T,D] contiguous, one dtype (code);
+// offsets: [E+1] int32 on the device.  bf16 needs D % 8 == 0 and
+// F % 8 == 0.  Returns the CUDA error code (0 = ok).
+extern "C" int grouped_matmul_dx_launch(const void* dy, const void* w,
+                                        const void* offsets, void* dx, int T,
+                                        int D, int F, int E, int dtype,
+                                        void* stream) {
+  return launch_gmm<1>(dy, w, offsets, dx, T, F, D, E, dtype, stream);
 }
 
 // dW of grouped_matmul_launch: lhs: [T,D], dy: [T,F], dw: [E,D,F]

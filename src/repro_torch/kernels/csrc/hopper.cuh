@@ -1,7 +1,7 @@
 // Inline-PTX helpers for the bf16 tensor-core kernels (sm_90a): shared
 // addresses, cp.async 16- and 4-byte copies, ldmatrix and mma.sync
 // m16n8k16, mbarriers, TMA tile loads, and wgmma m64n256k16 with
-// shared-memory descriptors (A K-major or MN-major, B MN-major).  Host
+// shared-memory descriptors (A and B each K-major or MN-major).  Host
 // side: cuTensorMapEncodeTiled, taken through the runtime's driver entry
 // point so that no library links against libcuda.
 #pragma once
@@ -178,12 +178,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 // wgmma m64n256k16:
 // d[64xN] = A[64x16] B[16xN] (+ d if accumulate), N = 256, bf16, f32
-// accumulate, both operands from shared memory; B MN-major (transpose bit
-// set), A K-major (TA = 0: the forward's lhs rows) or MN-major (TA = 1: dW
-// = X^T dY, with X [rows, D] row-major).  d follows the mma.sync C
-// layout per warp: warp w of the warpgroup owns rows 16w..16w+15 and
-// d[4j..4j+3] covers columns 8j..8j+7.
-template <int TA>
+// accumulate, both operands from shared memory.  TA and TB are the two
+// transpose bits: A K-major (TA = 0: the forward's lhs rows) or MN-major
+// (TA = 1: dW = X^T dY, with X [rows, D] row-major); B MN-major (TB = 1:
+// the forward's rhs [D, F] and dW's dY) or K-major (TB = 0: dX = dY W^T,
+// with W [D, F] row-major read in place, each N row's K elements
+// contiguous).  Instances: forward (0, 1), dW (1, 1), dX (0, 0).  d
+// follows the mma.sync C layout per warp: warp w of the warpgroup owns
+// rows 16w..16w+15 and d[4j..4j+3] covers columns 8j..8j+7.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -208,7 +211,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %131, 1;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -237,7 +240,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // ----------------------------------------------------------- host side

@@ -1,4 +1,5 @@
 // RMSNorm forward for Hopper: out[t, :] = x[t, :] * rsqrt(mean(x[t, :]^2) + eps) * w.
+// (Its backward, rmsnorm_bwd_launch, is at the end of this file.)
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py (_rmsnorm_kernel /
 // rmsnorm_kernel).  Bound by bytes: the kernel moves T*D*(in + out) bytes
@@ -207,88 +208,393 @@ void launch(const void* x, const void* w, void* out, int T_, int D, float eps,
 
 // ------------------------------------------------------------- backward
 // dx = w r dy - x r^3 mean(dy w x) and dw = sum_rows dy x r, with
-// r = rsqrt(mean(x^2) + eps), all in f32.  Bound by bytes (x and dy read,
-// dx written).  A simple design that is right first: one warp a row for dx
-// (two passes over the row, the second from L1/L2), then dw in two fixed
-// orders and no atomics, so two calls give the same bits: a block of
-// threads, one a column, sums kDwRows rows each into a partial, and a
-// second kernel sums the partials of a column in order.
-constexpr int kDwRows = 64;      // rows a dw partial sums (ops.RMS_DW_ROWS)
-constexpr int kDwCols = 128;     // columns (threads) a dw block takes
+// r = rsqrt(mean(x^2) + eps), all in f32.  Bound by bytes: x and dy read
+// once and dx written once, 3 T D elements (25.2 MB at granite's training
+// rows [4096, 1024] in bf16: 0.0075 ms at 3.35 TB/s).
+//
+// Design: one pass over each row, from registers, and dw in the same pass.
+// Each block owns a fixed run of rows (`rpb`, a multiple of the rows its
+// warps take at once, so that there are at most kMaxParts blocks).  On the
+// register route a group of G lanes takes a row (G = 32 from D = 32 V on;
+// 4, 8 or 16 below, so a warp takes 32 / G rows at once), holding NV
+// 16-byte vectors of x and of dy a lane: both are loaded before the two sums
+// (shuffles within the group), dx is written from the same registers, and
+// the lane adds dy x r of its columns to NV V f32 sums that live in
+// registers across the block's rows.  Then the row groups of a warp are
+// summed by shuffles, the warps one after another into shared memory in
+// warp order, and the block writes one f32 partial row of dw.  A second
+// launch sums the partials of each column in order of block (a warp per
+// stride of partials, then the warps in order).  So x and dy are read once,
+// in two launches; when one block holds all rows (T <= rpb) it writes dw
+// itself and the second launch is skipped, which keeps few rows at one
+// launch.  No atomics: every sum has one owner and one order, so two calls
+// give the same bits.  w is copied into shared memory (cp.async) while the
+// first rows load.
+//
+// Rows past the register budget (more than kMaxBwdNV vectors a lane: D >
+// 2048 in bf16, 1024 in f32) or not 16-byte aligned take the wide route:
+// a warp a row, two passes over it (sums, then dx; the second from
+// L1/L2), 8 rows at a time, then a thread a column adds those rows' dy x r
+// in row order to the block's partial (reading x and dy a third time, from
+// L2).  Its loads are 16-byte vectors where the rows are aligned, single
+// elements otherwise.
+constexpr int kBwdWarps = 8;              // warps a block
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kMaxParts = 256;            // dw partials at most (ops.RMS_DW_PARTS)
+constexpr int kMaxBwdNV = 8;              // register route: vectors a lane
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-rmsnorm_bwd_dx_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      const T* __restrict__ dy, T* __restrict__ dx,
-                      float* __restrict__ r_out, int T_, int D, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= T_) return;
-  const T* xr = x + (size_t)row * D;
-  const T* gr = dy + (size_t)row * D;
-  float ss = 0.f, dot = 0.f;
-  for (int i = lane; i < D; i += 32) {
-    const float xf = rt::to_f(xr[i]);
-    ss = fmaf(xf, xf, ss);
-    dot = fmaf(rt::to_f(gr[i]) * w[i], xf, dot);
+// Sum over the aligned group of G lanes that holds v (every lane gets it).
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// VW consecutive elements at p as f32, in 16-byte loads where VW elements
+// fill them (p then 16-byte aligned); then the same for stores.
+template <int VW, typename T>
+__device__ __forceinline__ void load_f(const T* p, float (&f)[VW]) {
+  constexpr int PER = 16 / sizeof(T);
+  if constexpr (VW % PER == 0) {
+#pragma unroll
+    for (int q = 0; q < VW / PER; ++q) {
+      const uint4 raw = reinterpret_cast<const uint4*>(p)[q];
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) f[q * PER + j] = rt::to_f(e[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) f[j] = rt::to_f(p[j]);
   }
-  ss = warp_sum(ss);
-  dot = warp_sum(dot);
-  const float r = rsqrtf(ss / (float)D + eps);
-  const float c = r * r * r * (dot / (float)D);
-  T* orow = dx + (size_t)row * D;
-  for (int i = lane; i < D; i += 32)
-    orow[i] = rt::from_f<T>(w[i] * r * rt::to_f(gr[i]) - rt::to_f(xr[i]) * c);
-  if (lane == 0) r_out[row] = r;
 }
-
-// partial[c, d] = sum over rows c*kDwRows .. (c+1)*kDwRows - 1 of dy x r.
-template <typename T>
-__global__ void __launch_bounds__(kDwCols)
-rmsnorm_bwd_dw_partial_kernel(const T* __restrict__ x,
-                              const T* __restrict__ dy,
-                              const float* __restrict__ r,
-                              float* __restrict__ partial, int T_, int D) {
-  const int d = blockIdx.x * kDwCols + threadIdx.x;
-  const int c = blockIdx.y;
-  if (d >= D) return;
-  const int t1 = min(T_, (c + 1) * kDwRows);
-  float acc = 0.f;
-  for (int t = c * kDwRows; t < t1; ++t) {
-    const size_t off = (size_t)t * D + d;
-    acc = fmaf(rt::to_f(dy[off]) * rt::to_f(x[off]), r[t], acc);
+template <int VW, typename T>
+__device__ __forceinline__ void store_f(T* p, const float (&f)[VW]) {
+  constexpr int PER = 16 / sizeof(T);
+  if constexpr (VW % PER == 0) {
+#pragma unroll
+    for (int q = 0; q < VW / PER; ++q) {
+      uint4 raw;
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < PER; ++j) e[j] = rt::from_f<T>(f[q * PER + j]);
+      reinterpret_cast<uint4*>(p)[q] = raw;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) p[j] = rt::from_f<T>(f[j]);
   }
-  partial[(size_t)c * D + d] = acc;
 }
 
-// dw[d] = sum over c of partial[c, d], in order of c.
-__global__ void __launch_bounds__(kDwCols)
-rmsnorm_bwd_dw_reduce_kernel(const float* __restrict__ partial,
-                             float* __restrict__ dw, int n_part, int D) {
-  const int d = blockIdx.x * kDwCols + threadIdx.x;
-  if (d >= D) return;
-  float acc = 0.f;
-  for (int c = 0; c < n_part; ++c) acc += partial[(size_t)c * D + d];
-  dw[d] = acc;
+// Register route: rows [rpb b, rpb (b + 1)) of block b.  A lane holds RW
+// rows at once (RW NV <= 8 vectors of each of x and dy: more bytes in
+// flight where the row is short), so a block takes P = 8 (32 / G) RW rows
+// a pass: row base + (u 8 + k) (32 / G) + g is row u of group g of warp k.
+// Writes dx, and the block's dw partial to part[b] (or to dw when the grid
+// is one block).  Dynamic shared memory: w [D] and the block's dw [D].
+template <int NV>
+__host__ __device__ constexpr int bwd_rows_at_once() {
+  return NV <= 4 ? 8 / NV : 1;
+}
+
+template <typename T, int NV, int G>
+__global__ void __launch_bounds__(kBwdThreads, NV <= 6 ? 2 : 1)
+rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ dw, float* __restrict__ part,
+                       int T_, int D, float eps, int rpb) {
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* dw_s = w_s + D;
+  constexpr int V = Vec<T>::V, R = 32 / G, RW = bwd_rows_at_once<NV>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = lane / G, gl = lane % G;
+  const int nvec = D / V;
+  for (int i = threadIdx.x; i < D / 4; i += kBwdThreads)
+    hw::cp_async16(hw::smem_u32(smem4 + i),
+                   reinterpret_cast<const float4*>(w) + i, true);
+  hw::cp_async_commit();
+
+  float acc[NV * V];
+#pragma unroll
+  for (int k = 0; k < NV * V; ++k) acc[k] = 0.f;
+  const int r0 = blockIdx.x * rpb, r1 = min(T_, r0 + rpb);
+  for (int base = r0; base < r1; base += kBwdWarps * R * RW) {
+    uint4 xv[RW][NV], gv[RW][NV];
+    // every load of the RW rows issued before the sums
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      const int row = base + (u * kBwdWarps + warp) * R + grp;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int v = gl + G * i;
+        if (row < r1 && v < nvec) {
+          xv[u][i] = reinterpret_cast<const uint4*>(x + (size_t)row * D)[v];
+          gv[u][i] = reinterpret_cast<const uint4*>(dy + (size_t)row * D)[v];
+        }
+      }
+    }
+    hw::cp_async_wait<0>();
+    __syncthreads();                  // w is in shared memory
+    float ss[RW], dot[RW];
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      const int row = base + (u * kBwdWarps + warp) * R + grp;
+      ss[u] = dot[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int v = gl + G * i;
+        if (!(row < r1 && v < nvec)) continue;
+        const T* xe = reinterpret_cast<const T*>(&xv[u][i]);
+        const T* ge = reinterpret_cast<const T*>(&gv[u][i]);
+        float wf[V];
+        load_f<V>(w_s + v * V, wf);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xf = rt::to_f(xe[j]);
+          ss[u] = fmaf(xf, xf, ss[u]);
+          dot[u] = fmaf(rt::to_f(ge[j]) * wf[j], xf, dot[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      ss[u] = group_sum<G>(ss[u]);
+      dot[u] = group_sum<G>(dot[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < RW; ++u) {
+      const int row = base + (u * kBwdWarps + warp) * R + grp;
+      if (row >= r1) continue;
+      const float r = rsqrtf(ss[u] / (float)D + eps);
+      const float c = r * r * r * (dot[u] / (float)D);
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int v = gl + G * i;
+        if (v >= nvec) continue;
+        const T* xe = reinterpret_cast<const T*>(&xv[u][i]);
+        const T* ge = reinterpret_cast<const T*>(&gv[u][i]);
+        float wf[V];
+        load_f<V>(w_s + v * V, wf);
+        uint4 out;
+        T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xf = rt::to_f(xe[j]), gf = rt::to_f(ge[j]);
+          oe[j] = rt::from_f<T>(wf[j] * r * gf - xf * c);
+          acc[i * V + j] = fmaf(gf * xf, r, acc[i * V + j]);
+        }
+        reinterpret_cast<uint4*>(dx + (size_t)row * D)[v] = out;
+      }
+    }
+  }
+  // the warp's row groups (butterfly), then the warps in order
+#pragma unroll
+  for (int o = G; o < 32; o *= 2)
+#pragma unroll
+    for (int k = 0; k < NV * V; ++k)
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], o);
+  for (int k = 0; k < kBwdWarps; ++k) {
+    if (warp == k && grp == 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int v = gl + G * i;
+        if (v >= nvec) continue;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          dw_s[v * V + j] = (k ? dw_s[v * V + j] : 0.f) + acc[i * V + j];
+      }
+    }
+    __syncthreads();
+  }
+  float4* dst = reinterpret_cast<float4*>(
+      gridDim.x == 1 ? dw : part + (size_t)blockIdx.x * D);
+  for (int i = threadIdx.x; i < D / 4; i += kBwdThreads)
+    dst[i] = smem4[D / 4 + i];
+}
+
+// Wide route: rows [rpb b, rpb (b + 1)), a warp a row, 8 rows at a time;
+// VW elements a load (Vec<T>::V on aligned rows, else 1), U loads of each
+// of x, dy and w in flight a lane.  Shared memory: the 8 rows' r.
+template <typename T, int VW>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ dw, float* __restrict__ part,
+                        int T_, int D, float eps, int rpb) {
+  constexpr int U = VW == 1 ? 16 : 2;
+  __shared__ float s_r[kBwdWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = D / VW;
+  const int r0 = blockIdx.x * rpb, r1 = min(T_, r0 + rpb);
+  float* dst = gridDim.x == 1 ? dw : part + (size_t)blockIdx.x * D;
+  for (int base = r0; base < r1; base += kBwdWarps) {
+    const int row = base + warp;
+    if (row < r1) {
+      const T* xr = x + (size_t)row * D;
+      const T* gr = dy + (size_t)row * D;
+      float ss = 0.f, dot = 0.f;
+      for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
+        float xf[U][VW], gf[U][VW], wf[U][VW];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int v = v0 + 32 * u;
+          if (v < nvec) {
+            load_f<VW>(xr + v * VW, xf[u]);
+            load_f<VW>(gr + v * VW, gf[u]);
+            load_f<VW>(w + v * VW, wf[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (v0 + 32 * u >= nvec) continue;
+#pragma unroll
+          for (int j = 0; j < VW; ++j) {
+            ss = fmaf(xf[u][j], xf[u][j], ss);
+            dot = fmaf(gf[u][j] * wf[u][j], xf[u][j], dot);
+          }
+        }
+      }
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+      const float r = rsqrtf(ss / (float)D + eps);
+      const float c = r * r * r * (dot / (float)D);
+      for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
+        float xf[U][VW], gf[U][VW], wf[U][VW];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int v = v0 + 32 * u;
+          if (v < nvec) {
+            load_f<VW>(xr + v * VW, xf[u]);
+            load_f<VW>(gr + v * VW, gf[u]);
+            load_f<VW>(w + v * VW, wf[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int v = v0 + 32 * u;
+          if (v >= nvec) continue;
+          float of[VW];
+#pragma unroll
+          for (int j = 0; j < VW; ++j)
+            of[j] = wf[u][j] * r * gf[u][j] - xf[u][j] * c;
+          store_f<VW>(dx + (size_t)row * D + v * VW, of);
+        }
+      }
+      if (lane == 0) s_r[warp] = r;
+    }
+    __syncthreads();
+    // dw: a thread a column, the 8 rows' loads in flight, summed in order
+    const int n = min(kBwdWarps, r1 - base);
+    for (int d = threadIdx.x; d < D; d += kBwdThreads) {
+      float xs[kBwdWarps], gs[kBwdWarps];
+#pragma unroll
+      for (int k = 0; k < kBwdWarps; ++k) {
+        if (k < n) {
+          const size_t off = (size_t)(base + k) * D + d;
+          xs[k] = rt::to_f(x[off]);
+          gs[k] = rt::to_f(dy[off]);
+        }
+      }
+      float a = base == r0 ? 0.f : dst[d];
+#pragma unroll
+      for (int k = 0; k < kBwdWarps; ++k)
+        if (k < n) a = fmaf(gs[k] * xs[k], s_r[k], a);
+      dst[d] = a;
+    }
+    __syncthreads();
+  }
+}
+
+// dw[d] = the sum over the n partials of column d, in order of block: warp
+// k sums partials k, k + 8, ... of 32 columns, then the 8 sums in order.
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_dw_sum_kernel(const float* __restrict__ part,
+                          float* __restrict__ dw, int n, int D) {
+  __shared__ float s[kBwdWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane;
+  float a = 0.f;
+  if (d < D)
+    for (int p = warp; p < n; p += kBwdWarps) a += part[(size_t)p * D + d];
+  s[warp][lane] = a;
+  __syncthreads();
+  if (warp == 0 && d < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < kBwdWarps; ++k) t += s[k][lane];
+    dw[d] = t;
+  }
+}
+
+// Rows a block takes: a multiple of `pass` (the rows its warps take at
+// once), enough that there are at most kMaxParts blocks.
+inline int rows_per_block(int T_, int pass) {
+  const int need = (T_ + kMaxParts - 1) / kMaxParts;
+  return (need + pass - 1) / pass * pass;
+}
+
+template <typename T, int NV, int G>
+void launch_bwd_reg(const T* x, const float* w, const T* dy, T* dx, float* dw,
+                    float* part, int T_, int D, float eps, int* blocks,
+                    cudaStream_t stream) {
+  const int rpb =
+      rows_per_block(T_, kBwdWarps * (32 / G) * bwd_rows_at_once<NV>());
+  *blocks = (T_ + rpb - 1) / rpb;
+  rmsnorm_bwd_reg_kernel<T, NV, G>
+      <<<*blocks, kBwdThreads, 2 * (size_t)D * sizeof(float), stream>>>(
+          x, w, dy, dx, dw, part, T_, D, eps, rpb);
 }
 
 template <typename T>
-void launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-                void* dw, void* r, void* partial, int T_, int D, float eps,
+void launch_bwd(const void* x_, const void* w_, const void* dy_, void* dx_,
+                void* dw_, void* part, int T_, int D, float eps,
                 cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* gp = static_cast<const T*>(dy);
-  float* rp = static_cast<float*>(r);
-  float* pp = static_cast<float*>(partial);
-  rmsnorm_bwd_dx_kernel<T><<<(T_ + kWarps - 1) / kWarps, kWarps * 32, 0,
-                             stream>>>(xp, static_cast<const float*>(w), gp,
-                                       static_cast<T*>(dx), rp, T_, D, eps);
-  const int n_part = (T_ + kDwRows - 1) / kDwRows;
-  const int col_blocks = (D + kDwCols - 1) / kDwCols;
-  rmsnorm_bwd_dw_partial_kernel<T><<<dim3(col_blocks, n_part), kDwCols, 0,
-                                     stream>>>(xp, gp, rp, pp, T_, D);
-  rmsnorm_bwd_dw_reduce_kernel<<<col_blocks, kDwCols, 0, stream>>>(
-      pp, static_cast<float*>(dw), n_part, D);
+  const T* x = static_cast<const T*>(x_);
+  const float* w = static_cast<const float*>(w_);
+  const T* dy = static_cast<const T*>(dy_);
+  T* dx = static_cast<T*>(dx_);
+  float* dw = static_cast<float*>(dw_);
+  float* pp = static_cast<float*>(part);
+  constexpr int V = Vec<T>::V;
+  const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)dy % 16 == 0) &&
+                   ((uintptr_t)dx % 16 == 0) && ((uintptr_t)w % 16 == 0) &&
+                   (((size_t)D * sizeof(T)) % 16 == 0);
+  const int nvec = D / V, per_lane = (nvec + 31) / 32;
+  int blocks;
+  if (vec && per_lane <= kMaxBwdNV) {
+    // the fewest registers that hold the row; short rows share a warp
+    if (nvec <= 4)
+      launch_bwd_reg<T, 1, 4>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+    else if (nvec <= 8)
+      launch_bwd_reg<T, 1, 8>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+    else if (nvec <= 16)
+      launch_bwd_reg<T, 1, 16>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+    else if (per_lane <= 1)
+      launch_bwd_reg<T, 1, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+    else if (per_lane <= 2)
+      launch_bwd_reg<T, 2, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+    else if (per_lane <= 4)
+      launch_bwd_reg<T, 4, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+    else if (per_lane <= 6)
+      launch_bwd_reg<T, 6, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+    else
+      launch_bwd_reg<T, kMaxBwdNV, 32>(x, w, dy, dx, dw, pp, T_, D, eps,
+                                       &blocks, stream);
+  } else {
+    const int rpb = rows_per_block(T_, kBwdWarps);
+    blocks = (T_ + rpb - 1) / rpb;
+    if (vec)
+      rmsnorm_bwd_wide_kernel<T, V><<<blocks, kBwdThreads, 0, stream>>>(
+          x, w, dy, dx, dw, pp, T_, D, eps, rpb);
+    else
+      rmsnorm_bwd_wide_kernel<T, 1><<<blocks, kBwdThreads, 0, stream>>>(
+          x, w, dy, dx, dw, pp, T_, D, eps, rpb);
+  }
+  if (blocks > 1)
+    rmsnorm_bwd_dw_sum_kernel<<<(D + 31) / 32, kBwdThreads, 0, stream>>>(
+        pp, dw, blocks, D);
 }
 
 }  // namespace
@@ -311,18 +617,19 @@ extern "C" int rmsnorm_launch(const void* x, const void* w, void* out, int T,
 
 // Backward of rmsnorm_launch.  x, dy, dx: [T, D] contiguous, f32 or bf16
 // (dtype code); w: [D] f32; dw: [D] f32 (written, not accumulated);
-// r: [T] f32 and partial: [ceil(T / 64), D] f32 are the wrapper's scratch.
-// Returns the CUDA error code of the launches (0 = launched).
+// part: [min(T, 256), D] f32, the wrapper's scratch for the per-block dw
+// partials (kMaxParts).  Returns the CUDA error code of the launches
+// (0 = launched).
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
                                   const void* dy, void* dx, void* dw,
-                                  void* r, void* partial, int T, int D,
-                                  float eps, int dtype, void* stream) {
-  if (T <= 0 || D <= 0 || T > 65535 * kDwRows) return (int)cudaErrorInvalidValue;
+                                  void* part, int T, int D, float eps,
+                                  int dtype, void* stream) {
+  if (T <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32) {
-    launch_bwd<float>(x, w, dy, dx, dw, r, partial, T, D, eps, s);
+    launch_bwd<float>(x, w, dy, dx, dw, part, T, D, eps, s);
   } else if (dtype == rt::kBF16) {
-    launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, r, partial, T, D, eps, s);
+    launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, part, T, D, eps, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -12,7 +12,7 @@ Gradients on the card: when grad is enabled and an operand requires it,
 ``torch.autograd.Function``s whose forward is the forward kernel and whose
 backward is a CUDA kernel too (``rmsnorm_bwd``; ``flash_attention_bwd``,
 from the row logsumexp the forward then also writes; ``grouped_matmul_dx``,
-the forward kernel on a contiguous copy of W^T, and ``grouped_matmul_dw``).
+which reads W^T in place, and ``grouped_matmul_dw``).
 ``ssd_chunk`` has no backward kernel yet: on the card it raises rather than
 return an output with no ``grad_fn``.  Serving (no grad) launches the
 forward kernels alone, with no logsumexp.
@@ -31,7 +31,7 @@ KERNEL_NAMES = build.KERNELS + ("rmsnorm_bwd", "flash_attention_bwd",
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (its shared-memory plan)
 ATTN_HEAD_DIMS = (64, 96, 128)   # csrc/flash_attention.cu: its dispatches
-RMS_DW_ROWS = 64     # csrc/rmsnorm.cu: kDwRows, rows a dw partial sums
+RMS_DW_PARTS = 256   # csrc/rmsnorm.cu: kMaxParts, dw partials at most
 
 
 def reset_launches() -> None:
@@ -95,7 +95,12 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float):
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                  eps: float):
-    """(dx in x.dtype, dw f32) through the backward kernel."""
+    """(dx in x.dtype, dw f32) through the backward kernel: one pass over
+    the rows that writes dx and one f32 partial of dw for each block of
+    rows, then a launch that sums the partials in order (skipped when one
+    block holds every row).  The scratch for the partials is
+    ``[min(T, RMS_DW_PARTS), D]`` f32: the kernel makes at most that many
+    blocks."""
     code = _cuda_args("rmsnorm_bwd", x, dy)
     T, D = x.shape
     wf = w.to(device=x.device, dtype=torch.float32).contiguous()
@@ -103,12 +108,11 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
     if T == 0:
         return dx, dw.zero_()
-    r = torch.empty(T, dtype=torch.float32, device=x.device)
-    partial = torch.empty(((T + RMS_DW_ROWS - 1) // RMS_DW_ROWS, D),
-                          dtype=torch.float32, device=x.device)
+    partial = torch.empty((min(T, RMS_DW_PARTS), D), dtype=torch.float32,
+                          device=x.device)
     _launch("rmsnorm_bwd", "rmsnorm_bwd", x.data_ptr(), wf.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), r.data_ptr(),
-            partial.data_ptr(), T, D, float(eps), code, _stream(x))
+            dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
+            T, D, float(eps), code, _stream(x))
     return dx, dw
 
 
@@ -220,8 +224,8 @@ class _FlashAttention(torch.autograd.Function):
 
 # ----------------------------------------------------------- grouped matmul
 def check_gmm_bf16_shape(D: int, F: int) -> None:
-    """The bf16 grouped_matmul kernels (and the bf16 dW kernel) read rows of
-    D and F elements with 16-byte copies (TMA's stride rule and
+    """The bf16 grouped_matmul kernels (forward, dX and dW) read rows of D
+    and F elements with 16-byte copies (TMA's stride rule and
     ``cp.async``), so both must be multiples of 8.  Raises ``ValueError``
     otherwise: there is no other route for such a call."""
     if D % 8 or F % 8:
@@ -254,17 +258,25 @@ def _offsets(group_offsets: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_offsets: torch.Tensor,
          name: str) -> torch.Tensor:
-    """The forward kernel, counted under ``name`` (``grouped_matmul``, or
-    ``grouped_matmul_dx`` when it computes dX = dY W^T)."""
+    """The kernel named ``name``, counted under it: ``grouped_matmul``
+    (lhs [T,D] -> [T,F]) or ``grouped_matmul_dx`` (dX = dY W^T per group:
+    lhs is dY [T,F], rhs W [E,D,F] read in place -> [T,D])."""
     code = _cuda_args(name, lhs, rhs)
     offs = _offsets(group_offsets, lhs)
-    T, D = lhs.shape
-    E, _, F = rhs.shape
+    T, K = lhs.shape
+    E, D, F = rhs.shape
+    dx = name == "grouped_matmul_dx"
+    if K != (F if dx else D) or offs.shape != (E + 1,):
+        raise ValueError(f"{name}: lhs [T,{'F' if dx else 'D'}], rhs "
+                         f"[E,D,F], offsets [E+1] expected, got "
+                         f"{tuple(lhs.shape)}, {tuple(rhs.shape)}, "
+                         f"{tuple(offs.shape)}")
     if lhs.dtype == torch.bfloat16:
         check_gmm_bf16_shape(D, F)
-    out = torch.empty((T, F), dtype=lhs.dtype, device=lhs.device)
-    _launch(name, "grouped_matmul", lhs.data_ptr(), rhs.data_ptr(),
-            offs.data_ptr(), out.data_ptr(), T, D, F, E, code, _stream(lhs))
+    out = torch.empty((T, D if dx else F), dtype=lhs.dtype,
+                      device=lhs.device)
+    _launch(name, name, lhs.data_ptr(), rhs.data_ptr(), offs.data_ptr(),
+            out.data_ptr(), T, D, F, E, code, _stream(lhs))
     return out
 
 
@@ -292,13 +304,12 @@ def grouped_matmul_dw(lhs: torch.Tensor, dout: torch.Tensor,
 def grouped_matmul_bwd(lhs: torch.Tensor, rhs: torch.Tensor,
                        group_offsets: torch.Tensor, dout: torch.Tensor,
                        need_dx: bool = True, need_dw: bool = True):
-    """(dlhs, drhs) on CUDA operands: dX = dY W^T per group through the
-    forward kernel on a contiguous [E,F,D] copy of W^T (so the bf16 route
-    keeps its TMA layout), and dW through ``grouped_matmul_dw``."""
+    """(dlhs, drhs) on CUDA operands: dX = dY W^T per group through
+    ``grouped_matmul_dx``, which reads ``rhs`` in place (no copy of W^T),
+    and dW through ``grouped_matmul_dw``."""
     dx = dw = None
     if need_dx:
-        dx = _gmm(dout, rhs.transpose(1, 2).contiguous(), group_offsets,
-                  "grouped_matmul_dx")
+        dx = _gmm(dout, rhs, group_offsets, "grouped_matmul_dx")
     if need_dw:
         dw = grouped_matmul_dw(lhs, dout, group_offsets, rhs.shape[0])
     return dx, dw

@@ -235,7 +235,11 @@ def _autograd(fn, inputs, dout):
     return torch.autograd.grad(out, leaves, dout)
 
 
-@pytest.mark.parametrize("T,D", [(64, 64), (37, 1024), (16, 1001)])
+# the kernel's routes: T off its blocks of rows with D off the 16-byte
+# vectors (the wide scalar route), short rows that share a warp (D 128),
+# and few rows past the register budget (D 3072, the wide vector route)
+@pytest.mark.parametrize("T,D", [(64, 64), (37, 1024), (16, 1001),
+                                 (300, 1001), (129, 128), (5, 3072)])
 def test_rmsnorm_bwd_ref_matches_jax_vjp(T, D):
     rng = np.random.default_rng(T + D)
     x, dy = (rng.standard_normal((T, D), np.float32) for _ in range(2))
@@ -319,13 +323,20 @@ def test_flash_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, H, KV, Dh,
     [0, 0, 0, 0, 0],             # every row uncovered
     [3, 66, 130, 195, 200],      # groups of 63, 64, 65 rows off 64-row slices
     [0, 1, 300, 303, 310],       # a hot expert
+    # (offsets, T, D, F): an empty expert between two full ones, and few
+    # rows (T <= 16 E, dX's decode route) with D and F off the 64 tiles
+    ([0, 300, 300, 700], 700, 136, 200),
+    ([2, 9, 9, 20, 33, 40, 45], 48, 136, 200),
+    ([0, 3, 3, 8, 8, 8, 20, 21, 30], 40, 72, 200),
 ])
 def test_grouped_matmul_bwd_ref_matches_jax_vjp(offs):
     """dX and dW against jax.vjp of the oracle.  The oracle clips rows no
     group covers onto expert E-1, so it is fed a dY that is zero on those
     rows; the port, fed any dY there, gives them a zero dX and adds nothing
     of them to dW."""
-    T, D, F, E = max(128, offs[-1]), 32, 48, 4
+    offs, T, D, F = (offs if isinstance(offs, tuple)
+                     else (offs, max(128, offs[-1]), 32, 48))
+    E = len(offs) - 1
     rng = np.random.default_rng(sum(offs))
     lhs = rng.standard_normal((T, D), np.float32)
     rhs = rng.standard_normal((E, D, F), np.float32) / np.sqrt(D)
@@ -543,7 +554,8 @@ def test_cuda_backward_kernels_match_plain():
 
     for dt, tol, atol_attn in ((torch.float32, 2e-5, 1e-4),
                                (torch.bfloat16, 2e-2, 2e-2)):
-        for T, D in ((300, 1024), (37, 1001), (5, 64)):
+        for T, D in ((300, 1024), (37, 1001), (5, 64), (300, 1001),
+                     (129, 128), (5, 3072)):
             x, dy = randn(T, D, dt=dt), randn(T, D, dt=dt)
             w = randn(D, dt=torch.float32)
             got = ops.rmsnorm_bwd(x, w, dy, 1e-6)
@@ -607,6 +619,26 @@ def test_cuda_backward_kernels_match_plain():
             assert _rel_err(dw, ref.grouped_matmul_dw_ref(xw, dyw, offs_w,
                                                           4)) <= tol
             assert torch.equal(dw, ops.grouped_matmul_dw(xw, dyw, offs_w, 4))
+        # dX on its decode route (T <= 16 E): D and F off the 64 tiles, and
+        # granite's expert shape; uncovered rows ahead and behind
+        for o_, Tx, Dx, Fx in (([2, 9, 9, 20, 33, 40, 45], 48, 136, 200),
+                               ([0, 3, 3, 8, 8, 8, 20, 21, 30], 40, 72, 200),
+                               ([min(2 + 2 * i, 61) for i in range(33)], 64,
+                                1024, 512)):
+            offs_x = torch.tensor(o_, dtype=torch.int32, device=dev)
+            dyx = randn(Tx, Fx, dt=dt)
+            wx = (randn(len(o_) - 1, Dx, Fx, dt=torch.float32)
+                  / Dx ** 0.5).to(dt)
+            dx, _ = ops.grouped_matmul_bwd(dyx, wx, offs_x, dyx,
+                                           need_dw=False)
+            want = ref.grouped_matmul_bwd_ref(dyx.new_zeros(Tx, Dx), wx,
+                                              offs_x, dyx)[0]
+            assert _rel_err(dx, want) <= tol
+            assert bool((dx[:o_[0]] == 0).all())
+            assert bool((dx[o_[-1]:] == 0).all())
+            again = ops.grouped_matmul_bwd(dyx, wx, offs_x, dyx,
+                                           need_dw=False)[0]
+            assert torch.equal(dx, again)
         # through autograd, every operand gets the kernels' gradient
         leaves = [t.clone().requires_grad_() for t in (lhs, rhs)]
         before = dict(ops.LAUNCHES)
