@@ -94,7 +94,24 @@ exits non-zero:
     ``repro_torch.runtime.Trainer`` (bf16 working params, f32 master,
     AdamW, batch 8 x 512, remat on) for 6 steps, the first untimed: step
     time, tokens/s, peak memory, the losses, launches per kernel against
-    the config, and one profiled step.
+    the config, and one profiled step;
+(g) checkpoints on the card (``repro_torch.checkpoint``, under
+    ``build/ckpt``, deleted at the end).  First the state after (f)'s 6
+    steps, all 24 layers (about 19 GB): the free space of the directory, a
+    synchronous save and a load onto the card, every leaf bit for bit
+    (bf16 included), with GB, seconds and GB/s each way; then an async
+    save with two training steps running while it writes, their step time
+    beside two steps before and two after with no save in flight, and the
+    host snapshot's time; that checkpoint loaded must hold the snapshot's
+    bits.  Then kill and resume: granite at full width cut to 4 of its 24
+    layers, bf16 params, f32 master, AdamW, batch 8 x 512, 8 steps, a
+    checkpoint every 4: (A) uninterrupted, (B) the same again, (C) async
+    save and a failure injected at step 4, (D) a new Trainer resuming from
+    C's directory.  D's data step must equal A's, its losses for steps 4
+    to 7 lie within 1e-4 of A's, and the largest |delta| of its final
+    params and optimizer state against A's be no larger than B's (both are
+    printed).  D's launch counts, set to 0 just before it, must equal the
+    config's for 4 steps; they are the ``resume`` path of the kernels line.
 
 ``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
@@ -109,6 +126,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -150,6 +169,10 @@ SOURCES = {"rmsnorm_bwd": "rmsnorm", "flash_attention_bwd": "flash_attention",
            "grouped_matmul_dx": "grouped_matmul",
            "grouped_matmul_dw": "grouped_matmul"}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+# phase (g): granite cut to 4 of its 24 layers (checkpoints near 4 GB),
+# 8 steps, a checkpoint every 4; checkpoints go under build/ckpt
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 4, 8, 4
+CKPT_ROOT = ROOT / "build" / "ckpt"
 SPIN_CYCLES = 2_000_000      # about 1 ms of spin at the H100's clocks
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1651,7 +1674,8 @@ def grads_card_vs_cpu(torch, dev, arch: str, B: int, S: int) -> None:
 
 def train_path(torch, dev):
     """granite-moe-1b-a400m at full width and depth, trained 6 steps by the
-    port's Trainer; returns the run's launch counts."""
+    port's Trainer; returns the run's launch counts, the trainer and its
+    output (the state after the 6 steps, for phase (g))."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.runtime import Trainer, TrainerConfig
@@ -1703,7 +1727,215 @@ def train_path(torch, dev):
     profile_window(torch, one_step, wall,
                    f"{ARCH} one training step, batch {TRAIN_BATCH}x"
                    f"{TRAIN_SEQ}", phase="f")
-    del trainer, out, state, batch
+    del state, batch
+    torch.cuda.empty_cache()
+    return launches, trainer, out
+
+
+# ------------------------------------------------------------ phase (g)
+def bits_equal(torch, a, b) -> bool:
+    """Two tensors of one dtype and shape with the same bits (so -0 and
+    +0 differ, and a NaN equals itself)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def check_same_tree(torch, name: str, got, want) -> None:
+    """Every leaf of ``got`` equal to ``want``'s bit for bit."""
+    from repro_torch.weights import flatten
+    g, w = flatten(got), flatten(want)
+    if g.keys() != w.keys():
+        raise AssertionError(f"{name}: paths differ")
+    for path, x in w.items():
+        y = g[path]
+        same = (bits_equal(torch, y, x) if torch.is_tensor(x)
+                else type(y) is type(x) and y == x)
+        if not same:
+            raise AssertionError(f"{name}: leaf {path} differs")
+
+
+def max_delta(torch, a, b) -> float:
+    """max |a - b| over the leaves of two trees of tensors."""
+    from repro_torch.weights import flatten
+    fa, fb = flatten(a), flatten(b)
+    if fa.keys() != fb.keys():
+        raise AssertionError("the trees' paths differ")
+    return max(float((x.detach().double() - fb[p].detach().double())
+                     .abs().max()) for p, x in fa.items())
+
+
+def tree_gb(torch, tree) -> float:
+    from repro_torch.weights import flatten
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values()
+               if torch.is_tensor(t)) / 1e9
+
+
+def round_trip(torch, dev, trainer, out) -> None:
+    """The state after phase (f)'s 6 steps, all 24 layers: a synchronous
+    save and a load onto the card, every leaf bit for bit; then an async
+    save with two training steps running while it writes, against two
+    steps before it (after ``os.sync()``) and two after it with no save in
+    flight (a measurement), and that checkpoint loaded and held against the state it
+    was taken from, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.weights import tree_leaves
+
+    ckdir = CKPT_ROOT / "full"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.mkdir(parents=True)
+    log("g", f"free space at {ckdir}: "
+        f"{shutil.disk_usage(ckdir).free / 1e9:.1f} GB")
+    state, step = out["state"], out["data_step"]
+    it = trainer.batches()
+    it.step = step
+    tree = {"params": state["params"], "opt": state["opt"],
+            "data": it.state_dict()}
+    gb = tree_gb(torch, tree)
+    mgr = CheckpointManager(ckdir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mgr.save(step, tree)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_checkpoint(ckdir, step, tree, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check_same_tree(torch, "full-depth round trip", back, tree)
+    log("g", f"{ARCH} {trainer.cfg.n_layers} layers, step {step}: "
+        f"{gb:.2f} GB of params and optimizer state; save {t_save:.2f} s "
+        f"({gb / t_save:.2f} GB/s), load onto the card {t_load:.2f} s "
+        f"({gb / t_load:.2f} GB/s); every leaf the same bits")
+    del back, tree
+    shutil.rmtree(ckdir / f"step_{step:09d}")
+    # what checksums cost: crc32 (zlib, the reference's) of the largest leaf
+    from repro_torch.checkpoint.checkpoint import _crc
+    big = max(tree_leaves(state["opt"]), key=lambda t: t.numel())
+    host = big.cpu().numpy()
+    t0 = time.perf_counter()
+    _crc(host)
+    t_crc = time.perf_counter() - t0
+    # the save's pages still being written back would slow the steps timed
+    # next: flush them first
+    t0 = time.perf_counter()
+    os.sync()
+    log("g", f"crc32 of one {host.nbytes / 1e9:.2f} GB leaf in host memory: "
+        f"{host.nbytes / 1e9 / t_crc:.2f} GB/s; os.sync() after the save "
+        f"{time.perf_counter() - t0:.2f} s")
+    del host
+
+    def two_steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            batch = trainer.to_device(next(it))
+            (state["params"], state["opt"], state["comp"],
+             metrics) = trainer.step(state["params"], state["opt"],
+                                     state["comp"], batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 2
+
+    before = two_steps()
+    snap = {"params": state["params"], "opt": state["opt"],
+            "data": it.state_dict()}
+    t0 = time.perf_counter()
+    mgr.async_save(it.step, snap)
+    t_snap = time.perf_counter() - t0
+    during = two_steps()
+    t0 = time.perf_counter()
+    mgr.wait()
+    t_rest = time.perf_counter() - t0
+    after = two_steps()
+    log("g", f"async save of step {snap['data']['step']}: host snapshot {t_snap:.2f} s "
+        f"({gb / t_snap:.2f} GB/s), then 2 steps at {during:.1f} ms a step "
+        f"while it writes; the write ends {t_rest:.2f} s after them.  Steps "
+        f"with no save in flight: {before:.1f} ms before, {after:.1f} ms "
+        f"after")
+    back = load_checkpoint(ckdir, snap["data"]["step"], snap, device=dev)
+    check_same_tree(torch, "async save", back, snap)
+    log("g", f"the async checkpoint holds the snapshot's bits, untouched by "
+        f"the steps that ran while it was written; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB (the "
+        f"snapshot's state held beside the trained one)")
+    del back, snap, state
+    shutil.rmtree(ckdir)
+    torch.cuda.empty_cache()
+
+
+def resume_path(torch, dev):
+    """Kill and resume on the card: granite at full width cut to 4 layers,
+    8 steps, a checkpoint every 4.  (A) uninterrupted, (B) the same again,
+    (C) async save and a failure injected at step 4, (D) a new Trainer
+    resuming from C's directory.  D's data step equals A's, its losses are
+    within 1e-4 of A's, and its final state differs from A's by no more
+    than B's does.  Returns D's launch counts."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = configs.get_config(ARCH).replace(n_layers=RESUME_LAYERS)
+    ckdir = CKPT_ROOT / "resume"
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def trainer(ckpt=None):
+        return Trainer(cfg, TrainerConfig(
+            steps=RESUME_STEPS, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            peak_lr=3e-4, log_every=1, checkpoint_dir=ckpt,
+            checkpoint_every=RESUME_EVERY), device=dev)
+
+    a = trainer().run(resume=False)
+    b = trainer().run(resume=False)
+    try:
+        trainer(str(ckdir)).run(resume=False, fail_at_step=RESUME_EVERY)
+        raise AssertionError("run C did not fail")
+    except RuntimeError as e:
+        if str(e) != f"injected failure at step {RESUME_EVERY}":
+            raise
+    if latest_step(ckdir) != RESUME_EVERY:
+        raise AssertionError(f"C left step {latest_step(ckdir)}")
+    ops.reset_launches()
+    d = trainer(str(ckdir)).run(resume=True)
+    launches = dict(ops.LAUNCHES)
+
+    a_loss = {h["step"]: h["loss"] for h in a["history"]}
+    d_loss = {h["step"]: h["loss"] for h in d["history"]}
+    log("g", f"{ARCH} cut to {RESUME_LAYERS} layers, bf16 params + f32 "
+        f"master, AdamW, batch {TRAIN_BATCH}x{TRAIN_SEQ}: losses A "
+        f"{[round(x, 6) for x in a_loss.values()]}, B "
+        f"{[round(h['loss'], 6) for h in b['history']]}, D (resumed at step "
+        f"{RESUME_EVERY}) {[round(x, 6) for x in d_loss.values()]}")
+    if (d["data_step"] != a["data_step"]
+            or sorted(d_loss) != list(range(RESUME_EVERY, RESUME_STEPS))):
+        raise AssertionError(f"D ran steps {sorted(d_loss)} to data step "
+                             f"{d['data_step']}; A reached {a['data_step']}")
+    worst = max(abs(d_loss[s] - a_loss[s]) / abs(a_loss[s]) for s in d_loss)
+    if not worst <= 1e-4:
+        raise AssertionError(f"D's losses differ from A's by {worst:.3e}")
+
+    def final(out):
+        return {"params": out["state"]["params"], "opt": out["state"]["opt"]}
+
+    d_ba, d_da = max_delta(torch, final(b), final(a)), max_delta(
+        torch, final(d), final(a))
+    same = " (bitwise)" if d_ba == d_da == 0 else ""
+    log("g", f"final params and optimizer state, max |delta| against A: "
+        f"B {d_ba:.3e}, D {d_da:.3e}{same}; loss rel err D vs A "
+        f"{worst:.3e} (bound 1e-4)")
+    if d_da > d_ba:
+        raise AssertionError("D is further from A than B is")
+    want = expected_train_launches(cfg, RESUME_STEPS - RESUME_EVERY)
+    log("g", f"D launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"resume launch counts {launches} != {want}")
+    del a, b, d
+    shutil.rmtree(ckdir)
     torch.cuda.empty_cache()
     return launches
 
@@ -1789,13 +2021,25 @@ def main() -> int:
     times.update(time_backward_kernels(torch, ops, ref, dev))
     grads_card_vs_cpu(torch, dev, ARCH, 2, 64)
     grads_card_vs_cpu(torch, dev, ENCDEC_ARCH, 2, 32)
-    by_path["train"] = train_path(torch, dev)
+    by_path["train"], trainer, trained = train_path(torch, dev)
     for name in SOURCES:
         if not by_path["train"][name]:
             raise AssertionError(f"{name}: the training path did not "
                                  f"launch it")
     now = time.perf_counter()
     log("f", f"phase (f) took {now - t_f:.1f} s; (a) to (f) "
+        f"{now - t_start:.1f} s")
+
+    t_g = time.perf_counter()
+    round_trip(torch, dev, trainer, trained)
+    del trainer, trained
+    by_path["resume"] = resume_path(torch, dev)
+    for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
+        if not by_path["resume"][name]:
+            raise AssertionError(f"{name}: the resumed run did not launch "
+                                 f"it")
+    now = time.perf_counter()
+    log("g", f"phase (g) took {now - t_g:.1f} s; (a) to (g) "
         f"{now - t_start:.1f} s")
 
     kernels = []

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["configs", "data", "device", "kernels", "launch", "models",
-           "optim", "runtime", "weights", "workloads"]
+__all__ = ["checkpoint", "configs", "data", "device", "kernels", "launch",
+           "models", "optim", "runtime", "weights", "workloads"]
 
 
 def __getattr__(name: str):

@@ -1,8 +1,8 @@
 """Training runtime of the port (counterpart of ``repro.runtime``):
-gradient compression and the ``Trainer``.  Checkpointing and the elastic
-controller come later (ROADMAP queue 1, item 2)."""
+gradient compression, the elastic controller and the ``Trainer``."""
 from .compression import CompressionState, compress_gradients, make_compressor
+from .elastic import ElasticController, HostState
 from .trainer import Trainer, TrainerConfig
 
 __all__ = ["compress_gradients", "CompressionState", "make_compressor",
-           "Trainer", "TrainerConfig"]
+           "ElasticController", "HostState", "Trainer", "TrainerConfig"]

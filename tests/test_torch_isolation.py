@@ -1,8 +1,10 @@
 """The port stands alone: no jax, nothing of ``repro``, no silent CPU.
 
-``src/repro_torch`` and ``chip_smoke.py`` must run on a machine where jax
-is absent and the JAX package is not importable, and their entry points
-must refuse (not quietly fall back) when no GPU is present.
+``src/repro_torch``, ``chip_smoke.py`` and the torch examples
+(``examples/*_torch.py``) must run on a machine where jax is absent and
+the JAX package is not importable (nor ``ml_dtypes``: bf16 checkpoints
+are read through torch), and their entry points must refuse (not quietly
+fall back) when no GPU is present.
 """
 import ast
 import os
@@ -17,7 +19,9 @@ torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _modules():
@@ -40,8 +44,7 @@ def _imported_roots(path: pathlib.Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
-    bad = [(ln, mod) for ln, mod in _imported_roots(path)
-           if mod in ("jax", "jaxlib", "repro")]
+    bad = [(ln, mod) for ln, mod in _imported_roots(path) if mod in BANNED]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -52,7 +55,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        f"             if m.split('.')[0] in {BANNED!r})\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run(
@@ -80,6 +83,32 @@ def test_entry_points_refuse_without_gpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "mamba2-780m", "--smoke"])
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_torch_examples_refuse_without_gpu(path, tmp_path):
+    """The torch examples run on the card: without one they exit non-zero
+    with the port's error, before any step, and load no jax."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{str(path)!r}, '--ckpt', {str(tmp_path)!r}]\n"
+        "try:\n"
+        f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+        "finally:\n"
+        "    bad = sorted(m for m in sys.modules\n"
+        f"                 if m.split('.')[0] in {BANNED!r})\n"
+        "    assert not bad, bad\n")
+    if path.name.startswith("serve"):
+        code = code.replace(", '--ckpt', " + repr(str(tmp_path)), "")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr, out.stderr[-2000:]
+    assert "AssertionError" not in out.stderr
+    assert not any(tmp_path.glob("step_*"))
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

@@ -298,16 +298,42 @@ def test_data_pipeline_matches_reference(arch):
 
 
 def test_trainer_checkpoint_dir_raises(tmp_path):
-    """Checkpointing is the next slice: a ``checkpoint_dir`` raises rather
-    than train without saving, and so does the CLI's ``--ckpt``."""
+    """A ``checkpoint_dir`` whose latest step holds a corrupted leaf raises
+    ``IOError`` on resume, through the Trainer and through the CLI's
+    ``--ckpt ... --resume``: a damaged checkpoint never trains silently."""
     cfg = configs.get_smoke_config("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        Trainer(cfg, TrainerConfig(checkpoint_dir=str(tmp_path)),
-                device="cpu")
+    tcfg = TrainerConfig(steps=2, batch_size=2, seq_len=16,
+                         checkpoint_dir=str(tmp_path), checkpoint_every=2,
+                         async_checkpoint=False)
+    Trainer(cfg, tcfg, device="cpu").run(resume=False)
+    leaf = tmp_path / "step_000000002" / "leaf_00010.npy"
+    data = bytearray(leaf.read_bytes())
+    data[-1] ^= 0xFF
+    leaf.write_bytes(bytes(data))
+    with pytest.raises(IOError, match="crc mismatch"):
+        Trainer(cfg, tcfg, device="cpu").run(resume=True)
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(IOError, match="crc mismatch"):
         train.main(["--arch", "granite-moe-1b-a400m", "--device", "cpu",
-                    "--steps", "1", "--ckpt", str(tmp_path)])
+                    "--steps", "4", "--batch", "2", "--seq", "16",
+                    "--ckpt", str(tmp_path), "--resume"])
+
+
+def test_train_cli_ckpt_then_resume(tmp_path, capsys):
+    """``--ckpt DIR`` saves (every 25 steps), and a second run with
+    ``--resume`` goes on from the saved step: it prints only the steps
+    after it."""
+    from repro_torch.launch import train
+    argv = ["--arch", "granite-moe-1b-a400m", "--device", "cpu", "--batch",
+            "2", "--seq", "16", "--ckpt", str(tmp_path)]
+    assert train.main(argv + ["--steps", "25"]) == 0
+    assert (tmp_path / "step_000000025" / "_COMMITTED").exists()
+    capsys.readouterr()
+    assert train.main(argv + ["--steps", "27", "--resume"]) == 0
+    out = capsys.readouterr().out
+    steps = [int(ln.split()[1]) for ln in out.splitlines()
+             if ln.startswith("step")]
+    assert steps == [25, 26]
 
 
 def test_train_cli_cpu_prints_losses(capsys):
