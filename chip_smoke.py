@@ -111,7 +111,26 @@ exits non-zero:
     to 7 lie within 1e-4 of A's, and the largest |delta| of its final
     params and optimizer state against A's be no larger than B's (both are
     printed).  D's launch counts, set to 0 just before it, must equal the
-    config's for 4 steps; they are the ``resume`` path of the kernels line.
+    config's for 4 steps; they are the ``resume`` path of the kernels line;
+(h) expert parallelism on the card: granite-moe-1b-a400m's MoE block at
+    full width (d 1024, 32 experts, top-8, F 512, capacity factor 1.25,
+    bf16, seeded random weights) through ``moe_block_ep`` on an NCCL group
+    of one rank (``launch.mesh``), at one prefill of 8 x 512 tokens (C
+    40,960: a [1, 40960, 1024] send buffer) and one decode step of 8 (C
+    256).  Each output is held against the same block with the plain
+    expert FFN on the card (bf16 2e-2), in f32 against the block on the
+    CPU over gloo (2e-5; a token whose top-k set the two devices' f32
+    routers choose differently must be a near tie, and is left out), the
+    same bits twice, and the same bits under three plans (warm-up, 4
+    chunks, both) with flash_attention at q[8,512,16,64] beside the
+    dispatch, whose output must equal the attention alone.  grouped_matmul
+    is held to its plain version at the receive buffer's shapes (a tail of
+    empty slots) and timed there.  Launch counts, set to 0 before the
+    drive: grouped_matmul 3 a block call (the ``ep`` path of the kernels
+    line).  CUDA-event windows of routing and packing, the dispatch,
+    metadata and combine all-to-alls, the expert FFN and the unpack, and
+    the dispatch then the attention against the warm-up route; at world
+    size 1 an all-to-all is NCCL's self-copy on one card, not a fabric.
 
 ``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
@@ -172,6 +191,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
 # phase (g): granite cut to 4 of its 24 layers (checkpoints near 4 GB),
 # 8 steps, a checkpoint every 4; checkpoints go under build/ckpt
 RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 4, 8, 4
+# phase (h): granite's MoE block through moe_block_ep at one prefill of
+# 8 x 512 tokens and one decode step of 8
+EP_TOKENS = (BATCH * PROMPT, BATCH)
 CKPT_ROOT = ROOT / "build" / "ckpt"
 SPIN_CYCLES = 2_000_000      # about 1 ms of spin at the H100's clocks
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1940,6 +1962,243 @@ def resume_path(torch, dev):
     return launches
 
 
+# ------------------------------------------------------------ phase (h)
+def ep_plans(torch, cfg, T: int, es: int):
+    """The three plans of (h), built from fields: a warm-up of about an
+    eighth of the dispatch buffer, 4 chunks, and both."""
+    from repro_torch.core import CollectivePlan
+    from repro_torch.workloads.derive import moe_a2a_bytes
+
+    n = moe_a2a_bytes(cfg, T, 1, es)
+
+    def plan(warm, chunks):
+        return CollectivePlan(total_bytes=n, n_peers=1, warmup_chunk_bytes=warm,
+                              n_chunks=chunks, per_peer_buffer_bytes=n,
+                              est_time_ns=0.0, est_time_unscheduled_ns=0.0)
+
+    return {"warm-up": plan(n // 8, 1), "4 chunks": plan(0, 4),
+            "both": plan(n // 8, 4)}
+
+
+def ep_routing_flips(torch, moe, cfg, p_card, x_card, p_cpu, x_cpu):
+    """Tokens whose top-k set differs between the card's f32 router and the
+    CPU's.  Each must be a near tie on the CPU (the k-th and (k+1)-th
+    probabilities within 1e-5 of each other, relative): f32 rounding in
+    the two devices' dot products, not a fault."""
+    k = cfg.top_k
+    idx_card = moe.route(p_card, cfg, x_card)[0].cpu().sort(dim=-1).values
+    idx_cpu = moe.route(p_cpu, cfg, x_cpu)[0].sort(dim=-1).values
+    flips = (idx_card != idx_cpu).any(dim=-1)
+    if bool(flips.any()):
+        probs = torch.softmax(x_cpu.float() @ p_cpu["router"].float(), -1)
+        top = probs[flips].topk(k + 1, dim=-1).values
+        gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        if not bool((gap <= 1e-5).all()):
+            raise AssertionError(f"card and CPU route {int(flips.sum())} "
+                                 f"tokens differently, gaps {gap.tolist()}")
+    return flips
+
+
+def ep_path(torch, dev, card: str, errs):
+    """Phase (h): granite-moe-1b-a400m's MoE block at full width through
+    ``moe_block_ep`` on an NCCL group of one rank; returns the launch
+    counts of its drive (the kernels line's ``ep`` path)."""
+    from repro_torch import configs
+    from repro_torch.core.overlap import _a2a
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import init_ep_group
+    from repro_torch.models import moe
+
+    t_h = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg = configs.get_config(ARCH)
+    E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    p_cpu = moe.init_moe(cfg.replace(param_dtype="float32"),
+                         torch.Generator().manual_seed(21), "cpu")
+    p32 = {k: v.to(dev) for k, v in p_cpu.items()}
+    pbf = {k: (v if k == "router" else v.to(bf)) for k, v in p32.items()}
+    gen = torch.Generator().manual_seed(22)
+    xs = {T: torch.randn(T, D, generator=gen) for T in EP_TOKENS}
+    # the overlap compute: granite's prefill attention, independent of the
+    # send buffer
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    qkv = tuple(torch.randn(BATCH, PROMPT, h, Dh, generator=gen)
+                .to(dev, bf) for h in (H, KV, KV))
+
+    def attn(a):
+        return ops.flash_attention(*a, causal=True)
+
+    z_alone = attn(qkv)
+    plans = {T: ep_plans(torch, cfg, T, 2) for T in EP_TOKENS}
+    C = {T: moe._capacity(cfg, T) * E for T in EP_TOKENS}
+    g = init_ep_group(dev)
+    if g.backend != "nccl" or g.size != 1:
+        raise AssertionError(f"EP group {g.backend} of {g.size}")
+    try:
+        for T in EP_TOKENS:                # first NCCL use: communicator
+            moe.moe_block_ep(pbf, cfg, xs[T].to(dev, bf), g.group)
+        torch.cuda.synchronize()
+
+        # the path: counts from 0, then every block call of the drive
+        ops.reset_launches()
+        calls, scheduled, out = 0, 0, {}
+        for T in EP_TOKENS:
+            x = xs[T].to(dev, bf)
+            y0, aux0 = moe.moe_block_ep(pbf, cfg, x, g.group)
+            y1, aux1 = moe.moe_block_ep(pbf, cfg, x, g.group)
+            calls += 2
+            same_bits(torch, f"ep block T {T}", (y0, aux0), (y1, aux1))
+            for name, plan in plans[T].items():
+                got = []
+
+                def compute(a):
+                    got.append(attn(a))
+                    return got[-1]
+
+                ys, auxs = moe.moe_block_ep(pbf, cfg, x, g.group, plan=plan,
+                                            overlap_compute=(compute, qkv))
+                calls += 1
+                scheduled += 1
+                same_bits(torch, f"ep block T {T} under {name}", (ys, auxs),
+                          (y0, aux0))
+                if not (len(got) == 1 and torch.equal(got[0], z_alone)):
+                    raise AssertionError(f"{name}: the overlap compute "
+                                         f"changed")
+            y32, _ = moe.moe_block_ep(p32, cfg, xs[T].to(dev), g.group)
+            calls += 1
+            out[T] = (x, y0, y32.cpu())
+            if y0.shape != (T, D) or not bool(torch.isfinite(y0).all()):
+                raise AssertionError(f"ep block T {T}: bad output")
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        want = {n: 0 for n in ops.KERNEL_NAMES}
+        want.update(grouped_matmul=3 * calls, flash_attention=scheduled)
+        log("h", f"launches {launches}, expected {want} ({calls} block "
+            f"calls, {scheduled} with the attention beside the dispatch)")
+        if launches != want:
+            raise AssertionError(f"ep launch counts {launches} != {want}")
+
+        # the kernel route against the plain expert FFN on the card, and
+        # grouped_matmul at the receive buffer's shapes against its plain
+        # version
+        for T in EP_TOKENS:
+            x, y0, _ = out[T]
+            d = moe.ep_dispatch(pbf, cfg, x, 1)
+            recv, rmeta = _a2a(d.send, g.group), _a2a(d.meta, g.group)
+            y_plain = moe.ep_combine(d, _a2a(ref.expert_ffn_ref(
+                pbf, recv, rmeta), g.group))
+            err = compare(f"ep block T {T} vs plain FFN", y0, y_plain,
+                          "bfloat16")
+            order, offs = moe._expert_order(rmeta, E)
+            lhs = recv.reshape(-1, D)[order]
+            h = torch.randn(lhs.shape[0], Fe, generator=gen).to(dev, bf)
+            e1 = compare(f"grouped_matmul recv [{lhs.shape[0]},{D}]",
+                         ops.grouped_matmul(lhs, pbf["wi_gate"], offs),
+                         ref.grouped_matmul_ref(lhs, pbf["wi_gate"], offs),
+                         "bfloat16")
+            e2 = compare(f"grouped_matmul recv [{lhs.shape[0]},{Fe}]",
+                         ops.grouped_matmul(h, pbf["wo"], offs),
+                         ref.grouped_matmul_ref(h, pbf["wo"], offs),
+                         "bfloat16")
+            errs["grouped_matmul"] = max(errs["grouped_matmul"], e1, e2)
+            time_recv_gmm(torch, ops, ref, dev, card, lhs, pbf["wi_gate"],
+                          offs)
+            time_recv_gmm(torch, ops, ref, dev, card, h, pbf["wo"], offs)
+            log("h", f"T {T}: C {C[T]}, send {list(d.send.shape)} bf16 "
+                f"({d.send.nbytes} B), {int(offs[-1])} of {C[T]} rows "
+                f"filled; block vs plain expert FFN max_abs_err {err:.3e} "
+                f"(bf16 2e-2); grouped_matmul at the receive shapes "
+                f"{e1:.3e}, {e2:.3e}; scheduled (warm-up, 4 chunks, both) "
+                f"== unscheduled, bit for bit")
+        ep_windows(torch, dev, card, cfg, pbf, out, plans, g, attn, qkv)
+    finally:
+        g.close()
+
+    # f32 against the same block on the CPU (gloo, one rank)
+    with init_ep_group("cpu") as gc:
+        for T in EP_TOKENS:
+            y_cpu, _ = moe.moe_block_ep(p_cpu, cfg, xs[T], gc.group)
+            flips = ep_routing_flips(torch, moe, cfg, p32, xs[T].to(dev),
+                                     p_cpu, xs[T])
+            keep = ~flips
+            err = compare(f"ep block f32 T {T}, card vs CPU",
+                          out[T][2][keep], y_cpu[keep], "float32")
+            log("h", f"T {T} f32: card vs CPU max_abs_err {err:.3e} (2e-5), "
+                f"{int(flips.sum())} near-tie tokens routed differently")
+    log("h", f"phase (h) took {time.perf_counter() - t_h:.1f} s")
+    return launches
+
+
+def time_recv_gmm(torch, ops, ref, dev, card: str, lhs, rhs, offs) -> None:
+    """grouped_matmul at a receive buffer's shape (a tail of empty slots
+    that no group covers): kernel, plain version, padded ``bmm`` and the
+    bound (filled rows read, every row written)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    T, K = lhs.shape
+    E, _, N = rhs.shape
+    counts = (offs[1:] - offs[:-1]).tolist()
+    padded = lhs.new_zeros(E, max(counts), K)
+    for e, (lo, n) in enumerate(zip(offs[:-1].tolist(), counts)):
+        padded[e, :n] = lhs[lo:lo + n]
+    rows, used = int(offs[-1]), sum(1 for n in counts if n)
+    ms = timed_ms(torch, lambda: ops.grouped_matmul(lhs, rhs, offs), flush)
+    plain = timed_ms(torch, lambda: ref.grouped_matmul_ref(lhs, rhs, offs),
+                     flush)
+    lib = timed_ms(torch, lambda: torch.bmm(padded, rhs), flush)
+    b_ms, b_by = bound((rows * K + used * K * N + T * N) * 2 + 4 * (E + 1),
+                       2 * rows * K * N, "bfloat16")
+    log("h", f"time grouped_matmul recv [{T},{K}]x[{E},{K},{N}] ({rows} "
+        f"rows filled) bfloat16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"library {lib:.4f} ms (padded bmm), bound {b_ms:.4g} ms ({b_by}); "
+        f"{card}")
+
+
+def ep_windows(torch, dev, card: str, cfg, pbf, out, plans, g, attn, qkv):
+    """CUDA-event windows of the EP block's pieces (L2 flushed, host
+    dispatch kept out by a spin), and the dispatch all-to-all then the
+    attention against the warm-up route with the attention beside it."""
+    from repro_torch.core.overlap import _a2a, scheduled_all_to_all
+    from repro_torch.models import moe
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    log("h", f"windows on {card}: at world size 1 each all-to-all is a "
+        f"self-copy through NCCL on one card, the cost of the machinery, "
+        f"not of a fabric")
+    for T in EP_TOKENS:
+        x = out[T][0]
+        d = moe.ep_dispatch(pbf, cfg, x, 1)
+        recv, rmeta = _a2a(d.send, g.group), _a2a(d.meta, g.group)
+        ffn = moe.ep_expert_ffn(pbf, recv, rmeta)
+        back = _a2a(ffn, g.group)
+        win = {
+            "routing and packing": lambda: moe.ep_dispatch(pbf, cfg, x, 1),
+            "dispatch all-to-all": lambda: _a2a(d.send, g.group),
+            "metadata all-to-all": lambda: _a2a(d.meta, g.group),
+            "expert FFN (3 grouped_matmul + SiLU)":
+                lambda: moe.ep_expert_ffn(pbf, recv, rmeta),
+            "combine all-to-all": lambda: _a2a(ffn, g.group),
+            "unpack": lambda: moe.ep_combine(d, back),
+            "whole block": lambda: moe.moe_block_ep(pbf, cfg, x, g.group),
+        }
+        ms = {name: timed_ms(torch, fn, flush, spin=True)
+              for name, fn in win.items()}
+        log("h", f"T {T} bf16 windows (ms, {card}): " + ", ".join(
+            f"{name} {t:.4f}" for name, t in ms.items()) + f"; sum of "
+            f"pieces {sum(ms.values()) - ms['whole block']:.4f}")
+        warm = plans[T]["warm-up"]
+        serial = timed_ms(torch, lambda: (_a2a(d.send, g.group), attn(qkv)),
+                          flush, spin=True)
+        hidden = timed_ms(torch, lambda: scheduled_all_to_all(
+            d.send, g.group, warm, compute_fn=attn, compute_arg=qkv),
+            flush, spin=True)
+        alone = timed_ms(torch, lambda: attn(qkv), flush, spin=True)
+        log("h", f"T {T} dispatch ({d.send.nbytes} B) then attention "
+            f"q[{BATCH},{PROMPT},{cfg.n_heads},{cfg.d_head}]: {serial:.4f} "
+            f"ms; warm-up route ({warm.warmup_chunk_bytes} B head, attention "
+            f"beside it, then the tail) {hidden:.4f} ms; attention alone "
+            f"{alone:.4f} ms ({card}; NCCL self-copy, not a fabric)")
+
+
 def train_ab(parent: str) -> int:
     """``--train-ab PARENT``: granite's training step, ``train_path`` of
     the checkout at PARENT against this one's, each in a fresh process, in
@@ -1990,7 +2249,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
 
     build.build_all()
     log("a", f"kernels built in {build.BUILD_SECONDS:.2f} s")
@@ -2041,6 +2301,9 @@ def main() -> int:
     now = time.perf_counter()
     log("g", f"phase (g) took {now - t_g:.1f} s; (a) to (g) "
         f"{now - t_start:.1f} s")
+
+    by_path["ep"] = ep_path(torch, dev, card, errs)
+    log("h", f"(a) to (h) {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name in ops.KERNEL_NAMES:

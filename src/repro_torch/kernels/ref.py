@@ -188,6 +188,29 @@ def grouped_matmul_bwd_ref(lhs: torch.Tensor, rhs: torch.Tensor,
                                        rhs.shape[0]).to(rhs.dtype)
 
 
+def expert_ffn_ref(p, recv: torch.Tensor,
+                   recv_meta: torch.Tensor) -> torch.Tensor:
+    """The EP block's local expert FFN as the reference writes it
+    (``repro.models.moe.moe_block_ep``): a masked einsum over
+    ``[E_loc, ep*C, D]``.  ``recv`` [ep, C, D], ``recv_meta`` [ep, C] the
+    local expert id + 1 (0: an empty slot, which comes out zero); ``p``
+    holds the ``E_loc`` experts' ``wi_gate``, ``wi_up``, ``wo``.  The plain
+    version of ``models.moe.ep_expert_ffn``'s three ``grouped_matmul``
+    launches."""
+    ep, C, D = recv.shape
+    E_loc = p["wi_gate"].shape[0]
+    rows = recv.reshape(ep * C, D)
+    eid = recv_meta.reshape(-1).long() - 1                # -1: empty
+    sel = (torch.nn.functional.one_hot(eid.clamp(min=0), E_loc)
+           * (eid >= 0)[:, None]).to(recv.dtype)          # [ep*C, E_loc]
+    buf = torch.einsum("te,td->etd", sel, rows)
+    g = torch.einsum("etd,edf->etf", buf, p["wi_gate"].to(recv.dtype))
+    u = torch.einsum("etd,edf->etf", buf, p["wi_up"].to(recv.dtype))
+    h = torch.nn.functional.silu(g) * u
+    out = torch.einsum("etf,efd->etd", h, p["wo"].to(recv.dtype))
+    return torch.einsum("etd,te->td", out, sel).view(ep, C, D)
+
+
 def chunk_cumsum(a: torch.Tensor, dim: int) -> torch.Tensor:
     """Inclusive cumsum of f32 decays, summed in f64 and rounded once.
 

@@ -17,7 +17,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..weights import flatten, unflatten
-from . import encdec, transformer
+from . import encdec, moe, transformer
 from .spec import ModelConfig, torch_dtype
 from .ssd import ssm_dims
 
@@ -125,13 +125,7 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
         if transformer._has_ffn(cfg):
             layer["ln2"] = ones((nb, D))
             if transformer._layer_is_moe(cfg, pos):
-                E, F = cfg.n_experts, cfg.d_ff_expert
-                layer["moe"] = {
-                    "router": normal((nb, D, E), fan_in=D),
-                    "wi_gate": normal((nb, E, D, F), fan_in=D),
-                    "wi_up": normal((nb, E, D, F), fan_in=D),
-                    "wo": normal((nb, E, F, D), fan_in=F),
-                }
+                layer["moe"] = moe.init_moe(cfg, generator, dev, lead=(nb,))
             else:
                 layer["mlp"] = mlp()
         blocks[f"l{pos}"] = layer

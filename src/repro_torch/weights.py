@@ -106,3 +106,18 @@ def to_numpy(tree) -> Dict[str, Any]:
             t = t.float()
         return t.numpy().copy()
     return tree_map(one, tree)
+
+
+def ep_slice(moe_params, rank: int, ep: int) -> Dict[str, Any]:
+    """Rank ``rank``'s share of full MoE params for ``moe_block_ep`` over
+    ``ep`` shards: expert rows ``rank*E_loc:(rank+1)*E_loc`` of
+    ``wi_gate``, ``wi_up`` and ``wo`` (``shard_map``'s ``P("model", None,
+    None)``), the router whole."""
+    E = moe_params["wi_gate"].shape[0]
+    if E % ep or not 0 <= rank < ep:
+        raise ValueError(f"ep_slice: rank {rank} of {ep} shards over {E} "
+                         f"experts")
+    lo, hi = rank * (E // ep), (rank + 1) * (E // ep)
+    return {"router": moe_params["router"],
+            **{name: moe_params[name][lo:hi]
+               for name in ("wi_gate", "wi_up", "wo")}}

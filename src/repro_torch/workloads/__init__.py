@@ -7,9 +7,11 @@ not copied.
 """
 from .calibrate import (ComputeProfile, PhaseWindow, calibrate,
                         default_cache_path)
-from .derive import PodSpec, layer_roofline_ns, resolve_pod, step_shape
+from .derive import (PodSpec, layer_roofline_ns, moe_a2a_bytes, resolve_pod,
+                     step_shape)
 
 __all__ = [
     "ComputeProfile", "PhaseWindow", "calibrate", "default_cache_path",
-    "PodSpec", "layer_roofline_ns", "resolve_pod", "step_shape",
+    "PodSpec", "layer_roofline_ns", "moe_a2a_bytes", "resolve_pod",
+    "step_shape",
 ]

@@ -5,7 +5,8 @@ that the calibration harness needs, copied (the port imports nothing of
 :class:`PodSpec` keeps every field and default of the reference.
 :func:`resolve_pod` fills in the ep/tp/dp split, and :func:`step_shape`
 and :func:`layer_roofline_ns` give the per-layer roofline windows that the
-harness anchors its measurements to, by the reference's formulas.  The
+harness anchors its measurements to, by the reference's formulas, and
+:func:`moe_a2a_bytes` the size of the EP all-to-all it prices.  The
 topology layer is not copied: :func:`tier0_group` computes the one number
 ``resolve_pod`` reads from it.  Pure Python; no torch.
 """
@@ -158,3 +159,17 @@ def layer_roofline_ns(cfg, i: int, t_step: int, pod: PodSpec,
         flop_mult * 2.0 * _ffn_params(cfg, i, active=True)
         * t_step / (pod.ep if is_moe and pod.ep > 1 else pod.tp), pod)
     return mixer_ns, ffn_ns
+
+
+def moe_a2a_bytes(cfg, tokens_local: int, ep: int, dtype_bytes: int) -> int:
+    """Per-GPU bytes of one EP dispatch/combine all-to-all.
+
+    The ``nbytes`` of the send buffer ``[ep, C, d_model]`` that
+    ``repro_torch.models.moe.ep_dispatch`` builds, ``C = _capacity(T_loc)
+    * E_loc`` with ``_capacity = max(8, T_loc * top_k * capacity_factor /
+    E)``: the all-to-all size the simulator prices.
+    """
+    e_loc = cfg.n_experts // ep
+    cap = max(8, int(tokens_local * cfg.top_k * cfg.capacity_factor
+                     / cfg.n_experts))
+    return ep * cap * e_loc * cfg.d_model * dtype_bytes
