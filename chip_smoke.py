@@ -130,12 +130,33 @@ exits non-zero:
     line).  CUDA-event windows of routing and packing, the dispatch,
     metadata and combine all-to-alls, the expert FFN and the unpack, and
     the dispatch then the attention against the warm-up route; at world
-    size 1 an all-to-all is NCCL's self-copy on one card, not a fabric.
+    size 1 an all-to-all is NCCL's self-copy on one card, not a fabric;
+(i) sharding on the card: granite-moe-1b-a400m at full width and depth
+    through the sharded steps of ``launch.steps`` on a mesh (data 1,
+    model 1) of one NCCL rank (``launch.mesh.init_mesh``, a HashStore),
+    every gather and reduction of ``parallel.fsdp`` a self-copy.  Three
+    train steps of the sharded ``Trainer`` (bf16 params, f32 master,
+    AdamW, batch 8 x 512) against three of the unsharded one from the
+    same seed, whose losses must be (f)'s first three: the losses within
+    1e-4 and the params and optimizer state within 1e-4 (the largest
+    |delta| is printed; at one rank they are the same bits), the launch
+    counts the config's; the NCCL collectives a step, the peak memory of
+    each, and the step time of both in four rounds of (unsharded,
+    sharded, sharded, unsharded) on one state and batch.  Then the
+    sharded prefill of 8 x 512 prompts and 8 greedy decode steps (the
+    caches resharded into the serve step's layout between), timed beside
+    the unsharded model's: the logits must be its bits at the step's
+    cache length (prompt + 128), and the tokens ``serve.generate``'s
+    first at that length (its s_max counts the tokens it generates, so it
+    generates 120).  Launch counts, set to 0 before the sharded train and
+    serve runs, are the ``sharded`` path of the kernels line.
 
 ``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
 archive`` of the parent commit) against this checkout's, each in a fresh
-process, in turns parent, change, change, parent.
+process, in turns parent, change, change, parent.  ``python3 chip_smoke.py
+--sharded`` builds the kernels and runs phase (i) alone (about 1.5 min),
+against a fresh unsharded run's losses in place of (f)'s.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -195,6 +216,9 @@ RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 4, 8, 4
 # 8 x 512 tokens and one decode step of 8
 EP_TOKENS = (BATCH * PROMPT, BATCH)
 CKPT_ROOT = ROOT / "build" / "ckpt"
+# phase (i): granite sharded over a (data, model) mesh of one NCCL rank:
+# train steps, decode steps after the prefill, rounds of the step A/B
+SHARD_STEPS, SHARD_DECODE, SHARD_AB = 3, 8, 4
 SPIN_CYCLES = 2_000_000      # about 1 ms of spin at the H100's clocks
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -2199,6 +2223,224 @@ def ep_windows(torch, dev, card: str, cfg, pbf, out, plans, g, attn, qkv):
             f"{alone:.4f} ms ({card}; NCCL self-copy, not a fabric)")
 
 
+# ------------------------------------------------------------ phase (i)
+def tree_delta(torch, a, b) -> float:
+    """The largest |a - b| over two trees of one structure, 0 when every
+    leaf has the same bits."""
+    from repro_torch.weights import flatten
+    fa, fb = flatten(a), flatten(b)
+    if fa.keys() != fb.keys():
+        raise AssertionError("trees differ in their leaves")
+    return max((0.0 if bits_equal(torch, fa[k], fb[k]) else
+                float((fa[k].float() - fb[k].float()).abs().max()))
+               for k in fa)
+
+
+def collective_latency(torch, dev, mesh, card: str) -> None:
+    """What one NCCL all-gather costs at world size 1 where each step
+    depends on the one before, as the FSDP gathers do: a chain of
+    (a multiply, then the all-gather of its output) against the same
+    chain with a device copy, at 4 KiB and at one granite block's weights
+    (55 M bf16)."""
+    import torch.distributed as dist
+
+    group = mesh.group("data")
+    for numel in (2048, 55 * 2 ** 20):
+        x = torch.randn(numel, device=dev, dtype=torch.bfloat16)
+        out = torch.empty_like(x)
+        ms = {}
+        for name, move in (
+                ("copy", lambda y: out.copy_(y)),
+                ("all_gather", lambda y: dist.all_gather_into_tensor(
+                    out, y, group=group))):
+            for _ in range(3):
+                move(x * 1.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                move(out * 1.0)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3 / 50
+        log("i", f"a multiply then a move of {numel * 2} B, 50 in a chain: "
+            f"copy {ms['copy'] * 1e3:.1f} us, {mesh.backend} all-gather (world size 1)"
+            f" {ms['all_gather'] * 1e3:.1f} us a link ({card})")
+
+
+def sharded_path(torch, dev, card: str, trained_losses):
+    """granite-moe-1b-a400m through the sharded steps on a mesh (data 1,
+    model 1) of one NCCL rank: returns the path's launch counts."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_mesh
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models.api import CausalLM
+    from repro_torch.parallel.fsdp import reshard, shard_tree
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    t_i = time.perf_counter()
+    cfg = configs.get_config(ARCH)
+    # (f)'s run: the same seed, data and learning rates (the warm-up of 10
+    # steps does not depend on the run's length)
+    tcfg = TrainerConfig(steps=SHARD_STEPS, batch_size=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, peak_lr=3e-4, log_every=1)
+    gib = 2 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain = Trainer(cfg, tcfg, device=dev)
+    ref = plain.run()
+    plain_peak = torch.cuda.max_memory_allocated(dev) / gib
+    ref_losses = [h["loss"] for h in ref["history"]]
+    if ref_losses != trained_losses[:SHARD_STEPS]:
+        raise AssertionError(f"unsharded losses {ref_losses} are not (f)'s "
+                             f"{trained_losses[:SHARD_STEPS]}")
+    with init_mesh(dev) as mesh:
+        log("i", f"mesh {mesh.shape}, {mesh.backend} on a HashStore, rank "
+            f"{mesh.rank} of {mesh.size}; {card}")
+        sharded = Trainer(cfg, tcfg, mesh=mesh)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev) / gib
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh.collectives.clear()
+        ops.reset_launches()
+        out = sharded.run()
+        train_launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / gib - held
+        colls = dict(mesh.collectives)
+        losses = [h["loss"] for h in out["history"]]
+        log("i", f"{ARCH} {SHARD_STEPS} sharded train steps, batch "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ}: losses {losses}, unsharded "
+            f"{ref_losses}; peak memory {peak:.2f} GiB above the "
+            f"{held:.2f} GiB the unsharded run's state holds (unsharded "
+            f"{plain_peak:.2f})")
+        if any(abs(a - b) > 1e-4 * abs(b) for a, b in zip(losses,
+                                                          ref_losses)):
+            raise AssertionError(f"sharded losses {losses} != {ref_losses}")
+        for part in ("params", "opt"):
+            d = tree_delta(torch, out["state"][part], ref["state"][part])
+            log("i", f"{part} after {SHARD_STEPS} steps: max |sharded - "
+                f"unsharded| {d:.3e}" + (" (the same bits)" if d == 0
+                                         else ""))
+            if d > 1e-4:
+                raise AssertionError(f"sharded {part} differ by {d}")
+        want = expected_train_launches(cfg, SHARD_STEPS)
+        log("i", f"train launches {train_launches}, expected {want}")
+        if train_launches != want:
+            raise AssertionError(f"sharded train launches {train_launches}"
+                                 f" != {want}")
+        if not all(colls.get(k) for k in ("all_gather", "reduce_scatter",
+                                          "all_reduce")):
+            raise AssertionError(f"collectives {colls}")
+        log("i", "NCCL collectives a step: " + ", ".join(
+            f"{k} {v / SHARD_STEPS:g}" for k, v in sorted(colls.items())))
+        del out
+        torch.cuda.empty_cache()
+
+        # the step time, unsharded against sharded, in turns on one state
+        # and batch (at one rank a shard is the whole leaf)
+        batch = plain.to_device(next(plain.batches()))
+        st = ref["state"]
+        runs = {"unsharded": [], "sharded": []}
+        for _ in range(SHARD_AB):
+            for name in ("unsharded", "sharded", "sharded", "unsharded"):
+                tr = plain if name == "unsharded" else sharded
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.step(st["params"], st["opt"], st["comp"], batch)
+                torch.cuda.synchronize()
+                runs[name].append((time.perf_counter() - t0) * 1e3)
+        mean = {k: sum(v) / len(v) for k, v in runs.items()}
+        shown = {k: [round(t, 1) for t in v] for k, v in runs.items()}
+        log("i", f"step ms, {SHARD_AB} rounds of (unsharded, sharded, "
+            f"sharded, unsharded): unsharded {shown['unsharded']} mean "
+            f"{mean['unsharded']:.1f}; sharded {shown['sharded']} mean "
+            f"{mean['sharded']:.1f}; sharded / unsharded "
+            f"{mean['sharded'] / mean['unsharded']:.3f} ({card})")
+        del plain, sharded, ref, st, batch
+        torch.cuda.empty_cache()
+        collective_latency(torch, dev, mesh, card)
+
+        # serving: prefill 8 x 512, then greedy decode steps
+        model = CausalLM.random(cfg, seed=0, device=dev)
+        prompts = make_prompts(cfg, BATCH, PROMPT, seed=1, device=dev)
+        shape = ShapeSpec("chip_smoke", "decode", PROMPT, BATCH)
+        s_max = PROMPT + steps.sp.DECODE_MARGIN
+        pre, (p_pre, b_pre), (_, c_pre), _ = steps.make_prefill_step(
+            cfg, mesh, shape)
+        dec, (p_dec, _, c_dec), _, _ = steps.make_serve_step(
+            cfg, mesh, shape)
+        full = model.params
+        params_pre = shard_tree(full, p_pre, mesh)
+        params_dec = shard_tree(full, p_dec, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh.collectives.clear()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = pre(params_pre, shard_tree({"inputs": prompts},
+                                                    b_pre, mesh))
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        caches = reshard(caches, c_pre, c_dec, mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got_logits, toks = [logits], [tok]
+        for _ in range(SHARD_DECODE):
+            logits, caches = dec(params_dec, tok, caches)
+            tok = torch.argmax(logits, dim=-1)
+            got_logits.append(logits)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        serve_launches = dict(ops.LAUNCHES)
+        serve_peak = torch.cuda.max_memory_allocated(dev) / gib
+        serve_colls = dict(mesh.collectives)
+        want = expected_launches(cfg, SHARD_DECODE + 1)
+        log("i", f"serve launches {serve_launches}, expected {want}")
+        if serve_launches != want:
+            raise AssertionError(f"sharded serve launches {serve_launches} "
+                                 f"!= {want}")
+        # the unsharded model at the step's cache length: the same bits
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            u0 = time.perf_counter()
+            want_logits, caches = model.prefill(prompts, s_max)
+            torch.cuda.synchronize()
+            u1 = time.perf_counter()
+            same = bits_equal(torch, got_logits[0], want_logits)
+            for t, g in zip(toks, got_logits[1:]):
+                want_logits, caches = model.decode_step(t, caches)
+                same = same and bits_equal(torch, g, want_logits)
+            torch.cuda.synchronize()
+            u2 = time.perf_counter()
+        log("i", f"sharded prefill [{BATCH},{PROMPT}] {(t1 - t0) * 1e3:.1f}"
+            f" ms (unsharded {(u1 - u0) * 1e3:.1f}), caches resharded in "
+            f"{(t2 - t1) * 1e3:.1f} ms, {SHARD_DECODE} decode steps "
+            f"{(t3 - t2) * 1e3:.1f} ms (unsharded {(u2 - u1) * 1e3:.1f}), "
+            f"peak memory {serve_peak:.2f} GiB; collectives {serve_colls}; "
+            f"{card}")
+        log("i", f"prefill and {SHARD_DECODE} decode logits against the "
+            f"unsharded model's: {'the same bits' if same else 'differ'}")
+        if not same:
+            raise AssertionError("sharded logits differ from unsharded")
+        # serve.generate with the same cache length: its first tokens
+        got = torch.stack(toks, dim=1).cpu()
+        res = generate(model, prompts, s_max - PROMPT - 8)
+        log("i", f"sequence 0: {got[0].tolist()}, serve.generate "
+            f"{res.tokens[0, :SHARD_DECODE + 1].tolist()}")
+        if not torch.equal(got, res.tokens[:, :SHARD_DECODE + 1]):
+            raise AssertionError("sharded greedy tokens differ from "
+                                 "serve.generate's")
+        del model, full, params_pre, params_dec, caches
+    torch.cuda.empty_cache()
+    launches = {k: train_launches[k] + serve_launches[k]
+                for k in train_launches}
+    log("i", f"phase (i) took {time.perf_counter() - t_i:.1f} s")
+    return launches
+
+
 def train_ab(parent: str) -> int:
     """``--train-ab PARENT``: granite's training step, ``train_path`` of
     the checkout at PARENT against this one's, each in a fresh process, in
@@ -2254,6 +2496,17 @@ def main() -> int:
 
     build.build_all()
     log("a", f"kernels built in {build.BUILD_SECONDS:.2f} s")
+    if sys.argv[1:] == ["--sharded"]:
+        # (f)'s first losses, from a fresh run of the same Trainer
+        from repro_torch import configs
+        from repro_torch.runtime import Trainer, TrainerConfig
+        losses = [h["loss"] for h in Trainer(configs.get_config(ARCH),
+                  TrainerConfig(steps=SHARD_STEPS, batch_size=TRAIN_BATCH,
+                                seq_len=TRAIN_SEQ, peak_lr=3e-4,
+                                log_every=1), device=dev).run()["history"]]
+        torch.cuda.empty_cache()
+        sharded_path(torch, dev, card, losses)
+        return 0
     for name, text in build.BUILD_LOG.items():
         for kernel, regs, spills in ptxas_report(text):
             log("a", f"ptxas {name}: {kernel}: {regs} registers, {spills}")
@@ -2292,6 +2545,7 @@ def main() -> int:
 
     t_g = time.perf_counter()
     round_trip(torch, dev, trainer, trained)
+    train_losses = [h["loss"] for h in trained["history"]]
     del trainer, trained
     by_path["resume"] = resume_path(torch, dev)
     for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
@@ -2304,6 +2558,13 @@ def main() -> int:
 
     by_path["ep"] = ep_path(torch, dev, card, errs)
     log("h", f"(a) to (h) {time.perf_counter() - t_start:.1f} s")
+
+    by_path["sharded"] = sharded_path(torch, dev, card, train_losses)
+    for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
+        if not by_path["sharded"][name]:
+            raise AssertionError(f"{name}: the sharded path did not launch "
+                                 f"it")
+    log("i", f"(a) to (i) {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name in ops.KERNEL_NAMES:

@@ -18,6 +18,12 @@ back through ``torch.Tensor.view``, so nothing here imports ``ml_dtypes``.
 A Python int is stored as ``np.asarray(int)`` (int64) and comes back as an
 int.  So a step saved by either package loads in the other.
 
+A sharded tree (``parallel.fsdp``: each rank holds its shard of each leaf)
+is saved with ``shardings`` (the fitted specs) and ``mesh``: every leaf is
+gathered whole and rank 0 writes the same files as for an unsharded tree.
+``load_checkpoint`` with ``shardings`` and ``mesh`` reads each leaf and
+keeps this rank's shard, for any mesh the specs fit.
+
 :class:`CheckpointManager.async_save` copies the tree to host memory
 before it returns and writes it on a thread, which gets numpy arrays only
 and launches no CUDA work; ``wait()`` joins it and raises its error.
@@ -34,6 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.fsdp import gather_leaf, shard_slices
 from ..weights import flatten, unflatten
 
 # float types that numpy has; any other floating torch dtype (bf16, fp8) is
@@ -61,8 +68,18 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     return arr, name
 
 
-def _snapshot(tree) -> Dict[str, Tuple[np.ndarray, str]]:
-    return {path: _host(leaf) for path, leaf in flatten(tree).items()}
+def _snapshot(tree, shardings=None,
+              mesh=None) -> Optional[Dict[str, Tuple[np.ndarray, str]]]:
+    """The tree in host memory; a sharded tree's leaves gathered whole
+    (every rank takes part), and None on a rank that does not write."""
+    if shardings is None:
+        return {path: _host(leaf) for path, leaf in flatten(tree).items()}
+    specs = flatten(shardings)
+    whole = {path: gather_leaf(leaf, specs[path], mesh)
+             if isinstance(leaf, torch.Tensor) else leaf
+             for path, leaf in flatten(tree).items()}
+    return ({path: _host(leaf) for path, leaf in whole.items()}
+            if mesh.rank == 0 else None)
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -111,11 +128,16 @@ def _gc(directory: pathlib.Path, keep: int) -> None:
         shutil.rmtree(directory / f"step_{s:09d}", ignore_errors=True)
 
 
-def save_checkpoint(directory, step: int, tree, *,
-                    keep: int = 3) -> pathlib.Path:
+def save_checkpoint(directory, step: int, tree, *, keep: int = 3,
+                    shardings=None, mesh=None) -> Optional[pathlib.Path]:
     """Write ``tree`` (nested dicts of tensors, numpy arrays and Python
-    numbers) as committed step ``step``; keep the ``keep`` latest."""
-    return _write(pathlib.Path(directory), step, _snapshot(tree), keep)
+    numbers) as committed step ``step``; keep the ``keep`` latest.  With
+    ``shardings`` and ``mesh`` the tree holds this rank's shards, which
+    every rank gathers and rank 0 writes (the others return None)."""
+    host = _snapshot(tree, shardings, mesh)
+    if host is None:
+        return None
+    return _write(pathlib.Path(directory), step, host, keep)
 
 
 def latest_step(directory) -> Optional[int]:
@@ -138,7 +160,7 @@ def _array_of(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def load_checkpoint(directory, step: int, tree_like, *, device=None,
-                    verify: bool = True):
+                    verify: bool = True, shardings=None, mesh=None):
     """Restore step ``step`` into the structure of ``tree_like``.
 
     Each leaf gets the shape (checked: ``ValueError``) and the dtype of
@@ -146,15 +168,17 @@ def load_checkpoint(directory, step: int, tree_like, *, device=None,
     given; a Python number comes back as its type, and any other leaf as
     the array the file holds.  ``verify`` checks each file's crc32
     (``IOError``); a leaf missing from the step raises ``KeyError``, a step
-    that is not committed ``FileNotFoundError``.  The reference's
-    ``shardings`` (re-sharding onto the current mesh) has no counterpart
-    until the distributed tier (ROADMAP queue 1, item 3): the port runs on
-    one device.
+    that is not committed ``FileNotFoundError``.  With ``shardings`` (a
+    tree of fitted specs, ``parallel.sharding``) and ``mesh``, as the
+    reference's ``shardings`` re-shard onto the current mesh: ``tree_like``
+    has the whole leaves' shapes (the meta device will do, with
+    ``device``), and each tensor leaf comes back as this rank's shard.
     """
     directory = pathlib.Path(directory) / f"step_{step:09d}"
     if not (directory / "_COMMITTED").exists():
         raise FileNotFoundError(f"no committed checkpoint at {directory}")
     manifest = json.loads((directory / "manifest.json").read_text())
+    specs = flatten(shardings) if shardings is not None else {}
 
     out: Dict[str, Any] = {}
     for key, like in flatten(tree_like).items():
@@ -165,11 +189,14 @@ def load_checkpoint(directory, step: int, tree_like, *, device=None,
         if verify and _crc(arr) != meta["crc32"]:
             raise IOError(f"crc mismatch for {key} "
                           f"(corrupt checkpoint {directory})")
-        want_shape = tuple(np.shape(like))   # () for Python numbers
+        want_shape = (tuple(like.shape) if isinstance(like, torch.Tensor)
+                      else tuple(np.shape(like)))   # () for Python numbers
         if tuple(arr.shape) != want_shape:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"expected {want_shape}")
         if isinstance(like, torch.Tensor):
+            if key in specs:
+                arr = np.array(arr[shard_slices(specs[key], arr.shape, mesh)])
             out[key] = _array_of(arr, meta["dtype"]).to(
                 device=like.device if device is None else device,
                 dtype=like.dtype)
@@ -199,10 +226,13 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def async_save(self, step: int, tree) -> None:
-        """Copy ``tree`` to host memory now, write it on a thread."""
+    def async_save(self, step: int, tree, shardings=None, mesh=None) -> None:
+        """Copy ``tree`` to host memory now (gathered whole, for a sharded
+        tree), write it on a thread (rank 0's)."""
         self.wait()
-        host = _snapshot(tree)
+        host = _snapshot(tree, shardings, mesh)
+        if host is None:
+            return
 
         def work():
             try:
@@ -213,15 +243,17 @@ class CheckpointManager:
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
 
-    def save(self, step: int, tree) -> None:
+    def save(self, step: int, tree, shardings=None, mesh=None) -> None:
         self.wait()
-        save_checkpoint(self.directory, step, tree, keep=self.keep)
+        save_checkpoint(self.directory, step, tree, keep=self.keep,
+                        shardings=shardings, mesh=mesh)
 
-    def restore_latest(self, tree_like, device=None
-                       ) -> Tuple[Optional[int], Any]:
+    def restore_latest(self, tree_like, device=None, shardings=None,
+                       mesh=None) -> Tuple[Optional[int], Any]:
         """(latest committed step, its tree), or (None, None)."""
         step = latest_step(self.directory)
         if step is None:
             return None, None
         return step, load_checkpoint(self.directory, step, tree_like,
-                                     device=device)
+                                     device=device, shardings=shardings,
+                                     mesh=mesh)

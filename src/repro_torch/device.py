@@ -17,6 +17,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "repro_torch: CUDA is not available; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev

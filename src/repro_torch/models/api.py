@@ -133,6 +133,67 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
     return params
 
 
+def param_specs(cfg: ModelConfig):
+    """The logical axes of every leaf of :func:`init`'s tree (the same
+    paths), as ``repro.models.api.init`` returns them beside its params:
+    a tuple of names a dim (``None``: never sharded), stacked leaves led by
+    ``"layers"``.  Allocates nothing; ``parallel.sharding.param_pspecs``
+    maps the tree onto a mesh."""
+    transformer.check_supported(cfg)
+    norm = (None,)
+    attn = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        attn.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                    bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        attn.update(q_norm=norm, k_norm=norm)
+    mlp = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+           "wo": ("mlp", "embed")}
+    specs = {"tok_embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+             "final_norm": norm}
+
+    def stacked(tree):
+        return {k: stacked(v) if isinstance(v, dict) else ("layers", *v)
+                for k, v in tree.items()}
+
+    if cfg.is_encoder_decoder:
+        specs["enc_norm"] = norm
+        specs["enc"] = stacked({"ln1": norm, "attn": attn, "ln2": norm,
+                                "mlp": mlp})
+        specs["dec"] = stacked({"ln1": norm, "attn": attn, "ln_x": norm,
+                                "xattn": attn, "ln2": norm, "mlp": mlp})
+        return specs
+    if cfg.n_img_tokens > 0:
+        specs["mm_proj"] = ("embed", None)
+    ssm = {"z_proj": ("embed", "ssm_inner"), "x_proj": ("embed", "ssm_inner"),
+           "b_proj": ("embed", None), "c_proj": ("embed", None),
+           "dt_proj": ("embed", None), "conv_x": (None, "ssm_inner"),
+           "conv_x_b": ("ssm_inner",), "conv_b": (None, None),
+           "conv_b_b": norm, "conv_c": (None, None), "conv_c_b": norm,
+           "A_log": norm, "D": norm, "dt_bias": norm, "norm": ("ssm_inner",),
+           "out_proj": ("ssm_inner", "embed")}
+    expert = ("experts", "expert_embed", "expert_mlp")
+    moe_axes = {"router": ("embed", None), "wi_gate": expert,
+                "wi_up": expert,
+                "wo": ("experts", "expert_mlp", "expert_embed")}
+    blocks = {}
+    for pos, kind in enumerate(cfg.pattern):
+        layer = {"ln1": norm, ("attn" if kind == "attn" else "ssm"):
+                 attn if kind == "attn" else ssm}
+        if transformer._has_ffn(cfg):
+            layer["ln2"] = norm
+            if transformer._layer_is_moe(cfg, pos):
+                layer["moe"] = moe_axes
+            else:
+                layer["mlp"] = mlp
+        blocks[f"l{pos}"] = layer
+    specs["blocks"] = stacked(blocks)
+    return specs
+
+
 def cast_for_serving(cfg: ModelConfig, params):
     """Round once, at load, every weight the JAX code casts to the
     activation dtype at each use; the result is the same and each step
@@ -143,12 +204,14 @@ def cast_for_serving(cfg: ModelConfig, params):
         for path, t in flatten(params).items()})
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, sharded=None):
     """Training loss: batch ``inputs``, ``targets`` (+ ``mask``,
-    ``img_embeds`` or ``enc_embeds``) -> (loss, metrics)."""
+    ``img_embeds`` or ``enc_embeds``) -> (loss, metrics).  ``sharded``: a
+    sharded step's ``parallel.fsdp.Sharded``, with the stacked leaves of
+    ``params`` this rank's shards."""
     if cfg.is_encoder_decoder:
-        return encdec.loss_fn(cfg, params, batch)
-    return transformer.loss_fn(cfg, params, batch)
+        return encdec.loss_fn(cfg, params, batch, sharded)
+    return transformer.loss_fn(cfg, params, batch, sharded)
 
 
 def forward(cfg: ModelConfig, params, batch):
@@ -160,7 +223,7 @@ def forward(cfg: ModelConfig, params, batch):
                                img_embeds=batch.get("img_embeds"))
 
 
-def prefill(cfg: ModelConfig, params, batch, s_max: int):
+def prefill(cfg: ModelConfig, params, batch, s_max: int, sharded=None):
     """batch ``{"inputs": [B, S]}`` (+ ``img_embeds`` or ``enc_embeds``)
     -> (last-token logits [B, V], caches)."""
     if cfg.is_encoder_decoder:
@@ -168,16 +231,18 @@ def prefill(cfg: ModelConfig, params, batch, s_max: int):
             raise ValueError(f"{cfg.name}: the batch needs enc_embeds "
                              f"[B, F, {cfg.d_model}]")
         return encdec.prefill(cfg, params, batch["inputs"],
-                              batch["enc_embeds"], s_max)
+                              batch["enc_embeds"], s_max, sharded)
     return transformer.prefill(cfg, params, batch["inputs"], s_max,
-                               img_embeds=batch.get("img_embeds"))
+                               img_embeds=batch.get("img_embeds"),
+                               sharded=sharded)
 
 
-def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches):
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches,
+                sharded=None):
     """token [B] -> (logits [B, V], caches advanced in place)."""
     if cfg.is_encoder_decoder:
-        return encdec.decode_step(cfg, params, token, caches)
-    return transformer.decode_step(cfg, params, token, caches)
+        return encdec.decode_step(cfg, params, token, caches, sharded)
+    return transformer.decode_step(cfg, params, token, caches, sharded)
 
 
 class CausalLM(nn.Module):

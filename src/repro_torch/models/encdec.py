@@ -11,7 +11,10 @@ output, then the SwiGLU FFN.  Parameters keep the JAX tree: ``enc`` and
 encoder.  Prefill computes each decoder layer's cross-attention K/V once
 and keeps them, stacked, for every decode step.  With ``cfg.remat`` each
 encoder and decoder block runs under ``torch.utils.checkpoint`` when grad
-is enabled, as JAX checkpoints each scanned block.
+is enabled, as JAX checkpoints each scanned block.  A sharded step's
+``sharded`` (``parallel.fsdp.Sharded``) gathers each block's weights inside
+its remat, and decode's caches a layer at a time, as in
+:mod:`.transformer`.
 """
 from __future__ import annotations
 
@@ -31,18 +34,25 @@ class EncDecCaches(NamedTuple):
     cross_v: torch.Tensor
 
 
-def encode(cfg: ModelConfig, params, enc_embeds: torch.Tensor) -> torch.Tensor:
+def _weights(bp, name: str, sharded):
+    return bp if sharded is None else sharded.gather(bp, name)
+
+
+def encode(cfg: ModelConfig, params, enc_embeds: torch.Tensor,
+           sharded=None) -> torch.Tensor:
     """enc_embeds [B, F, D] (the stub frontend's output) -> encoder states."""
     if enc_embeds.ndim != 3 or enc_embeds.shape[-1] != cfg.d_model:
         raise ValueError(f"{cfg.name}: enc_embeds [B, F, {cfg.d_model}] "
                          f"expected, got {list(enc_embeds.shape)}")
     x = enc_embeds.to(torch_dtype(cfg.dtype))
     for bp in unbind_layers(params["enc"]):
-        x = remat(cfg, _enc_block, cfg, bp, x)
+        x = remat(cfg, _enc_block, cfg, bp, x, sharded)
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _enc_block(cfg: ModelConfig, bp, x: torch.Tensor) -> torch.Tensor:
+def _enc_block(cfg: ModelConfig, bp, x: torch.Tensor,
+               sharded=None) -> torch.Tensor:
+    bp = _weights(bp, "enc", sharded)
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     x = x + L.attention(bp["attn"], cfg, h, causal=False)
     h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
@@ -50,9 +60,10 @@ def _enc_block(cfg: ModelConfig, bp, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dec_train_block(cfg: ModelConfig, bp, x: torch.Tensor,
-                     enc: torch.Tensor) -> torch.Tensor:
+                     enc: torch.Tensor, sharded=None) -> torch.Tensor:
     """One decoder layer over the whole sequence (training): causal
     self-attention, cross-attention to ``enc``, the FFN."""
+    bp = _weights(bp, "dec", sharded)
     enc_k, enc_v = L.encode_kv(bp["xattn"], cfg, enc)
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     x = x + L.attention(bp["attn"], cfg, h, causal=True)
@@ -63,21 +74,22 @@ def _dec_train_block(cfg: ModelConfig, bp, x: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
-            enc_embeds: torch.Tensor):
+            enc_embeds: torch.Tensor, sharded=None):
     """Training forward: tokens [B, S], enc_embeds [B, F, D] -> (logits
     [B, S, V], aux 0)."""
-    enc = encode(cfg, params, enc_embeds)
+    enc = encode(cfg, params, enc_embeds, sharded)
     x = L.embed(params, cfg, tokens)
     for bp in unbind_layers(params["dec"]):
-        x = remat(cfg, _dec_train_block, cfg, bp, x, enc)
+        x = remat(cfg, _dec_train_block, cfg, bp, x, enc, sharded)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.unembed(params, cfg, x), aux
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, sharded=None):
     """batch ``inputs``, ``targets`` [B, S], ``enc_embeds`` (+ ``mask``)
     -> (nll, {"nll", "aux", "tokens"}): no aux term."""
-    logits, aux = forward(cfg, params, batch["inputs"], batch["enc_embeds"])
+    logits, aux = forward(cfg, params, batch["inputs"], batch["enc_embeds"],
+                          sharded)
     nll, n = lm_nll(logits, batch)
     return nll, {"nll": nll, "aux": aux, "tokens": n}
 
@@ -100,10 +112,10 @@ def _dec_block(cfg: ModelConfig, bp, x: torch.Tensor, enc_k: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
-            enc_embeds: torch.Tensor, s_max: int):
+            enc_embeds: torch.Tensor, s_max: int, sharded=None):
     """tokens [B, S], enc_embeds [B, F, D] -> (last-token logits [B, V],
     :class:`EncDecCaches`)."""
-    enc = encode(cfg, params, enc_embeds)
+    enc = encode(cfg, params, enc_embeds, sharded)
     x = L.embed(params, cfg, tokens)
     B, F = enc.shape[:2]
     # each layer's cross K/V go straight into the stacked buffers that
@@ -112,7 +124,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     cross_k, cross_v = enc.new_empty(shape), enc.new_empty(shape)
     kvs = []
     for i in range(cfg.n_layers):
-        bp = layer_slice(params["dec"], i)
+        bp = _weights(layer_slice(params["dec"], i), "dec", sharded)
         cross_k[i], cross_v[i] = L.encode_kv(bp["xattn"], cfg, enc)
         x, kv = _dec_block(cfg, bp, x, cross_k[i], cross_v[i], s_max=s_max)
         kvs.append(kv)
@@ -125,16 +137,22 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
-                caches: EncDecCaches):
+                caches: EncDecCaches, sharded=None):
     """token [B] -> (logits [B, V], caches advanced by one position; the
     self-attention caches are written in place)."""
     x = L.embed(params, cfg, token[:, None])
     kv = caches.self_kv
     for i in range(cfg.n_layers):
-        bp = layer_slice(params["dec"], i)
-        x, _ = _dec_block(cfg, bp, x, caches.cross_k[i], caches.cross_v[i],
-                          cache=KVCache(k=kv.k[i], v=kv.v[i],
-                                        length=kv.length))
+        bp = _weights(layer_slice(params["dec"], i), "dec", sharded)
+        self_kv = KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
+        cross_k, cross_v = caches.cross_k[i], caches.cross_v[i]
+        if sharded is None:
+            x, _ = _dec_block(cfg, bp, x, cross_k, cross_v, cache=self_kv)
+            continue
+        full = sharded.cache_full(self_kv, "self_kv")
+        x, _ = _dec_block(cfg, bp, x, sharded.cache_full(cross_k, "cross_k"),
+                          sharded.cache_full(cross_v, "cross_v"), cache=full)
+        sharded.cache_store(full, self_kv, "self_kv")
     logits = L.unembed(params, cfg, x)
     return logits[:, 0], caches._replace(
         self_kv=KVCache(k=kv.k, v=kv.v, length=kv.length + 1))

@@ -184,12 +184,19 @@ def encode_kv(p, cfg: ModelConfig, enc_out: torch.Tensor):
 
 
 # -------------------------------------------------------------- SwiGLU MLP
-def mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """Dense SwiGLU FFN (the JAX ``ffn_chunks`` split is a sharding device
-    that one card does not need)."""
-    g = x @ p["wi_gate"].to(x.dtype)
-    u = x @ p["wi_up"].to(x.dtype)
-    return (F.silu(g) * u) @ p["wo"].to(x.dtype)
+def mlp(p, x: torch.Tensor, n_chunks: int = 1) -> torch.Tensor:
+    """Dense SwiGLU FFN.  With ``n_chunks`` > 1 (``cfg.ffn_chunks``, which
+    the sharded serve step sets for a wide FFN) the hidden dim is cut into
+    that many chunks whose outputs are summed in order, as the reference's
+    chunked FFN sums them."""
+    wg, wu, wo = (p[k].to(x.dtype) for k in ("wi_gate", "wi_up", "wo"))
+    if n_chunks <= 1:
+        return (F.silu(x @ wg) * (x @ wu)) @ wo
+    out = torch.zeros_like(x)
+    for g, u, o in zip(wg.chunk(n_chunks, 1), wu.chunk(n_chunks, 1),
+                       wo.chunk(n_chunks, 0)):
+        out = out + (F.silu(x @ g) * (x @ u)) @ o
+    return out
 
 
 # ------------------------------------------------------------- Embeddings

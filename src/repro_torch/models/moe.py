@@ -52,8 +52,11 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator, device=None,
             "wi_up": normal((E, D, Fe), D), "wo": normal((E, Fe, D), Fe)}
 
 
-def route(p, cfg: ModelConfig, x_flat: torch.Tensor):
-    """Top-k routing in f32.  Returns ``(idx [T,k], weights [T,k], aux)``."""
+def route(p, cfg: ModelConfig, x_flat: torch.Tensor, data_mean=None):
+    """Top-k routing in f32.  Returns ``(idx [T,k], weights [T,k], aux)``.
+
+    ``data_mean`` (a sharded step's) takes the aux loss's two means over
+    every rank's tokens, as the reference's are over the global batch."""
     logits = x_flat.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.topk(probs, cfg.top_k, dim=-1)
@@ -61,6 +64,8 @@ def route(p, cfg: ModelConfig, x_flat: torch.Tensor):
     E = logits.shape[-1]
     me = probs.mean(dim=0)
     ce = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+    if data_mean is not None:
+        me, ce = data_mean(torch.stack([me, ce])).unbind(0)
     aux = E * (me * ce).sum() / cfg.top_k
     return idx, w.to(x_flat.dtype), aux
 
@@ -77,13 +82,14 @@ def _grouped_ffn(p, xs: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return ops.grouped_matmul(F.silu(g) * u, p["wo"].to(xs.dtype), offsets)
 
 
-def moe_gather(p, cfg: ModelConfig, x: torch.Tensor):
-    """MoE FFN for ``[B, S, D]`` input.  Returns ``(y [B,S,D], aux)``."""
+def moe_gather(p, cfg: ModelConfig, x: torch.Tensor, data_mean=None):
+    """MoE FFN for ``[B, S, D]`` input.  Returns ``(y [B,S,D], aux)``;
+    ``data_mean`` goes to :func:`route`."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, S)
 
-    idx, w, aux = route(p, cfg, x.reshape(B * S, D))
+    idx, w, aux = route(p, cfg, x.reshape(B * S, D), data_mean)
     idx, w = idx.reshape(B, S, k), w.reshape(B, S, k)
 
     # keep rule: position of each assignment among its row's earlier

@@ -102,3 +102,38 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ------------------------------------------------------- logical sharding
+class PartitionSpec(tuple):
+    """A tensor's sharding: per dim ``None`` (replicated), a mesh axis name,
+    or a tuple of names (one dim over several axes, outer first).  The
+    port's counterpart of ``jax.sharding.PartitionSpec``; like it, a
+    one-name tuple is stored as the name."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, tuple(
+            p[0] if isinstance(p, (tuple, list)) and len(p) == 1
+            else tuple(p) if isinstance(p, list) else p for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def logical_to_pspec(axes, rules) -> PartitionSpec:
+    """Logical axis names -> a :class:`PartitionSpec` under ``rules``
+    (logical name -> mesh axis, tuple of axes, or None).  A mesh axis may
+    shard one dim of an array at most: a later name that maps onto an axis
+    already used is replicated."""
+    parts = []
+    used = set()
+    for a in axes:
+        m = rules.get(a) if a is not None else None
+        if m is not None:
+            key = tuple(m) if isinstance(m, (tuple, list)) else (m,)
+            if any(k in used for k in key):
+                m = None
+            else:
+                used.update(key)
+        parts.append(m)
+    return PartitionSpec(*parts)

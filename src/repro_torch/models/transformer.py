@@ -19,6 +19,14 @@ logits are sliced off).  With ``cfg.remat``, each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant) when grad is enabled, as JAX
 remats ``_layer_forward``: only the layer's input is kept, and its forward
 runs again in the backward pass.
+
+Sharded steps (``launch.steps`` with a mesh) pass ``sharded``, a
+``parallel.fsdp.Sharded``: each layer's weights arrive as this rank's
+shards, and the layer gathers them first, inside its remat, so that only
+one layer's whole weights are alive and the backward gathers them again;
+``prefill`` and ``decode_step`` gather a block at a time, and decode its
+caches too.  The MoE load-balance loss then takes its batch means over
+the ranks that split the batch.
 """
 from __future__ import annotations
 
@@ -87,20 +95,23 @@ def remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
-def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int):
+def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int, sharded=None):
     """x + FFN(rmsnorm(x)); returns (x, the MoE aux loss or None)."""
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if _layer_is_moe(cfg, pos):
-        h, aux = moe_gather(p["moe"], cfg, h)
+        h, aux = moe_gather(p["moe"], cfg, h, data_mean=(
+            None if sharded is None else sharded.data_mean))
     else:
-        h, aux = L.mlp(p["mlp"], h), None
+        h, aux = L.mlp(p["mlp"], h, cfg.ffn_chunks), None
     return x + h, aux
 
 
 # ------------------------------------------------------------------ forward
-def _layer_forward(cfg: ModelConfig, kind: str, pos: int, p,
+def _layer_forward(cfg: ModelConfig, kind: str, pos: int, sharded, p,
                    x: torch.Tensor):
     """One layer (mixer + FFN), full sequence.  Returns (x, aux f32)."""
+    if sharded is not None:
+        p = sharded.gather(p, f"blocks/l{pos}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn":
@@ -110,30 +121,31 @@ def _layer_forward(cfg: ModelConfig, kind: str, pos: int, p,
         h = ssm_layer(p["ssm"], cfg, h)
     x = x + h
     if _has_ffn(cfg):
-        x, a = _ffn(cfg, p, x, pos)
+        x, a = _ffn(cfg, p, x, pos, sharded)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def run_blocks(cfg: ModelConfig, params, x: torch.Tensor):
+def run_blocks(cfg: ModelConfig, params, x: torch.Tensor, sharded=None):
     """The block stack, layer by layer (each under :func:`remat`).  Returns
     (x, total aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in unbind_layers(params["blocks"]):
         for pos, kind in enumerate(cfg.pattern):
-            f = functools.partial(_layer_forward, cfg, kind, pos)
+            f = functools.partial(_layer_forward, cfg, kind, pos, sharded)
             x, a = remat(cfg, f, bp[f"l{pos}"], x)
             aux = aux + a
     return x, aux
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor, img_embeds=None):
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, img_embeds=None,
+            sharded=None):
     """tokens [B, S] -> (logits [B, n_img + S, V], aux); a VLM puts its
     projected image embeddings ahead of the tokens."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, tokens, img_embeds)
-    x, aux = run_blocks(cfg, params, x)
+    x, aux = run_blocks(cfg, params, x, sharded)
     return L.unembed(params, cfg, x), aux
 
 
@@ -151,11 +163,12 @@ def lm_nll(logits: torch.Tensor, batch):
     return ((logz - gold) * mask).sum() / torch.clamp(n, min=1.0), n
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, sharded=None):
     """batch ``inputs``, ``targets`` [B, S] (+ ``mask``, ``img_embeds``)
     -> (loss, {"nll", "aux", "tokens"}); loss = nll + 0.01 aux."""
     logits, aux = forward(cfg, params, batch["inputs"],
-                          img_embeds=batch.get("img_embeds"))
+                          img_embeds=batch.get("img_embeds"),
+                          sharded=sharded)
     if cfg.n_img_tokens > 0:
         logits = logits[:, cfg.n_img_tokens:]
     nll, n = lm_nll(logits, batch)
@@ -235,15 +248,21 @@ def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
     return torch.cat([img, x], dim=1)
 
 
+def _block_weights(params, i: int, sharded):
+    bp = block_params(params, i)
+    return bp if sharded is None else sharded.gather(bp, "blocks")
+
+
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int,
-            img_embeds=None):
+            img_embeds=None, sharded=None):
     """tokens: [B, S] (after ``img_embeds`` [B, n_img, D] for a VLM) ->
     (last-token logits [B, V], caches over all n_img + S positions)."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, tokens, img_embeds)
     per_block = []
     for i in range(cfg.n_blocks):
-        x, c = _block_prefill(cfg, block_params(params, i), x, s_max)
+        x, c = _block_prefill(cfg, _block_weights(params, i, sharded), x,
+                              s_max)
         per_block.append(c)
     caches: Dict[str, Cache] = {
         name: _stack([c[name] for c in per_block]) for name in per_block[0]}
@@ -251,13 +270,22 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int,
     return logits[:, 0], caches
 
 
-def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches):
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches,
+                sharded=None):
     """token: [B] -> (logits [B, V], caches advanced by one position)."""
     check_supported(cfg)
     x = L.embed(params, cfg, token[:, None])
     for i in range(cfg.n_blocks):
         block_cache = {name: _unstack(c, i) for name, c in caches.items()}
-        x, _ = _block_decode(cfg, block_params(params, i), x, block_cache)
+        bp = _block_weights(params, i, sharded)
+        if sharded is None:
+            x, _ = _block_decode(cfg, bp, x, block_cache)
+            continue
+        full = {name: sharded.cache_full(c, name)
+                for name, c in block_cache.items()}
+        x, _ = _block_decode(cfg, bp, x, full)
+        for name, c in block_cache.items():
+            sharded.cache_store(full[name], c, name)
     new = {name: _advance(c) for name, c in caches.items()}
     logits = L.unembed(params, cfg, x)
     return logits[:, 0], new

@@ -10,9 +10,18 @@ differently).  The state trees have the JAX trees' paths and dtypes
 (``weights.from_jax_opt_state``).  The arithmetic is f32, in the JAX
 code's order.  Updates run under ``torch.no_grad``; the new params are new
 tensors (the step makes them leaves that require grad again).
+
+``state_specs(param_specs, param_shapes)`` gives the state's logical axes
+from the params' (``api.param_specs``), as the reference's does, so the
+sharded step holds the state sharded as the params are.  On a sharded tree
+``update`` takes ``mean``: ``mean(path, t, dims)`` is the mean over the
+param dims ``dims`` of the whole leaf at ``path``, of which ``t`` is this
+rank's shard (``parallel.fsdp.Sharded.mean``); Adafactor's factored
+moments and its update clipping need it, AdamW is elementwise.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Tuple
 
@@ -24,7 +33,10 @@ from ..weights import flatten, tree_leaves, tree_map, unflatten
 @dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Any], Any]
-    update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+    # (grads, state, params, mean=None) -> (new params, new state)
+    update: Callable[..., Tuple[Any, Any]]
+    # (param logical specs, param shape tree) -> state logical specs
+    state_specs: Callable[[Any, Any], Any]
 
 
 def _count_like(params) -> torch.Tensor:
@@ -42,14 +54,18 @@ def with_master(inner: Optimizer, master_dtype=torch.float32) -> Optimizer:
         return {"master": master, "inner": inner.init(master)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, mean=None):
         grads32 = tree_map(lambda g: g.float(), grads)
         new_master, new_inner = inner.update(grads32, state["inner"],
-                                             state["master"])
+                                             state["master"], mean)
         new_params = tree_map(lambda m, p: m.to(p.dtype), new_master, params)
         return new_params, {"master": new_master, "inner": new_inner}
 
-    return Optimizer(init=init, update=update)
+    def state_specs(param_specs, param_shapes):
+        return {"master": param_specs,
+                "inner": inner.state_specs(param_specs, param_shapes)}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -59,10 +75,11 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, norm_fn=global_norm):
     """Scale every leaf by ``min(1, max_norm / norm)``; returns (tree,
-    norm)."""
-    norm = global_norm(tree)
+    norm).  ``norm_fn`` takes the norm (a sharded tree's counts each
+    element once: ``parallel.fsdp.Sharded.global_norm``)."""
+    norm = norm_fn(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
@@ -77,7 +94,7 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "count": _count_like(params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, mean=None):
         count = state["count"] + 1
         lr = schedule(count)
         c1 = 1 - b1 ** count.float()
@@ -100,7 +117,10 @@ def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  "v": unflatten({k: o[2] for k, o in out.items()}),
                  "count": count})
 
-    return Optimizer(init=init, update=update)
+    def state_specs(param_specs, param_shapes=None):
+        return {"m": param_specs, "v": param_specs, "count": ()}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
 
 
 def _zip(*trees):
@@ -135,7 +155,7 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
         return {"v": unflatten(flat), "count": _count_like(params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, mean=None):
         count = state["count"] + 1
         lr = schedule(count)
         beta = 1.0 - count.float() ** (-decay)
@@ -144,10 +164,15 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
         for path, (g, p) in _zip(grads, params).items():
             g = g.float()
             g2 = g * g + eps
-            if _factored(p):
-                vr = beta * flat_v[f"{path}/vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * flat_v[f"{path}/vc"] + (1 - beta) * g2.mean(-2)
-                denom = (vr[..., None] / vr.mean(-1, keepdim=True)[..., None]
+            n = g.ndim
+            m = (functools.partial(mean, path) if mean is not None
+                 else _local_mean)
+            # the state says whether a leaf is factored: a shard's own
+            # shape may be under the threshold where the whole leaf's is not
+            if f"{path}/vr" in flat_v:
+                vr = beta * flat_v[f"{path}/vr"] + (1 - beta) * m(g2, (n - 1,))
+                vc = beta * flat_v[f"{path}/vc"] + (1 - beta) * m(g2, (n - 2,))
+                denom = (vr[..., None] / m(vr, (n - 2,))[..., None, None]
                          ) * vc[..., None, :]
                 u = g * torch.rsqrt(denom + eps)
                 new_v[f"{path}/vr"], new_v[f"{path}/vc"] = vr, vc
@@ -156,10 +181,27 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
                 u = g * torch.rsqrt(v + eps)
                 new_v[f"{path}/v"] = v
             # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            rms = torch.sqrt(m(u * u, tuple(range(n))) + 1e-30)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             new_p[path] = (p.float() - lr * u
                            - lr * weight_decay * p.float()).to(p.dtype)
         return unflatten(new_p), {"v": unflatten(new_v), "count": count}
 
-    return Optimizer(init=init, update=update)
+    def state_specs(param_specs, param_shapes):
+        flat_s = flatten(param_shapes)
+        out = {}
+        for path, spec in flatten(param_specs).items():
+            spec = tuple(spec)
+            if _factored(flat_s[path]):
+                out[f"{path}/vr"] = spec[:-1]
+                out[f"{path}/vc"] = spec[:-2] + spec[-1:]
+            else:
+                out[f"{path}/v"] = spec
+        return {"v": unflatten(out), "count": ()}
+
+    return Optimizer(init=init, update=update, state_specs=state_specs)
+
+
+def _local_mean(t: torch.Tensor, dims) -> torch.Tensor:
+    """Mean of an unsharded leaf over ``dims``."""
+    return t.mean(dims)

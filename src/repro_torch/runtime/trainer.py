@@ -10,6 +10,13 @@ step are saved every ``checkpoint_every`` steps (async by default, in the
 reference's on-disk layout), and ``run`` resumes from the latest committed
 step.  Like the reference, a checkpoint holds no compression state: after a
 resume, ``int8``'s error feedback starts again from zero.
+
+With a ``mesh`` (``launch.mesh.Mesh``) the Trainer runs the sharded step
+(``launch.steps.make_train_step(cfg, optimizer, mesh)``): each rank holds
+its shards of the params and optimizer state, reads its batch rows (the
+data stream's shard is its rank over the batch axes), and saves and
+resumes through the checkpoint's ``shardings``.  Gradient compression is
+not sharded (the reference's trainer has no mesh).
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ from ..launch.steps import as_trainable, make_train_step
 from ..models import api
 from ..models.spec import ModelConfig, torch_dtype
 from ..optim import Optimizer, adamw, cosine_with_warmup, with_master
+from ..parallel.fsdp import shard_tree
+from ..parallel.sharding import axes_of
 from ..weights import tree_map
 from .compression import make_compressor
 
@@ -47,10 +56,13 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
-                 optimizer: Optional[Optimizer] = None, device=None):
+                 optimizer: Optional[Optimizer] = None, device=None,
+                 mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         sched = cosine_with_warmup(tcfg.peak_lr, tcfg.warmup, tcfg.steps)
         self.optimizer = optimizer or with_master(adamw(sched))
         self.ckpt = (CheckpointManager(tcfg.checkpoint_dir)
@@ -58,17 +70,34 @@ class Trainer:
         self.comp_init, self.comp_apply = make_compressor(
             tcfg.grad_compression)
         self.train_cfg = cfg.replace(param_dtype=cfg.dtype)
-        # one step: (params, opt_state, comp_state, batch) ->
-        # (params, opt_state, comp_state, metrics)
-        self.step = make_train_step(cfg, self.optimizer, clip_norm=1.0,
-                                    grad_transform=self.comp_apply)
+        self.shardings = None
+        if mesh is None:
+            # one step: (params, opt_state, comp_state, batch) ->
+            # (params, opt_state, comp_state, metrics)
+            self.step = make_train_step(cfg, self.optimizer, clip_norm=1.0,
+                                        grad_transform=self.comp_apply)
+            return
+        if tcfg.grad_compression != "none":
+            raise ValueError("Trainer: gradient compression does not run "
+                             "with a mesh")
+        step, (p_specs, o_specs, _), _, self.shapes = make_train_step(
+            cfg, self.optimizer, mesh, multi_pod="pod" in mesh.shape,
+            clip_norm=1.0)
+        self.shardings = {"params": p_specs, "opt": o_specs}
+        self.batch_axes = axes_of(step.rules["batch"])
+
+        def sharded_step(params, opt_state, comp, batch):
+            new_params, new_opt, metrics = step(params, opt_state, batch)
+            return new_params, new_opt, comp, metrics
+
+        self.step = sharded_step
 
     # ------------------------------------------------------------------
     def init_state(self, params=None):
         """Fresh state: random params from ``seed`` (``torch.Generator``;
         not ``jax.random``'s numbers), or ``params`` (a tree, e.g. carried
         from JAX by ``weights.from_jax_params``) cast to the working
-        dtype."""
+        dtype.  With a mesh, this rank's shards of both."""
         dt = torch_dtype(self.train_cfg.param_dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(
@@ -78,8 +107,24 @@ class Trainer:
             params = tree_map(lambda p: p.to(device=self.device, dtype=dt),
                               params)
         params = as_trainable(params)
-        return {"params": params, "opt": self.optimizer.init(params),
+        opt = self.optimizer.init(params)
+        if self.mesh is not None:
+            params = as_trainable(shard_tree(
+                params, self.shardings["params"], self.mesh))
+            opt = shard_tree(opt, self.shardings["opt"], self.mesh)
+        return {"params": params, "opt": opt,
                 "comp": self.comp_init(params)}
+
+    def data_shard(self):
+        """(this rank's shard of the data stream, the number of shards):
+        with a mesh, its rank over the batch axes and their size."""
+        if self.mesh is None:
+            return 0, 1
+        shard, n = 0, 1
+        for a in self.batch_axes:
+            shard = shard * self.mesh.shape[a] + self.mesh.coords[a]
+            n *= self.mesh.shape[a]
+        return shard, n
 
     def batches(self, shard: int = 0, num_shards: int = 1):
         """The deterministic data stream of ``seed`` (``shard`` of
@@ -101,15 +146,22 @@ class Trainer:
         ``sec`` every ``log_every`` steps and at the last), the final loss,
         the state and the data step.  ``fail_at_step`` raises
         ``RuntimeError`` after that step, once its checkpoint is written
-        (the failure-injection tests)."""
+        (the failure-injection tests).  With a mesh, ``shard`` and
+        ``num_shards`` are the mesh's (:meth:`data_shard`)."""
         tcfg = self.tcfg
         state = self.init_state(params)
+        if self.mesh is not None:
+            shard, num_shards = self.data_shard()
         it = self.batches(shard, num_shards)
         start = 0
         if resume and self.ckpt is not None:
+            like = {"params": state["params"], "opt": state["opt"],
+                    "data": it.state_dict()}
+            if self.mesh is not None:
+                like.update(params=self.shapes[0], opt=self.shapes[1])
             restored_step, restored = self.ckpt.restore_latest(
-                {"params": state["params"], "opt": state["opt"],
-                 "data": it.state_dict()})
+                like, device=self.device, shardings=self.shardings,
+                mesh=self.mesh)
             if restored_step is not None:
                 state["params"] = as_trainable(restored["params"])
                 state["opt"] = restored["opt"]
@@ -131,9 +183,10 @@ class Trainer:
                 tree = {"params": state["params"], "opt": state["opt"],
                         "data": it.state_dict()}
                 if tcfg.async_checkpoint:
-                    self.ckpt.async_save(step + 1, tree)
+                    self.ckpt.async_save(step + 1, tree, self.shardings,
+                                         self.mesh)
                 else:
-                    self.ckpt.save(step + 1, tree)
+                    self.ckpt.save(step + 1, tree, self.shardings, self.mesh)
             if fail_at_step is not None and step + 1 == fail_at_step:
                 if self.ckpt is not None:
                     self.ckpt.wait()
