@@ -134,7 +134,8 @@ exits non-zero:
 (i) sharding on the card: granite-moe-1b-a400m at full width and depth
     through the sharded steps of ``launch.steps`` on a mesh (data 1,
     model 1) of one NCCL rank (``launch.mesh.init_mesh``, a HashStore),
-    every gather and reduction of ``parallel.fsdp`` a self-copy.  Three
+    every gather and reduction of ``parallel.fsdp`` a self-copy.  The
+    sharded Trainer's state is built once alone, for its peak memory.  Three
     train steps of the sharded ``Trainer`` (bf16 params, f32 master,
     AdamW, batch 8 x 512) against three of the unsharded one from the
     same seed, whose losses must be (f)'s first three: the losses within
@@ -154,9 +155,7 @@ exits non-zero:
 ``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
 archive`` of the parent commit) against this checkout's, each in a fresh
-process, in turns parent, change, change, parent.  ``python3 chip_smoke.py
---sharded`` builds the kernels and runs phase (i) alone (about 1.5 min),
-against a fresh unsharded run's losses in place of (f)'s.
+process, in turns parent, change, change, parent.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -2301,6 +2300,15 @@ def sharded_path(torch, dev, card: str, trained_losses):
         sharded = Trainer(cfg, tcfg, mesh=mesh)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated(dev) / gib
+        # the state is built a leaf at a time: its peak is the state and
+        # one whole leaf, not the whole state twice
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = sharded.init_state()
+        init_peak = torch.cuda.max_memory_allocated(dev) / gib - held
+        log("i", f"sharded init: peak {init_peak:.2f} GiB above the "
+            f"{held:.2f} GiB held, for a state of "
+            f"{tree_gb(torch, state) * 1e9 / gib:.2f} GiB")
+        del state
         torch.cuda.reset_peak_memory_stats(dev)
         mesh.collectives.clear()
         ops.reset_launches()
@@ -2496,17 +2504,6 @@ def main() -> int:
 
     build.build_all()
     log("a", f"kernels built in {build.BUILD_SECONDS:.2f} s")
-    if sys.argv[1:] == ["--sharded"]:
-        # (f)'s first losses, from a fresh run of the same Trainer
-        from repro_torch import configs
-        from repro_torch.runtime import Trainer, TrainerConfig
-        losses = [h["loss"] for h in Trainer(configs.get_config(ARCH),
-                  TrainerConfig(steps=SHARD_STEPS, batch_size=TRAIN_BATCH,
-                                seq_len=TRAIN_SEQ, peak_lr=3e-4,
-                                log_every=1), device=dev).run()["history"]]
-        torch.cuda.empty_cache()
-        sharded_path(torch, dev, card, losses)
-        return 0
     for name, text in build.BUILD_LOG.items():
         for kernel, regs, spills in ptxas_report(text):
             log("a", f"ptxas {name}: {kernel}: {regs} registers, {spills}")

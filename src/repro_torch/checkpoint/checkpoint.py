@@ -19,8 +19,9 @@ A Python int is stored as ``np.asarray(int)`` (int64) and comes back as an
 int.  So a step saved by either package loads in the other.
 
 A sharded tree (``parallel.fsdp``: each rank holds its shard of each leaf)
-is saved with ``shardings`` (the fitted specs) and ``mesh``: every leaf is
-gathered whole and rank 0 writes the same files as for an unsharded tree.
+is saved with ``shardings`` (the fitted specs) and ``mesh``: each leaf in
+turn is gathered whole, copied to the host on rank 0 and dropped, and rank
+0 writes the same files as for an unsharded tree.
 ``load_checkpoint`` with ``shardings`` and ``mesh`` reads each leaf and
 keeps this rank's shard, for any mesh the specs fit.
 
@@ -71,15 +72,18 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
 def _snapshot(tree, shardings=None,
               mesh=None) -> Optional[Dict[str, Tuple[np.ndarray, str]]]:
     """The tree in host memory; a sharded tree's leaves gathered whole
-    (every rank takes part), and None on a rank that does not write."""
+    (every rank takes part) one at a time, each dropped once rank 0 has
+    copied it, and None on a rank that does not write."""
     if shardings is None:
         return {path: _host(leaf) for path, leaf in flatten(tree).items()}
     specs = flatten(shardings)
-    whole = {path: gather_leaf(leaf, specs[path], mesh)
-             if isinstance(leaf, torch.Tensor) else leaf
-             for path, leaf in flatten(tree).items()}
-    return ({path: _host(leaf) for path, leaf in whole.items()}
-            if mesh.rank == 0 else None)
+    host = {}
+    for path, leaf in flatten(tree).items():
+        if isinstance(leaf, torch.Tensor):
+            leaf = gather_leaf(leaf, specs[path], mesh)
+        if mesh.rank == 0:
+            host[path] = _host(leaf)
+    return host if mesh.rank == 0 else None
 
 
 def _crc(arr: np.ndarray) -> int:

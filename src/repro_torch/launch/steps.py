@@ -237,7 +237,9 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     DECODE_MARGIN``.  Returns ``(prefill_step, (param specs, batch specs),
     (logits spec, cache specs), param shapes)``.  Serving params are
     ``api.cast_for_serving``'s.  When ``n_kv_heads`` does not divide the
-    ``model`` axis the KV cache is sharded on ``head_dim`` instead."""
+    ``model`` axis the KV cache is sharded on ``head_dim`` instead.  Each
+    block's caches are cut to this rank's shard as the block makes them
+    (``Sharded.cache_cut``)."""
     rules = rules_for(WorkloadKind.PREFILL, multi_pod, seq_shard=seq_shard)
     if cfg.n_kv_heads % mesh_shape(mesh)["model"] != 0:
         # a 32k cache would otherwise be replicated over the model axis
@@ -255,21 +257,11 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
         _check_runnable(mesh)
         logits, caches = api.prefill(cfg, _gather_unstacked(sharded, params),
                                      batch, s_max, sharded)
-        caches = tree_map(lambda t, s: _cut_cache(sharded, t, s), caches,
-                          c_pspecs)
         return _cut(sharded, logits, l_pspec), caches
 
     prefill_step.rules = rules
     return (prefill_step, (p_pspecs, b_pspecs), (l_pspec, c_pspecs),
             params_s)
-
-
-def _cut_cache(sharded: Sharded, t, spec):
-    """A stacked cache leaf [L, B, ...] from this rank's rows -> its shard
-    (the layers and batch dims left as they are)."""
-    if not isinstance(t, torch.Tensor):
-        return t
-    return shard_leaf(t, PartitionSpec(None, None, *spec[2:]), sharded.mesh)
 
 
 def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,

@@ -28,30 +28,38 @@ _F32_LEAVES = ("router", "ln1", "ln2", "ln_x", "final_norm", "enc_norm",
                "q_norm", "k_norm", "A_log", "D", "dt_bias", "norm")
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device=None):
+def init(cfg: ModelConfig, generator: torch.Generator, device=None,
+         place=None):
     """Random params in ``cfg.param_dtype``, mirroring ``ParamBuilder``:
     normal with std ``1/sqrt(fan_in)`` (``tok_embed``: std 1.0), ones for
     norm scales, zeros for biases.  ``blocks`` leaves are stacked over the
     blocks (``transformer.init_lm``), ``enc`` and ``dec`` leaves over the
     encoder and decoder layers (``encdec.init_encdec``).  The numbers
-    differ from ``jax.random``'s; the shapes and scales do not."""
+    differ from ``jax.random``'s; the shapes and scales do not.
+
+    ``place(path, leaf) -> leaf``, where given, takes each leaf as soon as
+    it is made and the tree keeps what it returns (a sharded trainer keeps
+    this rank's shard), so no two whole leaves are alive at once.  The
+    draws are the same with and without it."""
     transformer.check_supported(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(cfg.param_dtype)
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     nb = cfg.n_blocks
 
+    # each leaf is made when the tree is drawn (:func:`_draw`), in the
+    # order of these calls
     def normal(shape, fan_in=None, std=None):
         if std is None:
             std = 1.0 / math.sqrt(max(1, fan_in))
-        t = torch.randn(shape, generator=generator, device=dev, dtype=dt)
-        return t.mul_(std)
+        return lambda: torch.randn(shape, generator=generator, device=dev,
+                                   dtype=dt).mul_(std)
 
     def ones(shape):
-        return torch.ones(shape, device=dev, dtype=dt)
+        return lambda: torch.ones(shape, device=dev, dtype=dt)
 
     def zeros(shape):
-        return torch.zeros(shape, device=dev, dtype=dt)
+        return lambda: torch.zeros(shape, device=dev, dtype=dt)
 
     params = {
         "tok_embed": normal((cfg.vocab_size, D), std=1.0),
@@ -89,7 +97,7 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
         params["dec"] = {"ln1": ones((nd, D)), "attn": attn(nd),
                          "ln_x": ones((nd, D)), "xattn": attn(nd),
                          "ln2": ones((nd, D)), "mlp": mlp(nd)}
-        return params
+        return _draw(params, place)
     if cfg.n_img_tokens > 0:
         params["mm_proj"] = normal((D, D), fan_in=D)
 
@@ -125,12 +133,23 @@ def init(cfg: ModelConfig, generator: torch.Generator, device=None):
         if transformer._has_ffn(cfg):
             layer["ln2"] = ones((nb, D))
             if transformer._layer_is_moe(cfg, pos):
-                layer["moe"] = moe.init_moe(cfg, generator, dev, lead=(nb,))
+                layer["moe"] = {k: normal((nb, *shape), fan_in=fan_in)
+                                for k, (shape, fan_in)
+                                in moe.moe_shapes(cfg).items()}
             else:
                 layer["mlp"] = mlp()
         blocks[f"l{pos}"] = layer
     params["blocks"] = blocks
-    return params
+    return _draw(params, place)
+
+
+def _draw(makers, place=None):
+    """A tree of leaf makers -> the tree of their leaves, made one at a
+    time in the tree's order (each through ``place``)."""
+    flat = {}
+    for path, make in flatten(makers).items():
+        flat[path] = make() if place is None else place(path, make())
+    return unflatten(flat)
 
 
 def param_specs(cfg: ModelConfig):

@@ -13,7 +13,8 @@ and keeps them, stacked, for every decode step.  With ``cfg.remat`` each
 encoder and decoder block runs under ``torch.utils.checkpoint`` when grad
 is enabled, as JAX checkpoints each scanned block.  A sharded step's
 ``sharded`` (``parallel.fsdp.Sharded``) gathers each block's weights inside
-its remat, and decode's caches a layer at a time, as in
+its remat; prefill cuts each layer's caches to this rank's shard as it
+makes them, and decode gathers them a layer at a time, as in
 :mod:`.transformer`.
 """
 from __future__ import annotations
@@ -117,16 +118,21 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     :class:`EncDecCaches`)."""
     enc = encode(cfg, params, enc_embeds, sharded)
     x = L.embed(params, cfg, tokens)
-    B, F = enc.shape[:2]
-    # each layer's cross K/V go straight into the stacked buffers that
-    # decode reads, so they are never held twice
-    shape = (cfg.n_layers, B, F, cfg.n_kv_heads, cfg.d_head)
-    cross_k, cross_v = enc.new_empty(shape), enc.new_empty(shape)
+    # each layer's cross K/V (this rank's shard of them) go straight into
+    # the stacked buffers that decode reads, so they are never held twice
     kvs = []
     for i in range(cfg.n_layers):
         bp = _weights(layer_slice(params["dec"], i), "dec", sharded)
-        cross_k[i], cross_v[i] = L.encode_kv(bp["xattn"], cfg, enc)
-        x, kv = _dec_block(cfg, bp, x, cross_k[i], cross_v[i], s_max=s_max)
+        ck, cv = L.encode_kv(bp["xattn"], cfg, enc)
+        x, kv = _dec_block(cfg, bp, x, ck, cv, s_max=s_max)
+        if sharded is not None:
+            ck, cv = (sharded.cache_cut(ck, "cross_k"),
+                      sharded.cache_cut(cv, "cross_v"))
+            kv = sharded.cache_cut(kv, "self_kv")
+        if i == 0:
+            cross_k = enc.new_empty((cfg.n_layers, *ck.shape))
+            cross_v = enc.new_empty((cfg.n_layers, *cv.shape))
+        cross_k[i], cross_v[i] = ck, cv
         kvs.append(kv)
     logits = L.unembed(params, cfg, x[:, -1:])
     self_kv = KVCache(k=torch.stack([c.k for c in kvs]),

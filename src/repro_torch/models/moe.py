@@ -41,15 +41,21 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator, device=None,
     leading dims ``lead`` (``api.init`` stacks them over the blocks)."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.param_dtype)
-    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
 
     def normal(shape, fan_in):
         t = torch.randn((*lead, *shape), generator=generator, device=dev,
                         dtype=dt)
         return t.mul_(1.0 / math.sqrt(fan_in))
 
-    return {"router": normal((D, E), D), "wi_gate": normal((E, D, Fe), D),
-            "wi_up": normal((E, D, Fe), D), "wo": normal((E, Fe, D), Fe)}
+    return {k: normal(shape, fan_in)
+            for k, (shape, fan_in) in moe_shapes(cfg).items()}
+
+
+def moe_shapes(cfg: ModelConfig):
+    """Each MoE leaf's (shape, fan_in), in the order they are drawn."""
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    return {"router": ((D, E), D), "wi_gate": ((E, D, Fe), D),
+            "wi_up": ((E, D, Fe), D), "wo": ((E, Fe, D), Fe)}
 
 
 def route(p, cfg: ModelConfig, x_flat: torch.Tensor, data_mean=None):

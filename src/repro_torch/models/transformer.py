@@ -24,9 +24,11 @@ Sharded steps (``launch.steps`` with a mesh) pass ``sharded``, a
 ``parallel.fsdp.Sharded``: each layer's weights arrive as this rank's
 shards, and the layer gathers them first, inside its remat, so that only
 one layer's whole weights are alive and the backward gathers them again;
-``prefill`` and ``decode_step`` gather a block at a time, and decode its
-caches too.  The MoE load-balance loss then takes its batch means over
-the ranks that split the batch.
+``prefill`` and ``decode_step`` gather a block at a time; prefill cuts
+each block's new caches to this rank's shard before the next block runs,
+and decode gathers a block's caches and writes them back.  The MoE
+load-balance loss then takes its batch means over the ranks that split
+the batch.
 """
 from __future__ import annotations
 
@@ -263,6 +265,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int,
     for i in range(cfg.n_blocks):
         x, c = _block_prefill(cfg, _block_weights(params, i, sharded), x,
                               s_max)
+        if sharded is not None:
+            c = {name: sharded.cache_cut(cc, name) for name, cc in c.items()}
         per_block.append(c)
     caches: Dict[str, Cache] = {
         name: _stack([c[name] for c in per_block]) for name in per_block[0]}

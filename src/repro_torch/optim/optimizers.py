@@ -17,7 +17,10 @@ sharded step holds the state sharded as the params are.  On a sharded tree
 ``update`` takes ``mean``: ``mean(path, t, dims)`` is the mean over the
 param dims ``dims`` of the whole leaf at ``path``, of which ``t`` is this
 rank's shard (``parallel.fsdp.Sharded.mean``); Adafactor's factored
-moments and its update clipping need it, AdamW is elementwise.
+moments and its update clipping need it, AdamW is elementwise.  So that no
+rank builds the whole state, ``init(shards, shapes)`` takes this rank's
+shards of the params and the whole leaves' shapes, from which Adafactor
+decides which leaves it factors.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from ..weights import flatten, tree_leaves, tree_map, unflatten
 
 @dataclass(frozen=True)
 class Optimizer:
-    init: Callable[[Any], Any]
+    # (params, whole params' shapes when params are shards) -> state
+    init: Callable[..., Any]
     # (grads, state, params, mean=None) -> (new params, new state)
     update: Callable[..., Tuple[Any, Any]]
     # (param logical specs, param shape tree) -> state logical specs
@@ -48,10 +52,10 @@ def with_master(inner: Optimizer, master_dtype=torch.float32) -> Optimizer:
     """Mixed precision: bf16 working params, an f32 master copy in the
     state; the update applies to the master and casts back."""
 
-    def init(params):
+    def init(params, shapes=None):
         master = tree_map(lambda p: p.detach().to(master_dtype)
                           if p.is_floating_point() else p.detach(), params)
-        return {"master": master, "inner": inner.init(master)}
+        return {"master": master, "inner": inner.init(master, shapes)}
 
     @torch.no_grad()
     def update(grads, state, params, mean=None):
@@ -87,7 +91,7 @@ def clip_by_global_norm(tree, max_norm: float, norm_fn=global_norm):
 # --------------------------------------------------------------------- AdamW
 def adamw(schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, state_dtype=torch.float32) -> Optimizer:
-    def init(params):
+    def init(params, shapes=None):
         zeros = lambda p: torch.zeros(p.shape, dtype=state_dtype,
                                       device=p.device)
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
@@ -142,12 +146,13 @@ def adafactor(schedule, decay: float = 0.8, eps: float = 1e-30,
         return (p.ndim >= 2 and p.shape[-1] >= min_dim_size_to_factor
                 and p.shape[-2] >= min_dim_size_to_factor)
 
-    def init(params):
+    def init(params, shapes=None):
+        whole = flatten(params if shapes is None else shapes)
         flat = {}
         for path, p in flatten(params).items():
             z = lambda shape: torch.zeros(shape, dtype=torch.float32,
                                           device=p.device)
-            if _factored(p):
+            if _factored(whole[path]):
                 flat[f"{path}/vr"] = z(p.shape[:-1])
                 flat[f"{path}/vc"] = z(p.shape[:-2] + p.shape[-1:])
             else:

@@ -23,8 +23,10 @@ one included (where they copy), and each one counts in
 :class:`Sharded` is what a sharded step hands the model: the block loops of
 ``models.transformer`` and ``models.encdec`` call its ``gather`` on each
 block's shards, MoE routing takes its ``data_mean`` for the load-balance
-loss's batch means, and decode its ``cache_full`` / ``cache_store``; the
-optimizer takes its ``mean`` and the clipping its ``global_norm``.
+loss's batch means, prefill its ``cache_cut`` (each block's new cache to
+this rank's shard before the next block runs) and decode its
+``cache_full`` / ``cache_store``; the optimizer takes its ``mean`` and the
+clipping its ``global_norm``.
 """
 from __future__ import annotations
 
@@ -336,6 +338,23 @@ class Sharded:
             spec = getattr(spec, field)
         # a block's cache [B, ...]: its batch rows are this rank's already
         return PartitionSpec(None, *_drop_layers(spec, ndim)[1:])
+
+    def cache_cut(self, cache, name: str):
+        """This rank's shard of one block's cache ``name`` (a KVCache, an
+        SSMCache or a tensor) that prefill made whole but for the batch:
+        the inverse of :meth:`cache_full`.  A field no axis shards is kept
+        as it is."""
+        def cut(field, t):
+            if not isinstance(t, torch.Tensor):    # a KV cache's length
+                return t
+            spec = self._cache_spec(name, field, t.ndim)
+            return shard_leaf(t, spec, self.mesh) if _sharding_axes(
+                spec) else t
+
+        if isinstance(cache, torch.Tensor):
+            return cut(None, cache)
+        return type(cache)(*(cut(f, t) for f, t in zip(cache._fields,
+                                                         cache)))
 
     def cache_full(self, cache, name: str):
         """One block's cache ``name`` (a KVCache, an SSMCache or a tensor)

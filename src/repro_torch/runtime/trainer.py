@@ -33,9 +33,9 @@ from ..launch.steps import as_trainable, make_train_step
 from ..models import api
 from ..models.spec import ModelConfig, torch_dtype
 from ..optim import Optimizer, adamw, cosine_with_warmup, with_master
-from ..parallel.fsdp import shard_tree
+from ..parallel.fsdp import pspecs_at, shard_leaf
 from ..parallel.sharding import axes_of
-from ..weights import tree_map
+from ..weights import flatten, unflatten
 from .compression import make_compressor
 
 
@@ -97,21 +97,28 @@ class Trainer:
         """Fresh state: random params from ``seed`` (``torch.Generator``;
         not ``jax.random``'s numbers), or ``params`` (a tree, e.g. carried
         from JAX by ``weights.from_jax_params``) cast to the working
-        dtype.  With a mesh, this rank's shards of both."""
+        dtype.  With a mesh, this rank's shards of both: each param leaf is
+        cut as soon as it is made, and the optimizer state is built from
+        the shards, so no rank holds the whole params or state."""
         dt = torch_dtype(self.train_cfg.param_dtype)
+        place = None
+        if self.mesh is not None:
+            def place(path, t):
+                return shard_leaf(t, pspecs_at(self.shardings["params"],
+                                               path), self.mesh)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(
                 self.tcfg.seed)
-            params = api.init(self.train_cfg, gen, self.device)
+            params = api.init(self.train_cfg, gen, self.device, place)
         else:
-            params = tree_map(lambda p: p.to(device=self.device, dtype=dt),
-                              params)
+            flat = {}
+            for path, p in flatten(params).items():
+                p = p.to(device=self.device, dtype=dt)
+                flat[path] = p if place is None else place(path, p)
+            params = unflatten(flat)
         params = as_trainable(params)
-        opt = self.optimizer.init(params)
-        if self.mesh is not None:
-            params = as_trainable(shard_tree(
-                params, self.shardings["params"], self.mesh))
-            opt = shard_tree(opt, self.shardings["opt"], self.mesh)
+        opt = self.optimizer.init(
+            params, None if self.mesh is None else self.shapes[0])
         return {"params": params, "opt": opt,
                 "comp": self.comp_init(params)}
 

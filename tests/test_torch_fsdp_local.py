@@ -4,6 +4,8 @@ serve steps against the unsharded ones bit for bit (every collective runs
 on a group of one, which copies), the Trainer and the CLI with a mesh, and
 the same train step on the card (``cuda``).  Several ranks:
 ``test_torch_fsdp.py``."""
+import weakref
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -16,8 +18,10 @@ from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.launch.mesh import (init_mesh, make_local_mesh,  # noqa: E402
                                      PRODUCTION_SHAPES)
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.parallel.fsdp import reshard, shard_tree  # noqa: E402
+from repro_torch.parallel.fsdp import (Sharded, pspecs_at,  # noqa: E402
+                                       reshard, shard_leaf, shard_tree)
 from repro_torch.runtime import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.weights import flatten  # noqa: E402
 
@@ -196,3 +200,183 @@ def test_cuda_sharded_train_step_equals_unsharded():
     (p1, s1, m1), (p2, s2, m2), _ = _train_both(cfg, "cuda")
     assert _same(p1, p2) and _same(s1, s2)
     assert torch.equal(m1["loss"], m2["loss"])
+
+
+# ------------------------------------------------ what a rank holds at once
+class _Coords:
+    """The rank at ``coords`` of a mesh of ``shape``, without a world:
+    cutting a shard needs no collective."""
+    device = torch.device("cpu")
+
+    def __init__(self, shape, coords):
+        self.shape, self.coords = shape, coords
+
+
+def _ranks(shape):
+    """A :class:`_Coords` for every rank of a (data, model) mesh."""
+    return [_Coords(shape, {"data": d, "model": m})
+            for d in range(shape["data"]) for m in range(shape["model"])]
+
+
+class _Live:
+    """The largest number of elements of the tensors it was shown that
+    were alive at once."""
+
+    def __init__(self):
+        self.live, self.peak, self.total = {}, 0, 0
+
+    def see(self, t):
+        self.live[id(t)] = t.numel()
+        self.total += t.numel()
+        self.peak = max(self.peak, sum(self.live.values()))
+        weakref.finalize(t, self.live.pop, id(t), None)
+
+
+MESH_2X2 = {"data": 2, "model": 2}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cuts_each_leaf_as_it_is_made(arch):
+    """``api.init(..., place=)`` gives each rank its shards of the same
+    draws, and no two whole leaves are alive at once."""
+    cfg = configs.get_smoke_config(arch)
+    opt = optim.with_master(optim.adamw(optim.cosine_with_warmup(1e-2, 2,
+                                                                 10)))
+    _, (p_specs, _, _), _, _ = steps.make_train_step(cfg, opt, MESH_2X2)
+    train_cfg = cfg.replace(param_dtype=cfg.dtype)
+    whole = api.init(train_cfg, torch.Generator().manual_seed(1), "cpu")
+    largest = max(t.numel() for t in flatten(whole).values())
+    for rank in _ranks(MESH_2X2):
+        live = _Live()
+
+        def place(path, t):
+            live.see(t)
+            return shard_leaf(t, pspecs_at(p_specs, path), rank)
+
+        got = api.init(train_cfg, torch.Generator().manual_seed(1), "cpu",
+                       place)
+        assert _same(got, shard_tree(whole, p_specs, rank))
+        assert live.peak == largest
+
+
+@pytest.mark.parametrize("name", ["adamw", "with_master", "adafactor"])
+def test_trainer_state_on_a_mesh_is_cut_from_the_start(name):
+    """A Trainer on each rank of a (2, 2) mesh starts from its shards of
+    the unsharded Trainer's params and optimizer state, built from the
+    shards (Adafactor factoring by the whole shapes, at a threshold the
+    smoke widths cross only whole)."""
+    cfg = configs.get_smoke_config("granite-moe-1b-a400m")
+    sched = optim.cosine_with_warmup(1e-2, 2, 10)
+    opt = {"adamw": optim.adamw(sched),
+           "with_master": optim.with_master(optim.adamw(sched)),
+           "adafactor": optim.adafactor(sched,
+                                        min_dim_size_to_factor=64)}[name]
+    tcfg = TrainerConfig(steps=1, batch_size=2, seq_len=16)
+    plain = Trainer(cfg, tcfg, opt, device="cpu").init_state()
+    for rank in _ranks(MESH_2X2):
+        tr = Trainer(cfg, tcfg, opt, mesh=rank)
+        got = tr.init_state()
+        assert _same(got["params"], shard_tree(
+            plain["params"], tr.shardings["params"], rank))
+        assert _same(got["opt"], shard_tree(plain["opt"],
+                                            tr.shardings["opt"], rank))
+    if name == "adafactor":
+        factored = [k for k in flatten(got["opt"]) if k.endswith("/vr")]
+        # some leaf factored whole is, as this rank's shard, under 64
+        assert any(min(t.shape[-2:]) < 64 for k, t in flatten(
+            got["params"]).items() if f"v/{k}/vr" in factored)
+
+
+def test_sharded_save_gathers_one_leaf_at_a_time(tmp_path, monkeypatch):
+    """A sharded save holds one gathered leaf at a time, and writes the
+    files of an unsharded save."""
+    cfg = configs.get_smoke_config("granite-moe-1b-a400m")
+    opt = optim.with_master(optim.adamw(optim.cosine_with_warmup(1e-2, 2,
+                                                                 10)))
+    params = api.init(cfg.replace(param_dtype=cfg.dtype),
+                      torch.Generator().manual_seed(1), "cpu")
+    tree = {"params": params, "opt": opt.init(params)}
+    live, gather = _Live(), ckpt.gather_leaf
+
+    def counted(*args):
+        t = gather(*args)
+        live.see(t)
+        return t
+
+    monkeypatch.setattr(ckpt, "gather_leaf", counted)
+    with init_mesh("cpu") as mesh:
+        _, (p_specs, o_specs, _), _, _ = steps.make_train_step(cfg, opt,
+                                                               mesh)
+        specs = {"params": p_specs, "opt": o_specs}
+        ckpt.save_checkpoint(tmp_path / "sharded", 1,
+                             shard_tree(tree, specs, mesh), shardings=specs,
+                             mesh=mesh)
+    ckpt.save_checkpoint(tmp_path / "plain", 1, tree)
+    assert live.peak == max(t.numel() for t in flatten(tree).values())
+    assert live.total == sum(t.numel() for t in flatten(tree).values())
+    names = sorted(p.name for p in (tmp_path / "plain" /
+                                    "step_000000001").iterdir())
+    for n in names:
+        assert (tmp_path / "plain" / "step_000000001" / n).read_bytes() == \
+            (tmp_path / "sharded" / "step_000000001" / n).read_bytes(), n
+
+
+class _WholeWeights(Sharded):
+    """A ``Sharded`` whose weights are whole already (no gather), so that
+    its cache cuts run on a mesh without a world."""
+
+    def gather(self, tree, path):
+        return tree
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "phi-3-vision-4.2b", "whisper-medium"])
+def test_prefill_cuts_each_block_cache_as_it_is_made(arch):
+    """On a (1, 2) mesh that shards the caches on ``model``, prefill
+    returns this rank's shards of the unsharded caches and holds no more
+    than one block's whole caches at once."""
+    cfg = configs.get_smoke_config(arch)
+    params = api.cast_for_serving(cfg, api.init(
+        cfg, torch.Generator().manual_seed(3), "cpu"))
+    batch = _batch(cfg, torch.Generator().manual_seed(4), B=2, S=8)
+    batch.pop("targets")
+    s_max = 8 + steps.sp.DECODE_MARGIN
+    shape = {"data": 1, "model": 2}
+    _, _, (_, c_specs), _ = steps.make_prefill_step(
+        cfg, shape, ShapeSpec("t", "decode", 8, 2))
+    with torch.no_grad():
+        want_logits, want = api.prefill(cfg, params, batch, s_max)
+    n_blocks = cfg.n_layers if cfg.is_encoder_decoder else cfg.n_blocks
+    cut_somewhere = False
+    for rank in _ranks(shape):
+        live = _Live()
+        sharded = _WholeWeights(rank, None, cache_pspecs=c_specs)
+        cut = sharded.cache_cut
+
+        def counted(cache, name):
+            for t in ([cache] if isinstance(cache, torch.Tensor)
+                      else cache):
+                if isinstance(t, torch.Tensor):
+                    live.see(t)
+            return cut(cache, name)
+
+        sharded.cache_cut = counted
+        with torch.no_grad():
+            logits, got = api.prefill(cfg, params, batch, s_max, sharded)
+        assert torch.equal(logits, want_logits)
+        cut_want = shard_tree(want, c_specs, rank)
+        assert all(torch.equal(a, b) for a, b in zip(
+            _cache_leaves(got), _cache_leaves(cut_want)))
+        cut_somewhere |= any(a.shape != b.shape for a, b in zip(
+            _cache_leaves(got), _cache_leaves(want)))
+        assert live.total > 0 and live.peak <= live.total // n_blocks
+    assert cut_somewhere
+
+
+def _cache_leaves(caches):
+    out = []
+    for c in (caches.values() if isinstance(caches, dict) else caches):
+        for t in ([c] if isinstance(c, torch.Tensor) else c):
+            if isinstance(t, torch.Tensor):
+                out.append(t)
+    return out
