@@ -135,22 +135,33 @@ exits non-zero:
     through the sharded steps of ``launch.steps`` on a mesh (data 1,
     model 1) of one NCCL rank (``launch.mesh.init_mesh``, a HashStore),
     every gather and reduction of ``parallel.fsdp`` a self-copy.  The
+    steps run their tensor-parallel code (``parallel.tp``: attention on
+    the local heads, the MoE on the local experts, the vocab-parallel
+    embedding, logits and loss, each sublayer ending in one all-reduce
+    over ``model``), which at model 1 is the unsharded arithmetic.  The
     sharded Trainer's state is built once alone, for its peak memory.  Three
     train steps of the sharded ``Trainer`` (bf16 params, f32 master,
     AdamW, batch 8 x 512) against three of the unsharded one from the
     same seed, whose losses must be (f)'s first three: the losses within
     1e-4 and the params and optimizer state within 1e-4 (the largest
     |delta| is printed; at one rank they are the same bits), the launch
-    counts the config's; the NCCL collectives a step, the peak memory of
+    counts the config's; the NCCL collectives a step (by kind, and those
+    over ``model``), the peak memory of
     each, and the step time of both in four rounds of (unsharded,
     sharded, sharded, unsharded) on one state and batch.  Then the
     sharded prefill of 8 x 512 prompts and 8 greedy decode steps (the
     caches resharded into the serve step's layout between), timed beside
     the unsharded model's: the logits must be its bits at the step's
-    cache length (prompt + 128), and the tokens ``serve.generate``'s
-    first at that length (its s_max counts the tokens it generates, so it
-    generates 120).  Launch counts, set to 0 before the sharded train and
-    serve runs, are the ``sharded`` path of the kernels line.
+    cache length (prompt + 128), and the greedy tokens
+    (``parallel.tp.greedy_tokens`` over the vocab-local logits)
+    ``serve.generate``'s first at that length (its s_max counts the tokens
+    it generates, so it generates 120).  Launch counts, set to 0 before
+    the sharded train and serve runs, are the ``sharded`` path of the
+    kernels line.  Then each kernel at the ``model``-local shapes that
+    model 2, 4 and 16 give granite and qwen3-1.7b, f32 and bf16, against
+    its plain version: flash_attention forward and backward with 8 q heads
+    over 4 kv heads, 4 over 2 and 1 over 1 (kv replicated), at Dh 64 and
+    128; grouped_matmul with its dX and dW over 16 and 8 experts.
 
 ``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
@@ -218,6 +229,17 @@ CKPT_ROOT = ROOT / "build" / "ckpt"
 # phase (i): granite sharded over a (data, model) mesh of one NCCL rank:
 # train steps, decode steps after the prefill, rounds of the step A/B
 SHARD_STEPS, SHARD_DECODE, SHARD_AB = 3, 8, 4
+# phase (i): the kernels at the model-local shapes of tensor-parallel
+# compute.  flash_attention as (B, S, q heads, kv heads, Dh), causal: the 16
+# q heads and 8 kv heads of granite (Dh 64) and qwen3-1.7b (Dh 128) over
+# model 2 and 4, and over 16, where the kv heads are replicated and a rank
+# reads the one its q head maps to.  grouped_matmul with its dX and dW as
+# (T, D, F, groups): granite's 32 experts over model 2 and 4, each rank
+# the local experts' share of a training step's 32,768 assignments
+TP_ATTN = [(TRAIN_BATCH, TRAIN_SEQ, hq, kv, dh) for dh in (64, 128)
+           for hq, kv in ((8, 4), (4, 2), (1, 1))]
+TP_GMM = [(TRAIN_BATCH * TRAIN_SEQ * 8 // m, d, f, 32 // m)
+          for m in (2, 4) for d, f in ((1024, 512), (512, 1024))]
 SPIN_CYCLES = 2_000_000      # about 1 ms of spin at the H100's clocks
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -1294,7 +1316,8 @@ def same_bits(torch, name: str, a, b) -> None:
         raise AssertionError(f"{name}: two calls differ")
 
 
-def check_attention_bwd(torch, ops, ref, randn, shape, dname, dt) -> float:
+def check_attention_bwd(torch, ops, ref, randn, shape, dname, dt,
+                        phase: str = "f") -> float:
     """flash_attention_bwd at one shape against its plain version (each
     output within ``ATTN_BWD_TOL`` of max|ref|, finite) and twice bit for
     bit; the forward with the LSE equal to the forward without it.  With a
@@ -1328,7 +1351,7 @@ def check_attention_bwd(torch, ops, ref, randn, shape, dname, dt) -> float:
     same_bits(torch, f"flash_attention_bwd {shape} {dname}", got,
               ops.flash_attention_bwd(q, k, v, o, lse, do, **kw))
     note = "; dq, dk against the cancelled terms" if window == 1 else ""
-    log("f", f"flash_attention_bwd {shape} {dname}: max_abs_err {e:.3e}, "
+    log(phase, f"flash_attention_bwd {shape} {dname}: max_abs_err {e:.3e}, "
         f"err/max|ref| {r:.3e} (tol {ATTN_BWD_TOL[dname]}){note}; finite; "
         f"deterministic; the LSE forward equals the forward bit for bit")
     return e
@@ -2265,6 +2288,54 @@ def collective_latency(torch, dev, mesh, card: str) -> None:
             f" {ms['all_gather'] * 1e3:.1f} us a link ({card})")
 
 
+def check_local_shapes(torch, ops, ref, dev) -> None:
+    """The kernels at the ``model``-local shapes of tensor-parallel compute
+    (``TP_ATTN``, ``TP_GMM``), f32 and bf16, against their plain versions
+    at phase (b)'s and (f)'s tolerances.  Its own generator (seed 15)."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for B, S, H, KV, Dh in TP_ATTN:
+            q, k, v = (randn(B, S, h, Dh, dtype=dt) for h in (H, KV, KV))
+            e = compare("flash_attention", ops.flash_attention(q, k, v),
+                        attention_plain(torch, ref, q, k, v, True, 0), dname)
+            log("i", f"flash_attention local q[{B},{S},{H},{Dh}] over {KV} "
+                f"kv heads {dname}: max_abs_err {e:.3e} (tol {TOL[dname]})")
+            del q, k, v
+            check_attention_bwd(torch, ops, ref, randn,
+                                (B, S, S, H, KV, Dh, True, 0), dname, dt,
+                                phase="i")
+        for T, D, Fo, E in TP_GMM:
+            lhs, dy = randn(T, D, dtype=dt), randn(T, Fo, dtype=dt)
+            rhs = (randn(E, D, Fo, dtype=torch.float32) / math.sqrt(D)).to(dt)
+            offs = random_offsets(torch, gen, T, E)
+            e = compare("grouped_matmul", ops.grouped_matmul(lhs, rhs, offs),
+                        ref.grouped_matmul_ref(lhs, rhs, offs), dname)
+            got = ops.grouped_matmul_bwd(lhs, rhs, offs, dy)
+            want = ref.grouped_matmul_bwd_ref(lhs, rhs, offs, dy)
+            e_dx, _ = compare_rel(f"grouped_matmul_dx local {dname}", got[0],
+                                  want[0], BWD_TOL[dname])
+            e_dw, _ = compare_rel(f"grouped_matmul_dw local {dname}", got[1],
+                                  want[1], BWD_TOL[dname])
+            log("i", f"grouped_matmul local [{T},{D}]x[{E},{D},{Fo}] "
+                f"{dname}: max_abs_err {e:.3e} (tol {TOL[dname]}); dX "
+                f"{e_dx:.3e}, dW {e_dw:.3e} (tol {BWD_TOL[dname]} x "
+                f"max|ref|)")
+            del lhs, dy, rhs, got, want
+    torch.cuda.synchronize()
+
+
+def model_collectives(mesh, steps: int) -> str:
+    """The collectives over ``model`` a step, by kind."""
+    got = mesh.axis_collectives.get("model", {})
+    return ", ".join(f"{k} {v / steps:g}" for k, v in sorted(got.items())) \
+        or "none"
+
+
 def sharded_path(torch, dev, card: str, trained_losses):
     """granite-moe-1b-a400m through the sharded steps on a mesh (data 1,
     model 1) of one NCCL rank: returns the path's launch counts."""
@@ -2276,6 +2347,7 @@ def sharded_path(torch, dev, card: str, trained_losses):
     from repro_torch.launch.serve import generate, make_prompts
     from repro_torch.models.api import CausalLM
     from repro_torch.parallel.fsdp import reshard, shard_tree
+    from repro_torch.parallel.tp import greedy_tokens
     from repro_torch.runtime import Trainer, TrainerConfig
 
     t_i = time.perf_counter()
@@ -2310,7 +2382,7 @@ def sharded_path(torch, dev, card: str, trained_losses):
             f"{tree_gb(torch, state) * 1e9 / gib:.2f} GiB")
         del state
         torch.cuda.reset_peak_memory_stats(dev)
-        mesh.collectives.clear()
+        mesh.reset_collectives()
         ops.reset_launches()
         out = sharded.run()
         train_launches = dict(ops.LAUNCHES)
@@ -2341,7 +2413,9 @@ def sharded_path(torch, dev, card: str, trained_losses):
                                           "all_reduce")):
             raise AssertionError(f"collectives {colls}")
         log("i", "NCCL collectives a step: " + ", ".join(
-            f"{k} {v / SHARD_STEPS:g}" for k, v in sorted(colls.items())))
+            f"{k} {v / SHARD_STEPS:g}" for k, v in sorted(colls.items())) +
+            "; of them over model (tensor-parallel sums): " +
+            model_collectives(mesh, SHARD_STEPS))
         del out
         torch.cuda.empty_cache()
 
@@ -2374,7 +2448,7 @@ def sharded_path(torch, dev, card: str, trained_losses):
         prompts = make_prompts(cfg, BATCH, PROMPT, seed=1, device=dev)
         shape = ShapeSpec("chip_smoke", "decode", PROMPT, BATCH)
         s_max = PROMPT + steps.sp.DECODE_MARGIN
-        pre, (p_pre, b_pre), (_, c_pre), _ = steps.make_prefill_step(
+        pre, (p_pre, b_pre), (l_spec, c_pre), _ = steps.make_prefill_step(
             cfg, mesh, shape)
         dec, (p_dec, _, c_dec), _, _ = steps.make_serve_step(
             cfg, mesh, shape)
@@ -2383,12 +2457,14 @@ def sharded_path(torch, dev, card: str, trained_losses):
         params_dec = shard_tree(full, p_dec, mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        mesh.collectives.clear()
+        mesh.reset_collectives()
         ops.reset_launches()
         t0 = time.perf_counter()
         logits, caches = pre(params_pre, shard_tree({"inputs": prompts},
                                                     b_pre, mesh))
-        tok = torch.argmax(logits, dim=-1)
+        pre_model = model_collectives(mesh, 1)
+        # the greedy token over vocab-local logits (here the whole vocab)
+        tok = greedy_tokens(logits, l_spec, mesh)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         caches = reshard(caches, c_pre, c_dec, mesh)
@@ -2397,7 +2473,7 @@ def sharded_path(torch, dev, card: str, trained_losses):
         got_logits, toks = [logits], [tok]
         for _ in range(SHARD_DECODE):
             logits, caches = dec(params_dec, tok, caches)
-            tok = torch.argmax(logits, dim=-1)
+            tok = greedy_tokens(logits, l_spec, mesh)
             got_logits.append(logits)
             toks.append(tok)
         torch.cuda.synchronize()
@@ -2427,8 +2503,8 @@ def sharded_path(torch, dev, card: str, trained_losses):
             f" ms (unsharded {(u1 - u0) * 1e3:.1f}), caches resharded in "
             f"{(t2 - t1) * 1e3:.1f} ms, {SHARD_DECODE} decode steps "
             f"{(t3 - t2) * 1e3:.1f} ms (unsharded {(u2 - u1) * 1e3:.1f}), "
-            f"peak memory {serve_peak:.2f} GiB; collectives {serve_colls}; "
-            f"{card}")
+            f"peak memory {serve_peak:.2f} GiB; collectives {serve_colls}, "
+            f"over model in the prefill: {pre_model}; {card}")
         log("i", f"prefill and {SHARD_DECODE} decode logits against the "
             f"unsharded model's: {'the same bits' if same else 'differ'}")
         if not same:
@@ -2557,6 +2633,7 @@ def main() -> int:
     log("h", f"(a) to (h) {time.perf_counter() - t_start:.1f} s")
 
     by_path["sharded"] = sharded_path(torch, dev, card, train_losses)
+    check_local_shapes(torch, ops, ref, dev)
     for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
         if not by_path["sharded"][name]:
             raise AssertionError(f"{name}: the sharded path did not launch "

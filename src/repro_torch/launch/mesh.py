@@ -127,11 +127,18 @@ class Mesh:
             self.axis_names, device_mesh.get_coordinate()))
         self.rank = dist.get_rank()
         self.size = dist.get_world_size()
-        # collectives issued by parallel.fsdp, by kind
+        # collectives issued by parallel.fsdp and parallel.tp, by kind,
+        # and by axis ("world" for the whole mesh), then kind
         self.collectives: Dict[str, int] = {}
+        self.axis_collectives: Dict[str, Dict[str, int]] = {}
 
     def group(self, axis: str) -> dist.ProcessGroup:
         return self.device_mesh.get_group(axis)
+
+    def reset_collectives(self) -> None:
+        """Set both counts of collectives to 0."""
+        self.collectives.clear()
+        self.axis_collectives.clear()
 
     def ep_group(self) -> EPGroup:
         """The ``model`` axis as an expert-parallel group; its ``close``

@@ -14,11 +14,18 @@ gets shards back.  A builder given only axis sizes (a mapping such as
 ``launch.mesh.PRODUCTION_SHAPES[0]``) returns the specs and shapes of that
 layout; its step cannot run.
 
-The collectives are explicit (``parallel.fsdp``): the weights are gathered
-a block at a time, the gradients reduced to shards, so the ``model`` ranks
-of one batch slice compute the same rows.  The layout of the state, the
-results and the shapes are the reference's; tensor-parallel compute is
-not ported (ROADMAP queue 1).
+The collectives are explicit (``parallel.fsdp``, ``parallel.tp``): the
+weights are gathered a block at a time over the batch axes, the gradients
+reduced to shards.  On ``model`` the steps compute as the reference's rules
+shard: each sublayer whose fitted specs put ``model`` on its heads, MLP
+columns, experts or vocab keeps its ``model``-local weights and ends in
+one all-reduce over ``model`` (``Sharded.tp``); the loss is vocab-parallel
+and the prefill and serve steps return vocab-local logits.  A sublayer
+whose fit drops ``model``, or puts it on the K/V head_dim (decode, and
+prefill where ``n_kv_heads`` does not divide ``model``), gathers over
+``model`` and computes whole, and so do the SSM mixers and the serve
+step's attention.  The layout of the state and the shapes are the
+reference's.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from ..configs.shapes import ShapeSpec
 from ..models import api
 from ..models.spec import ModelConfig, PartitionSpec, logical_to_pspec
 from ..optim import Optimizer, clip_by_global_norm
-from ..parallel.fsdp import Sharded, shard_leaf
+from ..parallel.fsdp import Sharded
 from ..parallel.sharding import (WorkloadKind, axes_of, batch_pspec,
                                  cache_pspecs, fit_tree, mesh_shape,
                                  param_pspecs, rules_for, tree_map)
@@ -117,12 +124,6 @@ def _gather_unstacked(sharded: Sharded, params):
             **{k: v for k, v in params.items() if k in STACKED}}
 
 
-def _cut(sharded: Sharded, t: torch.Tensor, spec) -> torch.Tensor:
-    """This rank's block of ``t`` over the dims that ``spec`` shards, dim
-    0 (the batch rows, which are this rank's already) excepted."""
-    return shard_leaf(t, PartitionSpec(None, *spec[1:]), sharded.mesh)
-
-
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None, *,
                     multi_pod: bool = False, microbatches: int = 1,
                     clip_norm: float = 1.0, seq_shard: bool = False,
@@ -145,7 +146,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None, *,
     this rank's batch rows, its loss and norm global.  The loss's means are
     the global batch's: each rank weights its nll by its share of the
     tokens, and the MoE load-balance loss takes its batch means over the
-    batch ranks.  Microbatches split each rank's rows."""
+    batch ranks.  Microbatches split each rank's rows.  The step's
+    ``loss_and_grads(params, batch)`` gives this rank's loss and its shards
+    of the gradients before clipping, and its ``sharded`` the
+    :class:`Sharded`."""
     train_cfg = cfg.replace(param_dtype=cfg.dtype)
     if mesh is None:
         return _local_train_step(train_cfg, optimizer, microbatches,
@@ -176,10 +180,15 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None, *,
             lval = lval + metrics["nll"] * (share - 1.0)
         return lval
 
-    def train_step(params, opt_state, batch):
+    def grads_of(params, batch):
+        """(this rank's loss, its shards of the gradients) before
+        clipping."""
         _check_runnable(mesh)
-        lval, grads = loss_and_grads(train_cfg, as_trainable(params), batch,
-                                     microbatches, loss)
+        return loss_and_grads(train_cfg, as_trainable(params), batch,
+                              microbatches, loss)
+
+    def train_step(params, opt_state, batch):
+        lval, grads = grads_of(params, batch)
         grads, gnorm = clip_by_global_norm(grads, clip_norm,
                                            sharded.global_norm)
         new_params, new_opt = optimizer.update(grads, opt_state, params,
@@ -188,6 +197,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None, *,
                 {"loss": sharded.batch_mean(lval), "grad_norm": gnorm})
 
     train_step.sharded, train_step.rules = sharded, rules
+    train_step.loss_and_grads = grads_of
     scalar = {"loss": PartitionSpec(), "grad_norm": PartitionSpec()}
     return (train_step, (p_pspecs, o_pspecs, b_pspecs),
             (p_pspecs, o_pspecs, scalar), (params_s, opt_s))
@@ -237,17 +247,20 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     DECODE_MARGIN``.  Returns ``(prefill_step, (param specs, batch specs),
     (logits spec, cache specs), param shapes)``.  Serving params are
     ``api.cast_for_serving``'s.  When ``n_kv_heads`` does not divide the
-    ``model`` axis the KV cache is sharded on ``head_dim`` instead.  Each
-    block's caches are cut to this rank's shard as the block makes them
-    (``Sharded.cache_cut``)."""
+    ``model`` axis the KV cache is sharded on ``head_dim`` instead, and the
+    attention gathers over ``model``; else it is tensor-parallel and makes
+    this rank's kv heads only.  Each block's caches are cut to this rank's
+    shard as the block makes them (``Sharded.cache_cut``).  The logits are
+    this rank's block of the logits spec: vocab-local where the vocab
+    splits over ``model`` (``parallel.tp.greedy_tokens`` takes a token)."""
     rules = rules_for(WorkloadKind.PREFILL, multi_pod, seq_shard=seq_shard)
     if cfg.n_kv_heads % mesh_shape(mesh)["model"] != 0:
         # a 32k cache would otherwise be replicated over the model axis
         rules["kv_heads"] = None
         rules["head_dim"] = "model"
     s_max = shape.seq_len + sp.DECODE_MARGIN
-    params_s, p_pspecs, _, c_pspecs, sharded = _serving(cfg, mesh, rules,
-                                                        shape)
+    params_s, p_pspecs, _, c_pspecs, sharded = _serving(
+        cfg, mesh, rules, shape)
     b_pspecs = _batch_pspecs(cfg, rules)
     b_pspecs.pop("targets")
     l_pspec = _logits_pspec(cfg, rules, mesh)
@@ -255,9 +268,8 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     @torch.no_grad()
     def prefill_step(params, batch):
         _check_runnable(mesh)
-        logits, caches = api.prefill(cfg, _gather_unstacked(sharded, params),
-                                     batch, s_max, sharded)
-        return _cut(sharded, logits, l_pspec), caches
+        return api.prefill(cfg, _gather_unstacked(sharded, params), batch,
+                           s_max, sharded)
 
     prefill_step.rules = rules
     return (prefill_step, (p_pspecs, b_pspecs), (l_pspec, c_pspecs),
@@ -271,7 +283,11 @@ def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     Returns ``(serve_step, (param specs, token spec, cache specs), (logits
     spec, cache specs), (param shapes, cache shapes))``.  One sequence
     (``global_batch == 1``) is long decode: the cache's sequence is sharded
-    over the batch axes.  An FFN of ``d_ff >= 16384`` runs in 4 chunks."""
+    over the batch axes.  An FFN of ``d_ff >= 16384`` runs in 4 chunks.
+    The FFN, the MoE and the embeddings are tensor-parallel as in prefill;
+    the attention gathers its weights and caches over ``model`` and
+    computes whole, since the decode rules shard K/V on head_dim.  The
+    logits are vocab-local as prefill's."""
     kind = (WorkloadKind.LONG_DECODE if shape.global_batch == 1
             else WorkloadKind.DECODE)
     rules = rules_for(kind, multi_pod)
@@ -285,9 +301,8 @@ def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     @torch.no_grad()
     def serve_step(params, token, caches):
         _check_runnable(mesh)
-        logits, caches = api.decode_step(
-            cfg, _gather_unstacked(sharded, params), token, caches, sharded)
-        return _cut(sharded, logits, l_pspec), caches
+        return api.decode_step(cfg, _gather_unstacked(sharded, params),
+                               token, caches, sharded)
 
     serve_step.rules, serve_step.cfg = rules, cfg
     return (serve_step, (p_pspecs, t_pspec, c_pspecs), (l_pspec, c_pspecs),

@@ -9,7 +9,11 @@ the last group are zero-filled by the kernel and add nothing.
 :func:`moe_gather` dispatches within each batch row: a capacity of
 ``max(8, int(S*k*cf/E))`` per row, assignments kept in the order of a
 cumsum over the row's flattened ``[S*k]`` assignments.  The reference
-fills a ``[B, E, C, D]`` buffer instead of sorting.
+fills a ``[B, E, C, D]`` buffer instead of sorting.  Under a sharded step
+that puts the experts on ``model`` it is expert-parallel in place: each
+``model`` rank holds every token of its batch rows, keeps the reference's
+per-row set, runs its own experts' kept rows and sums the partial outputs
+over ``model`` (``tp``).
 
 :func:`moe_block_ep` is explicit expert parallelism over a
 ``torch.distributed`` group (``launch.mesh``): tokens go to the shard that
@@ -88,9 +92,16 @@ def _grouped_ffn(p, xs: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return ops.grouped_matmul(F.silu(g) * u, p["wo"].to(xs.dtype), offsets)
 
 
-def moe_gather(p, cfg: ModelConfig, x: torch.Tensor, data_mean=None):
+def moe_gather(p, cfg: ModelConfig, x: torch.Tensor, data_mean=None,
+               tp=None):
     """MoE FFN for ``[B, S, D]`` input.  Returns ``(y [B,S,D], aux)``;
-    ``data_mean`` goes to :func:`route`."""
+    ``data_mean`` goes to :func:`route`.
+
+    With ``tp`` (a ``parallel.tp.ModelAxis``) ``p`` holds this rank's
+    ``E / model`` experts, ``[r E/m, (r+1) E/m)``: routing, the load-balance
+    loss and the keep rule run whole, as without it, and the grouped
+    matmuls run on the local experts' kept rows alone; the combine ends in
+    one sum over ``model``."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, S)
@@ -106,20 +117,28 @@ def moe_gather(p, cfg: ModelConfig, x: torch.Tensor, data_mean=None):
     pos = torch.gather(pos, 2, a[..., None])[..., 0]
     keep = pos < C
 
-    # kept assignments sorted (stably) by expert; dropped ones after all
-    # groups, where the kernel zero-fills
-    key = torch.where(keep, a, E).reshape(-1)             # [B*S*k]
+    # the kept assignments of this rank's experts ``[lo, lo + E_loc)`` (all
+    # of them without ``tp``) sorted stably by expert; reading their count
+    # is the layer's one host read (``index_add_`` counts without one)
+    E_loc = p["wi_gate"].shape[0]
+    lo = 0 if tp is None else tp.rank * E_loc
+    mine = keep if tp is None else keep & (a >= lo) & (a < lo + E_loc)
+    key = torch.where(mine, a - lo, E_loc).reshape(-1)    # [B*S*k]
     order = torch.sort(key, stable=True).indices
-    counts = torch.bincount(key, minlength=E + 1)[:E]
+    counts = torch.zeros(E_loc + 1, dtype=torch.long,
+                         device=x.device).index_add_(
+        0, key, torch.ones_like(key))[:E_loc]
     offsets = F.pad(torch.cumsum(counts, 0), (1, 0)).to(torch.int32)
+    order = order[:int(offsets[-1])]
+    if tp is not None:
+        # x and w are replicated and each rank uses its own rows of them
+        x, w = tp.enter(x, w)
 
-    xs = x.reshape(B * S, D)[order // k]                  # [B*S*k, D]
-    ys = _grouped_ffn(p, xs, offsets)
-
-    gathered = torch.empty_like(ys)
+    ys = _grouped_ffn(p, x.reshape(B * S, D)[order // k], offsets)
+    gathered = ys.new_zeros((B * S * k, D))
     gathered[order] = ys
     y = (gathered.reshape(B, S, k, D) * w[..., None]).sum(dim=2)
-    return y, aux
+    return (y if tp is None else tp.exit(y)), aux
 
 
 # ------------------------------------------------------ expert parallelism

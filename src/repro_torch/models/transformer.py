@@ -23,12 +23,18 @@ runs again in the backward pass.
 Sharded steps (``launch.steps`` with a mesh) pass ``sharded``, a
 ``parallel.fsdp.Sharded``: each layer's weights arrive as this rank's
 shards, and the layer gathers them first, inside its remat, so that only
-one layer's whole weights are alive and the backward gathers them again;
-``prefill`` and ``decode_step`` gather a block at a time; prefill cuts
-each block's new caches to this rank's shard before the next block runs,
-and decode gathers a block's caches and writes them back.  The MoE
-load-balance loss then takes its batch means over the ranks that split
-the batch.
+one layer's gathered weights are alive and the backward gathers them
+again; ``prefill`` and ``decode_step`` gather a block at a time.  Each
+sublayer asks ``sharded.tp(path)`` whether it computes tensor-parallel:
+then its weights stay ``model``-local (attention on the local heads, the
+MLP on its columns, the MoE on its experts, the embeddings and logits on
+the local vocab) and it ends in one sum over ``model``; the loss is the
+vocab-parallel one (:func:`lm_nll`).  Otherwise it computes whole on
+gathered weights.  Prefill cuts each block's new caches to this rank's
+shard before the next block runs, and decode gathers a block's caches and
+writes them back (its attention is never tensor-parallel).  The MoE
+load-balance loss takes its batch means over the ranks that split the
+batch.
 """
 from __future__ import annotations
 
@@ -97,14 +103,23 @@ def remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
-def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int, sharded=None):
-    """x + FFN(rmsnorm(x)); returns (x, the MoE aux loss or None)."""
+def tp_of(sharded, path: str):
+    """The ``model`` axis of the sublayer at ``path`` when ``sharded`` runs
+    it tensor-parallel, else None."""
+    return None if sharded is None else sharded.tp(path)
+
+
+def _ffn(cfg: ModelConfig, p, x: torch.Tensor, pos: int, sharded=None,
+         data_mean=None):
+    """x + FFN(rmsnorm(x)); returns (x, the MoE aux loss or None).
+    ``data_mean`` goes to the MoE's routing (training's)."""
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if _layer_is_moe(cfg, pos):
-        h, aux = moe_gather(p["moe"], cfg, h, data_mean=(
-            None if sharded is None else sharded.data_mean))
+        h, aux = moe_gather(p["moe"], cfg, h, data_mean=data_mean,
+                            tp=tp_of(sharded, f"blocks/l{pos}/moe"))
     else:
-        h, aux = L.mlp(p["mlp"], h, cfg.ffn_chunks), None
+        h, aux = L.mlp(p["mlp"], h, cfg.ffn_chunks,
+                       tp_of(sharded, f"blocks/l{pos}/mlp")), None
     return x + h, aux
 
 
@@ -118,12 +133,14 @@ def _layer_forward(cfg: ModelConfig, kind: str, pos: int, sharded, p,
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         h = L.attention(p["attn"], cfg, h, causal=True,
-                        window=cfg.sliding_window)
+                        window=cfg.sliding_window,
+                        tp=tp_of(sharded, f"blocks/l{pos}/attn"))
     else:
         h = ssm_layer(p["ssm"], cfg, h)
     x = x + h
     if _has_ffn(cfg):
-        x, a = _ffn(cfg, p, x, pos, sharded)
+        x, a = _ffn(cfg, p, x, pos, sharded, data_mean=(
+            None if sharded is None else sharded.data_mean))
         if a is not None:
             aux = aux + a
     return x, aux
@@ -146,18 +163,27 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, img_embeds=None,
     """tokens [B, S] -> (logits [B, n_img + S, V], aux); a VLM puts its
     projected image embeddings ahead of the tokens."""
     check_supported(cfg)
-    x = embed_inputs(cfg, params, tokens, img_embeds)
+    x = embed_inputs(cfg, params, tokens, img_embeds,
+                     tp_of(sharded, "tok_embed"))
     x, aux = run_blocks(cfg, params, x, sharded)
-    return L.unembed(params, cfg, x), aux
+    return L.unembed(params, cfg, x, tp_of(sharded, "unembed")), aux
 
 
-def lm_nll(logits: torch.Tensor, batch):
+def lm_nll(logits: torch.Tensor, batch, tp=None):
     """Mean next-token negative log-likelihood in f32 over the ``mask``
-    (all ones when the batch has none).  Returns (nll, token count)."""
+    (all ones when the batch has none).  Returns (nll, token count).
+
+    With ``tp`` the logits are vocab-local (``L.unembed``'s): the
+    logsumexp's row max and sum, and the gold logit (from the rank that
+    holds it), are each all-reduced over ``model``, so every ``model`` rank
+    has the whole nll."""
     logits = logits.float()
     targets = batch["targets"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    else:
+        logz, gold = tp.logsumexp(logits), tp.pick(logits, targets)
     mask = batch.get("mask")
     mask = (torch.ones_like(logz) if mask is None
             else mask.to(device=logz.device, dtype=torch.float32))
@@ -173,34 +199,46 @@ def loss_fn(cfg: ModelConfig, params, batch, sharded=None):
                           sharded=sharded)
     if cfg.n_img_tokens > 0:
         logits = logits[:, cfg.n_img_tokens:]
-    nll, n = lm_nll(logits, batch)
+    nll, n = lm_nll(logits, batch, tp_of(sharded, "unembed"))
     return nll + 0.01 * aux, {"nll": nll, "aux": aux, "tokens": n}
 
 
 # ------------------------------------------------------------ serving
-def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int):
+def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int,
+                   sharded=None):
     caches = {}
     for pos, kind in enumerate(cfg.pattern):
         p = bp[f"l{pos}"]
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         if kind == "attn":
-            h, c = L.attention_prefill(p["attn"], cfg, h, s_max,
-                                       window=cfg.sliding_window)
+            h, c = L.attention_prefill(
+                p["attn"], cfg, h, s_max, window=cfg.sliding_window,
+                tp=tp_of(sharded, f"blocks/l{pos}/attn"))
         else:
             h, c = ssm_prefill(p["ssm"], cfg, h)
         caches[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):
-            x, _ = _ffn(cfg, p, x, pos)
+            x, _ = _ffn(cfg, p, x, pos, sharded)
     return x, caches
 
 
-def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches):
+def check_decode_attention(sharded, path: str) -> None:
+    """Decode attention computes whole: raise if ``sharded`` would hand it
+    ``model``-local weights."""
+    if tp_of(sharded, path) is not None:
+        raise NotImplementedError(f"{path}: decode attention is not "
+                                  f"tensor-parallel")
+
+
+def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches,
+                  sharded=None):
     new = {}
     for pos, kind in enumerate(cfg.pattern):
         p = bp[f"l{pos}"]
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         if kind == "attn":
+            check_decode_attention(sharded, f"blocks/l{pos}/attn")
             h, c = L.attention_decode(p["attn"], cfg, h, caches[f"l{pos}"],
                                       window=cfg.sliding_window)
         else:
@@ -208,7 +246,7 @@ def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches):
         new[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):
-            x, _ = _ffn(cfg, p, x, pos)
+            x, _ = _ffn(cfg, p, x, pos, sharded)
     return x, new
 
 
@@ -236,10 +274,11 @@ def _advance(c: Cache) -> Cache:
 
 
 def embed_inputs(cfg: ModelConfig, params, tokens: torch.Tensor,
-                 img_embeds=None) -> torch.Tensor:
-    """Token embeddings [B,S,D], after the projected image embeddings
-    [B,n_img,D] for a VLM (``einsum('bnd,de->bne')`` with ``mm_proj``)."""
-    x = L.embed(params, cfg, tokens)
+                 img_embeds=None, tp=None) -> torch.Tensor:
+    """Token embeddings [B,S,D] (``tp``: the embedding's, :func:`L.embed`),
+    after the projected image embeddings [B,n_img,D] for a VLM
+    (``einsum('bnd,de->bne')`` with ``mm_proj``)."""
+    x = L.embed(params, cfg, tokens, tp)
     if cfg.n_img_tokens <= 0:
         return x
     want = [tokens.shape[0], cfg.n_img_tokens, cfg.d_model]
@@ -258,27 +297,33 @@ def _block_weights(params, i: int, sharded):
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int,
             img_embeds=None, sharded=None):
     """tokens: [B, S] (after ``img_embeds`` [B, n_img, D] for a VLM) ->
-    (last-token logits [B, V], caches over all n_img + S positions)."""
+    (last-token logits [B, V], caches over all n_img + S positions).  With
+    a vocab-parallel unembed (``sharded``) the logits are this rank's
+    ``[B, V / model]``."""
     check_supported(cfg)
-    x = embed_inputs(cfg, params, tokens, img_embeds)
+    x = embed_inputs(cfg, params, tokens, img_embeds,
+                     tp_of(sharded, "tok_embed"))
     per_block = []
     for i in range(cfg.n_blocks):
         x, c = _block_prefill(cfg, _block_weights(params, i, sharded), x,
-                              s_max)
+                              s_max, sharded)
         if sharded is not None:
-            c = {name: sharded.cache_cut(cc, name) for name, cc in c.items()}
+            c = {name: sharded.cache_cut(
+                cc, name, tp_of(sharded, f"blocks/{name}/attn") is not None)
+                for name, cc in c.items()}
         per_block.append(c)
     caches: Dict[str, Cache] = {
         name: _stack([c[name] for c in per_block]) for name in per_block[0]}
-    logits = L.unembed(params, cfg, x[:, -1:])
+    logits = L.unembed(params, cfg, x[:, -1:], tp_of(sharded, "unembed"))
     return logits[:, 0], caches
 
 
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches,
                 sharded=None):
-    """token: [B] -> (logits [B, V], caches advanced by one position)."""
+    """token: [B] -> (logits [B, V], or vocab-local as prefill's; caches
+    advanced by one position)."""
     check_supported(cfg)
-    x = L.embed(params, cfg, token[:, None])
+    x = L.embed(params, cfg, token[:, None], tp_of(sharded, "tok_embed"))
     for i in range(cfg.n_blocks):
         block_cache = {name: _unstack(c, i) for name, c in caches.items()}
         bp = _block_weights(params, i, sharded)
@@ -287,9 +332,9 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches,
             continue
         full = {name: sharded.cache_full(c, name)
                 for name, c in block_cache.items()}
-        x, _ = _block_decode(cfg, bp, x, full)
+        x, _ = _block_decode(cfg, bp, x, full, sharded)
         for name, c in block_cache.items():
             sharded.cache_store(full[name], c, name)
     new = {name: _advance(c) for name, c in caches.items()}
-    logits = L.unembed(params, cfg, x)
+    logits = L.unembed(params, cfg, x, tp_of(sharded, "unembed"))
     return logits[:, 0], new

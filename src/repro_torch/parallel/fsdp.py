@@ -5,28 +5,38 @@ steps.
 Each rank holds, per leaf, only its shard under the leaf's fitted spec
 (``parallel.sharding``): :func:`shard_tree` cuts it.  A block's weights are
 all-gathered just before the block runs (:func:`gather_leaves`) and
-dropped after it; under remat the backward gathers them again.  A gathered
-leaf's gradient is summed over the batch axes, whose ranks saw different
-rows, and averaged by their size, leaving each rank its shard
+dropped after it; under remat the backward gathers them again.  The leaves
+of a tensor-parallel sublayer (:meth:`Sharded.tp`: attention by heads, the
+MLP by columns, the MoE by experts, the embeddings by vocab rows, where the
+fit puts ``model`` there) are gathered over every axis but ``model``: a
+rank computes on its ``model``-local part and the sublayer ends in one sum
+over ``model`` (``parallel.tp``).  A sublayer whose fit dropped ``model``,
+or put it on the K/V head_dim, gathers over ``model`` too and computes
+whole, the same rows on each ``model`` rank of a batch slice.
+
+A gathered leaf's gradient is summed over the batch axes, whose ranks saw
+different rows, and averaged by their size, leaving each rank its shard
 (:func:`reduce_grads`): a reduce-scatter where a batch axis shards the
-leaf, an all-reduce where none does.  The ``model`` ranks of one batch
-slice compute the same rows (the port has no tensor-parallel compute), so
-over ``model`` the gradient is only cut, not summed.
+leaf, an all-reduce where none does.  Over ``model`` nothing is summed
+here: a tensor-parallel leaf's gradient is this rank's own already, and a
+leaf gathered over ``model`` has the whole gradient on each rank, which
+is only cut.  (A replicated leaf that a rank reads for its own heads only
+is summed over ``model`` by the layer, ``parallel.tp.ModelAxis.enter``.)
 
 Every collective runs on one mesh axis's group, for all of a block's
 leaves of one dtype at once, back to back in one buffer: a dim sharded
 over ``("pod", "data")`` is gathered over ``data``, then ``pod``, and
 reduced in the opposite order.  Collectives run at every size, a group of
 one included (where they copy), and each one counts in
-``mesh.collectives``.
+``mesh.collectives`` (by kind) and ``mesh.axis_collectives`` (by axis).
 
 :class:`Sharded` is what a sharded step hands the model: the block loops of
 ``models.transformer`` and ``models.encdec`` call its ``gather`` on each
-block's shards, MoE routing takes its ``data_mean`` for the load-balance
-loss's batch means, prefill its ``cache_cut`` (each block's new cache to
-this rank's shard before the next block runs) and decode its
-``cache_full`` / ``cache_store``; the optimizer takes its ``mean`` and the
-clipping its ``global_norm``.
+block's shards and its ``tp`` for each sublayer, MoE routing takes its
+``data_mean`` for the load-balance loss's batch means, prefill its
+``cache_cut`` (each block's new cache to this rank's shard before the next
+block runs) and decode its ``cache_full`` / ``cache_store``; the optimizer
+takes its ``mean`` and the clipping its ``global_norm``.
 """
 from __future__ import annotations
 
@@ -41,8 +51,12 @@ from ..weights import flatten, unflatten
 from .sharding import axes_of, tree_map
 
 
-def _count(mesh, kind: str) -> None:
+def _count(mesh, kind: str, axis: Optional[str]) -> None:
+    """One collective of ``kind`` over ``axis`` (``None``: the world), by
+    kind in ``mesh.collectives`` and by axis in ``mesh.axis_collectives``."""
     mesh.collectives[kind] = mesh.collectives.get(kind, 0) + 1
+    by_axis = mesh.axis_collectives.setdefault(axis or "world", {})
+    by_axis[kind] = by_axis.get(kind, 0) + 1
 
 
 def _block(dim: int, n: int, i: int):
@@ -94,7 +108,7 @@ def _all_gather(jobs, mesh, axis: str):
     flat = torch.cat([t.reshape(-1) for _, t, _ in jobs])
     # the n buffers back to back, [n * numel], as gloo wants it
     out = flat.new_empty(n * flat.numel())
-    _count(mesh, "all_gather")
+    _count(mesh, "all_gather", axis)
     dist.all_gather_into_tensor(out, flat, group=mesh.group(axis))
     rows, off, res = out.view(n, flat.numel()), 0, {}
     for key, t, dim in jobs:
@@ -113,7 +127,7 @@ def _reduce_scatter(jobs, mesh, axis: str):
               for _, g, dim in jobs]
     send = torch.cat([b.reshape(n, -1) for b in blocks], dim=1)
     out = send.new_empty(send.shape[1])
-    _count(mesh, "reduce_scatter")
+    _count(mesh, "reduce_scatter", axis)
     dist.reduce_scatter_tensor(out, send.view(-1), group=mesh.group(axis))
     res, off = {}, 0
     for (key, _, _), b in zip(jobs, blocks):
@@ -126,7 +140,7 @@ def _reduce_scatter(jobs, mesh, axis: str):
 def _all_reduce(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
     """Sum over ``axis``'s group (``None``: the world), into a copy."""
     t = t.clone(memory_format=torch.contiguous_format)
-    _count(mesh, "all_reduce")
+    _count(mesh, "all_reduce", axis)
     dist.all_reduce(t, group=None if axis is None else mesh.group(axis))
     return t
 
@@ -252,6 +266,39 @@ class _DataMean(torch.autograd.Function):
         return None, ctx.hook.batch_mean(g)
 
 
+# The sublayers that can compute tensor-parallel, by the name of their
+# subtree (of the leaf itself for the embeddings), and their kind
+REGIONS = {"attn": "attn", "xattn": "attn", "mlp": "mlp", "moe": "moe",
+           "tok_embed": "vocab", "unembed": "vocab"}
+# A sublayer of each kind computes tensor-parallel when ``model`` shards the
+# dim (from the end) of each of these weights, as True or False says it
+# must: the heads of wq and wo, and not the head_dim of wk and wv; the MLP
+# columns; the experts; the vocab
+_TP_DIMS = {
+    "attn": {"wq": (-2, True), "wo": (-3, True), "wk": (-1, False),
+             "wv": (-1, False)},
+    "mlp": {"wi_gate": (-1, True), "wi_up": (-1, True), "wo": (-2, True)},
+    "moe": {"wi_gate": (-3, True), "wi_up": (-3, True), "wo": (-3, True)},
+    "vocab": {"tok_embed": (-2, True), "unembed": (-1, True)},
+}
+
+
+def region_of(path: str) -> Optional[str]:
+    """The path of the sublayer (``REGIONS``) that holds the leaf at
+    ``path``, or None."""
+    parts = path.split("/")
+    for i, part in enumerate(parts):
+        if part in REGIONS:
+            return "/".join(parts[:i + 1])
+    return None
+
+
+def _without(spec, axis: str) -> PartitionSpec:
+    """``spec`` with ``axis`` taken out of every entry."""
+    return PartitionSpec(*(tuple(a for a in axes_of(p) if a != axis) or None
+                           for p in spec))
+
+
 class Sharded:
     """The collectives of one sharded step, over ``mesh``.
 
@@ -259,7 +306,8 @@ class Sharded:
     mesh axes that split the batch (``rules["batch"]``; none in long
     decode); ``cache_pspecs``: the fitted specs of the decode caches, for
     serving.  ``on_gather(t)``, when given, sees every leaf a ``gather``
-    returns (the tests count the live ones)."""
+    returns (the tests count the live ones).  Which sublayers compute
+    tensor-parallel follows from ``pspecs`` alone (:meth:`tp`)."""
 
     def __init__(self, mesh, pspecs, batch_axes: Sequence[str] = (),
                  cache_pspecs=None,
@@ -270,17 +318,64 @@ class Sharded:
         self.cache_pspecs = cache_pspecs
         self.on_gather = on_gather
         self._specs = {}      # (path, leaf paths) -> their specs, a block's
+        self._regions = {}    # sublayer path -> its ModelAxis or None
+        self._axis = None
+
+    # ------------------------------------------------- tensor parallelism
+    def tp(self, path: str):
+        """The ``model`` axis (``parallel.tp.ModelAxis``) of the sublayer at
+        ``path`` of the params (``blocks/l0/attn``, ``dec/xattn``,
+        ``blocks/l1/moe``, ``unembed``) when it computes tensor-parallel:
+        the fitted specs put ``model`` on its heads (and not on its K/V
+        head_dim, as the decode rules do), MLP columns, experts or vocab.
+        Otherwise None: the sublayer gathers its weights over ``model`` and
+        computes whole."""
+        if path not in self._regions:
+            self._regions[path] = self._region(path)
+        return self._regions[path]
+
+    def _region(self, path: str):
+        name = path.rsplit("/", 1)[-1]
+        kind = REGIONS.get(name)
+        if kind is None:
+            return None
+        try:
+            node = pspecs_at(self.pspecs, path)
+        except KeyError:          # no such sublayer (an SSM layer's cache)
+            return None
+        if kind == "vocab":
+            node = {name: node}
+        for leaf, (dim, sharded) in _TP_DIMS[kind].items():
+            if leaf in node and ("model" in axes_of(node[leaf][dim])) != \
+                    sharded:
+                return None
+        if self._axis is None:
+            from .tp import ModelAxis
+            self._axis = ModelAxis(self.mesh)
+        return self._axis
+
+    def _gather_spec(self, path: str, ndim: int) -> PartitionSpec:
+        """How the leaf at ``path`` is gathered: over every axis that its
+        spec names, but over no ``model`` in a tensor-parallel sublayer,
+        whose leaves stay ``model``-local."""
+        spec = _drop_layers(pspecs_at(self.pspecs, path), ndim)
+        region = region_of(path)
+        if region is not None and self.tp(region) is not None:
+            return _without(spec, "model")
+        return spec
 
     # ----------------------------------------------------------- weights
     def gather(self, tree, path: str):
-        """The whole leaves of ``tree``, the shards found at ``path`` of the
-        params (a block's slice of a stacked tree, or unstacked leaves).
-        With grad enabled the backward reduces their gradients."""
+        """The leaves of ``tree``, the shards found at ``path`` of the
+        params (a block's slice of a stacked tree, or unstacked leaves),
+        gathered whole, but ``model``-local in a tensor-parallel sublayer.
+        With grad enabled the backward reduces their gradients (over the
+        axes gathered)."""
         flat = flatten(tree)
         key = (path, tuple(flat), tuple(t.ndim for t in flat.values()))
         if key not in self._specs:
-            self._specs[key] = {k: _drop_layers(pspecs_at(
-                self.pspecs, f"{path}/{k}" if path else k), t.ndim)
+            self._specs[key] = {
+                k: self._gather_spec(f"{path}/{k}" if path else k, t.ndim)
                 for k, t in flat.items()}
         specs = self._specs[key]
         shards = tuple(flat.values())
@@ -339,15 +434,19 @@ class Sharded:
         # a block's cache [B, ...]: its batch rows are this rank's already
         return PartitionSpec(None, *_drop_layers(spec, ndim)[1:])
 
-    def cache_cut(self, cache, name: str):
+    def cache_cut(self, cache, name: str, local: bool = False):
         """This rank's shard of one block's cache ``name`` (a KVCache, an
-        SSMCache or a tensor) that prefill made whole but for the batch:
-        the inverse of :meth:`cache_full`.  A field no axis shards is kept
-        as it is."""
+        SSMCache or a tensor) that prefill made whole but for the batch,
+        and for ``model`` too when ``local`` (the K/V heads of a
+        tensor-parallel attention are this rank's already): the inverse of
+        :meth:`cache_full`.  A field no axis shards is kept as it is."""
+
         def cut(field, t):
             if not isinstance(t, torch.Tensor):    # a KV cache's length
                 return t
             spec = self._cache_spec(name, field, t.ndim)
+            if local:
+                spec = _without(spec, "model")
             return shard_leaf(t, spec, self.mesh) if _sharding_axes(
                 spec) else t
 

@@ -5,11 +5,13 @@ Mesh axes: ``("pod", "data", "model")`` multi-pod or ``("data", "model")``
 single-pod.  ``pod`` and ``data`` split the global batch and, as FSDP,
 shard the weights' rows (``embed``) too, so params and optimizer state are
 sharded over both axes.  ``model`` shards attention heads, MLP columns,
-vocab and the experts: in the reference, tensor- and expert-parallel
-compute; in the port, storage only, each weight gathered before use
-(``parallel.fsdp``).  Decode moves the KV cache's shard onto ``head_dim``
-(kv_heads may not divide ``model``), and long decode (one sequence) shards
-the cache's sequence over ``data``.
+vocab and the experts, for tensor- and expert-parallel compute: in the
+port each such sublayer keeps its ``model``-local weights and ends in one
+sum over ``model`` (``parallel.fsdp.Sharded.tp``, ``parallel.tp``), and a
+weight whose fit drops ``model`` or puts it on head_dim is gathered
+before use (``parallel.fsdp``).  Decode moves the KV cache's shard onto
+``head_dim`` (kv_heads may not divide ``model``), and long decode (one
+sequence) shards the cache's sequence over ``data``.
 
 A spec is a :class:`~repro_torch.models.spec.PartitionSpec`; trees of specs
 follow the params' dicts and the caches' NamedTuples.  ``fit_*`` take a

@@ -322,11 +322,15 @@ def test_sharded_save_gathers_one_leaf_at_a_time(tmp_path, monkeypatch):
 
 
 class _WholeWeights(Sharded):
-    """A ``Sharded`` whose weights are whole already (no gather), so that
-    its cache cuts run on a mesh without a world."""
+    """A ``Sharded`` whose weights are whole already (no gather, and no
+    sublayer tensor-parallel), so that its cache cuts run on a mesh
+    without a world."""
 
     def gather(self, tree, path):
         return tree
+
+    def tp(self, path):
+        return None
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
@@ -353,12 +357,12 @@ def test_prefill_cuts_each_block_cache_as_it_is_made(arch):
         sharded = _WholeWeights(rank, None, cache_pspecs=c_specs)
         cut = sharded.cache_cut
 
-        def counted(cache, name):
+        def counted(cache, name, *local):
             for t in ([cache] if isinstance(cache, torch.Tensor)
                       else cache):
                 if isinstance(t, torch.Tensor):
                     live.see(t)
-            return cut(cache, name)
+            return cut(cache, name, *local)
 
         sharded.cache_cut = counted
         with torch.no_grad():

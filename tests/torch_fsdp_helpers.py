@@ -10,7 +10,9 @@ it holds to ``OUT.rank{RANK}.npz``:
 - ``train``: the sharded ``make_train_step`` (AdamW or Adafactor) from the
   whole params in the inputs, cut to this rank's shards, for every batch
   of the inputs (this rank's rows of each); its loss, grad norm, and its
-  shards of the params and optimizer state after the last step.  With
+  shards of the params and optimizer state after the last step.  On a
+  ``model`` axis of more than one rank mamba2's embeddings and loss are
+  computed whole (``WHOLE_VOCAB``; ``test_torch_fsdp.py`` says why).  With
   ``count_gathers`` the gathers report every leaf they return, and the
   largest number of elements alive at once is written.
 - ``serve``: the sharded prefill of the inputs' prompts, the caches
@@ -37,6 +39,9 @@ SERVE_SHAPE = ("fsdp_serve", "decode", 12, 8)   # name, kind, S, B
 # Adafactor factors leaves whose last two dims reach this: the smoke
 # models' widths (64) would factor none at the default 128
 FACTOR_MIN = 32
+# the architectures whose vocab-parallel sublayers the train job computes
+# whole on a model axis of more than one rank
+WHOLE_VOCAB = ("mamba2-780m",)
 
 
 def smoke_cfg(arch):
@@ -74,6 +79,10 @@ def train(job, mesh, inputs, out, states):
     fn, (p_specs, o_specs, b_specs), _, _ = steps.make_train_step(
         cfg, opt, mesh, multi_pod="pod" in mesh.shape,
         microbatches=job.get("microbatches", 1))
+    if job["arch"] in WHOLE_VOCAB and mesh.shape["model"] > 1:
+        tp = fn.sharded.tp
+        fn.sharded.tp = lambda path: (
+            None if path in ("tok_embed", "unembed") else tp(path))
     full = _torch(inputs, f"{job['arch']}|params|")
     params = steps.as_trainable(shard_tree(full, p_specs, mesh))
     state = shard_tree(opt.init(full), o_specs, mesh)

@@ -1,0 +1,194 @@
+"""The ranks that ``test_torch_tp.py`` spawns.  Not a test module (pytest
+does not collect it).
+
+    python tests/torch_tp_helpers.py RANK WORLD STORE PLAN.json IN.npz OUT
+
+Each rank builds ``repro_torch.launch.mesh.init_mesh("cpu", shape=...)``
+on a gloo ``FileStore`` and runs every config of the plan, writing what it
+holds to ``OUT.rank{RANK}.npz``:
+
+- ``train``: the sharded ``make_train_step`` (AdamW) from the whole params
+  in the inputs, cut to this rank's shards.  First its
+  ``loss_and_grads`` on the first batch (this rank's shards of every
+  leaf's gradient), recording what the sublayers compute: the shape of
+  every leaf a gather returns, the heads of each ``ops.flash_attention``
+  call, the rows, groups and kept rows of each ``ops.grouped_matmul``
+  call, and the collectives by axis.  Then a step on each batch: the loss,
+  the grad norm, and the shards of the params and optimizer state after
+  the last.
+- ``serve``: the sharded prefill of the inputs' prompts (its logits and
+  collectives by axis), the caches resharded into the serve step's
+  layout, then a decode step for each of the inputs' tokens: the logits
+  of each, and ``parallel.tp.greedy_tokens`` of each.
+
+Imports no jax.
+"""
+import json
+import sys
+
+import numpy as np
+
+LR = (1e-2, 2, 10)          # cosine_with_warmup(peak, warmup, steps)
+SERVE_SHAPE = ("tp_serve", "decode", 12, 8)   # name, kind, S, B
+# config name -> (architecture, overrides of its f32 smoke config)
+CONFIGS = {
+    "granite": ("granite-moe-1b-a400m", {}),
+    "qwen3": ("qwen3-1.7b", {}),
+    "qwen2": ("qwen2-1.5b", {}),
+    "whisper": ("whisper-medium", {}),
+    "jamba": ("jamba-1.5-large-398b", {}),
+    # a vocab that no model axis of 2 or 4 divides: the embeddings and the
+    # loss stay whole beside tensor-parallel attention and MoE
+    "granite-v255": ("granite-moe-1b-a400m", {"vocab_size": 255}),
+}
+
+
+def smoke_cfg(name):
+    from repro_torch import configs
+    arch, over = CONFIGS[name]
+    return configs.get_smoke_config(arch).replace(dtype="float32", **over)
+
+
+def optimizer():
+    from repro_torch import optim
+    return optim.adamw(optim.cosine_with_warmup(*LR))
+
+
+def _torch(inputs, prefix):
+    import torch
+    from repro_torch.weights import unflatten
+    return unflatten({k[len(prefix):]: torch.from_numpy(v)
+                      for k, v in inputs.items() if k.startswith(prefix)})
+
+
+def _put(out, prefix, tree):
+    from repro_torch.weights import flatten
+    for path, t in flatten(tree).items():
+        out[f"{prefix}{path}"] = t.detach().numpy()
+
+
+class Calls:
+    """Records the kernels' calls: ``attn`` (q heads, kv heads) and
+    ``gmm`` (rows, groups, rows the groups cover)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.attn, self.gmm = ops, [], []
+        self._fa, self._gmm = ops.flash_attention, ops.grouped_matmul
+
+    def __enter__(self):
+        def fa(q, k, v, **kw):
+            self.attn.append((q.shape[2], k.shape[2]))
+            return self._fa(q, k, v, **kw)
+
+        def gmm(lhs, rhs, offsets):
+            self.gmm.append((lhs.shape[0], rhs.shape[0], int(offsets[-1])))
+            return self._gmm(lhs, rhs, offsets)
+
+        self.ops.flash_attention, self.ops.grouped_matmul = fa, gmm
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.grouped_matmul = self._fa, self._gmm
+
+
+def _batch(inputs, name, i, b_specs, mesh):
+    from repro_torch.parallel.fsdp import shard_tree
+    return shard_tree(_torch(inputs, f"{name}|batch{i}|"), b_specs, mesh)
+
+
+def train(name, mesh, inputs, out, steps_n):
+    from repro_torch.launch import steps
+    from repro_torch.parallel.fsdp import shard_tree
+
+    cfg, opt = smoke_cfg(name), optimizer()
+    fn, (p_specs, o_specs, b_specs), _, _ = steps.make_train_step(
+        cfg, opt, mesh)
+    full = _torch(inputs, f"{name}|params|")
+    params = steps.as_trainable(shard_tree(full, p_specs, mesh))
+    state = shard_tree(opt.init(full), o_specs, mesh)
+
+    shapes, gather = {}, fn.sharded.gather
+
+    def seen(tree, path):
+        got = gather(tree, path)
+        from repro_torch.weights import flatten
+        for k, t in flatten(got).items():
+            shapes[f"{path}/{k}" if path else k] = list(t.shape)
+        return got
+
+    fn.sharded.gather = seen
+    mesh.reset_collectives()
+    with Calls() as calls:
+        _, grads = fn.loss_and_grads(params,
+                                     _batch(inputs, name, 0, b_specs, mesh))
+    fn.sharded.gather = gather
+    out[f"{name}|train_record"] = np.asarray(json.dumps({
+        "shapes": shapes, "attn": calls.attn, "gmm": calls.gmm,
+        "collectives": mesh.axis_collectives}))
+    _put(out, f"{name}|g|", grads)
+    for i in range(steps_n):
+        params, state, m = fn(params, state,
+                              _batch(inputs, name, i, b_specs, mesh))
+        out[f"{name}|loss{i}"] = m["loss"].numpy()
+        out[f"{name}|gnorm{i}"] = m["grad_norm"].numpy()
+    _put(out, f"{name}|p|", params)
+    _put(out, f"{name}|o|", state)
+
+
+def serve(name, mesh, inputs, out):
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.parallel.fsdp import reshard, shard_leaf, shard_tree
+    from repro_torch.parallel.tp import greedy_tokens
+
+    cfg = smoke_cfg(name)
+    shape = ShapeSpec(*SERVE_SHAPE)
+    pre, (p_specs, b_specs), (l_spec, c_pre), _ = steps.make_prefill_step(
+        cfg, mesh, shape)
+    dec, (p_dec, t_spec, c_dec), _, _ = steps.make_serve_step(cfg, mesh,
+                                                              shape)
+    full = _torch(inputs, f"{name}|params|")
+    batch = {"inputs": torch.from_numpy(inputs[f"{name}|prompts"])}
+    if f"{name}|enc_embeds" in inputs:
+        batch["enc_embeds"] = torch.from_numpy(inputs[f"{name}|enc_embeds"])
+    mesh.reset_collectives()
+    with Calls() as calls:
+        logits, caches = pre(shard_tree(full, p_specs, mesh),
+                             shard_tree(batch, b_specs, mesh))
+    out[f"{name}|serve_record"] = np.asarray(json.dumps({
+        "attn": calls.attn, "collectives": mesh.axis_collectives}))
+    out[f"{name}|prefill"] = logits.numpy()
+    out[f"{name}|greedy0"] = greedy_tokens(logits, l_spec, mesh).numpy()
+    params = shard_tree(full, p_dec, mesh)
+    caches = reshard(caches, c_pre, c_dec, mesh)
+    for i, tok in enumerate(inputs[f"{name}|tokens"]):
+        tok = shard_leaf(torch.from_numpy(tok), t_spec, mesh)
+        logits, caches = dec(params, tok, caches)
+        out[f"{name}|decode{i}"] = logits.numpy()
+        out[f"{name}|greedy{i + 1}"] = greedy_tokens(logits, l_spec,
+                                                     mesh).numpy()
+
+
+def main(rank, world, store_path, plan_path, inputs_path, out_path):
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_mesh
+
+    torch.set_num_threads(1)
+    plan = json.loads(open(plan_path).read())
+    inputs = dict(np.load(inputs_path))
+    out = {}
+    store = dist.FileStore(store_path, world)
+    with init_mesh("cpu", shape=tuple(plan["shape"]), store=store,
+                   rank=rank) as mesh:
+        out["coords"] = np.asarray([mesh.coords[a] for a in mesh.shape])
+        for name in plan["configs"]:
+            train(name, mesh, inputs, out, plan["steps"])
+            serve(name, mesh, inputs, out)
+    np.savez(f"{out_path}.rank{rank}.npz", **out)
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:7])
