@@ -161,7 +161,25 @@ exits non-zero:
     model 2, 4 and 16 give granite and qwen3-1.7b, f32 and bf16, against
     its plain version: flash_attention forward and backward with 8 q heads
     over 4 kv heads, 4 over 2 and 1 over 1 (kv replicated), at Dh 64 and
-    128; grouped_matmul with its dX and dW over 16 and 8 experts.
+    128; grouped_matmul with its dX and dW over 16 and 8 experts;
+(j) the count of a real step against the dry-run's: granite-moe-1b-a400m
+    and qwen3-1.7b at full width and depth on the (1, 1) NCCL mesh of (i),
+    one sharded train step (bf16, f32 master, AdamW, batch 8 x 512) and one
+    prefill of 8 x 512, each built by ``launch.dryrun.build_cell`` from
+    seeded random weights and run once under a ``launch.roofline.Counter``:
+    FLOPs by kernel and for aten, HBM bytes, collectives by kind and axis
+    with bytes, the peak (``torch.cuda.max_memory_allocated`` above what
+    was held before the step's inputs).  The same four cells' dry-run
+    (``dryrun.run_cell`` over a fake world at (1, 1) on the meta device,
+    in a subprocess that sees no GPU) must count the same aten FLOPs,
+    kernel records and collective bytes (granite's grouped matmuls: the
+    same launches, their rows, FLOPs and bytes at most the dry-run's
+    capacity bound, the difference printed), and a peak within 10% of the
+    card's; every launch must be recorded.  Then each step is timed 3
+    times with no counter: MFU (model FLOPs over the time at 989 TFLOP/s)
+    and the roofline's t_bound over the time.  The counted runs' launches
+    are the ``counted`` path of the kernels line.  Phase (a) prints the
+    card's memory, which ``launch.roofline.HBM_BYTES`` holds.
 
 ``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
@@ -185,12 +203,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# H100 SXM data-sheet peaks (NVIDIA H100 Tensor Core GPU datasheet, dense,
-# no sparsity): HBM3 3.35 TB/s, 989 TFLOP/s bf16 tensor core, 67 TFLOP/s
-# f32 outside the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 ARCH, SSM_ARCH, DENSE_ARCH = ("granite-moe-1b-a400m", "mamba2-780m",
                               "qwen3-1.7b")
@@ -236,6 +248,14 @@ SHARD_STEPS, SHARD_DECODE, SHARD_AB = 3, 8, 4
 # reads the one its q head maps to.  grouped_matmul with its dX and dW as
 # (T, D, F, groups): granite's 32 experts over model 2 and 4, each rank
 # the local experts' share of a training step's 32,768 assignments
+# phase (j): the counted steps, granite and qwen3-1.7b at full width and
+# depth on a (1, 1) NCCL mesh, as (name, kind, seq_len, global batch); each
+# counted once, then timed COUNT_TIMED times with no counter
+COUNT_ARCHS = (ARCH, DENSE_ARCH)
+COUNT_SHAPES = (("count_train", "train", TRAIN_SEQ, TRAIN_BATCH),
+                ("count_prefill", "prefill", PROMPT, BATCH))
+COUNT_TIMED = 3
+COUNT_PEAK_TOL = 0.10
 TP_ATTN = [(TRAIN_BATCH, TRAIN_SEQ, hq, kv, dh) for dh in (64, 128)
            for hq, kv in ((8, 4), (4, 2), (1, 1))]
 TP_GMM = [(TRAIN_BATCH * TRAIN_SEQ * 8 // m, d, f, 32 // m)
@@ -393,12 +413,6 @@ def timed_ms(torch, fn, flush, iters: int = 20, warmup: int = 3,
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def compare(name: str, got, want, dtype: str, tol=None) -> float:
     tol = TOL[dtype] if tol is None else tol
     diff = (got.float() - want.float()).abs()
@@ -504,17 +518,6 @@ def ssd_inputs(torch, gen, BC: int, Q: int, H: int, P: int, N: int):
     if H == 1:                                        # the JAX layout
         x, dt, a = x[:, :, 0], dt[..., 0], a[..., 0]
     return x, dt, a, B, C
-
-
-def ssd_cost(BC: int, Q: int, H: int, P: int, N: int):
-    """(bytes, flops) the SSD function needs: each f32 operand read once
-    and each output written once; C.B^T once per (batch, chunk) cell (it
-    is the same for every head) and only for k <= q, as are the y terms."""
-    pairs = Q * (Q + 1) // 2
-    nbytes = 4 * (2 * BC * Q * H * P + 2 * BC * Q * H + 2 * BC * Q * N
-                  + BC * H * P * N)
-    flops = 2 * BC * pairs * N + 2 * BC * H * (pairs * P + Q * P * N)
-    return nbytes, flops
 
 
 def dense_and_slice_shapes():
@@ -842,6 +845,7 @@ def check_dense_and_slices(torch, ops, ref, dev) -> None:
 
 def time_kernels(torch, ops, ref, dev):
     """Times at the main path's shapes, bf16; returns per-kernel records."""
+    from repro_torch.launch import roofline as rl
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
@@ -854,7 +858,7 @@ def time_kernels(torch, ops, ref, dev):
         ms = timed_ms(torch, fn, flush)
         plain_ms = timed_ms(torch, plain, flush)
         lib_ms = timed_ms(torch, lib, flush) if lib is not None else None
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        b_ms, b_by = rl.bound_ms(nbytes, flops, dtype)
         log("b", f"time {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -872,7 +876,7 @@ def time_kernels(torch, ops, ref, dev):
         rec = record("rmsnorm", f"[{T},{D}]", lambda: ops.rmsnorm(x, w),
                      lambda: ref.rmsnorm_ref(x, w),
                      lambda: F.rms_norm(x, (D,), wb, 1e-6),
-                     2 * T * D * es + 4 * D, 4 * T * D)
+                     *rl.rmsnorm_cost(T, D, es))
         out.setdefault("rmsnorm", rec)
 
     # flash attention at prefill; SDPA gets K/V expanded to all heads
@@ -883,14 +887,12 @@ def time_kernels(torch, ops, ref, dev):
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    pairs = S * (S + 1) // 2
     out["flash_attention"] = record(
         "flash_attention", f"q[{B},{S},{H},{Dh}] causal",
         lambda: ops.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-        (2 * B * S * H * Dh + 2 * B * S * KV * Dh) * es,
-        4 * B * H * Dh * pairs)
+        *rl.attention_cost(B, S, S, H, KV, Dh, True, 0, es))
 
     # grouped matmul: the gate/up and the down shape at prefill and decode
     for T, D, Fo in ((BATCH * PROMPT * 8, 1024, 512),
@@ -913,9 +915,7 @@ def time_kernels(torch, ops, ref, dev):
                      lambda: ops.grouped_matmul(lhs, rhs, offs),
                      lambda: ref.grouped_matmul_ref(lhs, rhs, offs),
                      lambda: torch.bmm(padded, rhs),
-                     (rows * D + used * D * Fo + rows * Fo) * es
-                     + 4 * (E + 1),
-                     2 * rows * D * Fo)
+                     *rl.gmm_cost(T, D, Fo, E, rows, used, es))
         out.setdefault("grouped_matmul", rec)
 
     # ssd_chunk at mamba2's prefill, f32; no single PyTorch call computes it
@@ -924,7 +924,7 @@ def time_kernels(torch, ops, ref, dev):
     out["ssd_chunk"] = record(
         "ssd_chunk", f"x[{BC},{Q},{H},{P}] N {N}",
         lambda: ops.ssd_chunk(*args), lambda: ref.ssd_chunk_ref(*args), None,
-        *ssd_cost(*SSD_MAIN), dtype="float32")
+        *rl.ssd_cost(*SSD_MAIN), dtype="float32")
     del flush
     return out
 
@@ -936,18 +936,6 @@ def attention_plain(torch, ref, q, k, v, causal: bool, window: int):
     return torch.cat([ref.flash_attention_ref(
         q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
         causal=causal, window=window) for h in range(k.shape[2])], dim=2)
-
-
-def attention_cost(B, Sq, Sk, H, KV, Dh, causal, window, es):
-    """(bytes, flops) of attention: q, k, v read once, out written once;
-    4 Dh flops for each (query, key) pair the mask keeps, per head."""
-    if not causal:
-        pairs = Sq * Sk
-    else:
-        w = window if window > 0 else Sq
-        pairs = sum(min(i + 1, w) for i in range(Sq))
-    return (2 * B * Sq * H * Dh + 2 * B * Sk * KV * Dh) * es, \
-        4 * B * H * Dh * pairs
 
 
 def check_new_attention(torch, ops, ref, dev) -> None:
@@ -983,6 +971,7 @@ def check_new_attention(torch, ops, ref, dev) -> None:
 def time_new_attention(torch, ops, ref, dev):
     """Times of flash_attention at ATTN_NEW in bf16 (kernel, plain, SDPA
     and bound); returns their records."""
+    from repro_torch.launch import roofline as rl
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(7)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
@@ -1006,8 +995,8 @@ def time_new_attention(torch, ops, ref, dev):
         lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and not window),
             flush)
-        b_ms, b_by = bound(*attention_cost(B, Sq, Sk, H, KV, Dh, causal,
-                                           window, 2), "bfloat16")
+        b_ms, b_by = rl.bound_ms(*rl.attention_cost(
+            B, Sq, Sk, H, KV, Dh, causal, window, 2), "bfloat16")
         shape = (f"q[{B},{Sq},{H},{Dh}] k[{B},{Sk},{KV},{Dh}] "
                  f"{'causal' if causal else 'not causal'}"
                  + (f" window {window}" if window else ""))
@@ -1564,6 +1553,7 @@ def time_backward_kernels(torch, ops, ref, dev):
     PyTorch call computing the same function (backward alone, from a
     graph kept for it), and the bound.  Device time: each window opens
     behind a spin kernel (``timed_ms``)."""
+    from repro_torch.launch import roofline as rl
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(10)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
@@ -1575,7 +1565,7 @@ def time_backward_kernels(torch, ops, ref, dev):
         plain_ms = timed_ms(torch, plain, flush, iters=5, warmup=1, spin=True)
         lib_ms = (timed_ms(torch, lib, flush, spin=True) if lib is not None
                   else None)
-        b_ms, b_by = bound(nbytes, flops, dtype)
+        b_ms, b_by = rl.bound_ms(nbytes, flops, dtype)
         log("f", f"time {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -1596,7 +1586,7 @@ def time_backward_kernels(torch, ops, ref, dev):
             lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6),
             lambda: ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6),
             lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
-            3 * T * D * es + 8 * D, 10 * T * D))
+            *rl.rmsnorm_bwd_cost(T, D, es)))
         if (T, D) in (RMS_BWD[0], (37, 1001)):
             kernel_split(torch, lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6),
                          flush, f"rmsnorm_bwd [{T},{D}] bfloat16")
@@ -1617,17 +1607,13 @@ def time_backward_kernels(torch, ops, ref, dev):
             .requires_grad_()
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dot = do.transpose(1, 2)
-        pairs = S * (S + 1) // 2
         attn.append(record(
             "flash_attention_bwd", f"q[{B},{S},{H},{Dh}] causal",
             lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
             lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True),
             lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                         retain_graph=True),
-            # q, o, dO read and dq written at H heads; k, v read and dk, dv
-            # written at KV heads; the LSE read
-            (4 * B * S * H * Dh + 4 * B * S * KV * Dh) * es + 4 * B * H * S,
-            10 * B * H * Dh * pairs))
+            *rl.attention_bwd_cost(B, S, S, H, KV, Dh, True, 0, es)))
         del q, do, k, v, o, lse, qt, kt, vt, ot, dot
         torch.cuda.empty_cache()
     out["flash_attention_bwd"] = {**attn[0], "by_shape": attn[1:]}
@@ -1655,8 +1641,7 @@ def time_backward_kernels(torch, ops, ref, dev):
             lambda: ops.grouped_matmul_bwd(lhs, rhs, offs, dyo, need_dw=False),
             lambda: ref.grouped_matmul_ref(dyo, rhs.transpose(1, 2), offs),
             lambda: torch.bmm(pdy, rhs.transpose(1, 2)),
-            (rows * Fo + used * D * Fo + rows * D) * es + 4 * (E + 1),
-            2 * rows * D * Fo)
+            *rl.gmm_cost(T, Fo, D, E, rows, used, es))
         gmm["grouped_matmul_dx"].append(rec)
         kernel_split(torch, lambda: ops.grouped_matmul_bwd(
             lhs, rhs, offs, dyo, need_dw=False), flush,
@@ -1666,8 +1651,7 @@ def time_backward_kernels(torch, ops, ref, dev):
             lambda: ops.grouped_matmul_dw(lhs, dyo, offs, E),
             lambda: ref.grouped_matmul_dw_ref(lhs, dyo, offs, E),
             lambda: torch.bmm(px.transpose(1, 2), pdy),
-            (rows * D + rows * Fo + E * D * Fo) * es + 4 * (E + 1),
-            2 * rows * D * Fo)
+            *rl.gmm_dw_cost(D, Fo, E, rows, es))
         gmm["grouped_matmul_dw"].append(rec)
         del lhs, dyo, rhs, px, pdy
     for name, recs in gmm.items():
@@ -2179,6 +2163,7 @@ def time_recv_gmm(torch, ops, ref, dev, card: str, lhs, rhs, offs) -> None:
     """grouped_matmul at a receive buffer's shape (a tail of empty slots
     that no group covers): kernel, plain version, padded ``bmm`` and the
     bound (filled rows read, every row written)."""
+    from repro_torch.launch import roofline as rl
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     T, K = lhs.shape
     E, _, N = rhs.shape
@@ -2191,8 +2176,8 @@ def time_recv_gmm(torch, ops, ref, dev, card: str, lhs, rhs, offs) -> None:
     plain = timed_ms(torch, lambda: ref.grouped_matmul_ref(lhs, rhs, offs),
                      flush)
     lib = timed_ms(torch, lambda: torch.bmm(padded, rhs), flush)
-    b_ms, b_by = bound((rows * K + used * K * N + T * N) * 2 + 4 * (E + 1),
-                       2 * rows * K * N, "bfloat16")
+    b_ms, b_by = rl.bound_ms(*rl.gmm_cost(T, K, N, E, rows, used, 2),
+                             "bfloat16")
     log("h", f"time grouped_matmul recv [{T},{K}]x[{E},{K},{N}] ({rows} "
         f"rows filled) bfloat16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
         f"library {lib:.4f} ms (padded bmm), bound {b_ms:.4g} ms ({b_by}); "
@@ -2525,6 +2510,171 @@ def sharded_path(torch, dev, card: str, trained_losses):
     return launches
 
 
+# ------------------------------------------------------------ phase (j)
+DRY_CODE = """
+import json, sys
+sys.path.insert(0, 'src')
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+out = {}
+for arch in %r:
+    for s in %r:
+        cell = dryrun.run_cell(arch, ShapeSpec(*s), mesh_shape=(1, 1),
+                               verbose=False)
+        if cell["status"] != "ok":
+            raise SystemExit(cell["traceback"])
+        out[arch + "|" + s[0]] = cell
+print(json.dumps(out))
+"""
+
+
+def dry_cells():
+    """The dry-run of phase (j)'s cells over a fake world at (1, 1) on the
+    meta device, in a subprocess that sees no GPU: {arch|shape: cell}."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    run = subprocess.run([sys.executable, "-c", DRY_CODE % (
+        COUNT_ARCHS, COUNT_SHAPES)], cwd=str(ROOT), capture_output=True,
+        text=True, timeout=600, env=env)
+    if run.returncode:
+        raise AssertionError(f"dry-run failed: {run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def held_bytes(torch, tree) -> int:
+    """The bytes of the storages of ``tree``'s tensors."""
+    from repro_torch.launch.roofline import tensors
+    seen = {}
+    for t in tensors(tree):
+        seen[id(t.untyped_storage())] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def compare_counts(name: str, card, dry) -> None:
+    """The card's counts against the dry-run's: aten FLOPs, kernel records
+    and collectives (count and bytes, by kind and axis) equal; a grouped
+    matmul's launches equal and its rows, FLOPs and bytes at most the
+    dry-run's capacity bound (printed)."""
+    for key in ("aten_flops", "collectives", "axis_collectives"):
+        if card[key] != dry[key]:
+            raise AssertionError(f"{name}: {key} on the card {card[key]} != "
+                                 f"the dry-run's {dry[key]}")
+    if set(card["kernels"]) != set(dry["kernels"]):
+        raise AssertionError(f"{name}: kernels {sorted(card['kernels'])} != "
+                             f"{sorted(dry['kernels'])}")
+    for k, rec in dry["kernels"].items():
+        got = card["kernels"][k]
+        if k.startswith("grouped_matmul"):
+            if got["launches"] != rec["launches"] or any(
+                    got[f] > rec[f] for f in ("rows", "flops", "bytes")):
+                raise AssertionError(f"{name}: {k} {got} beyond the bound "
+                                     f"{rec}")
+            fewer = rec["rows"] - got["rows"]
+            log("j", f"{name}: {k} rows {got['rows']} on the card, "
+                f"{rec['rows']} the dry-run's bound ({fewer} fewer; FLOPs "
+                f"{got['flops']} against {rec['flops']})")
+        elif got != rec:
+            raise AssertionError(f"{name}: {k} {got} != the dry-run's {rec}")
+
+
+def counted_path(torch, dev, card: str):
+    """Phase (j): returns the launch counts of the counted runs."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.mesh import init_mesh
+
+    t_j = time.perf_counter()
+    dry = dry_cells()
+    log("j", f"dry-run of {len(dry)} cells at (1, 1) on meta in "
+        f"{time.perf_counter() - t_j:.1f} s")
+    launches = {name: 0 for name in ops.KERNEL_NAMES}
+    gib = 2 ** 30
+    with init_mesh(dev) as mesh:
+        for arch in COUNT_ARCHS:
+            cfg = configs.get_config(arch)
+            for s in COUNT_SHAPES:
+                shape = ShapeSpec(*s)
+                name = f"{arch} {shape.kind} {shape.global_batch}x" \
+                    f"{shape.seq_len}"
+                gc_collect(torch)
+                cell = dryrun.build_cell(arch, shape, mesh, device=dev,
+                                         seed=3)
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(dev)
+                held = held_bytes(torch, cell.args)
+                torch.cuda.reset_peak_memory_stats(dev)
+                mesh.reset_collectives()
+                ops.reset_launches()
+                counter, out, count_s = dryrun.count_cell(cell)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated(dev) - before + held
+                for k, n in ops.LAUNCHES.items():
+                    launches[k] += n
+                got = counter.as_dict()
+                recorded = {k: r["launches"] for k, r in
+                            got["kernels"].items()}
+                if recorded != {k: n for k, n in ops.LAUNCHES.items() if n}:
+                    raise AssertionError(f"{name}: recorded {recorded}, "
+                                         f"launched {dict(ops.LAUNCHES)}")
+                del out
+                times = []
+                for _ in range(COUNT_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = cell.run()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    del out
+                step_s = sum(times) / len(times)
+                terms = counter.terms()
+                d = dry[f"{arch}|{shape.name}"]
+                log("j", f"{name}: counted in {count_s:.2f} s; aten "
+                    f"{got['aten_flops']} FLOPs, kernels " + ", ".join(
+                        f"{k} {r['launches']}x {r['flops']} FLOPs "
+                        f"{r['bytes']} B" for k, r in got["kernels"].items())
+                    + f"; HBM {terms.hbm_bytes:.6g} B (aten "
+                    f"{got['aten_bytes']}); collectives " + ", ".join(
+                        f"{a}/{k} {r['count']}x {r['bytes']} B"
+                        for a, kinds in got["axis_collectives"].items()
+                        for k, r in kinds.items()))
+                compare_counts(name, got, d["counts"])
+                err = abs(d["memory"]["peak_bytes"] - peak) / peak
+                max_alloc = torch.cuda.max_memory_allocated(dev)
+                log("j", f"{name}: peak {peak / gib:.3f} GiB on the card "
+                    f"(max_memory_allocated {max_alloc / gib:.3f} GiB, of it "
+                    f"{(before - held) / gib:.3f} GiB held before the "
+                    f"step's inputs), counter "
+                    f"{counter.peak_bytes / gib:.3f}, dry-run "
+                    f"{d['memory']['peak_bytes'] / gib:.3f}: "
+                    f"{err * 100:.2f}% off (limit 10%)")
+                if err > COUNT_PEAK_TOL:
+                    raise AssertionError(f"{name}: dry-run peak off by "
+                                         f"{err * 100:.1f}%")
+                mf = dryrun.model_flops(cfg, shape)
+                log("j", f"{name}: step {step_s * 1e3:.1f} ms (mean of "
+                    f"{COUNT_TIMED}: {[round(t * 1e3, 1) for t in times]}, "
+                    f"no counter); model FLOPs {mf:.6g}, MFU "
+                    f"{mf / (step_s * rl.PEAK_FLOPS['bfloat16']):.4f}; "
+                    f"roofline t_bound {terms.t_bound * 1e3:.2f} ms "
+                    f"({terms.bottleneck}: compute "
+                    f"{terms.t_compute * 1e3:.2f}, memory "
+                    f"{terms.t_memory * 1e3:.2f}, collective "
+                    f"{terms.t_collective * 1e3:.2f}), t_bound / step "
+                    f"{terms.t_bound / step_s:.4f}; {card}")
+                del cell, counter
+    gc_collect(torch)
+    log("j", f"phase (j) took {time.perf_counter() - t_j:.1f} s")
+    return launches
+
+
+def gc_collect(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_ab(parent: str) -> int:
     """``--train-ab PARENT``: granite's training step, ``train_path`` of
     the checkout at PARENT against this one's, each in a fresh process, in
@@ -2566,6 +2716,7 @@ def main() -> int:
         return train_ab(sys.argv[2])
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch import roofline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2578,6 +2729,9 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    total = torch.cuda.get_device_properties(0).total_memory
+    log("a", f"device memory {total} bytes (launch.roofline.HBM_BYTES: "
+        f"{roofline.HBM_BYTES})")
     build.build_all()
     log("a", f"kernels built in {build.BUILD_SECONDS:.2f} s")
     for name, text in build.BUILD_LOG.items():
@@ -2639,6 +2793,13 @@ def main() -> int:
             raise AssertionError(f"{name}: the sharded path did not launch "
                                  f"it")
     log("i", f"(a) to (i) {time.perf_counter() - t_start:.1f} s")
+
+    by_path["counted"] = counted_path(torch, dev, card)
+    for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
+        if not by_path["counted"][name]:
+            raise AssertionError(f"{name}: the counted steps did not launch "
+                                 f"it")
+    log("j", f"(a) to (j) {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name in ops.KERNEL_NAMES:

@@ -49,3 +49,27 @@ def get_smoke_config(name: str) -> ModelConfig:
 
 def list_archs() -> List[str]:
     return list(ALIASES.keys())
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (shapes on the meta device, no
+    allocation)."""
+    import torch
+    from ..models import api
+    from ..weights import tree_leaves
+    params = api.init(cfg, torch.Generator(), torch.device("meta"))
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k of n_experts)."""
+    total = param_count(cfg)
+    if cfg.n_experts <= 0:
+        return total
+    # expert weights: 3 matrices per MoE layer
+    n_moe_layers = sum(1 for i in range(cfg.n_layers)
+                       if i % cfg.moe_every == cfg.moe_every - 1)
+    per_expert = 3 * cfg.d_model * cfg.d_ff_expert
+    expert_total = n_moe_layers * cfg.n_experts * per_expert
+    expert_active = n_moe_layers * cfg.top_k * per_expert
+    return total - expert_total + expert_active

@@ -50,7 +50,12 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..launch import roofline
 from .scheduler import CollectivePlan
+
+# the axis name a counter files these all-to-alls under: the group is an
+# expert-parallel group (``launch.mesh.EPGroup``), whatever mesh axis it is
+AXIS = "ep"
 
 
 def _check(x: torch.Tensor, group) -> None:
@@ -60,10 +65,18 @@ def _check(x: torch.Tensor, group) -> None:
                          f"expected, got {tuple(x.shape)}")
 
 
+def _count(out: torch.Tensor) -> None:
+    """Under a counter, one all-to-all whose output is ``out``."""
+    if roofline.ACTIVE is not None:
+        roofline.ACTIVE.collective("all_to_all", AXIS,
+                                   out.numel() * out.element_size())
+
+
 def _a2a(x: torch.Tensor, group=None) -> torch.Tensor:
     """All-to-all along the leading (peer) dimension of ``x``."""
     x = x.contiguous()
     out = torch.empty_like(x)
+    _count(out)
     dist.all_to_all_single(out, x, group=group)
     return out
 
@@ -86,6 +99,7 @@ def _start(x: torch.Tensor, out: torch.Tensor, c0: int, c1: int, group):
     src = x[:, c0:c1].contiguous()
     dst = out[:, c0:c1]
     buf = dst if dst.is_contiguous() else torch.empty_like(src)
+    _count(buf)
     work = dist.all_to_all_single(buf, src, group=group, async_op=True)
     return work, src, buf, dst
 

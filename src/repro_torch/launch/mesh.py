@@ -15,7 +15,9 @@ seen as the ``model`` axis, which it owns and destroys on ``close``.
 
 On the card a world is NCCL, one GPU a rank (``torch.cuda.set_device``
 first); on the CPU, which only the tests and ``--device cpu`` ask for, it
-is gloo.  The caller gives the store: a ``HashStore`` at world size 1 (the
+is gloo.  :func:`init_fake_mesh` is one rank's view of a world of any
+size over torch's fake process group, whose collectives move nothing:
+the dry-run's (``launch.dryrun``), with tensors on the meta device.  The caller gives the store: a ``HashStore`` at world size 1 (the
 default, no network), a ``FileStore`` shared by spawned ranks, or
 torchrun's environment (the ``*_from_env`` functions).  NCCL cannot put
 two ranks on one GPU, so a world above 1 on the card needs as many cards.
@@ -33,7 +35,8 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 # The reference's production layouts (16 x 16 chips, or two such pods), as
-# axis sizes for ``parallel.sharding.fit_*``; no mesh is built for them.
+# axis sizes for ``parallel.sharding.fit_*``; :func:`init_fake_mesh` builds
+# them for the dry-run.
 PRODUCTION_SHAPES = ({"data": 16, "model": 16},
                      {"pod": 2, "data": 16, "model": 16})
 
@@ -170,7 +173,7 @@ def _axes(shape, multi_pod: bool) -> Tuple[str, ...]:
     return axes
 
 
-def _mesh(dev, backend, shape, axes) -> Mesh:
+def _mesh(dev, backend, shape, axes, mesh_device=None) -> Mesh:
     from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size()
@@ -178,7 +181,8 @@ def _mesh(dev, backend, shape, axes) -> Mesh:
         dist.destroy_process_group()
         raise ValueError(f"mesh shape {tuple(shape)} needs {math.prod(shape)}"
                          f" ranks, the world has {world}")
-    dm = init_device_mesh(dev.type, tuple(shape), mesh_dim_names=axes)
+    dm = init_device_mesh(mesh_device or dev.type, tuple(shape),
+                          mesh_dim_names=axes)
     return Mesh(dm, dev, backend)
 
 
@@ -194,6 +198,23 @@ def init_mesh(device=None, *, shape=(1, 1), multi_pod: bool = False,
         device, rank, rank=rank, world_size=world,
         store=_store(store, rank, world, "init_mesh"))
     return _mesh(dev, backend, shape, axes)
+
+
+def init_fake_mesh(shape=(16, 16), *, multi_pod: bool = False,
+                   rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a mesh of ``prod(shape)`` ranks over torch's
+    fake process group (a ``FakeStore``, no network): every collective
+    returns at once and moves nothing.  The mesh's device is ``meta``, for
+    the step's tensors; its ``DeviceMesh`` is built on ``"cpu"``, which
+    allocates nothing.  ``close`` destroys the world as ``init_mesh``'s
+    does."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    axes = _axes(shape, multi_pod)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(shape))
+    return _mesh(torch.device("meta"), "fake", shape, axes,
+                 mesh_device="cpu")
 
 
 def init_mesh_from_env(device=None, *, shape=(1, 1),

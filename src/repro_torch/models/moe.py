@@ -119,7 +119,10 @@ def moe_gather(p, cfg: ModelConfig, x: torch.Tensor, data_mean=None,
 
     # the kept assignments of this rank's experts ``[lo, lo + E_loc)`` (all
     # of them without ``tp``) sorted stably by expert; reading their count
-    # is the layer's one host read (``index_add_`` counts without one)
+    # is the layer's one host read (``index_add_`` counts without one).  On
+    # meta tensors (the dry-run) there is nothing to read: the count is
+    # the capacity bound, the rows of the reference's static [B, E, C, D]
+    # dispatch buffer
     E_loc = p["wi_gate"].shape[0]
     lo = 0 if tp is None else tp.rank * E_loc
     mine = keep if tp is None else keep & (a >= lo) & (a < lo + E_loc)
@@ -129,7 +132,9 @@ def moe_gather(p, cfg: ModelConfig, x: torch.Tensor, data_mean=None,
                          device=x.device).index_add_(
         0, key, torch.ones_like(key))[:E_loc]
     offsets = F.pad(torch.cumsum(counts, 0), (1, 0)).to(torch.int32)
-    order = order[:int(offsets[-1])]
+    n_kept = (min(B * S * k, B * E_loc * C) if offsets.is_meta
+              else int(offsets[-1]))
+    order = order[:n_kept]
     if tp is not None:
         # x and w are replicated and each rank uses its own rows of them
         x, w = tp.enter(x, w)

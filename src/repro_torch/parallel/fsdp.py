@@ -28,7 +28,8 @@ leaves of one dtype at once, back to back in one buffer: a dim sharded
 over ``("pod", "data")`` is gathered over ``data``, then ``pod``, and
 reduced in the opposite order.  Collectives run at every size, a group of
 one included (where they copy), and each one counts in
-``mesh.collectives`` (by kind) and ``mesh.axis_collectives`` (by axis).
+``mesh.collectives`` (by kind) and ``mesh.axis_collectives`` (by axis),
+and under a ``launch.roofline.Counter`` with its bytes too.
 
 :class:`Sharded` is what a sharded step hands the model: the block loops of
 ``models.transformer`` and ``models.encdec`` call its ``gather`` on each
@@ -46,17 +47,22 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..launch import roofline
 from ..models.spec import PartitionSpec
 from ..weights import flatten, unflatten
 from .sharding import axes_of, tree_map
 
 
-def _count(mesh, kind: str, axis: Optional[str]) -> None:
+def _count(mesh, kind: str, axis: Optional[str], out: torch.Tensor) -> None:
     """One collective of ``kind`` over ``axis`` (``None``: the world), by
-    kind in ``mesh.collectives`` and by axis in ``mesh.axis_collectives``."""
+    kind in ``mesh.collectives`` and by axis in ``mesh.axis_collectives``;
+    under a counter, with the bytes of its output ``out`` on this rank."""
     mesh.collectives[kind] = mesh.collectives.get(kind, 0) + 1
     by_axis = mesh.axis_collectives.setdefault(axis or "world", {})
     by_axis[kind] = by_axis.get(kind, 0) + 1
+    if roofline.ACTIVE is not None:
+        roofline.ACTIVE.collective(kind, axis,
+                                   out.numel() * out.element_size())
 
 
 def _block(dim: int, n: int, i: int):
@@ -108,7 +114,7 @@ def _all_gather(jobs, mesh, axis: str):
     flat = torch.cat([t.reshape(-1) for _, t, _ in jobs])
     # the n buffers back to back, [n * numel], as gloo wants it
     out = flat.new_empty(n * flat.numel())
-    _count(mesh, "all_gather", axis)
+    _count(mesh, "all_gather", axis, out)
     dist.all_gather_into_tensor(out, flat, group=mesh.group(axis))
     rows, off, res = out.view(n, flat.numel()), 0, {}
     for key, t, dim in jobs:
@@ -127,7 +133,7 @@ def _reduce_scatter(jobs, mesh, axis: str):
               for _, g, dim in jobs]
     send = torch.cat([b.reshape(n, -1) for b in blocks], dim=1)
     out = send.new_empty(send.shape[1])
-    _count(mesh, "reduce_scatter", axis)
+    _count(mesh, "reduce_scatter", axis, out)
     dist.reduce_scatter_tensor(out, send.view(-1), group=mesh.group(axis))
     res, off = {}, 0
     for (key, _, _), b in zip(jobs, blocks):
@@ -140,7 +146,7 @@ def _reduce_scatter(jobs, mesh, axis: str):
 def _all_reduce(t: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
     """Sum over ``axis``'s group (``None``: the world), into a copy."""
     t = t.clone(memory_format=torch.contiguous_format)
-    _count(mesh, "all_reduce", axis)
+    _count(mesh, "all_reduce", axis, t)
     dist.all_reduce(t, group=None if axis is None else mesh.group(axis))
     return t
 

@@ -122,7 +122,7 @@ class ModelAxis:
         """The elementwise max over ``model``, into a copy (no
         gradient)."""
         t = t.detach().clone(memory_format=torch.contiguous_format)
-        _count(self.mesh, "all_reduce", AXIS)
+        _count(self.mesh, "all_reduce", AXIS, t)
         dist.all_reduce(t, op=dist.ReduceOp.MAX,
                         group=self.mesh.group(AXIS))
         return t

@@ -4,7 +4,9 @@
 (``examples/*_torch.py``) must run on a machine where jax is absent and
 the JAX package is not importable (nor ``ml_dtypes``: bf16 checkpoints
 are read through torch), and their entry points must refuse (not quietly
-fall back) when no GPU is present.
+fall back) when no GPU is present.  The dry-run and the report
+(``launch.dryrun``, ``launch.report``) compute nothing, so they need no
+GPU: a cell must allocate no tensor off the meta device instead.
 """
 import ast
 import os
@@ -83,6 +85,35 @@ def test_entry_points_refuse_without_gpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "mamba2-780m", "--smoke"])
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_dryrun_allocates_only_on_meta():
+    """A production cell of the dry-run runs with no GPU, under a counter
+    that raises on any tensor off the meta device; importing the dry-run
+    and the report sets no environment and starts no process group, and
+    loads no jax."""
+    code = (
+        "import os, sys\n"
+        "env = dict(os.environ)\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import dryrun, report\n"
+        "assert dict(os.environ) == env\n"
+        "assert not dist.is_initialized()\n"
+        "cell = dryrun.run_cell('granite-moe-1b-a400m', 'decode_32k',\n"
+        "                       verbose=False)\n"
+        "assert cell['status'] == 'ok', cell.get('traceback')\n"
+        "assert cell['counts']['kernels'] and cell['counts']['peak_bytes']\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {BANNED!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(ROOT), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
