@@ -81,20 +81,31 @@ exits non-zero:
     block or many); each twice, bit for bit, attention finite; the forward
     with the logsumexp equal to the forward without it, bit for bit; dX
     at granite's training shape allocating no more than its output (no
-    copy of W^T); a bf16 dW with D % 8 != 0 and ssd_chunk with an operand
-    that requires grad raise.  Times of each backward kernel, its plain
-    version, one PyTorch call (SDPA's backward, F.rms_norm's backward, a
-    padded bmm) and its bound, with each kernel's share of rmsnorm_bwd
-    and dX from the profiler; flash_attention_bwd also at qwen3-1.7b's Dh
-    128 and phi-3's Dh 96, rmsnorm_bwd at every ``RMS_BWD`` shape.
-    Then gradients in f32, the card against the CPU (granite cut to 2
-    layers at full width, whisper to 2 + 2): the loss and every parameter
-    leaf within 1e-4 of its max |g|, each finite and not all zero.  Then
-    granite-moe-1b-a400m trains at full width and depth through
-    ``repro_torch.runtime.Trainer`` (bf16 working params, f32 master,
-    AdamW, batch 8 x 512, remat on) for 6 steps, the first untimed: step
-    time, tokens/s, peak memory, the losses, launches per kernel against
-    the config, and one profiled step;
+    copy of W^T); a bf16 dW with D % 8 != 0 raises.  ssd_chunk_bwd
+    against its plain version (f32, 1e-4 of max|ref|) and within
+    ``ref.ssd_chunk_bwd_f64``'s bound, finite, twice bit for bit, at
+    mamba2's training shape (x[16,256,48,64], N 128), the forward's
+    tiling edges (``SSD_EDGES``), and with ds absent and with dy absent.
+    Times of each backward kernel, its plain version, one PyTorch call
+    (SDPA's backward, F.rms_norm's backward, a padded bmm; none for
+    ssd_chunk_bwd) and its bound, with each kernel's share of rmsnorm_bwd,
+    dX and ssd_chunk_bwd from the profiler; flash_attention_bwd also at
+    qwen3-1.7b's Dh 128 and phi-3's Dh 96, rmsnorm_bwd at every
+    ``RMS_BWD`` shape.  Then gradients in f32, the card against the CPU
+    (granite and mamba2 cut to 2 layers at full width, mamba2 at 2 x 512
+    tokens so that two chunks pass the state; whisper to 2 + 2): the loss
+    and every parameter leaf within 1e-4 of its max |g|, each finite and
+    not all zero; jamba at smoke size (head dim 64), whose gap is printed
+    as a measurement.  Then mamba2-780m and granite-moe-1b-a400m train at
+    full width and depth through ``repro_torch.runtime.Trainer`` (bf16
+    working params, f32 master, AdamW, batch 8 x 512, remat on) for 6
+    steps, the first untimed: step time, tokens/s, peak memory, the
+    losses, launches per kernel against the config (mamba2: 96 ssd_chunk
+    and 48 ssd_chunk_bwd a step, the ``train_ssm`` path), and one
+    profiled step; between them jamba at smoke size trains 3 steps of 4 x
+    64 tokens (``train_hybrid``): finite losses, launches against the
+    config, ssd_chunk_bwd, flash_attention_bwd and grouped_matmul's dX
+    and dW among them;
 (g) checkpoints on the card (``repro_torch.checkpoint``, under
     ``build/ckpt``, deleted at the end).  First the state after (f)'s 6
     steps, all 24 layers (about 19 GB): the free space of the directory, a
@@ -165,11 +176,12 @@ exits non-zero:
 (j) the count of a real step against the dry-run's: granite-moe-1b-a400m
     and qwen3-1.7b at full width and depth on the (1, 1) NCCL mesh of (i),
     one sharded train step (bf16, f32 master, AdamW, batch 8 x 512) and one
-    prefill of 8 x 512, each built by ``launch.dryrun.build_cell`` from
+    prefill of 8 x 512, and mamba2-780m's train step (ssd_chunk and
+    ssd_chunk_bwd), each built by ``launch.dryrun.build_cell`` from
     seeded random weights and run once under a ``launch.roofline.Counter``:
     FLOPs by kernel and for aten, HBM bytes, collectives by kind and axis
     with bytes, the peak (``torch.cuda.max_memory_allocated`` above what
-    was held before the step's inputs).  The same four cells' dry-run
+    was held before the step's inputs).  The same five cells' dry-run
     (``dryrun.run_cell`` over a fake world at (1, 1) on the meta device,
     in a subprocess that sees no GPU) must count the same aten FLOPs,
     kernel records and collective bytes (granite's grouped matmuls: the
@@ -225,12 +237,25 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:27",
     "grouped_matmul_dx": "src/repro/kernels/grouped_matmul.py:25",
     "grouped_matmul_dw": "src/repro/kernels/grouped_matmul.py:25",
+    "ssd_chunk_bwd": "src/repro/kernels/ssd_scan.py:28",
 }
 # backward kernel -> its forward kernel, whose source file holds it
 SOURCES = {"rmsnorm_bwd": "rmsnorm", "flash_attention_bwd": "flash_attention",
            "grouped_matmul_dx": "grouped_matmul",
-           "grouped_matmul_dw": "grouped_matmul"}
+           "grouped_matmul_dw": "grouped_matmul", "ssd_chunk_bwd": "ssd_chunk"}
+# the backward kernels of granite's layers (no SSM)
+GRANITE_BWD = tuple(n for n in SOURCES if n != "ssd_chunk_bwd")
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+# phase (f): jamba at smoke size (head dim 64, which the attention kernel
+# is built for), bf16 params and an f32 master, 3 steps of 4 x 64 tokens
+# (4 chunks of its 16-step SSD chunk)
+HYBRID_ARCH, HYBRID_STEPS, HYBRID_BATCH, HYBRID_SEQ = (
+    "jamba-1.5-large-398b", 3, 4, 64)
+# ssd_chunk_bwd at mamba2's training shape: 8 x 512 tokens in chunks of
+# 256 -> 16 (batch, chunk) cells of 48 heads of P 64, N 128; its checks
+# hold every output within SSD_BWD_TOL of max |ref| in f32
+SSD_TRAIN = (TRAIN_BATCH * TRAIN_SEQ // 256, 256, 48, 64, 128)
+SSD_BWD_TOL = 1e-4
 # phase (g): granite cut to 4 of its 24 layers (checkpoints near 4 GB),
 # 8 steps, a checkpoint every 4; checkpoints go under build/ckpt
 RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 4, 8, 4
@@ -248,12 +273,15 @@ SHARD_STEPS, SHARD_DECODE, SHARD_AB = 3, 8, 4
 # reads the one its q head maps to.  grouped_matmul with its dX and dW as
 # (T, D, F, groups): granite's 32 experts over model 2 and 4, each rank
 # the local experts' share of a training step's 32,768 assignments
-# phase (j): the counted steps, granite and qwen3-1.7b at full width and
-# depth on a (1, 1) NCCL mesh, as (name, kind, seq_len, global batch); each
-# counted once, then timed COUNT_TIMED times with no counter
-COUNT_ARCHS = (ARCH, DENSE_ARCH)
+# phase (j): the counted steps at full width and depth on a (1, 1) NCCL
+# mesh, as (name, kind, seq_len, global batch); each counted once, then
+# timed COUNT_TIMED times with no counter
 COUNT_SHAPES = (("count_train", "train", TRAIN_SEQ, TRAIN_BATCH),
                 ("count_prefill", "prefill", PROMPT, BATCH))
+# (arch, shape): granite's and qwen3-1.7b's train step and prefill, and
+# mamba2's train step (ssd_chunk and ssd_chunk_bwd)
+COUNT_CELLS = tuple((a, s) for a in (ARCH, DENSE_ARCH) for s in COUNT_SHAPES
+                    ) + ((SSM_ARCH, COUNT_SHAPES[0]),)
 COUNT_TIMED = 3
 COUNT_PEAK_TOL = 0.10
 TP_ATTN = [(TRAIN_BATCH, TRAIN_SEQ, hq, kv, dh) for dh in (64, 128)
@@ -481,19 +509,26 @@ def expected_launches(cfg, n_tokens: int):
 
 
 def expected_train_launches(cfg, steps: int):
-    """Kernel launches of ``steps`` training steps of an attention model:
-    each layer's forward kernels run twice with remat (the forward, then
-    again in the backward pass), each backward kernel once; the final norm
-    is outside the remat."""
+    """Kernel launches of ``steps`` training steps: each layer's forward
+    kernels run twice with remat (the forward, then again in the backward
+    pass), each backward kernel once; the final norm is outside the
+    remat.  An attention layer runs flash_attention (and qk-norms), an SSM
+    layer ssd_chunk and its gated norm."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import _has_ffn, _layer_is_moe
     per = {name: 0 for name in ops.KERNEL_NAMES}
     per["rmsnorm"] = per["rmsnorm_bwd"] = 1           # the final norm
     again = 2 if cfg.remat else 1
     for i in range(cfg.n_layers):
-        norms = 1 + (2 if cfg.qk_norm else 0)         # ln1 (+ qk-norm)
-        per["flash_attention"] += again
-        per["flash_attention_bwd"] += 1
+        norms = 1                                     # ln1
+        if cfg.pattern[i % cfg.block_size] == "attn":
+            norms += 2 if cfg.qk_norm else 0
+            per["flash_attention"] += again
+            per["flash_attention_bwd"] += 1
+        else:
+            norms += 1                                # gated norm
+            per["ssd_chunk"] += again
+            per["ssd_chunk_bwd"] += 1
         if _has_ffn(cfg):
             norms += 1                                # ln2
             if _layer_is_moe(cfg, i % cfg.block_size):
@@ -1507,19 +1542,53 @@ def check_backward_kernels(torch, ops, ref, dev):
     else:
         raise AssertionError("grouped_matmul_dw bf16 with D 100 did not "
                              "raise")
-    # ssd_chunk has no backward kernel: with grad it must raise on the card
-    x = torch.randn(2, 16, 3, 8, device=dev, requires_grad=True)
-    dt_ = torch.rand(2, 16, 3, device=dev)
-    Bm = torch.randn(2, 16, 4, device=dev)
-    try:
-        ops.ssd_chunk(x, dt_, -dt_, Bm, Bm)
-    except RuntimeError as err:
-        log("f", f"ssd_chunk with requires_grad on the card raises "
-            f"RuntimeError ({str(err)[:60]}...)")
-    else:
-        raise AssertionError("ssd_chunk with requires_grad did not raise")
     torch.cuda.synchronize()
     return errs
+
+
+def check_ssd_bwd(torch, ops, ref, dev) -> float:
+    """ssd_chunk_bwd against its plain version: every output finite,
+    within ``SSD_BWD_TOL`` of its max |ref| and within the bound of
+    ``ref.ssd_chunk_bwd_f64``, and the same bits twice; at mamba2's
+    training shape and the forward's tiling edges (``SSD_EDGES``), then
+    with ds absent and with dy absent.  Its own generator (seed 15).
+    Returns the max abs error at the training shape."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    names = ("dx", "ddt", "da", "dB", "dC")
+    cases = [(shape, True, True) for shape in [SSD_TRAIN] + SSD_EDGES]
+    cases += [(SSD_TRAIN, True, False), (SSD_EDGES[-1], False, True)]
+    err_train = 0.0
+    for shape, has_dy, has_ds in cases:
+        BC, Q, H, P, N = shape
+        x, dt, a, B, C = ssd_inputs(torch, gen, *shape)
+        dy = (torch.randn(x.shape, generator=gen, device=dev) if has_dy
+              else None)
+        ds = (torch.randn((BC, H, P, N) if x.ndim == 4 else (BC, P, N),
+                          generator=gen, device=dev) if has_ds else None)
+        label = (f"ssd_chunk_bwd {shape}" + ("" if has_dy else ", dy absent")
+                 + ("" if has_ds else ", ds absent"))
+        got = ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds)
+        want = ref.ssd_chunk_bwd_ref(x, dt, a, B, C, dy, ds)
+        vals, bounds = ref.ssd_chunk_bwd_f64(x, dt, a, B, C, dy, ds)
+        errs, rels, ratios = [], [], []
+        for n, g, w, v, b in zip(names, got, want, vals, bounds):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{label} {n}: not finite")
+            e, r = compare_rel(f"{label} {n}", g, w, SSD_BWD_TOL)
+            errs.append(e)
+            rels.append(r)
+            ratios.append(compare_f64(f"{label} {n}", g, v, b))
+        same_bits(torch, label, got, ops.ssd_chunk_bwd(x, dt, a, B, C, dy,
+                                                       ds))
+        log("f", f"{label}: max_abs_err {max(errs):.3e}, err/max|ref| "
+            f"{max(rels):.3e} (tol {SSD_BWD_TOL}); err/f64 bound "
+            + ", ".join(f"{n} {r:.3f}" for n, r in zip(names, ratios))
+            + "; finite; deterministic")
+        if shape == SSD_TRAIN and has_dy and has_ds:
+            err_train = max(errs)
+        del x, dt, a, B, C, dy, ds, got, want, vals, bounds
+        torch.cuda.empty_cache()
+    return err_train
 
 
 def kernel_split(torch, fn, flush, label: str, calls: int = 5) -> None:
@@ -1549,10 +1618,11 @@ def kernel_split(torch, fn, flush, label: str, calls: int = 5) -> None:
 
 def time_backward_kernels(torch, ops, ref, dev):
     """Times of the backward kernels at granite's training shapes, bf16
-    (rmsnorm_bwd at every ``RMS_BWD`` shape): kernel, plain version, one
-    PyTorch call computing the same function (backward alone, from a
-    graph kept for it), and the bound.  Device time: each window opens
-    behind a spin kernel (``timed_ms``)."""
+    (rmsnorm_bwd at every ``RMS_BWD`` shape), and of ssd_chunk_bwd at
+    mamba2's, f32: kernel, plain version, one PyTorch call computing the
+    same function (backward alone, from a graph kept for it; none for
+    ssd_chunk_bwd), and the bound.  Device time: each window opens behind
+    a spin kernel (``timed_ms``)."""
     from repro_torch.launch import roofline as rl
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(10)
@@ -1656,25 +1726,41 @@ def time_backward_kernels(torch, ops, ref, dev):
         del lhs, dyo, rhs, px, pdy
     for name, recs in gmm.items():
         out[name] = {**recs[0], "by_shape": recs[1:]}
-    del flush
+
+    x, dt, a, B, C = ssd_inputs(torch, gen, *SSD_TRAIN)
+    BC, Q, H, P, N = SSD_TRAIN
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    ds = torch.randn(BC, H, P, N, generator=gen, device=dev)
+    out["ssd_chunk_bwd"] = record(
+        "ssd_chunk_bwd", f"x[{BC},{Q},{H},{P}], N {N}",
+        lambda: ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds),
+        lambda: ref.ssd_chunk_bwd_ref(x, dt, a, B, C, dy, ds), None,
+        *rl.ssd_bwd_cost(*SSD_TRAIN), dtype="float32")
+    kernel_split(torch, lambda: ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds),
+                 flush, f"ssd_chunk_bwd x[{BC},{Q},{H},{P}] float32")
+    del x, dt, a, B, C, dy, ds, flush
     return out
 
 
-def grads_card_vs_cpu(torch, dev, arch: str, B: int, S: int) -> None:
+def grads_card_vs_cpu(torch, dev, arch: str, B: int, S: int, cfg=None,
+                      bound=1e-4) -> None:
     """f32 loss and gradients of a 2-layer full-width cut (whisper: 2
-    encoder and 2 decoder layers) on the card, through the kernels and
-    their backward kernels, against the plain path on the CPU: the loss
-    within 1e-4 relative, every leaf within 1e-4 of its max |g|, and every
-    leaf on the card finite and not all zero."""
+    encoder and 2 decoder layers; or ``cfg``) on the card, through the
+    kernels and their backward kernels, against the plain path on the CPU:
+    the loss within ``bound`` relative, every leaf within ``bound`` of its
+    max |g|, and every leaf on the card finite and not all zero.  With
+    ``bound`` None the gap is printed as a measurement only."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import as_trainable
     from repro_torch.models import api
     from repro_torch.weights import flatten, tree_map
 
-    cfg = configs.get_config(arch).replace(dtype="float32")
-    cfg = cfg.replace(n_layers=2 * cfg.block_size,
-                      n_enc_layers=min(cfg.n_enc_layers, 2))
+    if cfg is None:
+        cfg = configs.get_config(arch)
+        cfg = cfg.replace(n_layers=2 * cfg.block_size,
+                          n_enc_layers=min(cfg.n_enc_layers, 2))
+    cfg = cfg.replace(dtype="float32")
     params = api.init(cfg, torch.Generator().manual_seed(11), device="cpu")
     gen = torch.Generator().manual_seed(12)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
@@ -1713,27 +1799,30 @@ def grads_card_vs_cpu(torch, dev, arch: str, B: int, S: int) -> None:
             worst, worst_path = e, path
     layers = f"{cfg.n_layers}-layer" + (
         f" (+{cfg.n_enc_layers} encoder)" if cfg.n_enc_layers else "")
+    held = (f"bound {bound}" if bound is not None else
+            "a measurement, held to no bound")
     log("f", f"{arch} {layers} f32 batch {B}x{S}: loss {float(lg):.6f} on "
         f"the card, {float(lc):.6f} on the CPU (rel err {l_err:.3e}); "
         f"{len(gg)} gradient leaves, max err/max|g| {worst:.3e} "
-        f"({worst_path}), every leaf finite and non-zero (bound 1e-4); "
+        f"({worst_path}), every leaf finite and non-zero ({held}); "
         f"launches {launched}")
-    if not (l_err <= 1e-4 and worst <= 1e-4):
+    if bound is not None and not (l_err <= bound and worst <= bound):
         raise AssertionError(f"{arch}: card and CPU gradients disagree")
     del params, gc, gg
     torch.cuda.empty_cache()
 
 
-def train_path(torch, dev):
-    """granite-moe-1b-a400m at full width and depth, trained 6 steps by the
-    port's Trainer; returns the run's launch counts, the trainer and its
-    output (the state after the 6 steps, for phase (g))."""
+def train_path(torch, dev, arch: str = ARCH):
+    """``arch`` (granite-moe-1b-a400m, or mamba2-780m) at full width and
+    depth, trained 6 steps by the port's Trainer; returns the run's launch
+    counts, the trainer and its output (the state after the 6 steps, for
+    phase (g))."""
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.runtime import Trainer, TrainerConfig
     from repro_torch.weights import tree_leaves
 
-    cfg = configs.get_config(ARCH)
+    cfg = configs.get_config(arch)
     # the CLI's learning rate and the Trainer's default warm-up (10 steps)
     tcfg = TrainerConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
                          seq_len=TRAIN_SEQ, peak_lr=3e-4, log_every=1)
@@ -1749,18 +1838,18 @@ def train_path(torch, dev):
     timed = [h["sec"] for h in hist[1:]]
     step_s = sum(timed) / len(timed)
     n_params = sum(t.numel() for t in tree_leaves(out["state"]["params"]))
-    log("f", f"{ARCH} train bf16 params ({n_params} of them) + f32 master, "
+    log("f", f"{arch} train bf16 params ({n_params} of them) + f32 master, "
         f"AdamW, batch {TRAIN_BATCH}x{TRAIN_SEQ}, remat {cfg.remat}: "
         f"{TRAIN_STEPS} steps, step {step_s * 1e3:.1f} ms (mean of steps "
         f"1..{TRAIN_STEPS - 1}; step 0 {hist[0]['sec'] * 1e3:.1f} ms, "
         f"untimed), {TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, peak "
         f"memory {peak:.2f} GiB")
-    log("f", f"{ARCH} losses {[round(x, 4) for x in losses]}")
+    log("f", f"{arch} losses {[round(x, 4) for x in losses]}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
                                              for x in losses):
         raise AssertionError(f"training losses {losses}")
     want = expected_train_launches(cfg, TRAIN_STEPS)
-    log("f", f"{ARCH} train launches {launches}, expected {want}")
+    log("f", f"{arch} train launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
 
@@ -1777,11 +1866,54 @@ def train_path(torch, dev):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     profile_window(torch, one_step, wall,
-                   f"{ARCH} one training step, batch {TRAIN_BATCH}x"
+                   f"{arch} one training step, batch {TRAIN_BATCH}x"
                    f"{TRAIN_SEQ}", phase="f")
     del state, batch
     torch.cuda.empty_cache()
     return launches, trainer, out
+
+
+def hybrid_config():
+    """jamba's smoke config with head dim 64 (the attention kernel is built
+    for 64, 96 and 128)."""
+    from repro_torch import configs
+    return configs.get_smoke_config(HYBRID_ARCH).replace(d_head=64)
+
+
+def hybrid_path(torch, dev):
+    """jamba at smoke size (head dim 64), trained ``HYBRID_STEPS`` steps on
+    the card by the port's Trainer: finite losses, and launch counts the
+    config's, among them the backward kernels of its SSM, attention and
+    MoE layers.  Returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = hybrid_config()
+    tcfg = TrainerConfig(steps=HYBRID_STEPS, batch_size=HYBRID_BATCH,
+                         seq_len=HYBRID_SEQ, peak_lr=3e-4, log_every=1)
+    trainer = Trainer(cfg, tcfg, device=dev)
+    ops.reset_launches()
+    out = trainer.run()
+    launches = dict(ops.LAUNCHES)
+    losses = [h["loss"] for h in out["history"]]
+    log("f", f"{cfg.name} (d_head 64) train {cfg.dtype} params + f32 "
+        f"master, batch {HYBRID_BATCH}x{HYBRID_SEQ}, {cfg.n_layers} layers "
+        f"{cfg.pattern}: losses {[round(x, 4) for x in losses]}")
+    if len(losses) != HYBRID_STEPS or not all(math.isfinite(x)
+                                              for x in losses):
+        raise AssertionError(f"{HYBRID_ARCH} smoke losses {losses}")
+    want = expected_train_launches(cfg, HYBRID_STEPS)
+    log("f", f"{cfg.name} train launches {launches}, expected {want}")
+    if launches != want:
+        raise AssertionError(f"{HYBRID_ARCH} smoke launch counts "
+                             f"{launches} != {want}")
+    for name in ("ssd_chunk_bwd", "flash_attention_bwd", "grouped_matmul_dx",
+                 "grouped_matmul_dw"):
+        if not launches[name]:
+            raise AssertionError(f"{HYBRID_ARCH} smoke: {name} not launched")
+    del trainer, out
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------ phase (g)
@@ -2517,13 +2649,12 @@ sys.path.insert(0, 'src')
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import dryrun
 out = {}
-for arch in %r:
-    for s in %r:
-        cell = dryrun.run_cell(arch, ShapeSpec(*s), mesh_shape=(1, 1),
-                               verbose=False)
-        if cell["status"] != "ok":
-            raise SystemExit(cell["traceback"])
-        out[arch + "|" + s[0]] = cell
+for arch, s in %r:
+    cell = dryrun.run_cell(arch, ShapeSpec(*s), mesh_shape=(1, 1),
+                           verbose=False)
+    if cell["status"] != "ok":
+        raise SystemExit(cell["traceback"])
+    out[arch + "|" + s[0]] = cell
 print(json.dumps(out))
 """
 
@@ -2532,9 +2663,9 @@ def dry_cells():
     """The dry-run of phase (j)'s cells over a fake world at (1, 1) on the
     meta device, in a subprocess that sees no GPU: {arch|shape: cell}."""
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
-    run = subprocess.run([sys.executable, "-c", DRY_CODE % (
-        COUNT_ARCHS, COUNT_SHAPES)], cwd=str(ROOT), capture_output=True,
-        text=True, timeout=600, env=env)
+    run = subprocess.run([sys.executable, "-c", DRY_CODE % (COUNT_CELLS,)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=600, env=env)
     if run.returncode:
         raise AssertionError(f"dry-run failed: {run.stderr[-3000:]}")
     return json.loads(run.stdout.strip().splitlines()[-1])
@@ -2592,78 +2723,75 @@ def counted_path(torch, dev, card: str):
     launches = {name: 0 for name in ops.KERNEL_NAMES}
     gib = 2 ** 30
     with init_mesh(dev) as mesh:
-        for arch in COUNT_ARCHS:
+        for arch, s in COUNT_CELLS:
             cfg = configs.get_config(arch)
-            for s in COUNT_SHAPES:
-                shape = ShapeSpec(*s)
-                name = f"{arch} {shape.kind} {shape.global_batch}x" \
-                    f"{shape.seq_len}"
-                gc_collect(torch)
-                cell = dryrun.build_cell(arch, shape, mesh, device=dev,
-                                         seed=3)
+            shape = ShapeSpec(*s)
+            name = (f"{arch} {shape.kind} {shape.global_batch}x"
+                    f"{shape.seq_len}")
+            gc_collect(torch)
+            cell = dryrun.build_cell(arch, shape, mesh, device=dev, seed=3)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            held = held_bytes(torch, cell.args)
+            torch.cuda.reset_peak_memory_stats(dev)
+            mesh.reset_collectives()
+            ops.reset_launches()
+            counter, out, count_s = dryrun.count_cell(cell)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - before + held
+            for k, n in ops.LAUNCHES.items():
+                launches[k] += n
+            got = counter.as_dict()
+            recorded = {k: r["launches"] for k, r in got["kernels"].items()}
+            if recorded != {k: n for k, n in ops.LAUNCHES.items() if n}:
+                raise AssertionError(f"{name}: recorded {recorded}, "
+                                     f"launched {dict(ops.LAUNCHES)}")
+            del out
+            times = []
+            for _ in range(COUNT_TIMED):
                 torch.cuda.synchronize()
-                before = torch.cuda.memory_allocated(dev)
-                held = held_bytes(torch, cell.args)
-                torch.cuda.reset_peak_memory_stats(dev)
-                mesh.reset_collectives()
-                ops.reset_launches()
-                counter, out, count_s = dryrun.count_cell(cell)
+                t0 = time.perf_counter()
+                out = cell.run()
                 torch.cuda.synchronize()
-                peak = torch.cuda.max_memory_allocated(dev) - before + held
-                for k, n in ops.LAUNCHES.items():
-                    launches[k] += n
-                got = counter.as_dict()
-                recorded = {k: r["launches"] for k, r in
-                            got["kernels"].items()}
-                if recorded != {k: n for k, n in ops.LAUNCHES.items() if n}:
-                    raise AssertionError(f"{name}: recorded {recorded}, "
-                                         f"launched {dict(ops.LAUNCHES)}")
+                times.append(time.perf_counter() - t0)
                 del out
-                times = []
-                for _ in range(COUNT_TIMED):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = cell.run()
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                    del out
-                step_s = sum(times) / len(times)
-                terms = counter.terms()
-                d = dry[f"{arch}|{shape.name}"]
-                log("j", f"{name}: counted in {count_s:.2f} s; aten "
-                    f"{got['aten_flops']} FLOPs, kernels " + ", ".join(
-                        f"{k} {r['launches']}x {r['flops']} FLOPs "
-                        f"{r['bytes']} B" for k, r in got["kernels"].items())
-                    + f"; HBM {terms.hbm_bytes:.6g} B (aten "
-                    f"{got['aten_bytes']}); collectives " + ", ".join(
-                        f"{a}/{k} {r['count']}x {r['bytes']} B"
-                        for a, kinds in got["axis_collectives"].items()
-                        for k, r in kinds.items()))
-                compare_counts(name, got, d["counts"])
-                err = abs(d["memory"]["peak_bytes"] - peak) / peak
-                max_alloc = torch.cuda.max_memory_allocated(dev)
-                log("j", f"{name}: peak {peak / gib:.3f} GiB on the card "
-                    f"(max_memory_allocated {max_alloc / gib:.3f} GiB, of it "
-                    f"{(before - held) / gib:.3f} GiB held before the "
-                    f"step's inputs), counter "
-                    f"{counter.peak_bytes / gib:.3f}, dry-run "
-                    f"{d['memory']['peak_bytes'] / gib:.3f}: "
-                    f"{err * 100:.2f}% off (limit 10%)")
-                if err > COUNT_PEAK_TOL:
-                    raise AssertionError(f"{name}: dry-run peak off by "
-                                         f"{err * 100:.1f}%")
-                mf = dryrun.model_flops(cfg, shape)
-                log("j", f"{name}: step {step_s * 1e3:.1f} ms (mean of "
-                    f"{COUNT_TIMED}: {[round(t * 1e3, 1) for t in times]}, "
-                    f"no counter); model FLOPs {mf:.6g}, MFU "
-                    f"{mf / (step_s * rl.PEAK_FLOPS['bfloat16']):.4f}; "
-                    f"roofline t_bound {terms.t_bound * 1e3:.2f} ms "
-                    f"({terms.bottleneck}: compute "
-                    f"{terms.t_compute * 1e3:.2f}, memory "
-                    f"{terms.t_memory * 1e3:.2f}, collective "
-                    f"{terms.t_collective * 1e3:.2f}), t_bound / step "
-                    f"{terms.t_bound / step_s:.4f}; {card}")
-                del cell, counter
+            step_s = sum(times) / len(times)
+            terms = counter.terms()
+            d = dry[f"{arch}|{shape.name}"]
+            log("j", f"{name}: counted in {count_s:.2f} s; aten "
+                f"{got['aten_flops']} FLOPs, kernels " + ", ".join(
+                    f"{k} {r['launches']}x {r['flops']} FLOPs "
+                    f"{r['bytes']} B" for k, r in got["kernels"].items())
+                + f"; HBM {terms.hbm_bytes:.6g} B (aten "
+                f"{got['aten_bytes']}); collectives " + ", ".join(
+                    f"{a}/{k} {r['count']}x {r['bytes']} B"
+                    for a, kinds in got["axis_collectives"].items()
+                    for k, r in kinds.items()))
+            compare_counts(name, got, d["counts"])
+            err = abs(d["memory"]["peak_bytes"] - peak) / peak
+            max_alloc = torch.cuda.max_memory_allocated(dev)
+            log("j", f"{name}: peak {peak / gib:.3f} GiB on the card "
+                f"(max_memory_allocated {max_alloc / gib:.3f} GiB, of it "
+                f"{(before - held) / gib:.3f} GiB held before the "
+                f"step's inputs), counter "
+                f"{counter.peak_bytes / gib:.3f}, dry-run "
+                f"{d['memory']['peak_bytes'] / gib:.3f}: "
+                f"{err * 100:.2f}% off (limit 10%)")
+            if err > COUNT_PEAK_TOL:
+                raise AssertionError(f"{name}: dry-run peak off by "
+                                     f"{err * 100:.1f}%")
+            mf = dryrun.model_flops(cfg, shape)
+            log("j", f"{name}: step {step_s * 1e3:.1f} ms (mean of "
+                f"{COUNT_TIMED}: {[round(t * 1e3, 1) for t in times]}, "
+                f"no counter); model FLOPs {mf:.6g}, MFU "
+                f"{mf / (step_s * rl.PEAK_FLOPS['bfloat16']):.4f}; "
+                f"roofline t_bound {terms.t_bound * 1e3:.2f} ms "
+                f"({terms.bottleneck}: compute "
+                f"{terms.t_compute * 1e3:.2f}, memory "
+                f"{terms.t_memory * 1e3:.2f}, collective "
+                f"{terms.t_collective * 1e3:.2f}), t_bound / step "
+                f"{terms.t_bound / step_s:.4f}; {card}")
+            del cell, counter
     gc_collect(torch)
     log("j", f"phase (j) took {time.perf_counter() - t_j:.1f} s")
     return launches
@@ -2758,11 +2886,17 @@ def main() -> int:
 
     t_f = time.perf_counter()
     errs.update(check_backward_kernels(torch, ops, ref, dev))
+    errs["ssd_chunk_bwd"] = check_ssd_bwd(torch, ops, ref, dev)
     times.update(time_backward_kernels(torch, ops, ref, dev))
     grads_card_vs_cpu(torch, dev, ARCH, 2, 64)
     grads_card_vs_cpu(torch, dev, ENCDEC_ARCH, 2, 32)
+    grads_card_vs_cpu(torch, dev, SSM_ARCH, 2, TRAIN_SEQ)
+    grads_card_vs_cpu(torch, dev, HYBRID_ARCH, 2, HYBRID_SEQ,
+                      cfg=hybrid_config(), bound=None)
+    by_path["train_ssm"] = train_path(torch, dev, SSM_ARCH)[0]
+    by_path["train_hybrid"] = hybrid_path(torch, dev)
     by_path["train"], trainer, trained = train_path(torch, dev)
-    for name in SOURCES:
+    for name in GRANITE_BWD:
         if not by_path["train"][name]:
             raise AssertionError(f"{name}: the training path did not "
                                  f"launch it")
@@ -2775,7 +2909,8 @@ def main() -> int:
     train_losses = [h["loss"] for h in trained["history"]]
     del trainer, trained
     by_path["resume"] = resume_path(torch, dev)
-    for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
+    for name in ("rmsnorm", "flash_attention", "grouped_matmul",
+                 *GRANITE_BWD):
         if not by_path["resume"][name]:
             raise AssertionError(f"{name}: the resumed run did not launch "
                                  f"it")
@@ -2788,14 +2923,15 @@ def main() -> int:
 
     by_path["sharded"] = sharded_path(torch, dev, card, train_losses)
     check_local_shapes(torch, ops, ref, dev)
-    for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
+    for name in ("rmsnorm", "flash_attention", "grouped_matmul",
+                 *GRANITE_BWD):
         if not by_path["sharded"][name]:
             raise AssertionError(f"{name}: the sharded path did not launch "
                                  f"it")
     log("i", f"(a) to (i) {time.perf_counter() - t_start:.1f} s")
 
     by_path["counted"] = counted_path(torch, dev, card)
-    for name in ("rmsnorm", "flash_attention", "grouped_matmul", *SOURCES):
+    for name in ops.KERNEL_NAMES:
         if not by_path["counted"][name]:
             raise AssertionError(f"{name}: the counted steps did not launch "
                                  f"it")

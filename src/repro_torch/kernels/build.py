@@ -1,10 +1,9 @@
 """Build the port's CUDA kernels from ``kernels/csrc`` and load them.
 
 Each ``csrc/*.cu`` has plain C entry points (``<entry>_launch``: the
-forward, and for rmsnorm, flash_attention and grouped_matmul the backward
-beside it: dX and dW for grouped_matmul) and is compiled by its own
-``nvcc`` into a shared library, all of them started together, then loaded
-with :mod:`ctypes`.  No source includes PyTorch's
+forward, and the backward beside it: dX and dW for grouped_matmul) and is
+compiled by its own ``nvcc`` into a shared library, all of them started
+together, then loaded with :mod:`ctypes`.  No source includes PyTorch's
 headers, so the whole build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` binding costs, which matters because every
 fresh checkout builds at first use.  Libraries land in ``build/torch_ext/``
@@ -39,13 +38,15 @@ ENTRIES = {"rmsnorm": "rmsnorm", "rmsnorm_bwd": "rmsnorm",
            "flash_attention_bwd": "flash_attention",
            "grouped_matmul": "grouped_matmul",
            "grouped_matmul_dx": "grouped_matmul",
-           "grouped_matmul_dw": "grouped_matmul", "ssd_chunk": "ssd_chunk"}
+           "grouped_matmul_dw": "grouped_matmul", "ssd_chunk": "ssd_chunk",
+           "ssd_chunk_bwd": "ssd_chunk"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_longlong
 _SIGNATURES = {
     # x, w, out, T, D, eps, dtype, stream
     "rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
@@ -67,6 +68,10 @@ _SIGNATURES = {
     "grouped_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, dt, a, B, C, y, state, BC, Q, H, P, N, stream (f32 only)
     "ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, dt, a, B, C, dy, ds (either may be NULL), dx, ddt, da, dB, dC,
+    # scratch, its length in floats, BC, Q, H, P, N, stream (f32 only)
+    "ssd_chunk_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _L, _I, _I, _I, _I, _I, _P),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

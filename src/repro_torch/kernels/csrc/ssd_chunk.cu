@@ -1,7 +1,8 @@
 // Mamba2 SSD within a chunk, for Hopper: f32 arithmetic on the FMA pipes.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py (_ssd_chunk_kernel /
-// ssd_chunk_kernel).  For each cell (one batch-chunk bc and one head h),
+// ssd_chunk_kernel); its gradient, ssd_chunk_bwd_launch, is at the end of
+// this file.  For each cell (one batch-chunk bc and one head h),
 // with a_cum = cumsum(a) over the Q steps of the chunk:
 //
 //   y[q, p]     = sum_{k<=q} (C_q . B_k) exp(a_cum[q] - a_cum[k]) dt_k x[k, p]
@@ -538,5 +539,503 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt, const void* a,
   const dim3 grid((unsigned)(BC * g.n_groups),
                   (unsigned)(g.n_nt * g.n_sparts + g.n_qt));
   ssd_chunk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- backward
+//
+// The gradient of the function above (the TPU package has no backward
+// kernel: its models train through plain jnp).  Per cell (bc, h), with
+// CB = C.B^T, L[q,k] = exp(a_cum[q] - a_cum[k]) for k <= q, M = CB L dt_k,
+// dM = dy x^T, e_k = exp(a_cum[Q-1] - a_cum[k]), w = e dt and
+// dsB[k,p] = sum_n ds[p,n] B[k,n]:
+//
+//   dx[k,p]  = sum_{q>=k} M[q,k] dy[q,p] + w_k dsB[k,p]
+//   ddt[k]   = sum_{q>=k} dM CB L + e_k dw_k,      dw_k = sum_p x[k,p] dsB[k,p]
+//   dacum[i] = sum_{k<i} G[i,k] - sum_{q>i} G[q,i]   (G = dM M; the diagonal,
+//              where L is 1 whatever a_cum is, drops out), + sum_{k<Q-1}
+//              dw_k w_k at i = Q-1, - dw_i w_i below it
+//   da[j]    = sum_{i>=j} dacum[i]                  (summed in f64)
+//   dC[q,n]  = sum_{k<=q} dCB[q,k] B[k,n],   dB[k,n] = sum_{q>=k} dCB[q,k]
+//              C[q,n] + sum_h w_h[k] sum_p x_h[k,p] ds_h[p,n],
+//   with dCB = sum_h dM L dt (B and C are shared by the heads of a cell).
+//
+// Bound by operations (about 13 GFLOP against 238 MB at mamba2's training
+// shape), computed in f32 on the FMA pipes; no TF32.  A simple design that
+// is right first: five launches, each a grid of 64 x 64 output tiles of
+// 256 threads, a thread owning 4 x 4 of the tile, its operands staged 16
+// deep through shared memory (tile_mma); the scratch (the wrapper's) keeps
+// what one launch hands the next:
+//
+//   1. steps: a warp a (bc, h): a_cum (f64 scan rounded once to f32, as the
+//      forward) and w;
+//   2. pairs (with dy): a block a (bc, q-tile, k-tile <= q-tile) forms its
+//      CB tile once, then walks the heads in order: dM of the tile, then
+//      dCB += dM L dt in registers, and G's row sums (a half-warp's shuffle)
+//      and column sums of G and of dM CB L (in order through shared memory)
+//      as partials a tile; it writes the CB and dCB tiles;
+//   3. dx: a block a (bc, h, k-tile) walks the p-tiles: M^T dy over
+//      q >= k (M formed from the CB tiles), dsB over n, dx, and dw's sum;
+//   4. dB and dC: a block a (bc, row tile, n-tile) of either: dC from the
+//      dCB rows, dB from its columns and then the state's H P terms, the
+//      heads in order;
+//   5. steps: a warp a (bc, h) sums the partials in order into ddt and
+//      dacum, and da by a reverse f64 scan.
+//
+// Each output has one owner and every sum a fixed order (no atomics), so
+// the kernel is deterministic.  Any Q from 1 to kMaxQ, any H, P, N.
+
+namespace {
+
+constexpr int kBT = 64;               // rows and columns of a tile
+constexpr int kBK = 16;               // depth of a staged slice
+constexpr int kBPitch = kBT + 4;      // shared-memory pitch of a slice row
+constexpr int kBThreads = 256;
+constexpr int kBWarps = kBThreads / 32;
+
+struct BwdArgs {
+  const float *x, *dt, *a, *B, *C, *dy, *ds;   // dy or ds may be null
+  float *dx, *ddt, *da, *dB, *dC;
+  // scratch: cs, w, dw [BC][H][Q]; cb, dcb [BC][Q][Q]; rowg (by k-tile),
+  // colg, cole (by q-tile) [BC][nt][H][Q]
+  float *cs, *w, *dw, *cb, *dcb, *rowg, *colg, *cole;
+  int BC, Q, H, P, N, nt, n_pairs, n_pt, n_nt;
+};
+
+// acc[i][j] += sum over k in [k_lo, k_hi) of A(k, 4 ty + i) B(k, 4 tx + j),
+// with ty = thread / 16, tx = thread % 16, k ascending; fa(k, r) and fb(k, c)
+// give the operands (0 past their edges).  A slice of kBK k goes through
+// shared memory (As, Bs: [kBK][kBPitch]); kA / kB: the operand runs along k
+// in device memory, so neighbouring threads load neighbouring k, else
+// neighbouring rows.  Starts with a barrier; writes no shared memory after
+// its last barrier.
+template <bool kA, bool kB, class FA, class FB>
+__device__ __forceinline__ void tile_mma(float (&acc)[4][4], int k_lo,
+                                         int k_hi, FA fa, FB fb, float* As,
+                                         float* Bs) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
+    __syncthreads();                   // earlier readers of As, Bs are done
+    for (int idx = tid; idx < kBK * kBT; idx += kBThreads) {
+      const int kk = kA ? idx % kBK : idx / kBT;
+      const int r = kA ? idx / kBK : idx % kBT;
+      As[kk * kBPitch + r] = k0 + kk < k_hi ? fa(k0 + kk, r) : 0.f;
+    }
+    for (int idx = tid; idx < kBK * kBT; idx += kBThreads) {
+      const int kk = kB ? idx % kBK : idx / kBT;
+      const int c = kB ? idx / kBK : idx % kBT;
+      Bs[kk * kBPitch + c] = k0 + kk < k_hi ? fb(k0 + kk, c) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&As[kk * kBPitch + 4 * ty]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk * kBPitch + 4 * tx]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+  }
+}
+
+// The sum of v over the 16 lanes of a half-warp (the threads of one ty), the
+// same butterfly every call.
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A warp's segment of [0, Q): lane l owns [lo, hi).
+__device__ __forceinline__ void lane_segment(int Q, int lane, int& lo,
+                                             int& hi) {
+  const int per = (Q + 31) / 32;
+  lo = min(Q, lane * per);
+  hi = min(Q, lo + per);
+}
+
+// 1. a_cum (inclusive, f64 sum rounded once) and w = exp(a_cum[Q-1] -
+// a_cum) dt of each (bc, h), a warp each, into cs and w [BC][H][Q].
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_steps_kernel(const BwdArgs g) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cell = blockIdx.x * kBWarps + warp;          // bc * H + h
+  if (cell >= g.BC * g.H) return;
+  const int bc = cell / g.H, h = cell % g.H;
+  const float* a = g.a + (size_t)bc * g.Q * g.H + h;     // step q at [q H]
+  const float* dt = g.dt + (size_t)bc * g.Q * g.H + h;
+  float* cs = g.cs + (size_t)cell * g.Q;
+  int lo, hi;
+  lane_segment(g.Q, lane, lo, hi);
+  double run = 0.0;
+  for (int q = lo; q < hi; ++q) run += (double)a[(size_t)q * g.H];
+  double incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  double acc = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) acc = 0.0;
+  for (int q = lo; q < hi; ++q) {
+    acc += (double)a[(size_t)q * g.H];
+    cs[q] = (float)acc;
+  }
+  __syncwarp();
+  const float last = cs[g.Q - 1];
+  for (int q = lane; q < g.Q; q += 32)
+    g.w[(size_t)cell * g.Q + q] = expf(last - cs[q]) * dt[(size_t)q * g.H];
+}
+
+// 2. a block a (bc, q-tile qt, k-tile kt <= qt).
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_pairs_kernel(const BwdArgs g) {
+  __shared__ __align__(16) float As[kBK * kBPitch];
+  __shared__ __align__(16) float Bs[kBK * kBPitch];
+  __shared__ float csq[kBT], csk[kBT], dtk[kBT];
+  __shared__ float colG[16][kBT], colE[16][kBT];
+  const int Q = g.Q, H = g.H, P = g.P, N = g.N;
+  const int bc = blockIdx.x / g.n_pairs, pr = blockIdx.x % g.n_pairs;
+  int qt = 0;
+  while ((qt + 1) * (qt + 2) / 2 <= pr) ++qt;
+  const int kt = pr - qt * (qt + 1) / 2;
+  const int q0 = qt * kBT, k0 = kt * kBT;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const size_t row0 = (size_t)bc * Q;
+  const size_t ld = (size_t)H * P;                 // row stride of x, dy
+  const float* Cc = g.C + row0 * N;
+  const float* Bc = g.B + row0 * N;
+  float cb[4][4] = {};
+  tile_mma<true, true>(
+      cb, 0, N,
+      [&](int n, int r) { return q0 + r < Q ? Cc[(size_t)(q0 + r) * N + n] : 0.f; },
+      [&](int n, int c) { return k0 + c < Q ? Bc[(size_t)(k0 + c) * N + n] : 0.f; },
+      As, Bs);
+  float dcb[4][4] = {};
+  for (int h = 0; h < H; ++h) {
+    const float* csh = g.cs + ((size_t)bc * H + h) * Q;
+    if (tid < kBT) {
+      csq[tid] = q0 + tid < Q ? csh[q0 + tid] : 0.f;
+    } else if (tid < 2 * kBT) {
+      const int c = tid - kBT, k = k0 + c;
+      csk[c] = k < Q ? csh[k] : 0.f;
+      dtk[c] = k < Q ? g.dt[(row0 + k) * H + h] : 0.f;
+    }
+    const float* dyh = g.dy + row0 * ld + (size_t)h * P;
+    const float* xh = g.x + row0 * ld + (size_t)h * P;
+    float dm[4][4] = {};
+    tile_mma<true, true>(
+        dm, 0, P,
+        [&](int p, int r) { return q0 + r < Q ? dyh[(size_t)(q0 + r) * ld + p] : 0.f; },
+        [&](int p, int c) { return k0 + c < Q ? xh[(size_t)(k0 + c) * ld + p] : 0.f; },
+        As, Bs);
+    float rg[4] = {}, cg[4] = {}, ce[4] = {};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int ql = 4 * ty + i, q = q0 + ql;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * tx + j, k = k0 + c;
+        const bool keep = q < Q && k <= q;
+        const float L = keep ? expf(csq[ql] - csk[c]) : 0.f;
+        dcb[i][j] = fmaf(dm[i][j], L * dtk[c], dcb[i][j]);
+        const float E = dm[i][j] * cb[i][j] * L;
+        const float G = k < q ? E * dtk[c] : 0.f;
+        rg[i] += G;
+        cg[j] += G;
+        ce[j] += E;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float s = half_warp_sum(rg[i]);
+      const int q = q0 + 4 * ty + i;
+      if (tx == 0 && q < Q)
+        g.rowg[(((size_t)bc * g.nt + kt) * H + h) * Q + q] = s;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      colG[ty][4 * tx + j] = cg[j];
+      colE[ty][4 * tx + j] = ce[j];
+    }
+    __syncthreads();
+    if (tid < kBT && k0 + tid < Q) {
+      float sg = 0.f, se = 0.f;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        sg += colG[t][tid];
+        se += colE[t][tid];
+      }
+      const size_t o = (((size_t)bc * g.nt + qt) * H + h) * Q + k0 + tid;
+      g.colg[o] = sg;
+      g.cole[o] = se;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + 4 * ty + i;
+    if (q >= Q) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 4 * tx + j;
+      if (k >= Q) continue;
+      g.cb[(row0 + q) * Q + k] = cb[i][j];
+      g.dcb[(row0 + q) * Q + k] = dcb[i][j];
+    }
+  }
+}
+
+// 3. a block a (bc, h, k-tile): dx of its rows, p-tile by p-tile, and dw.
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_dx_kernel(const BwdArgs g) {
+  __shared__ __align__(16) float As[kBK * kBPitch];
+  __shared__ __align__(16) float Bs[kBK * kBPitch];
+  __shared__ float csS[kMaxQ], dtS[kMaxQ];
+  const int Q = g.Q, H = g.H, P = g.P, N = g.N;
+  const int cell = blockIdx.x / g.nt, kt = blockIdx.x % g.nt;
+  const int bc = cell / H, h = cell % H, k0 = kt * kBT;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const size_t row0 = (size_t)bc * Q;
+  const size_t ld = (size_t)H * P;
+  for (int q = tid; q < Q; q += kBThreads) {
+    csS[q] = g.cs[(size_t)cell * Q + q];
+    dtS[q] = g.dt[(row0 + q) * H + h];
+  }
+  __syncthreads();
+  const float* cbc = g.cb + row0 * Q;
+  const float* dyh = g.dy ? g.dy + row0 * ld + (size_t)h * P : nullptr;
+  const float* xh = g.x + row0 * ld + (size_t)h * P;
+  const float* dsh = g.ds ? g.ds + (size_t)cell * P * N : nullptr;
+  const float* Bc = g.B + row0 * N;
+  float dwacc[4] = {};
+  for (int pt = 0; pt < g.n_pt; ++pt) {
+    const int p0 = pt * kBT;
+    float acc[4][4] = {}, acc2[4][4] = {};
+    if (g.dy)                                    // M^T dy over q >= k
+      tile_mma<false, false>(
+          acc, k0, Q,
+          [&](int q, int r) {
+            const int k = k0 + r;
+            return k < Q && k <= q
+                       ? cbc[(size_t)q * Q + k] * expf(csS[q] - csS[k]) * dtS[k]
+                       : 0.f;
+          },
+          [&](int q, int c) { return p0 + c < P ? dyh[(size_t)q * ld + p0 + c] : 0.f; },
+          As, Bs);
+    if (g.ds)                                    // dsB = B ds^T
+      tile_mma<true, true>(
+          acc2, 0, N,
+          [&](int n, int r) { return k0 + r < Q ? Bc[(size_t)(k0 + r) * N + n] : 0.f; },
+          [&](int n, int c) { return p0 + c < P ? dsh[(size_t)(p0 + c) * N + n] : 0.f; },
+          As, Bs);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + 4 * ty + i;
+      const float wk = k < Q ? g.w[(size_t)cell * Q + k] : 0.f;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = p0 + 4 * tx + j;
+        if (k < Q && p < P) {
+          g.dx[(row0 + k) * ld + (size_t)h * P + p] = fmaf(wk, acc2[i][j], acc[i][j]);
+          part = fmaf(xh[(size_t)k * ld + p], acc2[i][j], part);
+        }
+      }
+      dwacc[i] += half_warp_sum(part);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 4 * ty + i;
+    if (tx == 0 && k < Q) g.dw[(size_t)cell * Q + k] = dwacc[i];
+  }
+}
+
+// 4. a block a (bc, dC or dB, row tile, n-tile).
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_bc_kernel(const BwdArgs g) {
+  __shared__ __align__(16) float As[kBK * kBPitch];
+  __shared__ __align__(16) float Bs[kBK * kBPitch];
+  const int Q = g.Q, H = g.H, P = g.P, N = g.N;
+  const int per = 2 * g.nt * g.n_nt;
+  const int bc = blockIdx.x / per, rest = blockIdx.x % per;
+  const bool is_db = rest >= g.nt * g.n_nt;
+  const int rt = (rest % (g.nt * g.n_nt)) / g.n_nt, nt = rest % g.n_nt;
+  const int r0 = rt * kBT, n0 = nt * kBT;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const size_t row0 = (size_t)bc * Q;
+  const float* dcbc = g.dcb + row0 * Q;
+  float acc[4][4] = {};
+  if (!is_db) {
+    if (g.dy) {                                  // dC = dCB B over k <= q
+      const float* Bc = g.B + row0 * N;
+      tile_mma<true, false>(
+          acc, 0, min(Q, r0 + kBT),
+          [&](int k, int r) { return r0 + r < Q ? dcbc[(size_t)(r0 + r) * Q + k] : 0.f; },
+          [&](int k, int c) { return n0 + c < N ? Bc[(size_t)k * N + n0 + c] : 0.f; },
+          As, Bs);
+    }
+  } else {
+    if (g.dy) {                                  // dB = dCB^T C over q >= k
+      const float* Cc = g.C + row0 * N;
+      tile_mma<false, false>(
+          acc, r0, Q,
+          [&](int q, int r) { return r0 + r < Q ? dcbc[(size_t)q * Q + r0 + r] : 0.f; },
+          [&](int q, int c) { return n0 + c < N ? Cc[(size_t)q * N + n0 + c] : 0.f; },
+          As, Bs);
+    }
+    if (g.ds) {                 // + sum over (h, p) of w_h x_h[., p] ds_h[p]
+      const size_t ld = (size_t)H * P;
+      const float* xc = g.x + row0 * ld;
+      const float* wc = g.w + (size_t)bc * H * Q;
+      const float* dsc = g.ds + (size_t)bc * ld * N;
+      tile_mma<true, false>(
+          acc, 0, H * P,
+          [&](int j, int r) {
+            const int k = r0 + r;
+            return k < Q ? wc[(size_t)(j / P) * Q + k] * xc[(size_t)k * ld + j] : 0.f;
+          },
+          [&](int j, int c) { return n0 + c < N ? dsc[(size_t)j * N + n0 + c] : 0.f; },
+          As, Bs);
+    }
+  }
+  float* out = (is_db ? g.dB : g.dC) + row0 * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * ty + i;
+    if (r >= Q) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + 4 * tx + j;
+      if (n < N) out[(size_t)r * N + n] = acc[i][j];
+    }
+  }
+}
+
+// 5. ddt, and da by a reverse f64 scan of dacum, a warp a (bc, h).
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_out_kernel(const BwdArgs g) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cell = blockIdx.x * kBWarps + warp;
+  if (cell >= g.BC * g.H) return;
+  const int Q = g.Q, H = g.H, nt = g.nt;
+  const int bc = cell / H, h = cell % H;
+  const size_t row0 = (size_t)bc * Q;
+  const float* cs = g.cs + (size_t)cell * Q;
+  const float* w = g.w + (size_t)cell * Q;
+  const float* dw = g.dw + (size_t)cell * Q;
+  const size_t tile = (size_t)H * Q;            // stride of a partial's tile
+  const float* rowg = g.rowg + (size_t)bc * nt * tile + (size_t)h * Q;
+  const float* colg = g.colg + (size_t)bc * nt * tile + (size_t)h * Q;
+  const float* cole = g.cole + (size_t)bc * nt * tile + (size_t)h * Q;
+  int lo, hi;
+  lane_segment(Q, lane, lo, hi);
+  // the state's decay: T_k = dw_k w_k, k < Q - 1, and their sum
+  double tsum = 0.0;
+  for (int q = lo; q < hi; ++q)
+    if (q < Q - 1) tsum += (double)(dw[q] * w[q]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    tsum += __shfl_xor_sync(0xffffffffu, tsum, o);
+  const float last = cs[Q - 1];
+  for (int q = lo; q < hi; ++q) {
+    float v = 0.f;
+    if (g.dy)
+      for (int t = q / kBT; t < nt; ++t) v += cole[t * tile + q];
+    g.ddt[(row0 + q) * H + h] = fmaf(dw[q], expf(last - cs[q]), v);
+  }
+  auto dacum = [&](int i) -> double {
+    float v = 0.f;
+    if (g.dy) {
+      const int ti = i / kBT;
+      for (int t = 0; t <= ti; ++t) v += rowg[t * tile + i];
+      for (int t = ti; t < nt; ++t) v -= colg[t * tile + i];
+    }
+    return i == Q - 1 ? (double)v + tsum : (double)v - (double)(dw[i] * w[i]);
+  };
+  double seg = 0.0;
+  for (int q = lo; q < hi; ++q) seg += dacum(q);
+  double incl = seg;                            // sum over lanes >= lane
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double v = __shfl_down_sync(0xffffffffu, incl, o);
+    if (lane + o < 32) incl += v;
+  }
+  double acc = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) acc = 0.0;
+  for (int q = hi - 1; q >= lo; --q) {
+    acc += dacum(q);
+    g.da[(row0 + q) * H + h] = (float)acc;
+  }
+}
+
+}  // namespace
+
+// x, dy, dx: [BC, Q, H, P]; dt, a, ddt, da: [BC, Q, H]; B, C, dB, dC:
+// [BC, Q, N]; ds: [BC, H, P, N]; dy or ds may be null (zero).  scratch:
+// scratch_floats floats, at least BC (3 H Q + 2 Q^2 + 3 ceil(Q/64) H Q)
+// (ops.ssd_bwd_scratch_floats).  All f32, contiguous.  Returns the CUDA
+// error code of the launches (0 = launched).
+extern "C" int ssd_chunk_bwd_launch(
+    const void* x, const void* dt, const void* a, const void* B,
+    const void* C, const void* dy, const void* ds, void* dx, void* ddt,
+    void* da, void* dB, void* dC, void* scratch, long long scratch_floats,
+    int BC, int Q, int H, int P, int N, void* stream) {
+  if (BC <= 0 || Q <= 0 || H <= 0 || P <= 0 || N <= 0) return 0;
+  if (Q > kMaxQ) return (int)cudaErrorInvalidValue;
+  BwdArgs g;
+  g.x = static_cast<const float*>(x);
+  g.dt = static_cast<const float*>(dt);
+  g.a = static_cast<const float*>(a);
+  g.B = static_cast<const float*>(B);
+  g.C = static_cast<const float*>(C);
+  g.dy = static_cast<const float*>(dy);
+  g.ds = static_cast<const float*>(ds);
+  g.dx = static_cast<float*>(dx);
+  g.ddt = static_cast<float*>(ddt);
+  g.da = static_cast<float*>(da);
+  g.dB = static_cast<float*>(dB);
+  g.dC = static_cast<float*>(dC);
+  g.BC = BC; g.Q = Q; g.H = H; g.P = P; g.N = N;
+  g.nt = (Q + kBT - 1) / kBT;
+  g.n_pairs = g.nt * (g.nt + 1) / 2;
+  g.n_pt = (P + kBT - 1) / kBT;
+  g.n_nt = (N + kBT - 1) / kBT;
+  const long long hq = (long long)BC * H * Q;
+  const long long qq = (long long)BC * Q * Q;
+  if (scratch_floats < 3 * hq + 2 * qq + 3 * g.nt * hq)
+    return (int)cudaErrorInvalidValue;
+  float* s = static_cast<float*>(scratch);
+  g.cs = s;
+  g.w = g.cs + hq;
+  g.dw = g.w + hq;
+  g.cb = g.dw + hq;
+  g.dcb = g.cb + qq;
+  g.rowg = g.dcb + qq;
+  g.colg = g.rowg + g.nt * hq;
+  g.cole = g.colg + g.nt * hq;
+  const long long cells = (long long)BC * H;
+  const long long blocks[5] = {(cells + kBWarps - 1) / kBWarps,
+                               (long long)BC * g.n_pairs, cells * g.nt,
+                               (long long)BC * 2 * g.nt * g.n_nt,
+                               (cells + kBWarps - 1) / kBWarps};
+  for (long long b : blocks)
+    if (b > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  ssd_bwd_steps_kernel<<<(unsigned)blocks[0], kBThreads, 0, st>>>(g);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (dy) {
+    ssd_bwd_pairs_kernel<<<(unsigned)blocks[1], kBThreads, 0, st>>>(g);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  ssd_bwd_dx_kernel<<<(unsigned)blocks[2], kBThreads, 0, st>>>(g);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_bc_kernel<<<(unsigned)blocks[3], kBThreads, 0, st>>>(g);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ssd_bwd_out_kernel<<<(unsigned)blocks[4], kBThreads, 0, st>>>(g);
   return (int)cudaGetLastError();
 }

@@ -8,13 +8,11 @@ launches, one per call that reached the GPU, so a run can show that it
 went through the kernels.
 
 Gradients on the card: when grad is enabled and an operand requires it,
-``rmsnorm``, ``flash_attention`` and ``grouped_matmul`` run as
-``torch.autograd.Function``s whose forward is the forward kernel and whose
-backward is a CUDA kernel too (``rmsnorm_bwd``; ``flash_attention_bwd``,
-from the row logsumexp the forward then also writes; ``grouped_matmul_dx``,
-which reads W^T in place, and ``grouped_matmul_dw``).
-``ssd_chunk`` has no backward kernel yet: on the card it raises rather than
-return an output with no ``grad_fn``.  Serving (no grad) launches the
+every kernel runs as a ``torch.autograd.Function`` whose forward is the
+forward kernel and whose backward is a CUDA kernel too (``rmsnorm_bwd``;
+``flash_attention_bwd``, from the row logsumexp the forward then also
+writes; ``grouped_matmul_dx``, which reads W^T in place, and
+``grouped_matmul_dw``; ``ssd_chunk_bwd``).  Serving (no grad) launches the
 forward kernels alone, with no logsumexp.
 
 Counting (``launch.roofline.Counter``): while a counter is active every
@@ -24,9 +22,7 @@ and meta tensors the kernels then take the card's route through the same
 ``autograd.Function``s, so a step records the backward kernels the card
 would launch: the plain version on CPU tensors (its temporaries not
 tracked as memory), outputs of the kernel's shapes on meta tensors (the
-dry-run).  ``ssd_chunk`` under grad, which has no kernel, runs its plain
-version and counts as aten ops.  With no counter, a launch only tests
-``roofline.ACTIVE``.
+dry-run).  With no counter, a launch only tests ``roofline.ACTIVE``.
 """
 from __future__ import annotations
 
@@ -40,11 +36,13 @@ from ..launch import roofline
 from . import build, ref
 
 KERNEL_NAMES = build.KERNELS + ("rmsnorm_bwd", "flash_attention_bwd",
-                                "grouped_matmul_dx", "grouped_matmul_dw")
+                                "grouped_matmul_dx", "grouped_matmul_dw",
+                                "ssd_chunk_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (its shared-memory plan)
 ATTN_HEAD_DIMS = (64, 96, 128)   # csrc/flash_attention.cu: its dispatches
 RMS_DW_PARTS = 256   # csrc/rmsnorm.cu: kMaxParts, dw partials at most
+SSD_TILE = 64        # csrc/ssd_chunk.cu: kBT, rows of the backward's tiles
 
 
 def reset_launches() -> None:
@@ -95,11 +93,13 @@ def _counting() -> bool:
 
 
 def _plain(name: str, cost, fn, meta):
-    """A kernel's call on CPU or meta operands under a counter: records
-    ``cost`` and returns ``meta()``, outputs of the kernel's shapes, when
-    ``fn`` is None (meta operands), else the plain version ``fn()``, whose
-    aten ops and temporaries count nothing and whose outputs are tracked
-    as the kernel's."""
+    """A kernel's call on CPU or meta operands: returns ``meta()``, outputs
+    of the kernel's shapes, when ``fn`` is None (meta operands), else the
+    plain version ``fn()``.  Under a counter it records ``cost`` first, and
+    the plain version's aten ops and temporaries count nothing and its
+    outputs are tracked as the kernel's."""
+    if not _counting():
+        return meta() if fn is None else fn()
     _record(name, *cost)
     if fn is None:
         with roofline.quiet():
@@ -489,12 +489,33 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.ndim > 1 and x.shape[1] > SSD_MAX_Q:
         raise ValueError(f"ssd_chunk: chunk length {x.shape[1]} above "
                          f"{SSD_MAX_Q} is not built")
+    if not x.is_cuda and not _counting():
+        return ref.ssd_chunk_ref(x, dt, a, B, C)
+    if _needs_grad(x, dt, a, B, C):
+        return _SsdChunk.apply(x, dt, a, B, C)
+    return _ssd_chunk_fwd(x, dt, a, B, C)
+
+
+def _ssd_dims(x, B):
+    """(BC, Q, H, P, N) of either layout (the flat one has H = 1)."""
+    BC, Q, H, P = x.shape if x.ndim == 4 else (*x.shape[:2], 1, x.shape[2])
+    return BC, Q, H, P, B.shape[-1]
+
+
+def _model_layout(x, dt, a, B, C):
+    """The flat layout's operands viewed in the model's (H = 1), checked,
+    as contiguous f32; and whether they came flat."""
+    flat = x.ndim == 3
+    if flat:
+        x, dt, a = x[:, :, None], dt[..., None], a[..., None]
+    ref.check_ssd_shapes(x, dt, a, B, C)
+    return flat, [t.float().contiguous() for t in (x, dt, a, B, C)]
+
+
+@_kernel_call
+def _ssd_chunk_fwd(x, dt, a, B, C):
+    BC, Q, H, P, N = _ssd_dims(x, B)
     if not x.is_cuda:
-        if not _counting() or _needs_grad(x, dt, a, B, C):
-            return ref.ssd_chunk_ref(x, dt, a, B, C)
-        BC, Q, H, P = x.shape if x.ndim == 4 else (*x.shape[:2], 1,
-                                                     x.shape[2])
-        N = B.shape[-1]
         state = (BC, H, P, N) if x.ndim == 4 else (BC, P, N)
         return _plain("ssd_chunk", (*roofline.ssd_cost(BC, Q, H, P, N),
                                     "float32"),
@@ -502,25 +523,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       lambda: ref.ssd_chunk_ref(x, dt, a, B, C),
                       lambda: (x.new_empty(x.shape, dtype=torch.float32),
                                x.new_empty(state, dtype=torch.float32)))
-    if _needs_grad(x, dt, a, B, C):
-        raise RuntimeError(
-            "ssd_chunk: the CUDA kernel has no backward yet (ROADMAP queue 2, "
-            "part A), so on the card it runs only without grad; its output "
-            "would carry no gradient.  Train SSM layers on the CPU (the plain "
-            "version) or under torch.no_grad() on the card")
-    return _ssd_chunk_cuda(x, dt, a, B, C)
-
-
-@_kernel_call
-def _ssd_chunk_cuda(x, dt, a, B, C):
-    flat = x.ndim == 3
-    if flat:
-        x, dt, a = x[:, :, None], dt[..., None], a[..., None]
-    ref.check_ssd_shapes(x, dt, a, B, C)
-    x, dt, a, B, C = (t.float().contiguous() for t in (x, dt, a, B, C))
+    flat, (x, dt, a, B, C) = _model_layout(x, dt, a, B, C)
     _cuda_args("ssd_chunk", x, dt, a, B, C)
-    BC, Q, H, P = x.shape
-    N = B.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((BC, H, P, N), dtype=torch.float32, device=x.device)
     _launch("ssd_chunk", "ssd_chunk", x.data_ptr(), dt.data_ptr(),
@@ -530,6 +534,75 @@ def _ssd_chunk_cuda(x, dt, a, B, C):
     if flat:
         return y[:, :, 0], state[:, 0]
     return y, state
+
+
+def ssd_bwd_scratch_floats(BC: int, Q: int, H: int) -> int:
+    """f32 scratch of the backward kernel (csrc/ssd_chunk.cu: its plan):
+    a_cum and w = exp(a_cum[-1] - a_cum) dt a head, C.B^T and dCB a cell,
+    three partial sums a head and 64-row tile, and dw a head."""
+    tiles = (Q + SSD_TILE - 1) // SSD_TILE
+    return BC * (3 * H * Q + 2 * Q * Q + 3 * tiles * H * Q)
+
+
+@_kernel_call
+def ssd_chunk_bwd(x, dt, a, B, C, dy: Optional[torch.Tensor] = None,
+                  ds: Optional[torch.Tensor] = None):
+    """(dx, ddt, da, dB, dC), all f32, of :func:`ssd_chunk` given ``dy``
+    (of y) and ``ds`` (of the state), either None for zero, through the
+    backward kernel (:func:`ref.ssd_chunk_bwd_ref` on the CPU).  Layouts
+    of :func:`ssd_chunk`; in the model's, dB and dC sum the heads."""
+    BC, Q, H, P, N = _ssd_dims(x, B)
+
+    def cost():
+        return (*roofline.ssd_bwd_cost(BC, Q, H, P, N, dy=dy is not None,
+                                       ds=ds is not None), "float32")
+
+    if not x.is_cuda:
+        return _plain(
+            "ssd_chunk_bwd", cost(),
+            None if x.is_meta else
+            lambda: ref.ssd_chunk_bwd_ref(x, dt, a, B, C, dy, ds),
+            lambda: tuple(t.new_empty(t.shape, dtype=torch.float32)
+                          for t in (x, dt, a, B, C)))
+    flat, (x, dt, a, B, C) = _model_layout(x, dt, a, B, C)
+    if flat:
+        dy = None if dy is None else dy[:, :, None]
+        ds = None if ds is None else ds[:, None]
+    grads = [None if g is None else g.float().contiguous() for g in (dy, ds)]
+    if grads[0] is not None and grads[0].shape != x.shape:
+        raise ValueError(f"ssd_chunk_bwd: dy {tuple(grads[0].shape)}, "
+                         f"expected {tuple(x.shape)}")
+    if grads[1] is not None and grads[1].shape != (BC, H, P, N):
+        raise ValueError(f"ssd_chunk_bwd: ds {tuple(grads[1].shape)}, "
+                         f"expected {(BC, H, P, N)}")
+    _cuda_args("ssd_chunk_bwd", x, dt, a, B, C,
+               *(g for g in grads if g is not None))
+    outs = [torch.empty_like(t) for t in (x, dt, a, B, C)]
+    scratch = torch.empty(ssd_bwd_scratch_floats(BC, Q, H),
+                          dtype=torch.float32, device=x.device)
+    _launch("ssd_chunk_bwd", "ssd_chunk_bwd",
+            *(t.data_ptr() for t in (x, dt, a, B, C)),
+            *(None if g is None else g.data_ptr() for g in grads),
+            *(t.data_ptr() for t in outs), scratch.data_ptr(),
+            scratch.numel(), BC, Q, H, P, N, _stream(x), cost=cost)
+    if flat:
+        dx, ddt, da, dB, dC = outs
+        return dx[:, :, 0], ddt[..., 0], da[..., 0], dB, dC
+    return tuple(outs)
+
+
+class _SsdChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, B, C):
+        ctx.set_materialize_grads(False)      # an unused output: None
+        ctx.save_for_backward(x, dt, a, B, C)
+        return _ssd_chunk_fwd(x, dt, a, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        operands = ctx.saved_tensors
+        grads = ssd_chunk_bwd(*operands, dy, ds)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, operands))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,

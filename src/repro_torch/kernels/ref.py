@@ -302,6 +302,176 @@ def ssd_chunk_f64(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state, y_bound, s_bound
 
 
+def _ssd_bwd_terms(x, dt, cs, B, C, dy, ds, sign: float,
+                   weigh_exp: bool = False):
+    """The backward's terms in the model layout, in the operands' dtype,
+    from the f32 ``a_cum`` ``cs`` (converted): (dx, ddt, d a_cum, dB, dC).
+    ``sign`` multiplies the terms that enter d a_cum subtracted (-1; +1
+    with absolute operands gives each output's sum of |terms|).  With
+    ``weigh_exp`` each decay is weighed by the size of its exponent
+    (``L |a_cum[q] - a_cum[k]|``, ``e |a_cum[-1] - a_cum[k]|``).
+
+    With ``M[q,k] = (C_q.B_k) L[q,k] dt_k`` (k <= q), ``dM = dy x^T``,
+    ``e_k = exp(a_cum[-1] - a_cum[k])``, ``w = e dt`` and
+    ``dsB[k,p] = sum_n ds[p,n] B[k,n]``:
+
+    * ``dx[k] = sum_{q>=k} M[q,k] dy[q] + w_k dsB[k]``;
+    * ``ddt_k = sum_{q>=k} dM (C.B) L + e_k dw_k``, ``dw_k = x_k . dsB[k]``;
+    * ``d a_cum[i] = sum_{k<i} G[i,k] - sum_{q>i} G[q,i]`` with ``G = dM
+      M`` (the diagonal, where L is 1 whatever a_cum is, drops out), then
+      the state's decay: ``+ sum_{k<Q-1} dw_k w_k`` at ``i = Q-1`` and
+      ``- dw_i w_i`` below it;
+    * ``dCB = sum_h dM L dt``, ``dC = dCB B``, ``dB = dCB^T C + sum_h w
+      x^T ds``.
+    """
+    Q = x.shape[1]
+    tril = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = cs[:, :, None, :] - cs[:, None, :, :]            # [BC,Q,K,H]
+    L = torch.exp(torch.where(tril[None, :, :, None], diff,
+                              torch.full_like(diff, -math.inf)))
+    e = torch.exp(cs[:, -1:] - cs)                          # [BC,Q,H]
+    if weigh_exp:
+        L = L * diff.abs()
+        e = e * (cs[:, -1:] - cs).abs()
+    w = e * dt
+    dx, ddt, dcs = (torch.zeros_like(x), torch.zeros_like(dt),
+                    torch.zeros_like(dt))
+    dB, dC = torch.zeros_like(B), torch.zeros_like(C)
+    if dy is not None:
+        CB = torch.einsum("bqn,bkn->bqk", C, B)
+        dM = torch.einsum("bqhp,bkhp->bqkh", dy, x)
+        Ldt = L * dt[:, None]
+        dx = torch.einsum("bqkh,bqhp->bkhp", CB[..., None] * Ldt, dy)
+        E = dM * CB[..., None] * L
+        ddt = E.sum(1)
+        strict = tril.tril(-1)[None, :, :, None]
+        G = torch.where(strict, E * dt[:, None], torch.zeros_like(E))
+        dcs = G.sum(2) + sign * G.sum(1)
+        dCB = (dM * Ldt).sum(-1)
+        dC = torch.einsum("bqk,bkn->bqn", dCB, B)
+        dB = torch.einsum("bqk,bqn->bkn", dCB, C)
+    if ds is not None:
+        dsB = torch.einsum("bhpn,bkn->bkhp", ds, B)
+        dx = dx + w[..., None] * dsB
+        dw = (x * dsB).sum(-1)                              # [BC,Q,H]
+        ddt = ddt + dw * e
+        T = (dw * w)[:, :-1]                  # the last step's decay is 1
+        dcs = dcs + torch.cat([sign * T, T.sum(1, keepdim=True)], dim=1)
+        dB = dB + torch.einsum("bkh,bkhp,bhpn->bkn", w, x, ds)
+    return dx, ddt, dcs, dB, dC
+
+
+def _reverse_cumsum(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``out[j] = sum_{i>=j} t[i]`` along dim 1, summed in f64."""
+    return t.double().flip(1).cumsum(1).flip(1).to(dtype)
+
+
+def _ssd_bwd_operands(x, dt, a, B, C, dy, ds):
+    """The model layout of the backward's operands (see ssd_chunk_bwd_ref),
+    checked; returns them and whether they came in the flat layout."""
+    flat = x.ndim == 3
+    if flat:
+        x, dt, a = x[:, :, None], dt[..., None], a[..., None]
+        dy = None if dy is None else dy[:, :, None]
+        ds = None if ds is None else ds[:, None]
+    check_ssd_shapes(x, dt, a, B, C)
+    BC, Q, H, P = x.shape
+    if dy is not None and dy.shape != x.shape:
+        raise ValueError(f"ssd_chunk_bwd: dy {tuple(dy.shape)} expected "
+                         f"{tuple(x.shape)}")
+    if ds is not None and ds.shape != (BC, H, P, B.shape[-1]):
+        raise ValueError(f"ssd_chunk_bwd: ds {tuple(ds.shape)} expected "
+                         f"{(BC, H, P, B.shape[-1])}")
+    return flat, x, dt, a, B, C, dy, ds
+
+
+def _ssd_bwd_layout(flat: bool, outs):
+    """(dx, ddt, da, dB, dC) back in the flat layout where it came so."""
+    if not flat:
+        return tuple(outs)
+    dx, ddt, da, dB, dC = outs
+    return dx[:, :, 0], ddt[..., 0], da[..., 0], dB, dC
+
+
+def ssd_chunk_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor,
+                      dy: Optional[torch.Tensor] = None,
+                      ds: Optional[torch.Tensor] = None):
+    """Gradients (dx, ddt, da, dB, dC), all f32, of :func:`ssd_chunk_ref`
+    given the gradients ``dy`` of y and ``ds`` of the state, from explicit
+    formulas in f32 (not autograd).  Either may be None, which counts as
+    zero.  Layouts of :func:`ssd_chunk_ref`: in the model's, dB and dC sum
+    the H heads that share B and C.  ``da`` is the reverse cumsum of d
+    a_cum within the chunk, summed in f64 as :func:`chunk_cumsum` sums
+    a_cum."""
+    flat, x, dt, a, B, C, dy, ds = _ssd_bwd_operands(x, dt, a, B, C, dy, ds)
+    f32 = torch.float32
+    cs = chunk_cumsum(a.float(), 1)
+    dx, ddt, dcs, dB, dC = _ssd_bwd_terms(
+        x.float(), dt.float(), cs, B.float(), C.float(),
+        None if dy is None else dy.float(),
+        None if ds is None else ds.float(), -1.0)
+    return _ssd_bwd_layout(flat, (dx, ddt, _reverse_cumsum(dcs, f32), dB,
+                                  dC))
+
+
+def ssd_chunk_bwd_f64(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor,
+                      dy: Optional[torch.Tensor] = None,
+                      ds: Optional[torch.Tensor] = None):
+    """:func:`ssd_chunk_bwd_ref` evaluated in f64, with the bound an f32
+    evaluation of it must meet, as :func:`ssd_chunk_f64` bounds the
+    forward.
+
+    Returns ``((dx, ddt, da, dB, dC), (their bounds))``: the f64 gradients
+    from the same f32 ``a_cum``, and per element ``gamma * 2**-24`` times
+    the sum of the absolute values of the terms summed into it (the same
+    formulas on absolute operands, every subtraction an addition).  gamma
+    is the length of the longest chain of f32 roundings into the output,
+    read off its sums, plus 32 units of slack for ``exp`` (Higham's
+    gamma_n).  Two more terms: ``2**-24`` times the same sum with each
+    decay weighed by its exponent's size (f32 rounds ``a_cum[q] -
+    a_cum[k]`` to 2**-24 of it, and exp makes that relative error: at an
+    early k, ``w_k dsB`` alone makes dx when dy is absent, with an exponent
+    near -65 at Q 100); and ``gamma * 2**-126`` times the sum with every
+    decay 1, for the decays that fall below f32's normal range:
+
+    * dx: N (C.B) + Q (the sum over q);
+    * ddt: P (dM) + N (C.B) + Q;
+    * da: P + N + 2Q (a row and a column of G); the reverse cumsum is f64;
+    * dC: P + H (dCB) + Q;
+    * dB: P + H + Q, then the state's H P terms in one chain.
+
+    da's terms cancel (the pairs with both ends at or after j, and da[0]
+    is 0 exactly), so a bound taken from max |da| alone would not tell a
+    wrong term from rounding; this one does.
+    """
+    flat, x, dt, a, B, C, dy, ds = _ssd_bwd_operands(x, dt, a, B, C, dy, ds)
+    f64 = torch.float64
+    cs = chunk_cumsum(a.float(), 1).to(f64)
+    ops = [t if t is None else t.to(f64) for t in (x, dt, B, C, dy, ds)]
+    absx, absdt, *absrest = [t if t is None else t.abs() for t in ops]
+    vals = list(_ssd_bwd_terms(ops[0], ops[1], cs, *ops[2:], -1.0))
+    mags = list(_ssd_bwd_terms(absx, absdt, cs, *absrest, 1.0))
+    # f32 rounds the exponent a_cum[q] - a_cum[k] to 2**-24 of its size,
+    # which exp turns into as much relative error in the decay
+    expw = list(_ssd_bwd_terms(absx, absdt, cs, *absrest, 1.0,
+                               weigh_exp=True))
+    # the same sums with every decay 1 (a_cum 0): what a term is worth
+    # before its exp, which may fall below f32's normal range
+    units = list(_ssd_bwd_terms(absx, absdt, torch.zeros_like(cs),
+                                *absrest, 1.0))
+    for m in (vals, mags, expw, units):
+        m[2] = _reverse_cumsum(m[2], f64)
+    _, Q, H, P = x.shape
+    N = B.shape[-1]
+    gammas = (N + Q, P + N + Q, P + N + 2 * Q, P + H + Q + H * P,
+              P + H + Q)
+    bounds = [2.0 ** -24 * ((g + 32) * m + x_) + 2.0 ** -126 * (g + 32) * u
+              for g, m, x_, u in zip(gammas, mags, expw, units)]
+    return _ssd_bwd_layout(flat, vals), _ssd_bwd_layout(flat, bounds)
+
+
 def check_ssd_shapes(x, dt, a, B, C) -> None:
     """Reject what the ssd_chunk kernel does not take (model layout)."""
     if x.ndim != 4:

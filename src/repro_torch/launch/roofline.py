@@ -140,6 +140,37 @@ def ssd_cost(BC: int, Q: int, H: int, P: int, N: int):
     return nbytes, flops
 
 
+def ssd_bwd_cost(BC: int, Q: int, H: int, P: int, N: int, *,
+                 dy: bool = True, ds: bool = True):
+    """The backward kernel (csrc/ssd_chunk.cu, ``ssd_chunk_bwd_launch``):
+    x, dt, a, B, C and the gradients given (``dy``, ``ds``) read once, dx,
+    ddt, da, dB and dC written once, all f32.  FLOPs are 2 a multiply-add
+    of its contractions, over k <= q only, with ``pairs = Q (Q+1) / 2`` a
+    cell:
+
+    * with dy: C.B^T once a cell (pairs N), then a head dM = dy x^T
+      (pairs P) and M^T dy into dx (pairs P); dC = dCB B and dB += dCB^T C
+      (pairs N each);
+    * with ds: a head dsB = ds B^T into dx (Q P N) and dw = x . dsB
+      (Q P); the state's part of dB, sum_h w x^T ds (Q P N).
+
+    The elementwise work (L, G, the row and column sums, the cumsums)
+    counts nothing, as in :func:`ssd_cost`.
+    """
+    pairs = Q * (Q + 1) // 2
+    cells = BC * Q * H
+    nbytes = 4 * (2 * cells * P + 2 * cells + 2 * BC * Q * N     # operands
+                  + cells * P + 2 * cells + 2 * BC * Q * N)      # grads
+    macs = 0
+    if dy:
+        nbytes += 4 * cells * P
+        macs += pairs * N + 2 * H * pairs * P + 2 * pairs * N
+    if ds:
+        nbytes += 4 * BC * H * P * N
+        macs += H * (2 * Q * P * N + Q * P)
+    return nbytes, 2 * BC * macs
+
+
 # ------------------------------------------------------------- the terms
 @dataclass
 class RooflineTerms:

@@ -380,7 +380,7 @@ def test_cpu_ops_train_through_the_plain_versions():
     assert set(ops.LAUNCHES) == {
         "rmsnorm", "flash_attention", "grouped_matmul", "ssd_chunk",
         "rmsnorm_bwd", "flash_attention_bwd", "grouped_matmul_dx",
-        "grouped_matmul_dw"}
+        "grouped_matmul_dw", "ssd_chunk_bwd"}
 
 
 # ------------------------------------------------------------------ build
@@ -653,16 +653,47 @@ def test_cuda_backward_kernels_match_plain():
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_chunk_refuses_grad():
-    """ssd_chunk has no backward kernel: on the card, with grad enabled and
-    an operand that requires grad, it raises; under no_grad it runs."""
+def test_cuda_ssd_chunk_bwd_matches_plain():
+    """ssd_chunk_bwd on the card against its plain version (f32, 1e-4 of
+    each output's max |ref|) and within ssd_chunk_bwd_f64's bound, the same
+    bits twice, in both layouts, with ds or dy absent; and through autograd
+    with grad on, where ops.ssd_chunk runs the forward and backward
+    kernels and gives the backward kernel's gradients."""
     dev = _cuda_or_skip()
-    x = torch.randn(2, 16, 3, 8, device=dev, requires_grad=True)
-    dt = torch.rand(2, 16, 3, device=dev)
-    a = -dt
-    B, C = torch.randn(2, 16, 4, device=dev), torch.randn(2, 16, 4, device=dev)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.ssd_chunk(x, dt, a, B, C)
-    with torch.no_grad():
-        y, _ = ops.ssd_chunk(x, dt, a, B, C)
-    assert y.grad_fn is None and bool(torch.isfinite(y).all())
+    gen = torch.Generator(device=dev).manual_seed(16)
+    F = torch.nn.functional
+    cases = [((4, 256, 3, 64, 128), True, True),
+             ((2, 13, 5, 64, 128), True, True),
+             ((6, 32, 1, 16, 24), True, True),      # the JAX layout
+             ((2, 65, 13, 64, 128), True, False),   # ds absent
+             ((2, 100, 9, 30, 18), False, True),    # dy absent
+             ((1, 1024, 3, 64, 128), True, True)]
+    for (BC, Q, H, P, N), has_dy, has_ds in cases:
+        x = torch.randn(BC, Q, H, P, generator=gen, device=dev)
+        dt = F.softplus(torch.randn(BC, Q, H, generator=gen, device=dev))
+        a = -dt * torch.rand(H, generator=gen, device=dev)
+        B = torch.randn(BC, Q, N, generator=gen, device=dev)
+        C = torch.randn(BC, Q, N, generator=gen, device=dev)
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        ds = torch.randn(BC, H, P, N, generator=gen, device=dev)
+        if H == 1:                                # the JAX layout
+            x, dt, a, dy, ds = x[:, :, 0], dt[..., 0], a[..., 0], \
+                dy[:, :, 0], ds[:, 0]
+        dy, ds = dy if has_dy else None, ds if has_ds else None
+        before = ops.LAUNCHES["ssd_chunk_bwd"]
+        got = ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds)
+        assert ops.LAUNCHES["ssd_chunk_bwd"] == before + 1
+        want = ref.ssd_chunk_bwd_ref(x, dt, a, B, C, dy, ds)
+        vals, bounds = ref.ssd_chunk_bwd_f64(x, dt, a, B, C, dy, ds)
+        for g, w, v, b in zip(got, want, vals, bounds):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            assert _rel_err(g, w) <= 1e-4
+            assert bool(((g.double() - v).abs() <= b).all())
+        again = ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+        if has_dy and has_ds:
+            leaves = [t.clone().requires_grad_() for t in (x, dt, a, B, C)]
+            y, s = ops.ssd_chunk(*leaves)
+            grads = torch.autograd.grad((y, s), leaves, (dy, ds))
+            assert all(torch.equal(u, v) for u, v in zip(grads, got))
+    torch.cuda.synchronize()
