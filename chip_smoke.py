@@ -1826,6 +1826,8 @@ def train_path(torch, dev, arch: str = ARCH):
     # the CLI's learning rate and the Trainer's default warm-up (10 steps)
     tcfg = TrainerConfig(steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
                          seq_len=TRAIN_SEQ, peak_lr=3e-4, log_every=1)
+    held = (torch.cuda.memory_allocated(dev) / 2 ** 30,
+            torch.cuda.memory_reserved(dev) / 2 ** 30)
     trainer = Trainer(cfg, tcfg, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1843,7 +1845,8 @@ def train_path(torch, dev, arch: str = ARCH):
         f"{TRAIN_STEPS} steps, step {step_s * 1e3:.1f} ms (mean of steps "
         f"1..{TRAIN_STEPS - 1}; step 0 {hist[0]['sec'] * 1e3:.1f} ms, "
         f"untimed), {TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s, peak "
-        f"memory {peak:.2f} GiB")
+        f"memory {peak:.2f} GiB (before its Trainer: {held[0]:.2f} GiB "
+        f"allocated, {held[1]:.2f} GiB reserved)")
     log("f", f"{arch} losses {[round(x, 4) for x in losses]}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
                                              for x in losses):
@@ -2866,25 +2869,30 @@ def main() -> int:
         for kernel, regs, spills in ptxas_report(text):
             log("a", f"ptxas {name}: {kernel}: {regs} registers, {spills}")
     check_tensor_core_sass(build)
+    log("a", f"(a) {time.perf_counter() - t_start:.1f} s")
 
     errs = check_kernels(torch, ops, ref, dev)
     check_new_attention(torch, ops, ref, dev)
     times = time_kernels(torch, ops, ref, dev)
     times["flash_attention"]["by_shape"] = time_new_attention(torch, ops,
                                                               ref, dev)
+    log("b", f"(a) to (b) {time.perf_counter() - t_start:.1f} s")
     by_path = {arch: main_path(torch, dev, arch) for arch in SERVING}
+    log("c", f"(a) to (c) {time.perf_counter() - t_start:.1f} s")
     whole_model_checks(torch, dev, ARCH, (16,), 4)
     whole_model_checks(torch, dev, SSM_ARCH, (16, 2), 2)
     whole_model_checks(torch, dev, DENSE_ARCH, (16,), 4)
     whole_model_checks(torch, dev, ENCDEC_ARCH, (16,), 4)
     whole_model_checks(torch, dev, VLM_ARCH, (16,), 4)
     whole_model_checks(torch, dev, DENSE_ARCH, (200,), 80, window=20)
+    log("d", f"(a) to (d) {time.perf_counter() - t_start:.1f} s")
     by_path["calibrate"] = calibration_profiles(torch, dev)
     for name in build.KERNELS:
         if not any(by_path[arch][name] for arch in SERVING):
             raise AssertionError(f"{name}: no serving path launched it")
 
     t_f = time.perf_counter()
+    log("e", f"(a) to (e) {t_f - t_start:.1f} s")
     errs.update(check_backward_kernels(torch, ops, ref, dev))
     errs["ssd_chunk_bwd"] = check_ssd_bwd(torch, ops, ref, dev)
     times.update(time_backward_kernels(torch, ops, ref, dev))
@@ -2893,8 +2901,11 @@ def main() -> int:
     grads_card_vs_cpu(torch, dev, SSM_ARCH, 2, TRAIN_SEQ)
     grads_card_vs_cpu(torch, dev, HYBRID_ARCH, 2, HYBRID_SEQ,
                       cfg=hybrid_config(), bound=None)
+    # each path's trainer and state are freed before the next one trains
     by_path["train_ssm"] = train_path(torch, dev, SSM_ARCH)[0]
+    gc_collect(torch)
     by_path["train_hybrid"] = hybrid_path(torch, dev)
+    gc_collect(torch)
     by_path["train"], trainer, trained = train_path(torch, dev)
     for name in GRANITE_BWD:
         if not by_path["train"][name]:

@@ -560,7 +560,7 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt, const void* a,
 //              C[q,n] + sum_h w_h[k] sum_p x_h[k,p] ds_h[p,n],
 //   with dCB = sum_h dM L dt (B and C are shared by the heads of a cell).
 //
-// Bound by operations (about 13 GFLOP against 238 MB at mamba2's training
+// Bound by operations (about 13 GFLOP against 188 MB at mamba2's training
 // shape), computed in f32 on the FMA pipes; no TF32.  A simple design that
 // is right first: five launches, each a grid of 64 x 64 output tiles of
 // 256 threads, a thread owning 4 x 4 of the tile, its operands staged 16

@@ -564,31 +564,20 @@ def ssd_chunk_bwd(x, dt, a, B, C, dy: Optional[torch.Tensor] = None,
             lambda: ref.ssd_chunk_bwd_ref(x, dt, a, B, C, dy, ds),
             lambda: tuple(t.new_empty(t.shape, dtype=torch.float32)
                           for t in (x, dt, a, B, C)))
-    flat, (x, dt, a, B, C) = _model_layout(x, dt, a, B, C)
-    if flat:
-        dy = None if dy is None else dy[:, :, None]
-        ds = None if ds is None else ds[:, None]
-    grads = [None if g is None else g.float().contiguous() for g in (dy, ds)]
-    if grads[0] is not None and grads[0].shape != x.shape:
-        raise ValueError(f"ssd_chunk_bwd: dy {tuple(grads[0].shape)}, "
-                         f"expected {tuple(x.shape)}")
-    if grads[1] is not None and grads[1].shape != (BC, H, P, N):
-        raise ValueError(f"ssd_chunk_bwd: ds {tuple(grads[1].shape)}, "
-                         f"expected {(BC, H, P, N)}")
-    _cuda_args("ssd_chunk_bwd", x, dt, a, B, C,
-               *(g for g in grads if g is not None))
+    flat, *operands = ref.ssd_bwd_operands(x, dt, a, B, C, dy, ds)
+    x, dt, a, B, C, dy, ds = (None if t is None else t.float().contiguous()
+                              for t in operands)
+    grads = [g for g in (dy, ds) if g is not None]
+    _cuda_args("ssd_chunk_bwd", x, dt, a, B, C, *grads)
     outs = [torch.empty_like(t) for t in (x, dt, a, B, C)]
     scratch = torch.empty(ssd_bwd_scratch_floats(BC, Q, H),
                           dtype=torch.float32, device=x.device)
     _launch("ssd_chunk_bwd", "ssd_chunk_bwd",
             *(t.data_ptr() for t in (x, dt, a, B, C)),
-            *(None if g is None else g.data_ptr() for g in grads),
+            *(None if g is None else g.data_ptr() for g in (dy, ds)),
             *(t.data_ptr() for t in outs), scratch.data_ptr(),
             scratch.numel(), BC, Q, H, P, N, _stream(x), cost=cost)
-    if flat:
-        dx, ddt, da, dB, dC = outs
-        return dx[:, :, 0], ddt[..., 0], da[..., 0], dB, dC
-    return tuple(outs)
+    return ref.ssd_bwd_layout(flat, outs)
 
 
 class _SsdChunk(torch.autograd.Function):

@@ -366,7 +366,7 @@ def _reverse_cumsum(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.double().flip(1).cumsum(1).flip(1).to(dtype)
 
 
-def _ssd_bwd_operands(x, dt, a, B, C, dy, ds):
+def ssd_bwd_operands(x, dt, a, B, C, dy, ds):
     """The model layout of the backward's operands (see ssd_chunk_bwd_ref),
     checked; returns them and whether they came in the flat layout."""
     flat = x.ndim == 3
@@ -385,7 +385,7 @@ def _ssd_bwd_operands(x, dt, a, B, C, dy, ds):
     return flat, x, dt, a, B, C, dy, ds
 
 
-def _ssd_bwd_layout(flat: bool, outs):
+def ssd_bwd_layout(flat: bool, outs):
     """(dx, ddt, da, dB, dC) back in the flat layout where it came so."""
     if not flat:
         return tuple(outs)
@@ -404,15 +404,15 @@ def ssd_chunk_bwd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     the H heads that share B and C.  ``da`` is the reverse cumsum of d
     a_cum within the chunk, summed in f64 as :func:`chunk_cumsum` sums
     a_cum."""
-    flat, x, dt, a, B, C, dy, ds = _ssd_bwd_operands(x, dt, a, B, C, dy, ds)
+    flat, x, dt, a, B, C, dy, ds = ssd_bwd_operands(x, dt, a, B, C, dy, ds)
     f32 = torch.float32
     cs = chunk_cumsum(a.float(), 1)
     dx, ddt, dcs, dB, dC = _ssd_bwd_terms(
         x.float(), dt.float(), cs, B.float(), C.float(),
         None if dy is None else dy.float(),
         None if ds is None else ds.float(), -1.0)
-    return _ssd_bwd_layout(flat, (dx, ddt, _reverse_cumsum(dcs, f32), dB,
-                                  dC))
+    return ssd_bwd_layout(flat, (dx, ddt, _reverse_cumsum(dcs, f32), dB,
+                                 dC))
 
 
 def ssd_chunk_bwd_f64(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -446,7 +446,7 @@ def ssd_chunk_bwd_f64(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     is 0 exactly), so a bound taken from max |da| alone would not tell a
     wrong term from rounding; this one does.
     """
-    flat, x, dt, a, B, C, dy, ds = _ssd_bwd_operands(x, dt, a, B, C, dy, ds)
+    flat, x, dt, a, B, C, dy, ds = ssd_bwd_operands(x, dt, a, B, C, dy, ds)
     f64 = torch.float64
     cs = chunk_cumsum(a.float(), 1).to(f64)
     ops = [t if t is None else t.to(f64) for t in (x, dt, B, C, dy, ds)]
@@ -469,7 +469,7 @@ def ssd_chunk_bwd_f64(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               P + H + Q)
     bounds = [2.0 ** -24 * ((g + 32) * m + x_) + 2.0 ** -126 * (g + 32) * u
               for g, m, x_, u in zip(gammas, mags, expw, units)]
-    return _ssd_bwd_layout(flat, vals), _ssd_bwd_layout(flat, bounds)
+    return ssd_bwd_layout(flat, vals), ssd_bwd_layout(flat, bounds)
 
 
 def check_ssd_shapes(x, dt, a, B, C) -> None:

@@ -159,8 +159,8 @@ def ssd_bwd_cost(BC: int, Q: int, H: int, P: int, N: int, *,
     """
     pairs = Q * (Q + 1) // 2
     cells = BC * Q * H
-    nbytes = 4 * (2 * cells * P + 2 * cells + 2 * BC * Q * N     # operands
-                  + cells * P + 2 * cells + 2 * BC * Q * N)      # grads
+    operands = cells * P + 2 * cells + 2 * BC * Q * N    # x, dt, a, B, C
+    nbytes = 4 * 2 * operands                            # and their grads
     macs = 0
     if dy:
         nbytes += 4 * cells * P

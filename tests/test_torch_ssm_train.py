@@ -13,6 +13,7 @@ forward.  The CUDA kernel itself is held to the plain version on the card
 (``tests/test_torch_kernels.py``, ``cuda`` marker, and ``chip_smoke.py``).
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -155,6 +156,22 @@ def test_ssd_chunk_bwd_with_a_gradient_absent(absent):
     with_both = rl.ssd_bwd_cost(4, 40, 1, 16, 24)
     assert records["ssd_chunk_bwd"]["flops"] < with_both[1]
     assert records["ssd_chunk_bwd"]["bytes"] < with_both[0]
+
+
+@pytest.mark.parametrize("dy,ds", [(True, True), (True, False),
+                                   (False, True)])
+def test_ssd_bwd_cost_moves_each_tensor_once(dy, ds):
+    """``roofline.ssd_bwd_cost``'s bytes at mamba2's training shape are
+    those of the f32 tensors the backward must move: x, dt, a, B, C and the
+    gradients given read once, dx, ddt, da, dB and dC written once."""
+    BC, Q, H, P, N = 16, 256, 48, 64, 128
+    operands = [(BC, Q, H, P), (BC, Q, H), (BC, Q, H), (BC, Q, N),
+                (BC, Q, N)]
+    moved = operands * 2 + [(BC, Q, H, P)] * dy + [(BC, H, P, N)] * ds
+    want = 4 * sum(math.prod(s) for s in moved)
+    assert rl.ssd_bwd_cost(BC, Q, H, P, N, dy=dy, ds=ds)[0] == want
+    if dy and ds:
+        assert want == 187_695_104
 
 
 def test_ssd_chunk_bwd_heads_layout_equals_broadcast_layout():
