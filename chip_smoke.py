@@ -85,7 +85,9 @@ exits non-zero:
     against its plain version (f32, 1e-4 of max|ref|) and within
     ``ref.ssd_chunk_bwd_f64``'s bound, finite, twice bit for bit, at
     mamba2's training shape (x[16,256,48,64], N 128), the forward's
-    tiling edges (``SSD_EDGES``), and with ds absent and with dy absent.
+    tiling edges (``SSD_EDGES``), its own (``SSD_BWD_EDGES``: head groups,
+    state splits, rows copied without cp.async), with ds absent, with dy
+    absent, and with a of both signs (``SSD_SIGNED``).
     Times of each backward kernel, its plain version, one PyTorch call
     (SDPA's backward, F.rms_norm's backward, a padded bmm; none for
     ssd_chunk_bwd) and its bound, with each kernel's share of rmsnorm_bwd,
@@ -412,6 +414,17 @@ SSD_EDGES = [(2, 256, 1, 64, 128), (2, 256, 3, 64, 128), (2, 65, 13, 64, 128),
              (1, 64, 50, 64, 128), (3, 1, 13, 64, 128), (2, 13, 50, 130, 300),
              (1, 1024, 13, 64, 128), (1, 1024, 3, 130, 300),
              (2, 100, 9, 30, 18)]
+# ssd_chunk_bwd about its own plan (csrc/ssd_chunk.cu), beside SSD_EDGES (H
+# 1, 3, 9 one past a dx group of 8, 13 one past a pairs group of 12, 50; Q
+# 1, 65, 1024; P 30, N 18 off 16-byte rows): one head past a state split of
+# 24 (H 25) with P off 16-byte rows alone; fewer heads than a dx group (H
+# 5) with N off 16-byte rows alone; one whole split and two whole pairs
+# groups (H 24); and the most splits and groups (H 129: six splits, eleven
+# groups, Q 64).  Then a of both signs (SSD_SIGNED): a_cum is not monotone,
+# and decays above 1 occur.
+SSD_BWD_EDGES = [(1, 192, 25, 66, 128), (2, 64, 5, 64, 62),
+                 (2, 128, 24, 64, 128), (1, 64, 129, 64, 64)]
+SSD_SIGNED = (2, 256, 13, 64, 128)
 
 
 def log(phase: str, msg: str) -> None:
@@ -1550,23 +1563,30 @@ def check_ssd_bwd(torch, ops, ref, dev) -> float:
     """ssd_chunk_bwd against its plain version: every output finite,
     within ``SSD_BWD_TOL`` of its max |ref| and within the bound of
     ``ref.ssd_chunk_bwd_f64``, and the same bits twice; at mamba2's
-    training shape and the forward's tiling edges (``SSD_EDGES``), then
-    with ds absent and with dy absent.  Its own generator (seed 15).
+    training shape, the forward's tiling edges (``SSD_EDGES``) and the
+    backward's own (``SSD_BWD_EDGES``), with ds absent, with dy absent, and
+    with a of both signs (``SSD_SIGNED``).  Its own generator (seed 15).
     Returns the max abs error at the training shape."""
     gen = torch.Generator(device=dev).manual_seed(15)
     names = ("dx", "ddt", "da", "dB", "dC")
-    cases = [(shape, True, True) for shape in [SSD_TRAIN] + SSD_EDGES]
-    cases += [(SSD_TRAIN, True, False), (SSD_EDGES[-1], False, True)]
+    cases = [(shape, True, True, False) for shape in [SSD_TRAIN] + SSD_EDGES]
+    cases += [(SSD_TRAIN, True, False, False), (SSD_EDGES[-1], False, True,
+                                                False)]
+    cases += [(shape, True, True, False) for shape in SSD_BWD_EDGES]
+    cases += [(SSD_SIGNED, True, True, True)]
     err_train = 0.0
-    for shape, has_dy, has_ds in cases:
+    for shape, has_dy, has_ds, signed in cases:
         BC, Q, H, P, N = shape
         x, dt, a, B, C = ssd_inputs(torch, gen, *shape)
+        if signed:
+            a = 0.3 * torch.randn(a.shape, generator=gen, device=dev)
         dy = (torch.randn(x.shape, generator=gen, device=dev) if has_dy
               else None)
         ds = (torch.randn((BC, H, P, N) if x.ndim == 4 else (BC, P, N),
                           generator=gen, device=dev) if has_ds else None)
         label = (f"ssd_chunk_bwd {shape}" + ("" if has_dy else ", dy absent")
-                 + ("" if has_ds else ", ds absent"))
+                 + ("" if has_ds else ", ds absent")
+                 + (", a of both signs" if signed else ""))
         got = ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds)
         want = ref.ssd_chunk_bwd_ref(x, dt, a, B, C, dy, ds)
         vals, bounds = ref.ssd_chunk_bwd_f64(x, dt, a, B, C, dy, ds)
@@ -1584,7 +1604,7 @@ def check_ssd_bwd(torch, ops, ref, dev) -> float:
             f"{max(rels):.3e} (tol {SSD_BWD_TOL}); err/f64 bound "
             + ", ".join(f"{n} {r:.3f}" for n, r in zip(names, ratios))
             + "; finite; deterministic")
-        if shape == SSD_TRAIN and has_dy and has_ds:
+        if shape == SSD_TRAIN and has_dy and has_ds and not signed:
             err_train = max(errs)
         del x, dt, a, B, C, dy, ds, got, want, vals, bounds
         torch.cuda.empty_cache()

@@ -43,6 +43,11 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// Barrier `id` (1 .. 15; 0 is __syncthreads') over `threads` threads, a
+// multiple of 32, of the block.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // ------------------------------------------------ ldmatrix and mma.sync
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {

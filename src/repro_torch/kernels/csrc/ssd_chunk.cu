@@ -560,93 +560,238 @@ extern "C" int ssd_chunk_launch(const void* x, const void* dt, const void* a,
 //              C[q,n] + sum_h w_h[k] sum_p x_h[k,p] ds_h[p,n],
 //   with dCB = sum_h dM L dt (B and C are shared by the heads of a cell).
 //
-// Bound by operations (about 13 GFLOP against 188 MB at mamba2's training
-// shape), computed in f32 on the FMA pipes; no TF32.  A simple design that
-// is right first: five launches, each a grid of 64 x 64 output tiles of
-// 256 threads, a thread owning 4 x 4 of the tile, its operands staged 16
-// deep through shared memory (tile_mma); the scratch (the wrapper's) keeps
-// what one launch hands the next:
-//
-//   1. steps: a warp a (bc, h): a_cum (f64 scan rounded once to f32, as the
-//      forward) and w;
-//   2. pairs (with dy): a block a (bc, q-tile, k-tile <= q-tile) forms its
-//      CB tile once, then walks the heads in order: dM of the tile, then
-//      dCB += dM L dt in registers, and G's row sums (a half-warp's shuffle)
-//      and column sums of G and of dM CB L (in order through shared memory)
-//      as partials a tile; it writes the CB and dCB tiles;
-//   3. dx: a block a (bc, h, k-tile) walks the p-tiles: M^T dy over
-//      q >= k (M formed from the CB tiles), dsB over n, dx, and dw's sum;
-//   4. dB and dC: a block a (bc, row tile, n-tile) of either: dC from the
-//      dCB rows, dB from its columns and then the state's H P terms, the
-//      heads in order;
-//   5. steps: a warp a (bc, h) sums the partials in order into ddt and
+// Bound by operations: about 13 GFLOP against 188 MB at mamba2's training
+// shape, in four products of about the same size (dM = dy x^T, M^T dy,
+// B ds^T and the state's sum over (h, p)), computed in f32 on the FMA
+// pipes; no TF32.  The design is the forward's:
+// - Register tiles.  A warp owns a 64 x 64 tile of a product, 8 x 16 a lane
+//   (mma_tn, mma_nt), or 64 x 32, 8 x 8 a lane, where it also carries dCB
+//   across heads (mma_nt in pairs).  An operand staged [depth][64] is read as
+//   the forward reads it (rows tile_row(l, .): 16 FMAs a float4 read); one
+//   staged [row][depth] is read a float4 along the depth a row (16 to 21
+//   FMAs a float4), in 16-deep slices at a pitch of 20 floats (mma_nt's rows
+//   l + 8 i) or in 32-deep slices whose 16-byte chunks are XOR-swizzled by
+//   row (mma_tn's rows 4 l + i), so that a quarter warp reads 8 distinct
+//   banks.
+// - Copies.  cp.async into two-stage rings, so that slice s + 1 (and the
+//   next head's first) is in flight while slice s computes; rows
+//   that are not 16-byte multiples are copied with plain loads.
+// - Factors.  L, dt and w are applied once to a staged slice (M from C.B^T,
+//   (w x)^T from x), and dCB's head groups are summed once a staged slice.
+// - Launches (the scratch, the wrapper's, keeps what one hands the next):
+//   1. prep: a warp a (bc, h): a_cum (f64 scan rounded once to f32, as the
+//      forward) and w; with dy, a block a (bc, q-tile, k-tile <= q-tile):
+//      its C.B^T tile, the warps an eighth of n each, summed in order;
+//   2. pairs (with dy): a block a (bc, q-tile, k-tile <= q-tile, group of up
+//      to kPairHeads heads), two warps a head (sharing one ring) and four
+//      heads at a time, the next head's slices in flight: dM (on a diagonal
+//      tile only the lanes' register blocks that reach k <= q), dCB += dM L
+//      dt (a warp's own tile in shared memory), and G's row sums and the
+//      column sums of G and of dM CB L as partials a (head, tile); the block
+//      sums its warps' dCB in order into the group's partial;
+//   3. dx: a block a (bc, k-tile, group of 8 heads), a warp a head: dsB (B's
+//      slices shared by the block), dw, then dx = w dsB + M^T dy (the warp's
+//      own ring, M formed in place of its C.B^T slice);
+//   4. state (with ds): a block a (bc, k-tile, n-tile, split of up to
+//      kSplitHeads heads), a warp a head at a time: the split's sum over
+//      (h, p) of (w x)^T ds, its warps summed in order into the partial;
+//   5. dsum (with dy): a block a tile: dCB, the groups' partials summed in
+//      order, and its transpose;
+//   6. bc: a block a (bc, dC or dB, row tile, n-tile), eight warps an eighth
+//      of the depth each: dC = dCB B, dB = dCB^T C, the warps summed in
+//      order, then dB adds the state's partials in split order;
+//   7. out: a block a (bc, h) sums the partials in order into ddt and
 //      dacum, and da by a reverse f64 scan.
-//
-// Each output has one owner and every sum a fixed order (no atomics), so
-// the kernel is deterministic.  Any Q from 1 to kMaxQ, any H, P, N.
+// Each output has one owner and every sum a fixed order, partials included
+// (no atomics), so the kernel is deterministic, and splitting a sum into
+// partials makes no chain of roundings longer than ref.ssd_chunk_bwd_f64's
+// bound allows.  Any Q from 1 to kMaxQ, any H, P, N.
 
 namespace {
 
-constexpr int kBT = 64;               // rows and columns of a tile
-constexpr int kBK = 16;               // depth of a staged slice
-constexpr int kBPitch = kBT + 4;      // shared-memory pitch of a slice row
+constexpr int kBT = 64;                // rows and columns of a tile
+constexpr int kBK = 16;                // depth of a [depth][64] or [row][16] slice
+constexpr int kNP = kBK + 4;           // pitch of a [row][16] slice
+constexpr int kSK = 32;                // depth of a swizzled [row][32] slice
+constexpr int kRP = kBT + 4;           // pitch of a [64][64] tile of sums
 constexpr int kBThreads = 256;
 constexpr int kBWarps = kBThreads / 32;
+constexpr int kPairHeads = 12;         // heads of a pairs block, at most
+constexpr int kPairSlice = 2 * kBT * kNP;   // dy [64][kNP], x [2][32][kNP]
+constexpr int kDP = kBT / 2 + 4;       // pitch of a pairs warp's [64][32] dCB
+constexpr int kSplitHeads = 24;        // heads of a state split, at most
+constexpr int kStateSlice = kBT * kNP + kBK * kBT;   // x [64][kNP], ds [16][64]
+constexpr int kStateWarp = 2 * kStateSlice + kBK * kBT;  // its ring, (w x)^T
+constexpr int kDxStage = (kBWarps + 1) * kBT * kSK;  // B's slice and a warp's
+constexpr int kBcWarps = 8;
+constexpr int kBcWarp = 2 * 2 * kBK * kBT;         // ring of dCB and B or C
 
 struct BwdArgs {
   const float *x, *dt, *a, *B, *C, *dy, *ds;   // dy or ds may be null
   float *dx, *ddt, *da, *dB, *dC;
-  // scratch: cs, w, dw [BC][H][Q]; cb, dcb [BC][Q][Q]; rowg (by k-tile),
-  // colg, cole (by q-tile) [BC][nt][H][Q]
-  float *cs, *w, *dw, *cb, *dcb, *rowg, *colg, *cole;
-  int BC, Q, H, P, N, nt, n_pairs, n_pt, n_nt;
+  // scratch: cs, w, dw [BC][H][Q]; cb (C.B^T, then dCB), dcbt (dCB^T)
+  // [BC][Q][Q]; dcbp [BC][n_hg][Q][Q];
+  // rowg [BC][2 nt][H][Q] (by k-tile and half); colg, cole [BC][nt][H][Q]
+  // (by q-tile); sp [BC][n_sp][Q][N]
+  float *cs, *w, *dw, *cb, *dcbt, *dcbp, *rowg, *colg, *cole, *sp;
+  int BC, Q, H, P, N;
+  int nt, n_pairs, n_pt, n_nt;  // 64-tiles of Q, their pairs k <= q, of P, N
+  int n_hg, G;                  // pairs: head groups, heads of a group
+  int n_dg;                     // dx: groups of kBWarps heads
+  int n_sp, SG;                 // state: splits, heads of a split
+  int n_steps;                  // blocks of prep's steps
+  int vec_x, vec_bc, vec_ds, vec_q;  // rows of x, dy, dx / B, C / ds / the
+                                     // scratch's [Q][Q] are 16-byte copies
 };
 
-// acc[i][j] += sum over k in [k_lo, k_hi) of A(k, 4 ty + i) B(k, 4 tx + j),
-// with ty = thread / 16, tx = thread % 16, k ascending; fa(k, r) and fb(k, c)
-// give the operands (0 past their edges).  A slice of kBK k goes through
-// shared memory (As, Bs: [kBK][kBPitch]); kA / kB: the operand runs along k
-// in device memory, so neighbouring threads load neighbouring k, else
-// neighbouring rows.  Starts with a barrier; writes no shared memory after
-// its last barrier.
-template <bool kA, bool kB, class FA, class FB>
-__device__ __forceinline__ void tile_mma(float (&acc)[4][4], int k_lo,
-                                         int k_hi, FA fa, FB fb, float* As,
-                                         float* Bs) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-    __syncthreads();                   // earlier readers of As, Bs are done
-    for (int idx = tid; idx < kBK * kBT; idx += kBThreads) {
-      const int kk = kA ? idx % kBK : idx / kBT;
-      const int r = kA ? idx / kBK : idx % kBT;
-      As[kk * kBPitch + r] = k0 + kk < k_hi ? fa(k0 + kk, r) : 0.f;
+// Float offset of element (r, d) of a [rows][kSK] slice whose 16-byte chunk
+// c of row r sits at chunk c ^ ((r / 4) % 8).
+__device__ __forceinline__ int swz(int r, int d) {
+  return r * kSK + ((((d >> 2) ^ (r >> 2)) & 7) << 2) + (d & 3);
+}
+
+// rows x kSK of a row-major source (row stride lds) into a swizzled slice,
+// by threads id = 0 .. n - 1; entries past (rv, cv) are zero.  With vec the
+// copy is cp.async, else plain loads.
+__device__ __forceinline__ void load_swz(float* dst,
+                                         const float* __restrict__ src,
+                                         size_t lds, int rows, int rv, int cv,
+                                         int vec, int id, int n) {
+  if (vec) {
+    for (int idx = id; idx < rows * (kSK / 4); idx += n) {
+      const int r = idx >> 3, c = (idx & 7) * 4;
+      const bool ok = r < rv && c < cv;
+      hw::cp_async16(hw::smem_u32(dst + swz(r, c)), ok ? src + r * lds + c : src,
+                     ok);
     }
-    for (int idx = tid; idx < kBK * kBT; idx += kBThreads) {
-      const int kk = kB ? idx % kBK : idx / kBT;
-      const int c = kB ? idx / kBK : idx % kBT;
-      Bs[kk * kBPitch + c] = k0 + kk < k_hi ? fb(k0 + kk, c) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk * kBPitch + 4 * ty]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk * kBPitch + 4 * tx]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+  } else {
+    for (int idx = id; idx < rows * kSK; idx += n) {
+      const int r = idx / kSK, c = idx % kSK;
+      dst[swz(r, c)] = (r < rv && c < cv) ? src[r * lds + c] : 0.f;
     }
   }
 }
 
-// The sum of v over the 16 lanes of a half-warp (the threads of one ty), the
-// same butterfly every call.
-__device__ __forceinline__ float half_warp_sum(float v) {
+// A two-stage ring over steps 0 .. n - 1: issue(s) starts the copies of
+// step s (cp.async, or plain stores) into buffer s % 2, compute(s) reads
+// them once landed, while step s + 1's copies are in flight.  sync() is the
+// barrier of the threads that share the ring (a warp, two, the block); each
+// step ends with it, so the ring's buffers are free after the ring.
+template <class S, class I, class F>
+__device__ __forceinline__ void ring(int n, S sync, I issue, F compute) {
+  if (n > 0) issue(0);
+  hw::cp_async_commit();
+  for (int s = 0; s < n; ++s) {
+    if (s + 1 < n) issue(s + 1);
+    hw::cp_async_commit();
+    hw::cp_async_wait<1>();
+    sync();
+    compute(s);
+    sync();
+  }
+}
+
+struct WarpSync {
+  __device__ __forceinline__ void operator()() const { __syncwarp(); }
+};
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// acc[i][j] += sum over a kBK slice of A[l + 8 i][d] Bt[m + 4 j][d] (l =
+// lane % 8, m = lane / 8), both staged [row][depth] at pitch kNP, depth
+// ascending; with kTri only j <= i (the rest lies above a diagonal).
+template <int NJ, bool kTri>
+__device__ __forceinline__ void mma_nt(float (&acc)[8][NJ], const float* A,
+                                       const float* Bt, int lane) {
+  const int l = lane & 7, m = lane >> 3;
 #pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int d = 0; d < kBK; d += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a[i] = *reinterpret_cast<const float4*>(&A[(l + 8 * i) * kNP + d]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(&Bt[(m + 4 * j) * kNP + d]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (kTri && j > i) continue;
+        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[r][4 m + c] += sum over a kBK slice of A[d][tile_row(l, r)]
+// B[d][16 m + 4 g + c] (l = lane % 8, g = lane / 8), both staged
+// [depth][64] at pitches lda and ldb, depth ascending.
+__device__ __forceinline__ void mma_tn(float (&acc)[8][16], const float* A,
+                                       int lda, const float* B, int ldb,
+                                       int lane) {
+  const int l = lane & 7, g = lane >> 3;
+#pragma unroll 4
+  for (int k = 0; k < kBK; ++k) {
+    const float4 s0 = *reinterpret_cast<const float4*>(&A[k * lda + 4 * l]);
+    const float4 s1 = *reinterpret_cast<const float4*>(&A[k * lda + 32 + 4 * l]);
+    const float sr[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    float bc[16];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(&B[k * ldb + 16 * m + 4 * g]);
+      bc[4 * m] = v.x;
+      bc[4 * m + 1] = v.y;
+      bc[4 * m + 2] = v.z;
+      bc[4 * m + 3] = v.w;
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[r][c] = fmaf(sr[r], bc[c], acc[r][c]);
+  }
+}
+
+// The same tile from operands staged [row][depth]: acc[r][4 m + c] += sum
+// over a kSK slice of A[tile_row(l, r)][d] B[16 m + 4 g + c][d], both
+// swizzled (swz), depth ascending.  A lane's rows share (row / 4) % 8 = l.
+__device__ __forceinline__ void mma_tn_swz(float (&acc)[8][16], const float* A,
+                                           const float* B, int lane) {
+  const int l = lane & 7, g = lane >> 3;
+#pragma unroll 2
+  for (int c4 = 0; c4 < kSK / 4; ++c4) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a[i] = *reinterpret_cast<const float4*>(
+          &A[tile_row(l, i) * kSK + ((c4 ^ l) << 2)]);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 16 * m + 4 * g + c;
+        const float4 b = *reinterpret_cast<const float4*>(
+            &B[col * kSK + ((c4 ^ ((col >> 2) & 7)) << 2)]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float& o = acc[i][4 * m + c];
+          o = fmaf(a[i].x, b.x, o);
+          o = fmaf(a[i].y, b.y, o);
+          o = fmaf(a[i].z, b.z, o);
+          o = fmaf(a[i].w, b.w, o);
+        }
+      }
+  }
+}
+
+// The q-tile and k-tile (k <= q) of pair index pr: (0,0), (1,0), (1,1), ...
+__device__ __forceinline__ void pair_of(int pr, int& qt, int& kt) {
+  qt = 0;
+  while ((qt + 1) * (qt + 2) / 2 <= pr) ++qt;
+  kt = pr - qt * (qt + 1) / 2;
 }
 
 // A warp's segment of [0, Q): lane l owns [lo, hi).
@@ -657,21 +802,16 @@ __device__ __forceinline__ void lane_segment(int Q, int lane, int& lo,
   hi = min(Q, lo + per);
 }
 
-// 1. a_cum (inclusive, f64 sum rounded once) and w = exp(a_cum[Q-1] -
-// a_cum) dt of each (bc, h), a warp each, into cs and w [BC][H][Q].
-__global__ void __launch_bounds__(kBThreads)
-ssd_bwd_steps_kernel(const BwdArgs g) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cell = blockIdx.x * kBWarps + warp;          // bc * H + h
-  if (cell >= g.BC * g.H) return;
-  const int bc = cell / g.H, h = cell % g.H;
-  const float* a = g.a + (size_t)bc * g.Q * g.H + h;     // step q at [q H]
-  const float* dt = g.dt + (size_t)bc * g.Q * g.H + h;
+// a_cum (inclusive, f64 sum rounded once) and w = exp(a_cum[Q-1] - a_cum) dt
+// of cell = bc H + h, by one warp, into cs and w; a and dt of the cell's
+// steps are staged at as (overwritten with a_cum) and dts.
+__device__ void cell_steps(const BwdArgs& g, int cell, int lane, float* as,
+                           const float* dts) {
   float* cs = g.cs + (size_t)cell * g.Q;
   int lo, hi;
   lane_segment(g.Q, lane, lo, hi);
   double run = 0.0;
-  for (int q = lo; q < hi; ++q) run += (double)a[(size_t)q * g.H];
+  for (int q = lo; q < hi; ++q) run += (double)as[q];
   double incl = run;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -681,246 +821,628 @@ ssd_bwd_steps_kernel(const BwdArgs g) {
   double acc = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) acc = 0.0;
   for (int q = lo; q < hi; ++q) {
-    acc += (double)a[(size_t)q * g.H];
-    cs[q] = (float)acc;
+    acc += (double)as[q];
+    as[q] = cs[q] = (float)acc;
   }
   __syncwarp();
-  const float last = cs[g.Q - 1];
+  const float last = as[g.Q - 1];
   for (int q = lane; q < g.Q; q += 32)
-    g.w[(size_t)cell * g.Q + q] = expf(last - cs[q]) * dt[(size_t)q * g.H];
+    g.w[(size_t)cell * g.Q + q] = expf(last - as[q]) * dts[q];
 }
 
-// 2. a block a (bc, q-tile qt, k-tile kt <= qt).
-__global__ void __launch_bounds__(kBThreads)
-ssd_bwd_pairs_kernel(const BwdArgs g) {
-  __shared__ __align__(16) float As[kBK * kBPitch];
-  __shared__ __align__(16) float Bs[kBK * kBPitch];
-  __shared__ float csq[kBT], csk[kBT], dtk[kBT];
-  __shared__ float colG[16][kBT], colE[16][kBT];
-  const int Q = g.Q, H = g.H, P = g.P, N = g.N;
-  const int bc = blockIdx.x / g.n_pairs, pr = blockIdx.x % g.n_pairs;
-  int qt = 0;
-  while ((qt + 1) * (qt + 2) / 2 <= pr) ++qt;
-  const int kt = pr - qt * (qt + 1) / 2;
-  const int q0 = qt * kBT, k0 = kt * kBT;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t row0 = (size_t)bc * Q;
-  const size_t ld = (size_t)H * P;                 // row stride of x, dy
-  const float* Cc = g.C + row0 * N;
-  const float* Bc = g.B + row0 * N;
-  float cb[4][4] = {};
-  tile_mma<true, true>(
-      cb, 0, N,
-      [&](int n, int r) { return q0 + r < Q ? Cc[(size_t)(q0 + r) * N + n] : 0.f; },
-      [&](int n, int c) { return k0 + c < Q ? Bc[(size_t)(k0 + c) * N + n] : 0.f; },
-      As, Bs);
-  float dcb[4][4] = {};
-  for (int h = 0; h < H; ++h) {
-    const float* csh = g.cs + ((size_t)bc * H + h) * Q;
-    if (tid < kBT) {
-      csq[tid] = q0 + tid < Q ? csh[q0 + tid] : 0.f;
-    } else if (tid < 2 * kBT) {
-      const int c = tid - kBT, k = k0 + c;
-      csk[c] = k < Q ? csh[k] : 0.f;
-      dtk[c] = k < Q ? g.dt[(row0 + k) * H + h] : 0.f;
-    }
-    const float* dyh = g.dy + row0 * ld + (size_t)h * P;
-    const float* xh = g.x + row0 * ld + (size_t)h * P;
-    float dm[4][4] = {};
-    tile_mma<true, true>(
-        dm, 0, P,
-        [&](int p, int r) { return q0 + r < Q ? dyh[(size_t)(q0 + r) * ld + p] : 0.f; },
-        [&](int p, int c) { return k0 + c < Q ? xh[(size_t)(k0 + c) * ld + p] : 0.f; },
-        As, Bs);
-    float rg[4] = {}, cg[4] = {}, ce[4] = {};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ql = 4 * ty + i, q = q0 + ql;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 4 * tx + j, k = k0 + c;
-        const bool keep = q < Q && k <= q;
-        const float L = keep ? expf(csq[ql] - csk[c]) : 0.f;
-        dcb[i][j] = fmaf(dm[i][j], L * dtk[c], dcb[i][j]);
-        const float E = dm[i][j] * cb[i][j] * L;
-        const float G = k < q ? E * dtk[c] : 0.f;
-        rg[i] += G;
-        cg[j] += G;
-        ce[j] += E;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float s = half_warp_sum(rg[i]);
-      const int q = q0 + 4 * ty + i;
-      if (tx == 0 && q < Q)
-        g.rowg[(((size_t)bc * g.nt + kt) * H + h) * Q + q] = s;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      colG[ty][4 * tx + j] = cg[j];
-      colE[ty][4 * tx + j] = ce[j];
+// 1. prep: blocks below n_steps scan the cells, a warp each (8 cells a
+// block, their steps staged together); then, with dy,
+// a block a (bc, pair) forms its C.B^T tile into cb: warp w sums its eighth
+// of the 16-deep n slices (8 x 16 a lane, a two-stage ring), and the block
+// sums the warps in order.
+__global__ void __launch_bounds__(kBThreads, 1)
+ssd_bwd_prep_kernel(const BwdArgs g) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if ((int)blockIdx.x < g.n_steps) {
+    // the block's cells c0 + j: a and dt staged [j][q] (pitch Q + 1), read
+    // across the cells' heads
+    const int c0 = blockIdx.x * kBWarps;
+    const int nc = min(kBWarps, g.BC * g.H - c0), ldq = g.Q + 1;
+    for (int idx = tid; idx < nc * g.Q; idx += kBThreads) {
+      const int q = idx / nc, j = idx % nc, cell = c0 + j;
+      const size_t o = ((size_t)(cell / g.H) * g.Q + q) * g.H + cell % g.H;
+      sm[j * ldq + q] = g.a[o];
+      sm[(kBWarps + j) * ldq + q] = g.dt[o];
     }
     __syncthreads();
-    if (tid < kBT && k0 + tid < Q) {
-      float sg = 0.f, se = 0.f;
-#pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        sg += colG[t][tid];
-        se += colE[t][tid];
-      }
-      const size_t o = (((size_t)bc * g.nt + qt) * H + h) * Q + k0 + tid;
-      g.colg[o] = sg;
-      g.cole[o] = se;
-    }
+    if (warp < nc)
+      cell_steps(g, c0 + warp, lane, sm + warp * ldq,
+                 sm + (kBWarps + warp) * ldq);
+    return;
   }
+  const int tile = blockIdx.x - g.n_steps;
+  const int Q = g.Q, N = g.N, bc = tile / g.n_pairs;
+  int qt, kt;
+  pair_of(tile % g.n_pairs, qt, kt);
+  const int q0 = qt * kBT, k0 = kt * kBT;
+  const size_t row0 = (size_t)bc * Q;
+  const int n_sl = (N + kBK - 1) / kBK;
+  const int s_lo = warp * n_sl / kBWarps, s_hi = (warp + 1) * n_sl / kBWarps;
+  constexpr int kSlice = 2 * kBT * kNP;                // C rows, B rows
+  float* wr = sm + warp * 2 * kSlice;
+  float acc[8][16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + 4 * ty + i;
-    if (q >= Q) continue;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + 4 * tx + j;
-      if (k >= Q) continue;
-      g.cb[(row0 + q) * Q + k] = cb[i][j];
-      g.dcb[(row0 + q) * Q + k] = dcb[i][j];
-    }
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+  ring(
+      s_hi - s_lo, WarpSync(),
+      [&](int s) {
+        float* A = wr + (s & 1) * kSlice;
+        const int n0 = (s_lo + s) * kBK;
+        load_tile(A, kNP, g.C + (row0 + q0) * N + n0, N, kBT, kBK, Q - q0,
+                  N - n0, g.vec_bc, lane, 32);
+        load_tile(A + kBT * kNP, kNP, g.B + (row0 + k0) * N + n0, N, kBT, kBK,
+                  Q - k0, N - n0, g.vec_bc, lane, 32);
+      },
+      [&](int s) {
+        const float* A = wr + (s & 1) * kSlice;
+        mma_nt<16, false>(acc, A, A + kBT * kNP, lane);
+      });
+  __syncthreads();                              // every ring is done
+  float* red = sm;                              // [kBWarps][kBT][kRP]
+  const int l = lane & 7, m = lane >> 3;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      red[(warp * kBT + l + 8 * i) * kRP + m + 4 * j] = acc[i][j];
+  __syncthreads();
+  for (int idx = tid; idx < kBT * kBT; idx += kBThreads) {
+    const int r = idx / kBT, c = idx % kBT, q = q0 + r, k = k0 + c;
+    if (q >= Q || k >= Q) continue;
+    float v = red[r * kRP + c];
+    for (int w = 1; w < kBWarps; ++w) v += red[(w * kBT + r) * kRP + c];
+    g.cb[(row0 + q) * Q + k] = v;
   }
 }
 
-// 3. a block a (bc, h, k-tile): dx of its rows, p-tile by p-tile, and dw.
-__global__ void __launch_bounds__(kBThreads)
+// 2. pairs: a block a (bc, q-tile qt, k-tile kt <= qt, head group grp).
+// Warp w takes the heads h0 + w / 2 + 4 i of the group and the columns
+// k = 8 j + 4 (w % 2) + m of the tile (m = lane / 8), so that both warps of
+// a head do the same share of a diagonal tile.
+__global__ void __launch_bounds__(kBThreads, 1)
+ssd_bwd_pairs_kernel(const BwdArgs g) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int Q = g.Q, H = g.H, P = g.P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = blockIdx.x % g.n_hg, rest = blockIdx.x / g.n_hg;
+  const int bc = rest / g.n_pairs;
+  int qt, kt;
+  pair_of(rest % g.n_pairs, qt, kt);
+  const int q0 = qt * kBT, k0 = kt * kBT;
+  const int h0 = grp * g.G, gn = min(g.G, H - h0);
+  const size_t row0 = (size_t)bc * Q, ld = (size_t)H * P;
+  float* cbt = sm;                             // [kBT][kRP] C.B^T of the tile
+  float* csq = cbt + kBT * kRP;                // [kPairHeads][kBT] a_cum, q rows
+  float* csk = csq + kPairHeads * kBT;         // a_cum of the k rows
+  float* dtk = csk + kPairHeads * kBT;         // dt of the k rows
+  float* dcbw = dtk + kPairHeads * kBT;        // [kBWarps][kBT][kDP] dCB a warp
+  float* rng = dcbw + kBWarps * kBT * kDP;     // two slices a slot
+  load_tile(cbt, kRP, g.cb + (row0 + q0) * Q + k0, Q, kBT, kBT, Q - q0,
+            Q - k0, g.vec_q, tid, kBThreads);
+  hw::cp_async_commit();
+  for (int idx = tid; idx < gn * kBT; idx += kBThreads) {
+    const int j = idx / kBT, c = idx % kBT, h = h0 + j;
+    const float* cs = g.cs + ((size_t)bc * H + h) * Q;
+    csq[idx] = q0 + c < Q ? cs[q0 + c] : 0.f;
+    csk[idx] = k0 + c < Q ? cs[k0 + c] : 0.f;
+    dtk[idx] = k0 + c < Q ? g.dt[(row0 + k0 + c) * H + h] : 0.f;
+  }
+  hw::cp_async_wait<0>();
+  __syncthreads();
+
+  const int slot = warp >> 1, half = warp & 1;
+  const int l = lane & 7, m = lane >> 3;
+  const int nh = slot < gn ? (gn - slot + 3) / 4 : 0;   // heads of the warp
+  const int n_ps = (P + kBK - 1) / kBK;
+  // the two warps of a slot share its ring: dy's rows, then x's rows of
+  // both halves; row r of half x is column k = 8 (r / 4) + 4 x + r % 4
+  float* wr = rng + slot * 2 * kPairSlice;
+  const int pt = half * 32 + lane;
+  // the warp's dCB: lane element (i, j) at row l + 8 i, column 4 j + m
+  float* dcl = dcbw + warp * kBT * kDP + l * kDP + m;
+  float dm[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dm[i][j] = 0.f;
+      dcl[8 * i * kDP + 4 * j] = 0.f;
+    }
+  ring(
+      nh * n_ps, [&] { hw::named_sync(1 + slot, 64); },
+      [&](int s) {
+        const int h = h0 + slot + 4 * (s / n_ps), d0 = (s % n_ps) * kBK;
+        float* A = wr + (s & 1) * kPairSlice;
+        float* Bt = A + kBT * kNP;
+        const size_t off = (size_t)h * P + d0;
+        load_tile(A, kNP, g.dy + (row0 + q0) * ld + off, ld, kBT, kBK, Q - q0,
+                  P - d0, g.vec_x, pt, 64);
+        if (g.vec_x) {
+          for (int idx = pt; idx < kBT * (kBK / 4); idx += 64) {
+            const int r = idx >> 2, c = (idx & 3) * 4;
+            const int k = k0 + 8 * ((r & 31) >> 2) + 4 * (r >> 5) + (r & 3);
+            const bool ok = k < Q && d0 + c < P;
+            hw::cp_async16(hw::smem_u32(Bt + r * kNP + c),
+                           ok ? g.x + (row0 + k) * ld + off + c : g.x, ok);
+          }
+        } else {
+          for (int idx = pt; idx < kBT * kBK; idx += 64) {
+            const int r = idx / kBK, c = idx % kBK;
+            const int k = k0 + 8 * ((r & 31) >> 2) + 4 * (r >> 5) + (r & 3);
+            Bt[r * kNP + c] = (k < Q && d0 + c < P)
+                                  ? g.x[(row0 + k) * ld + off + c] : 0.f;
+          }
+        }
+      },
+      [&](int s) {
+        const float* A = wr + (s & 1) * kPairSlice;
+        const float* Bt = A + (kBT + half * kBT / 2) * kNP;
+        if (qt == kt) mma_nt<8, true>(dm, A, Bt, lane);
+        else mma_nt<8, false>(dm, A, Bt, lane);
+        if (s % n_ps != n_ps - 1) return;
+        // the head's dM is whole: its terms, then dm is zeroed for the next
+        const int j = slot + 4 * (s / n_ps), h = h0 + j;
+        const float* cq = csq + j * kBT;
+        const float* ck = csk + j * kBT;
+        const float* dk = dtk + j * kBT;
+        float rs[8], cg[8], ce[8], cqv[8], ckv[8], dkv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int c = 8 * i + 4 * half + m;
+          cqv[i] = cq[l + 8 * i];
+          ckv[i] = ck[c];
+          dkv[i] = dk[c];
+          rs[i] = cg[i] = ce[i] = 0.f;
+        }
+        // u = dM L; dCB += u dt; E = u C.B^T; G = E dt where k < q
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int q = q0 + l + 8 * i;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int c = 8 * jj + 4 * half + m, k = k0 + c;
+            const float u = dm[i][jj] *
+                            expf(q < Q && k <= q ? cqv[i] - ckv[jj] : -INFINITY);
+            float& d = dcl[8 * i * kDP + 4 * jj];
+            d = fmaf(u, dkv[jj], d);
+            const float E = u * cbt[(l + 8 * i) * kRP + c];
+            const float dg = k < q ? dkv[jj] : 0.f;
+            rs[i] = fmaf(E, dg, rs[i]);
+            cg[jj] = fmaf(E, dg, cg[jj]);
+            ce[jj] += E;
+            dm[i][jj] = 0.f;
+          }
+        }
+        // rows: the four lanes m of a row; columns: the eight lanes l
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 8);
+          rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 16);
+#pragma unroll
+          for (int o = 1; o < 8; o <<= 1) {
+            cg[i] += __shfl_xor_sync(0xffffffffu, cg[i], o);
+            ce[i] += __shfl_xor_sync(0xffffffffu, ce[i], o);
+          }
+        }
+        if (m == 0) {
+          float* rowg =
+              g.rowg + (((size_t)bc * 2 * g.nt + 2 * kt + half) * H + h) * Q;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (q0 + l + 8 * i < Q) rowg[q0 + l + 8 * i] = rs[i];
+        }
+        if (l == 0) {
+          const size_t o = (((size_t)bc * g.nt + qt) * H + h) * Q;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int k = k0 + 8 * jj + 4 * half + m;
+            if (k < Q) {
+              g.colg[o + k] = cg[jj];
+              g.cole[o + k] = ce[jj];
+            }
+          }
+        }
+      });
+  // the group's dCB: the four head slots' sums, in slot order
+  __syncthreads();
+  const int ns = min(4, gn);
+  float* out = g.dcbp + ((size_t)bc * g.n_hg + grp) * Q * Q;
+  for (int idx = tid; idx < kBT * kBT; idx += kBThreads) {
+    const int r = idx / kBT, c = idx % kBT, q = q0 + r, k = k0 + c;
+    if (q >= Q || k >= Q) continue;
+    // column c is the warp half (c / 4) % 2's column 4 (c / 8) + c % 4
+    const float* t = dcbw + ((c >> 2) & 1) * kBT * kDP + r * kDP +
+                     4 * (c >> 3) + (c & 3);
+    float v = t[0];
+    for (int s = 1; s < ns; ++s) v += t[2 * s * kBT * kDP];
+    out[(size_t)q * Q + k] = v;
+  }
+}
+
+// 3. dx: a block a (bc, k-tile, group dg of kBWarps heads); warp w owns head
+// 8 dg + w's 64 x 64 tiles of dx, p-tile by p-tile: dsB from a block ring
+// (B's slices shared), dw, then M^T dy from the warp's own ring.
+__global__ void __launch_bounds__(kBThreads, 1)
 ssd_bwd_dx_kernel(const BwdArgs g) {
-  __shared__ __align__(16) float As[kBK * kBPitch];
-  __shared__ __align__(16) float Bs[kBK * kBPitch];
-  __shared__ float csS[kMaxQ], dtS[kMaxQ];
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
   const int Q = g.Q, H = g.H, P = g.P, N = g.N;
-  const int cell = blockIdx.x / g.nt, kt = blockIdx.x % g.nt;
-  const int bc = cell / H, h = cell % H, k0 = kt * kBT;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t row0 = (size_t)bc * Q;
-  const size_t ld = (size_t)H * P;
-  for (int q = tid; q < Q; q += kBThreads) {
-    csS[q] = g.cs[(size_t)cell * Q + q];
-    dtS[q] = g.dt[(row0 + q) * H + h];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the heaviest k-tiles (the most q rows below them) first
+  const int dg = blockIdx.x % g.n_dg, rest = blockIdx.x / g.n_dg;
+  const int bc = rest % g.BC, kt = rest / g.BC, k0 = kt * kBT;
+  const int h = dg * kBWarps + warp;
+  const bool live = h < H;                      // warp-uniform
+  const int Qt = g.nt * kBT;
+  const size_t row0 = (size_t)bc * Q, ld = (size_t)H * P;
+  float* rng = sm;                              // 2 stages of kDxStage
+  float* csS = rng + 2 * kDxStage;              // [kBWarps][Qt] a_cum
+  float* dtS = csS + kBWarps * Qt;              // [kBWarps][kBT] dt, k rows
+  float* wS = dtS + kBWarps * kBT;              // [kBWarps][kBT] w, k rows
+  float* dwS = wS + kBWarps * kBT;              // [kBWarps][kBT] dw, k rows
+  for (int idx = tid; idx < kBWarps * Qt; idx += kBThreads) {
+    const int j = idx / Qt, q = idx % Qt, hj = dg * kBWarps + j;
+    csS[idx] = (hj < H && q < Q) ? g.cs[((size_t)bc * H + hj) * Q + q] : 0.f;
+  }
+  for (int idx = tid; idx < kBWarps * kBT; idx += kBThreads) {
+    const int j = idx / kBT, c = idx % kBT, hj = dg * kBWarps + j;
+    dtS[idx] = (hj < H && k0 + c < Q) ? g.dt[(row0 + k0 + c) * H + hj] : 0.f;
+    wS[idx] = (hj < H && k0 + c < Q) ? g.w[((size_t)bc * H + hj) * Q + k0 + c]
+                                     : 0.f;
+    dwS[idx] = 0.f;
   }
   __syncthreads();
-  const float* cbc = g.cb + row0 * Q;
-  const float* dyh = g.dy ? g.dy + row0 * ld + (size_t)h * P : nullptr;
-  const float* xh = g.x + row0 * ld + (size_t)h * P;
-  const float* dsh = g.ds ? g.ds + (size_t)cell * P * N : nullptr;
-  const float* Bc = g.B + row0 * N;
-  float dwacc[4] = {};
+  const int l = lane & 7, pg = lane >> 3;
   for (int pt = 0; pt < g.n_pt; ++pt) {
     const int p0 = pt * kBT;
-    float acc[4][4] = {}, acc2[4][4] = {};
-    if (g.dy)                                    // M^T dy over q >= k
-      tile_mma<false, false>(
-          acc, k0, Q,
-          [&](int q, int r) {
-            const int k = k0 + r;
-            return k < Q && k <= q
-                       ? cbc[(size_t)q * Q + k] * expf(csS[q] - csS[k]) * dtS[k]
-                       : 0.f;
+    float acc[8][16];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+    if (g.ds) {
+      // dsB = B ds^T over n: B's rows of the tile are the block's, ds_h's
+      // rows of the p-tile the warp's
+      const float* Bk = g.B + (row0 + k0) * N;
+      const float* dsh = g.ds + ((size_t)bc * H + (live ? h : 0)) * P * N +
+                         (size_t)p0 * N;
+      ring(
+          (N + kSK - 1) / kSK, BlockSync(),
+          [&](int s) {
+            float* st = rng + (s & 1) * kDxStage;
+            const int n0 = s * kSK;
+            load_swz(st, Bk + n0, N, kBT, Q - k0, N - n0, g.vec_bc, tid,
+                     kBThreads);
+            if (live)
+              load_swz(st + (warp + 1) * kBT * kSK, dsh + n0, N, kBT, P - p0,
+                       N - n0, g.vec_ds, lane, 32);
           },
-          [&](int q, int c) { return p0 + c < P ? dyh[(size_t)q * ld + p0 + c] : 0.f; },
-          As, Bs);
-    if (g.ds)                                    // dsB = B ds^T
-      tile_mma<true, true>(
-          acc2, 0, N,
-          [&](int n, int r) { return k0 + r < Q ? Bc[(size_t)(k0 + r) * N + n] : 0.f; },
-          [&](int n, int c) { return p0 + c < P ? dsh[(size_t)(p0 + c) * N + n] : 0.f; },
-          As, Bs);
+          [&](int s) {
+            const float* st = rng + (s & 1) * kDxStage;
+            if (live) mma_tn_swz(acc, st, st + (warp + 1) * kBT * kSK, lane);
+          });
+      // dw += x dsB over the tile's columns (the lanes g of a row), x's
+      // tile staged in the ring (two swizzled halves of 32 columns); then
+      // the tile is w dsB
+      float* xs = rng + warp * 2 * kBT * kSK;
+      if (live) {
+        const float* xh = g.x + (row0 + k0) * ld + (size_t)h * P + p0;
+        load_swz(xs, xh, ld, kBT, Q - k0, P - p0, g.vec_x, lane, 32);
+        load_swz(xs + kBT * kSK, xh + kSK, ld, kBT, Q - k0, P - p0 - kSK,
+                 g.vec_x, lane, 32);
+        hw::cp_async_commit();
+        hw::cp_async_wait<0>();
+        __syncwarp();
+        const float* wk = wS + warp * kBT;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + 4 * ty + i;
-      const float wk = k < Q ? g.w[(size_t)cell * Q + k] : 0.f;
-      float part = 0.f;
+        for (int r = 0; r < 8; ++r) {
+          const int k = tile_row(l, r);
+          float part = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = p0 + 4 * tx + j;
-        if (k < Q && p < P) {
-          g.dx[(row0 + k) * ld + (size_t)h * P + p] = fmaf(wk, acc2[i][j], acc[i][j]);
-          part = fmaf(xh[(size_t)k * ld + p], acc2[i][j], part);
+          for (int mm = 0; mm < 4; ++mm) {
+            const int p = 16 * mm + 4 * pg;
+            const float4 v = *reinterpret_cast<const float4*>(
+                &xs[(p / kSK) * kBT * kSK + swz(k, p % kSK)]);
+            part = fmaf(v.x, acc[r][4 * mm], part);
+            part = fmaf(v.y, acc[r][4 * mm + 1], part);
+            part = fmaf(v.z, acc[r][4 * mm + 2], part);
+            part = fmaf(v.w, acc[r][4 * mm + 3], part);
+          }
+          part += __shfl_xor_sync(0xffffffffu, part, 8);
+          part += __shfl_xor_sync(0xffffffffu, part, 16);
+          if (pg == 0) dwS[warp * kBT + k] += part;
+#pragma unroll
+          for (int c = 0; c < 16; ++c) acc[r][c] *= wk[k];
         }
       }
-      dwacc[i] += half_warp_sum(part);
+      __syncthreads();                          // before the ring is reused
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + 4 * ty + i;
-    if (tx == 0 && k < Q) g.dw[(size_t)cell * Q + k] = dwacc[i];
-  }
-}
-
-// 4. a block a (bc, dC or dB, row tile, n-tile).
-__global__ void __launch_bounds__(kBThreads)
-ssd_bwd_bc_kernel(const BwdArgs g) {
-  __shared__ __align__(16) float As[kBK * kBPitch];
-  __shared__ __align__(16) float Bs[kBK * kBPitch];
-  const int Q = g.Q, H = g.H, P = g.P, N = g.N;
-  const int per = 2 * g.nt * g.n_nt;
-  const int bc = blockIdx.x / per, rest = blockIdx.x % per;
-  const bool is_db = rest >= g.nt * g.n_nt;
-  const int rt = (rest % (g.nt * g.n_nt)) / g.n_nt, nt = rest % g.n_nt;
-  const int r0 = rt * kBT, n0 = nt * kBT;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t row0 = (size_t)bc * Q;
-  const float* dcbc = g.dcb + row0 * Q;
-  float acc[4][4] = {};
-  if (!is_db) {
-    if (g.dy) {                                  // dC = dCB B over k <= q
-      const float* Bc = g.B + row0 * N;
-      tile_mma<true, false>(
-          acc, 0, min(Q, r0 + kBT),
-          [&](int k, int r) { return r0 + r < Q ? dcbc[(size_t)(r0 + r) * Q + k] : 0.f; },
-          [&](int k, int c) { return n0 + c < N ? Bc[(size_t)k * N + n0 + c] : 0.f; },
-          As, Bs);
-    }
-  } else {
-    if (g.dy) {                                  // dB = dCB^T C over q >= k
-      const float* Cc = g.C + row0 * N;
-      tile_mma<false, false>(
-          acc, r0, Q,
-          [&](int q, int r) { return r0 + r < Q ? dcbc[(size_t)q * Q + r0 + r] : 0.f; },
-          [&](int q, int c) { return n0 + c < N ? Cc[(size_t)q * N + n0 + c] : 0.f; },
-          As, Bs);
-    }
-    if (g.ds) {                 // + sum over (h, p) of w_h x_h[., p] ds_h[p]
-      const size_t ld = (size_t)H * P;
-      const float* xc = g.x + row0 * ld;
-      const float* wc = g.w + (size_t)bc * H * Q;
-      const float* dsc = g.ds + (size_t)bc * ld * N;
-      tile_mma<true, false>(
-          acc, 0, H * P,
-          [&](int j, int r) {
-            const int k = r0 + r;
-            return k < Q ? wc[(size_t)(j / P) * Q + k] * xc[(size_t)k * ld + j] : 0.f;
+    if (g.dy && live) {
+      // M^T dy over q >= k, from the warp's own ring of 16-row slices of
+      // C.B^T (rows q, the tile's columns k) and of dy; M is formed in place
+      // of the C.B^T slice
+      const float* cbk = g.cb + row0 * Q + k0;
+      const float* dyh = g.dy + row0 * ld + (size_t)h * P + p0;
+      const float* csw = csS + warp * Qt;
+      const float* dtw = dtS + warp * kBT;
+      float* wr = rng + warp * 2 * 2 * kBK * kBT;
+      ring(
+          (Q - k0 + kBK - 1) / kBK, WarpSync(),
+          [&](int s) {
+            float* st = wr + (s & 1) * 2 * kBK * kBT;
+            const int q = k0 + s * kBK;
+            warp_tile(st, kBT, cbk + (size_t)q * Q, Q, Q - q, Q - k0, g.vec_q,
+                      lane);
+            warp_tile(st + kBK * kBT, kBT, dyh + (size_t)q * ld, ld, Q - q,
+                      P - p0, g.vec_x, lane);
           },
-          [&](int j, int c) { return n0 + c < N ? dsc[(size_t)j * N + n0 + c] : 0.f; },
-          As, Bs);
+          [&](int s) {
+            float* st = wr + (s & 1) * 2 * kBK * kBT;
+            const int qs = k0 + s * kBK, c4 = 4 * (lane % 16);
+            // M[q][k] = C.B^T[q][k] exp(a_cum[q] - a_cum[k]) dt_k, k <= q < Q
+            const float4 ck = *reinterpret_cast<const float4*>(&csw[k0 + c4]);
+            const float4 dk = *reinterpret_cast<const float4*>(&dtw[c4]);
+            const float ckv[4] = {ck.x, ck.y, ck.z, ck.w};
+            const float dkv[4] = {dk.x, dk.y, dk.z, dk.w};
+#pragma unroll 2
+            for (int i = 0; i < kBK / 2; ++i) {
+              const int r = lane / 16 + 2 * i, q = qs + r;
+              float4* cb = reinterpret_cast<float4*>(&st[r * kBT + c4]);
+              const float4 c = *cb;
+              const float cbv[4] = {c.x, c.y, c.z, c.w};
+              const float cq = csw[q];
+              float v[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                v[e] = (cbv[e] * expf(k0 + c4 + e <= q && q < Q
+                                          ? cq - ckv[e] : -INFINITY)) * dkv[e];
+              *cb = make_float4(v[0], v[1], v[2], v[3]);
+            }
+            __syncwarp();
+            mma_tn(acc, st, kBT, st + kBK * kBT, kBT, lane);
+          });
     }
+    if (live)
+      store_tile(g.dx + (row0 + k0) * ld + (size_t)h * P + p0 + 4 * pg, ld, acc,
+                 l, Q - k0, P - p0 - 4 * pg, g.vec_x);
+    __syncthreads();                            // before the ring is reused
   }
-  float* out = (is_db ? g.dB : g.dC) + row0 * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * ty + i;
-    if (r >= Q) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n < N) out[(size_t)r * N + n] = acc[i][j];
-    }
+  if (live) {
+    __syncwarp();
+    for (int c = lane; c < kBT && k0 + c < Q; c += 32)
+      g.dw[((size_t)bc * H + h) * Q + k0 + c] = dwS[warp * kBT + c];
   }
 }
 
-// 5. ddt, and da by a reverse f64 scan of dacum, a warp a (bc, h).
+// 4. state: a block a (bc, k-tile, n-tile, split sp of SG heads); warp w
+// sums over p for the split's heads w, w + 8, ...: x's slice is transposed
+// and scaled by w once into (w x)^T, then multiplied by ds's slice.
+__global__ void __launch_bounds__(kBThreads, 1)
+ssd_bwd_state_kernel(const BwdArgs g) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int Q = g.Q, H = g.H, P = g.P, N = g.N;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int rest = blockIdx.x;
+  const int sp = rest % g.n_sp;
+  rest /= g.n_sp;
+  const int nti = rest % g.n_nt;
+  rest /= g.n_nt;
+  const int kt = rest % g.nt, bc = rest / g.nt;
+  const int k0 = kt * kBT, n0 = nti * kBT;
+  const int hs = sp * g.SG, sn = min(g.SG, H - hs);
+  const int nh = warp < sn ? (sn - warp + kBWarps - 1) / kBWarps : 0;
+  const int n_ps = (P + kBK - 1) / kBK;
+  const size_t row0 = (size_t)bc * Q, ld = (size_t)H * P;
+  float* wS = sm + kBWarps * kStateWarp;        // [SG][kBT] w of the k rows
+  for (int idx = tid; idx < sn * kBT; idx += kBThreads) {
+    const int j = idx / kBT, c = idx % kBT;
+    wS[idx] = k0 + c < Q ? g.w[((size_t)bc * H + hs + j) * Q + k0 + c] : 0.f;
+  }
+  __syncthreads();
+  float* wr = sm + warp * kStateWarp;
+  float* xt = wr + 2 * kStateSlice;             // [kBK][kBT] (w x)^T
+  const int l = lane & 7, pg = lane >> 3;
+  float acc[8][16];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+  ring(
+      nh * n_ps, WarpSync(),
+      [&](int s) {
+        const int h = hs + warp + kBWarps * (s / n_ps), d0 = (s % n_ps) * kBK;
+        float* xs = wr + (s & 1) * kStateSlice;
+        load_tile(xs, kNP, g.x + (row0 + k0) * ld + (size_t)h * P + d0, ld, kBT,
+                  kBK, Q - k0, P - d0, g.vec_x, lane, 32);
+        warp_tile(xs + kBT * kNP, kBT,
+                  g.ds + (((size_t)bc * H + h) * P + d0) * N + n0, N, P - d0,
+                  N - n0, g.vec_ds, lane);
+      },
+      [&](int s) {
+        const int j = warp + kBWarps * (s / n_ps);
+        const float* xs = wr + (s & 1) * kStateSlice;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = lane + 32 * e;
+          const float wk = wS[j * kBT + k];
+#pragma unroll
+          for (int c = 0; c < kBK / 4; ++c) {
+            const float4 v = *reinterpret_cast<const float4*>(&xs[k * kNP + 4 * c]);
+            xt[(4 * c) * kBT + k] = wk * v.x;
+            xt[(4 * c + 1) * kBT + k] = wk * v.y;
+            xt[(4 * c + 2) * kBT + k] = wk * v.z;
+            xt[(4 * c + 3) * kBT + k] = wk * v.w;
+          }
+        }
+        __syncwarp();
+        mma_tn(acc, xt, kBT, xs + kBT * kNP, kBT, lane);
+      });
+  // the split's sum: the warps' tiles in warp order
+  __syncthreads();
+  float* red = sm;                              // [kBWarps][kBT][kRP]
+  store_tile(red + warp * kBT * kRP + 4 * pg, kRP, acc, l, kBT, kBT - 4 * pg, 1);
+  __syncthreads();
+  float* out = g.sp + (((size_t)bc * g.n_sp + sp) * Q + k0) * N + n0;
+  for (int idx = tid; idx < kBT * kBT; idx += kBThreads) {
+    const int r = idx / kBT, c = idx % kBT;
+    if (k0 + r >= Q || n0 + c >= N) continue;
+    float v = red[r * kRP + c];
+    for (int w = 1; w < kBWarps; ++w) v += red[(w * kBT + r) * kRP + c];
+    out[(size_t)r * N + c] = v;
+  }
+}
+
+// 5. dsum (with dy): a block a (bc, pair): the tile of dCB, the head
+// groups' partials summed in group order, into cb (C.B^T is read no more)
+// and, transposed through shared memory, into dcbt.
+__global__ void __launch_bounds__(kBThreads)
+ssd_bwd_dsum_kernel(const BwdArgs g) {
+  extern __shared__ float4 smem4[];
+  float* t = reinterpret_cast<float*>(smem4);   // [kBT][kBT + 1]
+  const int Q = g.Q, tid = threadIdx.x;
+  const int bc = blockIdx.x / g.n_pairs;
+  int qt, kt;
+  pair_of(blockIdx.x % g.n_pairs, qt, kt);
+  const int q0 = qt * kBT, k0 = kt * kBT;
+  const size_t qq = (size_t)Q * Q;
+  const float* part = g.dcbp + (size_t)bc * g.n_hg * qq;
+  float* dcb = g.cb + (size_t)bc * qq;
+  float* dcbt = g.dcbt + (size_t)bc * qq;
+#pragma unroll
+  for (int idx = tid; idx < kBT * kBT / 4; idx += kBThreads) {
+    const int r = idx / (kBT / 4), c = (idx % (kBT / 4)) * 4;
+    const int q = q0 + r, k = k0 + c;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (q < Q && k < Q) {
+      const size_t o = (size_t)q * Q + k;
+      if (g.vec_q) {                            // Q % 4 == 0: k + 3 < Q
+        float4 a = *reinterpret_cast<const float4*>(part + o);
+        for (int gi = 1; gi < g.n_hg; ++gi) {
+          const float4 b = *reinterpret_cast<const float4*>(part + gi * qq + o);
+          a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+        }
+        *reinterpret_cast<float4*>(dcb + o) = a;
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      } else {
+        for (int e = 0; e < 4 && k + e < Q; ++e) {
+          v[e] = part[o + e];
+          for (int gi = 1; gi < g.n_hg; ++gi) v[e] += part[gi * qq + o + e];
+          dcb[o + e] = v[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[r * (kBT + 1) + c + e] = v[e];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kBT * kBT; idx += kBThreads) {
+    const int c = idx / kBT, r = idx % kBT, q = q0 + r, k = k0 + c;
+    if (q < Q && k < Q) dcbt[(size_t)k * Q + q] = t[r * (kBT + 1) + c];
+  }
+}
+
+// 6. bc: a block a (bc, dC or dB, row tile rt, n-tile); warp w sums its
+// eighth of the depth's 16-deep slices, 8 x 16 a lane, from a ring of two
+// stages: dC's rows q over k < min(Q, q0 + 64) from dCB^T, dB's rows
+// k over q >= k0 from dCB; then the block sums the warps in order, and dB
+// adds the state's partials in split order.
+__global__ void __launch_bounds__(kBcWarps * 32)
+ssd_bwd_bc_kernel(const BwdArgs g) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int Q = g.Q, N = g.N;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int rest = blockIdx.x;
+  const int nti = rest % g.n_nt;
+  rest /= g.n_nt;
+  const int rt = rest % g.nt;
+  rest /= g.nt;
+  const bool is_db = rest % 2;
+  const int bc = rest / 2;
+  const int r0 = rt * kBT, n0 = nti * kBT;
+  const size_t row0 = (size_t)bc * Q;
+  const int l = lane & 7, pg = lane >> 3;
+  float acc[8][16];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+  if (g.dy) {
+    const int d_lo = is_db ? r0 : 0, d_hi = is_db ? Q : min(Q, r0 + kBT);
+    const int n_sl = (d_hi - d_lo + kBK - 1) / kBK;
+    const int s_lo = warp * n_sl / kBcWarps;
+    const int s_hi = (warp + 1) * n_sl / kBcWarps;
+    // row d of A is dCB[d][r0 ..] (dB) or dCB^T[d][r0 ..] (dC); of src,
+    // C[d][n0 ..] or B[d][n0 ..]
+    const float* A = (is_db ? g.cb : g.dcbt) + row0 * Q + r0;
+    const float* src = (is_db ? g.C : g.B) + row0 * N + n0;
+    float* wr = sm + warp * kBcWarp;
+    ring(
+        s_hi - s_lo, WarpSync(),
+        [&](int s) {
+          const int d0 = d_lo + (s_lo + s) * kBK;
+          float* st = wr + (s & 1) * 2 * kBK * kBT;
+          warp_tile(st, kBT, A + (size_t)d0 * Q, Q, d_hi - d0, Q - r0,
+                    g.vec_q, lane);
+          warp_tile(st + kBK * kBT, kBT, src + (size_t)d0 * N, N, d_hi - d0,
+                    N - n0, g.vec_bc, lane);
+        },
+        [&](int s) {
+          const float* st = wr + (s & 1) * 2 * kBK * kBT;
+          mma_tn(acc, st, kBT, st + kBK * kBT, kBT, lane);
+        });
+  }
+  __syncthreads();                              // every ring is done
+  float* red = sm;                              // [kBcWarps][kBT][kRP]
+  store_tile(red + warp * kBT * kRP + 4 * pg, kRP, acc, l, kBT, kBT - 4 * pg, 1);
+  __syncthreads();
+  // the thread's elements idx = tid + 256 e of the tile
+  constexpr int kE = kBT * kBT / (kBcWarps * 32);
+  float v[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int idx = tid + e * kBcWarps * 32, r = idx / kBT, c = idx % kBT;
+    v[e] = red[r * kRP + c];
+    for (int w = 1; w < kBcWarps; ++w) v[e] += red[(w * kBT + r) * kRP + c];
+  }
+  if (is_db && g.ds) {
+    const float* spb = g.sp + ((size_t)bc * g.n_sp * Q + r0) * N + n0;
+    for (int s = 0; s < g.n_sp; ++s) {
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const int idx = tid + e * kBcWarps * 32, r = idx / kBT, c = idx % kBT;
+        if (r0 + r < Q && n0 + c < N) v[e] += spb[((size_t)s * Q + r) * N + c];
+      }
+    }
+  }
+  float* out = (is_db ? g.dB : g.dC) + (row0 + r0) * N + n0;
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const int idx = tid + e * kBcWarps * 32, r = idx / kBT, c = idx % kBT;
+    if (r0 + r < Q && n0 + c < N) out[(size_t)r * N + c] = v[e];
+  }
+}
+
+// 7. out: a block a (bc, h).  A thread a step at a time, so that the
+// partials' reads are coalesced: ddt, and dacum into shared memory (f64);
+// then one warp adds the state's decay and scans dacum in reverse (f64)
+// over its lanes' segments into da.
 __global__ void __launch_bounds__(kBThreads)
 ssd_bwd_out_kernel(const BwdArgs g) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cell = blockIdx.x * kBWarps + warp;
-  if (cell >= g.BC * g.H) return;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int cell = blockIdx.x;
   const int Q = g.Q, H = g.H, nt = g.nt;
   const int bc = cell / H, h = cell % H;
   const size_t row0 = (size_t)bc * Q;
@@ -928,36 +1450,41 @@ ssd_bwd_out_kernel(const BwdArgs g) {
   const float* w = g.w + (size_t)cell * Q;
   const float* dw = g.dw + (size_t)cell * Q;
   const size_t tile = (size_t)H * Q;            // stride of a partial's tile
-  const float* rowg = g.rowg + (size_t)bc * nt * tile + (size_t)h * Q;
+  const float* rowg = g.rowg + (size_t)bc * 2 * nt * tile + (size_t)h * Q;
   const float* colg = g.colg + (size_t)bc * nt * tile + (size_t)h * Q;
   const float* cole = g.cole + (size_t)bc * nt * tile + (size_t)h * Q;
-  int lo, hi;
-  lane_segment(Q, lane, lo, hi);
+  double* dac = reinterpret_cast<double*>(smem4);     // [Q]
+  double* tpart = dac + Q;                            // [kBThreads]
+  const float last = cs[Q - 1];
   // the state's decay: T_k = dw_k w_k, k < Q - 1, and their sum
+  double tp = 0.0;
+  for (int q = tid; q < Q; q += kBThreads) {
+    const int ti = q / kBT;
+    float ve = 0.f, va = 0.f;
+    if (g.dy) {
+      for (int t = ti; t < nt; ++t) ve += cole[t * tile + q];
+      for (int t = 0; t < 2 * (ti + 1); ++t) va += rowg[t * tile + q];
+      for (int t = ti; t < nt; ++t) va -= colg[t * tile + q];
+    }
+    g.ddt[(row0 + q) * H + h] = fmaf(dw[q], expf(last - cs[q]), ve);
+    const double T = (double)(dw[q] * w[q]);
+    if (q < Q - 1) tp += T;
+    dac[q] = q < Q - 1 ? (double)va - T : (double)va;
+  }
+  tpart[tid] = tp;
+  __syncthreads();
+  if (tid >= 32) return;
   double tsum = 0.0;
-  for (int q = lo; q < hi; ++q)
-    if (q < Q - 1) tsum += (double)(dw[q] * w[q]);
+  for (int i = lane; i < kBThreads; i += 32) tsum += tpart[i];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     tsum += __shfl_xor_sync(0xffffffffu, tsum, o);
-  const float last = cs[Q - 1];
-  for (int q = lo; q < hi; ++q) {
-    float v = 0.f;
-    if (g.dy)
-      for (int t = q / kBT; t < nt; ++t) v += cole[t * tile + q];
-    g.ddt[(row0 + q) * H + h] = fmaf(dw[q], expf(last - cs[q]), v);
-  }
-  auto dacum = [&](int i) -> double {
-    float v = 0.f;
-    if (g.dy) {
-      const int ti = i / kBT;
-      for (int t = 0; t <= ti; ++t) v += rowg[t * tile + i];
-      for (int t = ti; t < nt; ++t) v -= colg[t * tile + i];
-    }
-    return i == Q - 1 ? (double)v + tsum : (double)v - (double)(dw[i] * w[i]);
-  };
+  if (lane == 0) dac[Q - 1] += tsum;
+  __syncwarp();
+  int lo, hi;
+  lane_segment(Q, lane, lo, hi);
   double seg = 0.0;
-  for (int q = lo; q < hi; ++q) seg += dacum(q);
+  for (int q = lo; q < hi; ++q) seg += dac[q];
   double incl = seg;                            // sum over lanes >= lane
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -967,18 +1494,31 @@ ssd_bwd_out_kernel(const BwdArgs g) {
   double acc = __shfl_down_sync(0xffffffffu, incl, 1);
   if (lane == 31) acc = 0.0;
   for (int q = hi - 1; q >= lo; --q) {
-    acc += dacum(q);
+    acc += dac[q];
     g.da[(row0 + q) * H + h] = (float)acc;
   }
 }
+
+// Lets `kernel` take `bytes` of dynamic shared memory (set once a size).
+template <class K>
+cudaError_t allow_smem(K* kernel, size_t bytes, size_t& configured) {
+  if (bytes <= configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) configured = bytes;
+  return e;
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
 // x, dy, dx: [BC, Q, H, P]; dt, a, ddt, da: [BC, Q, H]; B, C, dB, dC:
 // [BC, Q, N]; ds: [BC, H, P, N]; dy or ds may be null (zero).  scratch:
-// scratch_floats floats, at least BC (3 H Q + 2 Q^2 + 3 ceil(Q/64) H Q)
-// (ops.ssd_bwd_scratch_floats).  All f32, contiguous.  Returns the CUDA
-// error code of the launches (0 = launched).
+// scratch_floats floats, at least BC (3 H Q + (2 + n_hg) Q^2 + 4 ceil(Q/64)
+// H Q + n_sp Q N), n_hg = ceil(H / kPairHeads), n_sp = ceil(H /
+// kSplitHeads) (ops.ssd_bwd_scratch_floats).  All f32, contiguous.  Returns
+// the CUDA error code of the launches (0 = launched).
 extern "C" int ssd_chunk_bwd_launch(
     const void* x, const void* dt, const void* a, const void* B,
     const void* C, const void* dy, const void* ds, void* dx, void* ddt,
@@ -1000,42 +1540,84 @@ extern "C" int ssd_chunk_bwd_launch(
   g.dB = static_cast<float*>(dB);
   g.dC = static_cast<float*>(dC);
   g.BC = BC; g.Q = Q; g.H = H; g.P = P; g.N = N;
-  g.nt = (Q + kBT - 1) / kBT;
+  g.nt = cdiv(Q, kBT);
   g.n_pairs = g.nt * (g.nt + 1) / 2;
-  g.n_pt = (P + kBT - 1) / kBT;
-  g.n_nt = (N + kBT - 1) / kBT;
+  g.n_pt = cdiv(P, kBT);
+  g.n_nt = cdiv(N, kBT);
+  g.n_hg = cdiv(H, kPairHeads);
+  g.G = cdiv(H, g.n_hg);
+  g.n_dg = cdiv(H, kBWarps);
+  g.n_sp = cdiv(H, kSplitHeads);
+  g.SG = cdiv(H, g.n_sp);
   const long long hq = (long long)BC * H * Q;
   const long long qq = (long long)BC * Q * Q;
-  if (scratch_floats < 3 * hq + 2 * qq + 3 * g.nt * hq)
+  const long long sq = (long long)BC * g.n_sp * Q * N;
+  if (scratch_floats < 3 * hq + (2 + g.n_hg) * qq + 4 * g.nt * hq + sq)
     return (int)cudaErrorInvalidValue;
   float* s = static_cast<float*>(scratch);
   g.cs = s;
   g.w = g.cs + hq;
   g.dw = g.w + hq;
   g.cb = g.dw + hq;
-  g.dcb = g.cb + qq;
-  g.rowg = g.dcb + qq;
-  g.colg = g.rowg + g.nt * hq;
+  g.dcbt = g.cb + qq;
+  g.dcbp = g.dcbt + qq;
+  g.rowg = g.dcbp + g.n_hg * qq;
+  g.colg = g.rowg + 2 * g.nt * hq;
   g.cole = g.colg + g.nt * hq;
+  g.sp = g.cole + g.nt * hq;
+  g.vec_x = (P % 4 == 0) &&
+            (((uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx) % 16 == 0);
+  g.vec_bc = (N % 4 == 0) && (((uintptr_t)B | (uintptr_t)C) % 16 == 0);
+  g.vec_ds = (N % 4 == 0) && ((uintptr_t)ds % 16 == 0);
+  g.vec_q = (Q % 4 == 0) && ((uintptr_t)scratch % 16 == 0);
   const long long cells = (long long)BC * H;
-  const long long blocks[5] = {(cells + kBWarps - 1) / kBWarps,
-                               (long long)BC * g.n_pairs, cells * g.nt,
-                               (long long)BC * 2 * g.nt * g.n_nt,
-                               (cells + kBWarps - 1) / kBWarps};
+  g.n_steps = (int)((cells + kBWarps - 1) / kBWarps);
+  const long long pairs = (long long)BC * g.n_pairs;
+  const long long blocks[6] = {
+      g.n_steps + (dy ? pairs : 0), pairs * g.n_hg,
+      (long long)BC * g.nt * g.n_dg, (long long)BC * g.nt * g.n_nt * g.n_sp,
+      (long long)BC * 2 * g.nt * g.n_nt, cells};
   for (long long b : blocks)
     if (b > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t f = sizeof(float);
+  const size_t steps_smem = (size_t)2 * kBWarps * (Q + 1) * f;
+  size_t smem[6] = {
+      (size_t)(dy ? kBWarps * 2 * 2 * kBT * kNP : 0) * f,
+      (size_t)(kBT * kRP + 3 * kPairHeads * kBT + kBWarps * kBT * kDP +
+               kBWarps / 2 * 2 * kPairSlice) * f,
+      (size_t)(2 * kDxStage + kBWarps * (g.nt * kBT + 3 * kBT)) * f,
+      (size_t)(kBWarps * kStateWarp + g.SG * kBT) * f,
+      (size_t)kBcWarps * (kBcWarp > kBT * kRP ? kBcWarp : kBT * kRP) * f,
+      (size_t)(Q + kBThreads) * sizeof(double)};
+  static size_t configured[6] = {0, 0, 0, 0, 0, 0};
   cudaError_t e;
-  ssd_bwd_steps_kernel<<<(unsigned)blocks[0], kBThreads, 0, st>>>(g);
+  if (smem[0] < steps_smem) smem[0] = steps_smem;
+  if ((e = allow_smem(ssd_bwd_prep_kernel, smem[0], configured[0])) ||
+      (e = allow_smem(ssd_bwd_pairs_kernel, smem[1], configured[1])) ||
+      (e = allow_smem(ssd_bwd_dx_kernel, smem[2], configured[2])) ||
+      (e = allow_smem(ssd_bwd_state_kernel, smem[3], configured[3])) ||
+      (e = allow_smem(ssd_bwd_bc_kernel, smem[4], configured[4])) ||
+      (e = allow_smem(ssd_bwd_out_kernel, smem[5], configured[5])))
+    return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ssd_bwd_prep_kernel<<<(unsigned)blocks[0], kBThreads, smem[0], st>>>(g);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (dy) {
-    ssd_bwd_pairs_kernel<<<(unsigned)blocks[1], kBThreads, 0, st>>>(g);
+    ssd_bwd_pairs_kernel<<<(unsigned)blocks[1], kBThreads, smem[1], st>>>(g);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  ssd_bwd_dx_kernel<<<(unsigned)blocks[2], kBThreads, 0, st>>>(g);
+  ssd_bwd_dx_kernel<<<(unsigned)blocks[2], kBThreads, smem[2], st>>>(g);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_bwd_bc_kernel<<<(unsigned)blocks[3], kBThreads, 0, st>>>(g);
+  if (ds) {
+    ssd_bwd_state_kernel<<<(unsigned)blocks[3], kBThreads, smem[3], st>>>(g);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (dy) {
+    ssd_bwd_dsum_kernel<<<(unsigned)pairs, kBThreads, kBT * (kBT + 1) * f, st>>>(g);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  ssd_bwd_bc_kernel<<<(unsigned)blocks[4], kBcWarps * 32, smem[4], st>>>(g);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ssd_bwd_out_kernel<<<(unsigned)blocks[4], kBThreads, 0, st>>>(g);
+  ssd_bwd_out_kernel<<<(unsigned)blocks[5], kBThreads, smem[5], st>>>(g);
   return (int)cudaGetLastError();
 }

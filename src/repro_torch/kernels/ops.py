@@ -43,6 +43,8 @@ SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (its shared-memory plan)
 ATTN_HEAD_DIMS = (64, 96, 128)   # csrc/flash_attention.cu: its dispatches
 RMS_DW_PARTS = 256   # csrc/rmsnorm.cu: kMaxParts, dw partials at most
 SSD_TILE = 64        # csrc/ssd_chunk.cu: kBT, rows of the backward's tiles
+SSD_PAIR_HEADS = 12  # csrc/ssd_chunk.cu: kPairHeads, heads of a dCB partial
+SSD_SPLIT_HEADS = 24  # csrc/ssd_chunk.cu: kSplitHeads, of a state partial
 
 
 def reset_launches() -> None:
@@ -536,12 +538,18 @@ def _ssd_chunk_fwd(x, dt, a, B, C):
     return y, state
 
 
-def ssd_bwd_scratch_floats(BC: int, Q: int, H: int) -> int:
+def ssd_bwd_scratch_floats(BC: int, Q: int, H: int, N: int) -> int:
     """f32 scratch of the backward kernel (csrc/ssd_chunk.cu: its plan):
-    a_cum and w = exp(a_cum[-1] - a_cum) dt a head, C.B^T and dCB a cell,
-    three partial sums a head and 64-row tile, and dw a head."""
-    tiles = (Q + SSD_TILE - 1) // SSD_TILE
-    return BC * (3 * H * Q + 2 * Q * Q + 3 * tiles * H * Q)
+    a_cum, w = exp(a_cum[-1] - a_cum) dt and dw a head; C.B^T (then dCB)
+    and dCB^T a cell, and dCB a group of up to ``SSD_PAIR_HEADS`` heads;
+    G's row sums a head and half a 64-row tile, the column sums of G and
+    of dM C.B^T L a head and tile; and the state's dB term a split of up
+    to ``SSD_SPLIT_HEADS`` heads."""
+    tiles = -(-Q // SSD_TILE)
+    groups = -(-H // SSD_PAIR_HEADS)
+    splits = -(-H // SSD_SPLIT_HEADS)
+    return BC * (3 * H * Q + (2 + groups) * Q * Q + 4 * tiles * H * Q
+                 + splits * Q * N)
 
 
 @_kernel_call
@@ -570,7 +578,7 @@ def ssd_chunk_bwd(x, dt, a, B, C, dy: Optional[torch.Tensor] = None,
     grads = [g for g in (dy, ds) if g is not None]
     _cuda_args("ssd_chunk_bwd", x, dt, a, B, C, *grads)
     outs = [torch.empty_like(t) for t in (x, dt, a, B, C)]
-    scratch = torch.empty(ssd_bwd_scratch_floats(BC, Q, H),
+    scratch = torch.empty(ssd_bwd_scratch_floats(BC, Q, H, N),
                           dtype=torch.float32, device=x.device)
     _launch("ssd_chunk_bwd", "ssd_chunk_bwd",
             *(t.data_ptr() for t in (x, dt, a, B, C)),

@@ -697,3 +697,46 @@ def test_cuda_ssd_chunk_bwd_matches_plain():
             grads = torch.autograd.grad((y, s), leaves, (dy, ds))
             assert all(torch.equal(u, v) for u, v in zip(grads, got))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_bwd_at_its_plan_edges():
+    """ssd_chunk_bwd at the edges of its launch plan (csrc/ssd_chunk.cu):
+    one head past a state split (H 25) with P off 16-byte rows, fewer heads
+    than a dx group (H 5) with N off 16-byte rows, the most state splits
+    and pairs groups (H 129), and a of both signs (a_cum not monotone);
+    each against its plain version (1e-4 of max |ref|) and
+    ssd_chunk_bwd_f64's bound, finite, the same bits twice, allocating no
+    more than its outputs and ops.ssd_bwd_scratch_floats."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    F = torch.nn.functional
+    for (BC, Q, H, P, N), signed in [((1, 192, 25, 66, 128), False),
+                                     ((2, 64, 5, 64, 62), False),
+                                     ((1, 64, 129, 64, 64), False),
+                                     ((2, 256, 13, 64, 128), True)]:
+        x = torch.randn(BC, Q, H, P, generator=gen, device=dev)
+        dt = F.softplus(torch.randn(BC, Q, H, generator=gen, device=dev))
+        a = -dt * torch.rand(H, generator=gen, device=dev)
+        if signed:
+            a = 0.3 * torch.randn(a.shape, generator=gen, device=dev)
+        B = torch.randn(BC, Q, N, generator=gen, device=dev)
+        C = torch.randn(BC, Q, N, generator=gen, device=dev)
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        ds = torch.randn(BC, H, P, N, generator=gen, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got = ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds)
+        grads = sum(t.numel() for t in (x, dt, a, B, C))
+        scratch = ops.ssd_bwd_scratch_floats(BC, Q, H, N)
+        assert torch.cuda.max_memory_allocated(dev) - base <= \
+            4 * (grads + scratch) + 4096
+        want = ref.ssd_chunk_bwd_ref(x, dt, a, B, C, dy, ds)
+        vals, bounds = ref.ssd_chunk_bwd_f64(x, dt, a, B, C, dy, ds)
+        for g, w, v, b in zip(got, want, vals, bounds):
+            assert bool(torch.isfinite(g).all())
+            assert _rel_err(g, w) <= 1e-4
+            assert bool(((g.double() - v).abs() <= b).all())
+        again = ops.ssd_chunk_bwd(x, dt, a, B, C, dy, ds)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+    torch.cuda.synchronize()

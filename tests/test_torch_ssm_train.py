@@ -174,6 +174,20 @@ def test_ssd_bwd_cost_moves_each_tensor_once(dy, ds):
         assert want == 187_695_104
 
 
+def test_ssd_bwd_scratch_fits_its_budget():
+    """The backward kernel's scratch at mamba2's training shape
+    (x[16,256,48,64], N 128) stays within 64 MiB; one head more (49) opens
+    one more dCB partial (a group of up to 12 heads) and one more state
+    partial (a split of up to 16), each a cell's [Q, Q] and [Q, N]."""
+    BC, Q, H, N = 16, 256, 48, 128
+    floats = ops.ssd_bwd_scratch_floats(BC, Q, H, N)
+    assert 4 * floats <= 64 * 2 ** 20
+    tiles = Q // ops.SSD_TILE
+    per_head = BC * (3 * Q + 4 * tiles * Q)
+    grown = ops.ssd_bwd_scratch_floats(BC, Q, H + 1, N) - floats
+    assert grown == per_head + BC * (Q * Q + Q * N)
+
+
 def test_ssd_chunk_bwd_heads_layout_equals_broadcast_layout():
     """The model's layout (B and C shared by the H heads of a cell, so dB
     and dC sum the heads) gives what the JAX layout gives with B and C
