@@ -164,13 +164,25 @@ exits non-zero:
     sharded, sharded, unsharded) on one state and batch.  Then the
     sharded prefill of 8 x 512 prompts and 8 greedy decode steps (the
     caches resharded into the serve step's layout between), timed beside
-    the unsharded model's: the logits must be its bits at the step's
-    cache length (prompt + 128), and the greedy tokens
-    (``parallel.tp.greedy_tokens`` over the vocab-local logits)
-    ``serve.generate``'s first at that length (its s_max counts the tokens
-    it generates, so it generates 120).  Launch counts, set to 0 before
-    the sharded train and serve runs, are the ``sharded`` path of the
-    kernels line.  Then each kernel at the ``model``-local shapes that
+    the unsharded model's: the decode attention computes on its head_dim
+    shard of the weights and the cache (``models.layers``; at model 1 the
+    whole head_dim, the unsharded arithmetic), so the logits must be the
+    unsharded model's bits at the step's cache length (prompt + 128), and
+    the greedy tokens (``parallel.tp.greedy_tokens`` over the vocab-local
+    logits) ``serve.generate``'s first at that length (its s_max counts
+    the tokens it generates, so it generates 120).  The decode's
+    collectives a token, by axis and kind, must be the route's: over
+    ``model`` three all-gathers (query, new K row, output) and two
+    all-reduces (partial logits, the sublayer's sum) an attention layer,
+    one all-reduce an MoE layer and one for the embedding.  Then
+    whisper-medium, cut to 4 encoder and 4 decoder layers, f32, through
+    the sharded prefill and 8 decode steps, its self- and cross-attention
+    on their head_dim shards: logits within 1e-4 of the unsharded
+    model's, its launches (no kernel in decode's cross-attention on the
+    shard) and collectives a token, decode ms of both.  Launch counts, set
+    to 0 before the sharded train and serve runs, are the ``sharded``
+    path of the kernels line, whisper's its ``sharded_encdec`` path.
+    Then each kernel at the ``model``-local shapes that
     model 2, 4 and 16 give granite and qwen3-1.7b, f32 and bf16, against
     its plain version: flash_attention forward and backward with 8 q heads
     over 4 kv heads, 4 over 2 and 1 over 1 (kv replicated), at Dh 64 and
@@ -268,6 +280,9 @@ CKPT_ROOT = ROOT / "build" / "ckpt"
 # phase (i): granite sharded over a (data, model) mesh of one NCCL rank:
 # train steps, decode steps after the prefill, rounds of the step A/B
 SHARD_STEPS, SHARD_DECODE, SHARD_AB = 3, 8, 4
+# phase (i): whisper-medium's sharded serving cut to 4 encoder and 4
+# decoder layers
+SHARD_ENCDEC_LAYERS = 4
 # phase (i): the kernels at the model-local shapes of tensor-parallel
 # compute.  flash_attention as (B, S, q heads, kv heads, Dh), causal: the 16
 # q heads and 8 kv heads of granite (Dh 64) and qwen3-1.7b (Dh 128) over
@@ -487,9 +502,11 @@ def random_offsets(torch, gen, T: int, E: int, top_k: int = 8):
                                    (1, 0)).to(torch.int32)
 
 
-def expected_launches(cfg, n_tokens: int):
+def expected_launches(cfg, n_tokens: int, on_shard: bool = False):
     """Kernel launches for one prefill and n_tokens - 1 decode steps.  An
-    image prefix changes no count (a launch covers every position)."""
+    image prefix changes no count (a launch covers every position).
+    ``on_shard``: the sharded serve step, whose decode cross-attention
+    runs on its head_dim shard, not through the kernel."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import _has_ffn, _layer_is_moe
     want = {name: 0 for name in ops.KERNEL_NAMES}
@@ -501,8 +518,10 @@ def expected_launches(cfg, n_tokens: int):
         want["flash_attention"] += cfg.n_enc_layers
         # decoder: ln1 (+ qk-norm), ln_x, ln2 each token; self-attention
         # through the kernel at prefill, cross-attention at every token
+        # (at prefill only on the shard)
         want["rmsnorm"] += cfg.n_layers * (3 + qk) * n_tokens
-        want["flash_attention"] += cfg.n_layers * (1 + n_tokens)
+        want["flash_attention"] += cfg.n_layers * (
+            2 if on_shard else 1 + n_tokens)
         return want
     for i in range(cfg.n_layers):
         kind = cfg.pattern[i % cfg.block_size]
@@ -2610,6 +2629,10 @@ def sharded_path(torch, dev, card: str, trained_losses):
         caches = reshard(caches, c_pre, c_dec, mesh)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        pre_colls = dict(mesh.collectives)
+        mesh.reset_collectives()
+        # decode: attention on its head_dim shard of the cache (route of
+        # models.layers._decode_on_shard, at model 1 the whole head_dim)
         got_logits, toks = [logits], [tok]
         for _ in range(SHARD_DECODE):
             logits, caches = dec(params_dec, tok, caches)
@@ -2618,10 +2641,10 @@ def sharded_path(torch, dev, card: str, trained_losses):
             toks.append(tok)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
+        dec_colls = decode_collectives(mesh, SHARD_DECODE)
         serve_launches = dict(ops.LAUNCHES)
         serve_peak = torch.cuda.max_memory_allocated(dev) / gib
-        serve_colls = dict(mesh.collectives)
-        want = expected_launches(cfg, SHARD_DECODE + 1)
+        want = expected_launches(cfg, SHARD_DECODE + 1, on_shard=True)
         log("i", f"serve launches {serve_launches}, expected {want}")
         if serve_launches != want:
             raise AssertionError(f"sharded serve launches {serve_launches} "
@@ -2633,18 +2656,24 @@ def sharded_path(torch, dev, card: str, trained_losses):
             want_logits, caches = model.prefill(prompts, s_max)
             torch.cuda.synchronize()
             u1 = time.perf_counter()
-            same = bits_equal(torch, got_logits[0], want_logits)
-            for t, g in zip(toks, got_logits[1:]):
+            wants = [want_logits]
+            for t in toks[:-1]:
                 want_logits, caches = model.decode_step(t, caches)
-                same = same and bits_equal(torch, g, want_logits)
+                wants.append(want_logits)
             torch.cuda.synchronize()
             u2 = time.perf_counter()
+        same = all(bits_equal(torch, g, w)
+                   for g, w in zip(got_logits, wants))
         log("i", f"sharded prefill [{BATCH},{PROMPT}] {(t1 - t0) * 1e3:.1f}"
             f" ms (unsharded {(u1 - u0) * 1e3:.1f}), caches resharded in "
             f"{(t2 - t1) * 1e3:.1f} ms, {SHARD_DECODE} decode steps "
             f"{(t3 - t2) * 1e3:.1f} ms (unsharded {(u2 - u1) * 1e3:.1f}), "
-            f"peak memory {serve_peak:.2f} GiB; collectives {serve_colls}, "
-            f"over model in the prefill: {pre_model}; {card}")
+            f"peak memory {serve_peak:.2f} GiB; prefill and reshard "
+            f"collectives {pre_colls}, over model in the prefill: "
+            f"{pre_model}; {card}")
+        log("i", f"decode collectives a token, by axis and kind: "
+            f"{dec_colls}")
+        check_decode_collectives(cfg, dec_colls, greedy=True)
         log("i", f"prefill and {SHARD_DECODE} decode logits against the "
             f"unsharded model's: {'the same bits' if same else 'differ'}")
         if not same:
@@ -2658,10 +2687,119 @@ def sharded_path(torch, dev, card: str, trained_losses):
             raise AssertionError("sharded greedy tokens differ from "
                                  "serve.generate's")
         del model, full, params_pre, params_dec, caches
+        torch.cuda.empty_cache()
+        encdec_launches = sharded_encdec(torch, dev, card, mesh)
     torch.cuda.empty_cache()
     launches = {k: train_launches[k] + serve_launches[k]
                 for k in train_launches}
     log("i", f"phase (i) took {time.perf_counter() - t_i:.1f} s")
+    return launches, encdec_launches
+
+
+def decode_collectives(mesh, steps: int):
+    """The collectives a decode token, {axis: {kind: count}}."""
+    return {a: {k: n / steps for k, n in sorted(kinds.items())}
+            for a, kinds in sorted(mesh.axis_collectives.items())}
+
+
+def check_decode_collectives(cfg, got, greedy: bool = False) -> None:
+    """A decode token's collectives over ``model``, as the head_dim route
+    predicts: a self-attention layer gathers its query, its new K row and
+    its output, and sums its partial logits and its
+    output; a cross-attention layer the same but the rows; an MoE or MLP
+    sublayer sums once, the embedding once; no cache is gathered.  At
+    model 1 the q heads split, so every such collective runs.  With
+    ``greedy``, ``greedy_tokens`` gathers once a token too."""
+    n_self = (cfg.n_layers if cfg.is_encoder_decoder else
+              sum(k == "attn" for k in cfg.pattern) * cfg.n_blocks)
+    n_cross = cfg.n_layers if cfg.is_encoder_decoder else 0
+    want = {"all_gather": 3 * n_self + 2 * n_cross + greedy,
+            "all_reduce": 2 * (n_self + n_cross) + cfg.n_layers + 1}
+    if got.get("model") != want:
+        raise AssertionError(f"decode collectives over model "
+                             f"{got.get('model')} != {want}")
+
+
+def sharded_encdec(torch, dev, card: str, mesh):
+    """whisper-medium at full width, cut to SHARD_ENCDEC_LAYERS encoder
+    and decoder layers, f32, through the sharded prefill and serve steps
+    on ``mesh``: the decode's self- and cross-attention on their head_dim
+    shards.  Logits (the prefill's and each decode step's, fed the
+    unsharded greedy tokens) within 1e-4 of the unsharded model's; launch
+    counts; the decode's collectives a token; decode ms of both.  Returns
+    the launch counts."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import make_embeds, make_prompts
+    from repro_torch.models.api import CausalLM
+    from repro_torch.parallel.fsdp import reshard, shard_tree
+
+    cfg = configs.get_config(ENCDEC_ARCH).replace(
+        dtype="float32", n_layers=SHARD_ENCDEC_LAYERS,
+        n_enc_layers=SHARD_ENCDEC_LAYERS)
+    prompt = PROMPTS[ENCDEC_ARCH]
+    model = CausalLM.random(cfg, seed=0, device=dev)
+    prompts = make_prompts(cfg, BATCH, prompt, seed=1, device=dev)
+    embeds = make_embeds(cfg, BATCH, seed=2, device=dev)
+    shape = ShapeSpec("chip_smoke_encdec", "decode", prompt, BATCH)
+    s_max = prompt + steps.sp.DECODE_MARGIN
+    pre, (p_pre, b_pre), (_, c_pre), _ = steps.make_prefill_step(
+        cfg, mesh, shape)
+    dec, (p_dec, _, c_dec), _, _ = steps.make_serve_step(cfg, mesh, shape)
+    # the unsharded run first: its greedy tokens feed both
+    with torch.no_grad():
+        want, caches = model.prefill(prompts, s_max, **embeds)
+        wants, toks = [want], []
+        torch.cuda.synchronize()
+        u0 = time.perf_counter()
+        for _ in range(SHARD_DECODE):
+            toks.append(torch.argmax(wants[-1], dim=-1))
+            want, caches = model.decode_step(toks[-1], caches)
+            wants.append(want)
+        torch.cuda.synchronize()
+        u1 = time.perf_counter()
+    del caches
+    params_pre = shard_tree(model.params, p_pre, mesh)
+    params_dec = shard_tree(model.params, p_dec, mesh)
+    mesh.reset_collectives()
+    ops.reset_launches()
+    logits, caches = pre(params_pre, shard_tree(
+        {"inputs": prompts, **embeds}, b_pre, mesh))
+    caches = reshard(caches, c_pre, c_dec, mesh)
+    got = [logits]
+    mesh.reset_collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tok in toks:
+        logits, caches = dec(params_dec, tok, caches)
+        got.append(logits)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    colls = decode_collectives(mesh, SHARD_DECODE)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, wants))
+    log("i", f"{ENCDEC_ARCH} {cfg.n_enc_layers} + {cfg.n_layers} layers "
+        f"f32, batch {BATCH}, prompt {prompt}, frames {cfg.enc_frames}: "
+        f"sharded prefill and {SHARD_DECODE} decode logits against the "
+        f"unsharded model's: max abs err {err:.3e} (bound 1e-4); "
+        f"{SHARD_DECODE} decode steps {(t1 - t0) * 1e3:.1f} ms (unsharded "
+        f"{(u1 - u0) * 1e3:.1f}); {card}")
+    log("i", f"{ENCDEC_ARCH} decode collectives a token, by axis and kind: "
+        f"{colls}")
+    want_l = expected_launches(cfg, SHARD_DECODE + 1, on_shard=True)
+    log("i", f"{ENCDEC_ARCH} sharded serve launches {launches}, expected "
+        f"{want_l}")
+    if not err <= 1e-4:
+        raise AssertionError(f"{ENCDEC_ARCH}: sharded logits differ by "
+                             f"{err}")
+    if launches != want_l:
+        raise AssertionError(f"{ENCDEC_ARCH}: sharded launches {launches} "
+                             f"!= {want_l}")
+    check_decode_collectives(cfg, colls)
+    del model, params_pre, params_dec, caches
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2952,7 +3090,8 @@ def main() -> int:
     by_path["ep"] = ep_path(torch, dev, card, errs)
     log("h", f"(a) to (h) {time.perf_counter() - t_start:.1f} s")
 
-    by_path["sharded"] = sharded_path(torch, dev, card, train_losses)
+    by_path["sharded"], by_path["sharded_encdec"] = sharded_path(
+        torch, dev, card, train_losses)
     check_local_shapes(torch, ops, ref, dev)
     for name in ("rmsnorm", "flash_attention", "grouped_matmul",
                  *GRANITE_BWD):

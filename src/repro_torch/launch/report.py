@@ -137,38 +137,22 @@ def cells_table(cells: List[Dict]) -> str:
     return "\n".join(rows)
 
 
-def cache_gather_bytes(arch: str, shape_name: str, multi_pod: bool) -> int:
-    """The bytes of cache one serve step of the cell gathers on a rank:
-    each cache leaf whose fitted spec shards more than its batch rows,
-    whole but for this rank's rows (``Sharded.cache_full``)."""
-    from ..parallel.sharding import axes_of, tree_map
-    from .dryrun import cell_config
-    from .mesh import PRODUCTION_SHAPES
-    from .steps import make_serve_step
-
-    shape = SHAPES[shape_name]
-    sizes = PRODUCTION_SHAPES[multi_pod]
-    _, (_, _, c_specs), _, (_, caches) = make_serve_step(
-        cell_config(arch, shape), sizes, shape, multi_pod=multi_pod)
-    total = []
-
-    def add(t, spec):
-        if not hasattr(t, "shape") or not any(
-                axes_of(p) for i, p in enumerate(spec) if i != 1):
-            return
-        rows = 1
-        for a in axes_of(spec[1]):
-            rows *= sizes[a]
-        total.append(t.numel() * t.element_size() // rows)
-
-    tree_map(add, caches, c_specs)
-    return sum(total)
+def cache_gather_bytes(cell: Dict) -> Optional[int]:
+    """The bytes of cache that the cell's step gathered on a rank, over
+    every axis: its counted all-gathers under the tag ``"cache"``
+    (``parallel.fsdp``); None for a cell counted before the tag."""
+    tagged = cell["counts"].get("tagged")
+    if tagged is None:
+        return None
+    return sum(kinds.get("all-gather", {}).get("bytes", 0)
+               for kinds in tagged.get("cache", {}).values())
 
 
 def decode_table(cells: List[Dict]) -> str:
     """The serve steps' all-gathers a device (GB), over ``model`` and over
-    the batch axes, and how much of them is cache (the rest is weights
-    gathered whole: decode attention and the SSM mixers)."""
+    the batch axes, and how much of them is cache, counted from the step
+    (the rest is weights gathered whole, the SSM mixers', and decode
+    attention's new K rows, queries and outputs)."""
     rows = ["| arch | shape | mesh | all-gather over model GB | over "
             "data/pod GB | of them caches GB |",
             "|---|---|---|---|---|---|"]
@@ -185,12 +169,12 @@ def decode_table(cells: List[Dict]) -> str:
                 def ag(axis):
                     return by_axis.get(axis, {}).get("all-gather", {}).get(
                         "bytes", 0)
-                cache = cache_gather_bytes(arch, shape,
-                                           mesh == "multipod_2x16x16")
+                cache = cache_gather_bytes(c)
                 rows.append(f"| {arch} | {shape} | {mesh} | "
                             f"{ag('model') / 1e9:.2f} | "
                             f"{(ag('data') + ag('pod')) / 1e9:.2f} | "
-                            f"{cache / 1e9:.2f} |")
+                            + ("-" if cache is None else f"{cache / 1e9:.2f}")
+                            + " |")
     return "\n".join(rows)
 
 

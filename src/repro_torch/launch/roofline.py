@@ -260,6 +260,8 @@ class Counter:
         self.kernels: Dict[str, Dict[str, int]] = {}
         self.collectives: Dict[str, Dict[str, int]] = {}
         self.axis_collectives: Dict[str, Dict[str, Dict[str, int]]] = {}
+        # tag -> axis -> kind -> count and bytes (a cache's gathers: "cache")
+        self.tagged: Dict[str, Dict[str, Dict[str, Dict[str, int]]]] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live: Dict[int, weakref.finalize] = {}
@@ -328,17 +330,23 @@ class Counter:
             rec["rows"] = rec.get("rows", 0) + rows
         self._add_flops(dtype, flops)
 
-    def collective(self, kind: str, axis: Optional[str], nbytes: int) -> None:
+    def collective(self, kind: str, axis: Optional[str], nbytes: int,
+                   tag: Optional[str] = None) -> None:
         """One collective of ``kind`` (``all_gather``, ``all_reduce``,
         ``reduce_scatter``, ``all_to_all``) over ``axis`` (None: the
         world) whose output on this rank is ``nbytes``; an all-reduce
-        counts twice its bytes."""
+        counts twice its bytes.  With ``tag`` it counts in ``tagged``
+        too."""
         kind = kind.replace("_", "-")
         nbytes *= 2 if kind == "all-reduce" else 1
-        for rec in (self.collectives.setdefault(kind, {"count": 0,
-                                                       "bytes": 0}),
-                    self.axis_collectives.setdefault(axis or "world", {})
-                    .setdefault(kind, {"count": 0, "bytes": 0})):
+        axis = axis or "world"
+        recs = [self.collectives.setdefault(kind, {"count": 0, "bytes": 0}),
+                self.axis_collectives.setdefault(axis, {}).setdefault(
+                    kind, {"count": 0, "bytes": 0})]
+        if tag is not None:
+            recs.append(self.tagged.setdefault(tag, {}).setdefault(
+                axis, {}).setdefault(kind, {"count": 0, "bytes": 0}))
+        for rec in recs:
             rec["count"] += 1
             rec["bytes"] += nbytes
 
@@ -377,6 +385,10 @@ class Counter:
                 "axis_collectives": {
                     a: {k: dict(v) for k, v in sorted(kinds.items())}
                     for a, kinds in sorted(self.axis_collectives.items())},
+                "tagged": {
+                    t: {a: {k: dict(v) for k, v in sorted(kinds.items())}
+                        for a, kinds in sorted(axes.items())}
+                    for t, axes in sorted(self.tagged.items())},
                 "peak_bytes": self.peak_bytes}
 
 

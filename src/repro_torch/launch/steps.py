@@ -20,12 +20,16 @@ reduced to shards.  On ``model`` the steps compute as the reference's rules
 shard: each sublayer whose fitted specs put ``model`` on its heads, MLP
 columns, experts or vocab keeps its ``model``-local weights and ends in
 one all-reduce over ``model`` (``Sharded.tp``); the loss is vocab-parallel
-and the prefill and serve steps return vocab-local logits.  A sublayer
-whose fit drops ``model``, or puts it on the K/V head_dim (decode, and
-prefill where ``n_kv_heads`` does not divide ``model``), gathers over
-``model`` and computes whole, and so do the SSM mixers and the serve
-step's attention.  The layout of the state and the shapes are the
-reference's.
+and the prefill and serve steps return vocab-local logits.  Where the
+rules put ``model`` on the K/V head_dim (decode, and prefill where
+``n_kv_heads`` does not divide ``model``) the attention is a
+``parallel.tp.HeadDimAxis``: decode computes on its head_dim shard of the
+weights and the KV cache (long decode on its sequence block too), and
+gathers no weight or cache over ``model``; prefill gathers ``wk``, ``wv``,
+``bk`` and ``bv`` over ``model``, attends on the local q heads and keeps
+its head_dim slice of the cache.  A sublayer whose fit drops ``model``
+(the SSM mixers) gathers over ``model`` and computes whole.  The layout
+of the state and the shapes are the reference's.
 """
 from __future__ import annotations
 
@@ -225,10 +229,11 @@ def _local_train_step(train_cfg, optimizer, microbatches, clip_norm,
     return train_step
 
 
-def _serving(cfg, mesh, rules, shape: ShapeSpec):
+def _serving(cfg, mesh, rules, shape: ShapeSpec, decode: bool = False):
     """The serving params' shapes (every floating leaf in ``cfg.dtype`` but
     those ``api.cast_for_serving`` keeps in f32) and specs, the caches'
-    shapes and specs, and the steps' :class:`Sharded`."""
+    shapes and specs, and the steps' :class:`Sharded` (of a decode step
+    with ``decode``)."""
     params_s, specs, _ = sp.state_shapes(cfg)
     params_s = api.cast_for_serving(cfg, params_s)
     p_pspecs = fit_tree(param_pspecs(specs, rules), params_s, mesh)
@@ -236,7 +241,7 @@ def _serving(cfg, mesh, rules, shape: ShapeSpec):
     c_pspecs = fit_tree(cache_pspecs(cfg, cache_shapes, rules), cache_shapes,
                         mesh)
     sharded = Sharded(mesh, p_pspecs, axes_of(rules.get("batch")),
-                      cache_pspecs=c_pspecs)
+                      cache_pspecs=c_pspecs, decode=decode)
     return params_s, p_pspecs, cache_shapes, c_pspecs, sharded
 
 
@@ -247,12 +252,14 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     DECODE_MARGIN``.  Returns ``(prefill_step, (param specs, batch specs),
     (logits spec, cache specs), param shapes)``.  Serving params are
     ``api.cast_for_serving``'s.  When ``n_kv_heads`` does not divide the
-    ``model`` axis the KV cache is sharded on ``head_dim`` instead, and the
-    attention gathers over ``model``; else it is tensor-parallel and makes
-    this rank's kv heads only.  Each block's caches are cut to this rank's
-    shard as the block makes them (``Sharded.cache_cut``).  The logits are
-    this rank's block of the logits spec: vocab-local where the vocab
-    splits over ``model`` (``parallel.tp.greedy_tokens`` takes a token)."""
+    ``model`` axis the KV cache is sharded on ``head_dim`` instead: the
+    attention gathers ``wk``, ``wv``, ``bk`` and ``bv`` over ``model``,
+    runs on the local q heads and the kv heads they read, and keeps this
+    rank's head_dim slice of every kv head; else it makes this rank's kv
+    heads only.  Each block's caches are cut to this rank's shard as the
+    block makes them (``Sharded.cache_cut``).  The logits are this rank's
+    block of the logits spec: vocab-local where the vocab splits over
+    ``model`` (``parallel.tp.greedy_tokens`` takes a token)."""
     rules = rules_for(WorkloadKind.PREFILL, multi_pod, seq_shard=seq_shard)
     if cfg.n_kv_heads % mesh_shape(mesh)["model"] != 0:
         # a 32k cache would otherwise be replicated over the model axis
@@ -271,7 +278,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
         return api.prefill(cfg, _gather_unstacked(sharded, params), batch,
                            s_max, sharded)
 
-    prefill_step.rules = rules
+    prefill_step.rules, prefill_step.sharded = rules, sharded
     return (prefill_step, (p_pspecs, b_pspecs), (l_pspec, c_pspecs),
             params_s)
 
@@ -285,8 +292,9 @@ def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     (``global_batch == 1``) is long decode: the cache's sequence is sharded
     over the batch axes.  An FFN of ``d_ff >= 16384`` runs in 4 chunks.
     The FFN, the MoE and the embeddings are tensor-parallel as in prefill;
-    the attention gathers its weights and caches over ``model`` and
-    computes whole, since the decode rules shard K/V on head_dim.  The
+    the attention computes on its head_dim shard of the weights and the
+    caches, where the decode rules put ``model`` (and in long decode on
+    its sequence block, its softmax merged over the batch axes).  The
     logits are vocab-local as prefill's."""
     kind = (WorkloadKind.LONG_DECODE if shape.global_batch == 1
             else WorkloadKind.DECODE)
@@ -294,7 +302,7 @@ def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
     if cfg.d_ff >= 16384 and cfg.ffn_chunks == 1:
         cfg = cfg.replace(ffn_chunks=4)
     params_s, p_pspecs, cache_shapes, c_pspecs, sharded = _serving(
-        cfg, mesh, rules, shape)
+        cfg, mesh, rules, shape, decode=True)
     l_pspec = _logits_pspec(cfg, rules, mesh)
     t_pspec = PartitionSpec(rules.get("batch"))
 
@@ -305,5 +313,6 @@ def make_serve_step(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
                                token, caches, sharded)
 
     serve_step.rules, serve_step.cfg = rules, cfg
+    serve_step.sharded = sharded
     return (serve_step, (p_pspecs, t_pspec, c_pspecs), (l_pspec, c_pspecs),
             (params_s, cache_shapes))

@@ -18,8 +18,8 @@ the MLPs, the embeddings) that ``sharded.tp`` names computes
 tensor-parallel on its ``model``-local weights, ending in one sum over
 ``model``; the loss is :func:`.transformer.lm_nll`'s vocab-parallel one.
 Prefill cuts each layer's caches to this rank's shard as it makes them,
-and decode gathers them a layer at a time, its attention whole, as in
-:mod:`.transformer`.
+and decode computes its self- and cross-attention on their head_dim
+shards in place, as in :mod:`.transformer`.
 """
 from __future__ import annotations
 
@@ -30,8 +30,8 @@ import torch
 from . import layers as L
 from .layers import KVCache
 from .spec import ModelConfig, torch_dtype
-from .transformer import (check_decode_attention, layer_slice, lm_nll, remat,
-                          tp_of, unbind_layers)
+from .transformer import (layer_slice, lm_nll, remat, seq_of, tp_of,
+                          unbind_layers)
 
 
 class EncDecCaches(NamedTuple):
@@ -118,18 +118,18 @@ def _dec_block(cfg: ModelConfig, bp, x: torch.Tensor, enc_k: torch.Tensor,
     ``s_max`` comes back), else one decode step that writes into
     ``cache`` in place."""
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    tp = tp_of(sharded, "dec/attn")
     if cache is None:
-        h, cache = L.attention_prefill(bp["attn"], cfg, h, s_max,
-                                       tp=tp_of(sharded, "dec/attn"))
-        xtp = tp_of(sharded, "dec/xattn")
+        h, cache = L.attention_prefill(bp["attn"], cfg, h, s_max, tp=tp)
+        seq = None
     else:
-        check_decode_attention(sharded, "dec/attn")
-        check_decode_attention(sharded, "dec/xattn")
-        h, cache = L.attention_decode(bp["attn"], cfg, h, cache)
-        xtp = None
+        h, cache = L.attention_decode(bp["attn"], cfg, h, cache, tp=tp,
+                                      seq=seq_of(sharded, "self_kv"))
+        seq = seq_of(sharded, "cross_k")
     x = x + h
     h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
-    x = x + L.cross_attention(bp["xattn"], cfg, h, enc_k, enc_v, xtp)
+    x = x + L.cross_attention(bp["xattn"], cfg, h, enc_k, enc_v,
+                              tp_of(sharded, "dec/xattn"), seq)
     h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
     return x + L.mlp(bp["mlp"], h, tp=tp_of(sharded, "dec/mlp")), cache
 
@@ -149,6 +149,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
         ck, cv = L.encode_kv(bp["xattn"], cfg, enc, xtp)
         x, kv = _dec_block(cfg, bp, x, ck, cv, s_max=s_max, sharded=sharded)
         if sharded is not None:
+            ck, cv = L.kv_shard(xtp, ck), L.kv_shard(xtp, cv)
             ck, cv = (sharded.cache_cut(ck, "cross_k", xtp is not None),
                       sharded.cache_cut(cv, "cross_v", xtp is not None))
             kv = sharded.cache_cut(kv, "self_kv",
@@ -175,15 +176,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor,
     for i in range(cfg.n_layers):
         bp = _weights(layer_slice(params["dec"], i), "dec", sharded)
         self_kv = KVCache(k=kv.k[i], v=kv.v[i], length=kv.length)
-        cross_k, cross_v = caches.cross_k[i], caches.cross_v[i]
-        if sharded is None:
-            x, _ = _dec_block(cfg, bp, x, cross_k, cross_v, cache=self_kv)
-            continue
-        full = sharded.cache_full(self_kv, "self_kv")
-        x, _ = _dec_block(cfg, bp, x, sharded.cache_full(cross_k, "cross_k"),
-                          sharded.cache_full(cross_v, "cross_v"), cache=full,
-                          sharded=sharded)
-        sharded.cache_store(full, self_kv, "self_kv")
+        x, _ = _dec_block(cfg, bp, x, caches.cross_k[i], caches.cross_v[i],
+                          cache=self_kv, sharded=sharded)
     logits = L.unembed(params, cfg, x, tp_of(sharded, "unembed"))
     return logits[:, 0], caches._replace(
         self_kv=KVCache(k=kv.k, v=kv.v, length=kv.length + 1))

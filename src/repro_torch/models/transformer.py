@@ -26,15 +26,16 @@ shards, and the layer gathers them first, inside its remat, so that only
 one layer's gathered weights are alive and the backward gathers them
 again; ``prefill`` and ``decode_step`` gather a block at a time.  Each
 sublayer asks ``sharded.tp(path)`` whether it computes tensor-parallel:
-then its weights stay ``model``-local (attention on the local heads, the
-MLP on its columns, the MoE on its experts, the embeddings and logits on
-the local vocab) and it ends in one sum over ``model``; the loss is the
-vocab-parallel one (:func:`lm_nll`).  Otherwise it computes whole on
-gathered weights.  Prefill cuts each block's new caches to this rank's
-shard before the next block runs, and decode gathers a block's caches and
-writes them back (its attention is never tensor-parallel).  The MoE
-load-balance loss takes its batch means over the ranks that split the
-batch.
+then its weights stay ``model``-local (attention on the local heads or
+its K/V head_dim shard, the MLP on its columns, the MoE on its experts,
+the embeddings and logits on the local vocab) and it ends in one sum over
+``model``; the loss is the vocab-parallel one (:func:`lm_nll`).
+Otherwise it computes whole on gathered weights.  Prefill cuts each
+block's new caches to this rank's shard before the next block runs, and
+decode computes on the cache shards in place: attention on its head_dim
+slice (and sequence block, ``sharded.cache_seq``), the SSM mixers on
+their batch rows.  The MoE load-balance loss takes its batch means over
+the ranks that split the batch.
 """
 from __future__ import annotations
 
@@ -223,12 +224,10 @@ def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int,
     return x, caches
 
 
-def check_decode_attention(sharded, path: str) -> None:
-    """Decode attention computes whole: raise if ``sharded`` would hand it
-    ``model``-local weights."""
-    if tp_of(sharded, path) is not None:
-        raise NotImplementedError(f"{path}: decode attention is not "
-                                  f"tensor-parallel")
+def seq_of(sharded, name: str):
+    """The sequence block of the KV cache ``name`` when ``sharded`` cuts
+    it (long decode), else None."""
+    return None if sharded is None else sharded.cache_seq(name)
 
 
 def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches,
@@ -238,9 +237,11 @@ def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches,
         p = bp[f"l{pos}"]
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         if kind == "attn":
-            check_decode_attention(sharded, f"blocks/l{pos}/attn")
-            h, c = L.attention_decode(p["attn"], cfg, h, caches[f"l{pos}"],
-                                      window=cfg.sliding_window)
+            h, c = L.attention_decode(
+                p["attn"], cfg, h, caches[f"l{pos}"],
+                window=cfg.sliding_window,
+                tp=tp_of(sharded, f"blocks/l{pos}/attn"),
+                seq=seq_of(sharded, f"l{pos}"))
         else:
             h, c = ssm_decode(p["ssm"], cfg, h, caches[f"l{pos}"])
         new[f"l{pos}"] = c
@@ -308,6 +309,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, s_max: int,
         x, c = _block_prefill(cfg, _block_weights(params, i, sharded), x,
                               s_max, sharded)
         if sharded is not None:
+            # a tensor-parallel attention made this rank's part of its
+            # cache already (local kv heads, or a head_dim slice)
             c = {name: sharded.cache_cut(
                 cc, name, tp_of(sharded, f"blocks/{name}/attn") is not None)
                 for name, cc in c.items()}
@@ -326,15 +329,8 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, caches,
     x = L.embed(params, cfg, token[:, None], tp_of(sharded, "tok_embed"))
     for i in range(cfg.n_blocks):
         block_cache = {name: _unstack(c, i) for name, c in caches.items()}
-        bp = _block_weights(params, i, sharded)
-        if sharded is None:
-            x, _ = _block_decode(cfg, bp, x, block_cache)
-            continue
-        full = {name: sharded.cache_full(c, name)
-                for name, c in block_cache.items()}
-        x, _ = _block_decode(cfg, bp, x, full, sharded)
-        for name, c in block_cache.items():
-            sharded.cache_store(full[name], c, name)
+        x, _ = _block_decode(cfg, _block_weights(params, i, sharded), x,
+                             block_cache, sharded)
     new = {name: _advance(c) for name, c in caches.items()}
     logits = L.unembed(params, cfg, x, tp_of(sharded, "unembed"))
     return logits[:, 0], new

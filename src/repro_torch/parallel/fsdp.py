@@ -6,13 +6,17 @@ Each rank holds, per leaf, only its shard under the leaf's fitted spec
 (``parallel.sharding``): :func:`shard_tree` cuts it.  A block's weights are
 all-gathered just before the block runs (:func:`gather_leaves`) and
 dropped after it; under remat the backward gathers them again.  The leaves
-of a tensor-parallel sublayer (:meth:`Sharded.tp`: attention by heads, the
-MLP by columns, the MoE by experts, the embeddings by vocab rows, where the
-fit puts ``model`` there) are gathered over every axis but ``model``: a
-rank computes on its ``model``-local part and the sublayer ends in one sum
-over ``model`` (``parallel.tp``).  A sublayer whose fit dropped ``model``,
-or put it on the K/V head_dim, gathers over ``model`` too and computes
-whole, the same rows on each ``model`` rank of a batch slice.
+of a tensor-parallel sublayer (:meth:`Sharded.tp`: attention by heads or
+by the K/V head_dim, the MLP by columns, the MoE by experts, the
+embeddings by vocab rows, where the fit puts ``model`` there) are gathered
+over every axis but ``model``: a rank computes on its ``model``-local part
+and the sublayer ends in one sum over ``model`` (``parallel.tp``), or none
+for an attention on its head_dim shard whose heads do not split.  Prefill
+gathers the head_dim-sharded ``wk``, ``wv``, ``bk`` and ``bv`` over
+``model`` too (the K/V of every kv head, for its local q heads); decode
+computes on them as they are.  A sublayer whose fit dropped ``model``
+(the SSM mixers) gathers over ``model`` too and computes whole, the same
+rows on each ``model`` rank of a batch slice.
 
 A gathered leaf's gradient is summed over the batch axes, whose ranks saw
 different rows, and averaged by their size, leaving each rank its shard
@@ -29,15 +33,18 @@ over ``("pod", "data")`` is gathered over ``data``, then ``pod``, and
 reduced in the opposite order.  Collectives run at every size, a group of
 one included (where they copy), and each one counts in
 ``mesh.collectives`` (by kind) and ``mesh.axis_collectives`` (by axis),
-and under a ``launch.roofline.Counter`` with its bytes too.
+and under a ``launch.roofline.Counter`` with its bytes too, under the tag
+``"cache"`` where it gathers a cache (:func:`reshard`; no step does).
 
 :class:`Sharded` is what a sharded step hands the model: the block loops of
 ``models.transformer`` and ``models.encdec`` call its ``gather`` on each
 block's shards and its ``tp`` for each sublayer, MoE routing takes its
 ``data_mean`` for the load-balance loss's batch means, prefill its
 ``cache_cut`` (each block's new cache to this rank's shard before the next
-block runs) and decode its ``cache_full`` / ``cache_store``; the optimizer
-takes its ``mean`` and the clipping its ``global_norm``.
+block runs) and decode its ``cache_seq`` (a cache's sequence block, which
+decode attention merges its softmax over); decode reads and writes the
+cache shards in place.  The optimizer takes its ``mean`` and the clipping
+its ``global_norm``.
 """
 from __future__ import annotations
 
@@ -53,16 +60,18 @@ from ..weights import flatten, unflatten
 from .sharding import axes_of, tree_map
 
 
-def _count(mesh, kind: str, axis: Optional[str], out: torch.Tensor) -> None:
+def _count(mesh, kind: str, axis: Optional[str], out: torch.Tensor,
+           tag: Optional[str] = None) -> None:
     """One collective of ``kind`` over ``axis`` (``None``: the world), by
     kind in ``mesh.collectives`` and by axis in ``mesh.axis_collectives``;
-    under a counter, with the bytes of its output ``out`` on this rank."""
+    under a counter, with the bytes of its output ``out`` on this rank
+    (and under ``tag`` too)."""
     mesh.collectives[kind] = mesh.collectives.get(kind, 0) + 1
     by_axis = mesh.axis_collectives.setdefault(axis or "world", {})
     by_axis[kind] = by_axis.get(kind, 0) + 1
     if roofline.ACTIVE is not None:
         roofline.ACTIVE.collective(kind, axis,
-                                   out.numel() * out.element_size())
+                                   out.numel() * out.element_size(), tag)
 
 
 def _block(dim: int, n: int, i: int):
@@ -106,7 +115,7 @@ def _by_dtype(items):
     return groups.values()
 
 
-def _all_gather(jobs, mesh, axis: str):
+def _all_gather(jobs, mesh, axis: str, tag: Optional[str] = None):
     """One all-gather over ``axis`` of every ``(key, shard, dim)`` job,
     back to back in one buffer; returns ``{key: shard gathered along
     dim}``."""
@@ -114,7 +123,7 @@ def _all_gather(jobs, mesh, axis: str):
     flat = torch.cat([t.reshape(-1) for _, t, _ in jobs])
     # the n buffers back to back, [n * numel], as gloo wants it
     out = flat.new_empty(n * flat.numel())
-    _count(mesh, "all_gather", axis, out)
+    _count(mesh, "all_gather", axis, out, tag)
     dist.all_gather_into_tensor(out, flat, group=mesh.group(axis))
     rows, off, res = out.view(n, flat.numel()), 0, {}
     for key, t, dim in jobs:
@@ -162,25 +171,26 @@ def _all_reduce_many(items, mesh, axis: str):
     return res
 
 
-def gather_leaves(shards, specs, mesh):
+def gather_leaves(shards, specs, mesh, tag: Optional[str] = None):
     """The whole leaves of ``shards`` (key -> this rank's shard, ``specs``
     key -> its spec), all-gathered: one collective a mesh axis (innermost
-    first) and dtype, whatever dim each leaf has on it.  No gradient
-    (:class:`Sharded`'s ``gather`` is the differentiable one); a leaf no
-    axis shards comes back as a copy."""
+    first) and dtype, whatever dim each leaf has on it, counted under
+    ``tag``.  No gradient (:class:`Sharded`'s ``gather`` is the
+    differentiable one); a leaf no axis shards comes back as a copy."""
     out = {k: t.detach() for k, t in shards.items()}
     for a in reversed(tuple(mesh.shape)):
         jobs = [(k, out[k], dim) for k, spec in specs.items()
                 for dim, part in enumerate(spec) if a in axes_of(part)]
         for group in _by_dtype(jobs):
-            out.update(_all_gather(group, mesh, a))
+            out.update(_all_gather(group, mesh, a, tag))
     return {k: t if _sharding_axes(specs[k]) else t.clone()
             for k, t in out.items()}
 
 
-def gather_leaf(shard: torch.Tensor, spec, mesh) -> torch.Tensor:
+def gather_leaf(shard: torch.Tensor, spec, mesh,
+                tag: Optional[str] = None) -> torch.Tensor:
     """One leaf whole (:func:`gather_leaves`)."""
-    return gather_leaves({0: shard}, {0: spec}, mesh)[0]
+    return gather_leaves({0: shard}, {0: spec}, mesh, tag)[0]
 
 
 def reduce_grads(grads, pspecs, mesh, batch_axes: Sequence[str]):
@@ -276,10 +286,13 @@ class _DataMean(torch.autograd.Function):
 # subtree (of the leaf itself for the embeddings), and their kind
 REGIONS = {"attn": "attn", "xattn": "attn", "mlp": "mlp", "moe": "moe",
            "tok_embed": "vocab", "unembed": "vocab"}
+# an attention's K/V leaves: sharded on head_dim by the decode rules
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
 # A sublayer of each kind computes tensor-parallel when ``model`` shards the
 # dim (from the end) of each of these weights, as True or False says it
 # must: the heads of wq and wo, and not the head_dim of wk and wv; the MLP
-# columns; the experts; the vocab
+# columns; the experts; the vocab.  An attention whose wk head_dim carries
+# model is the other kind (``parallel.tp.HeadDimAxis``)
 _TP_DIMS = {
     "attn": {"wq": (-2, True), "wo": (-3, True), "wk": (-1, False),
              "wv": (-1, False)},
@@ -310,18 +323,21 @@ class Sharded:
 
     ``pspecs``: the fitted specs of the params tree; ``batch_axes``: the
     mesh axes that split the batch (``rules["batch"]``; none in long
-    decode); ``cache_pspecs``: the fitted specs of the decode caches, for
-    serving.  ``on_gather(t)``, when given, sees every leaf a ``gather``
-    returns (the tests count the live ones).  Which sublayers compute
-    tensor-parallel follows from ``pspecs`` alone (:meth:`tp`)."""
+    decode); ``cache_pspecs``: the fitted specs of the caches, for
+    serving; ``decode``: the step is a decode step, whose attention on
+    the K/V head_dim computes on its shards.  ``on_gather(t)``, when
+    given, sees every leaf a ``gather`` returns (the tests count the live
+    ones).  Which sublayers compute tensor-parallel follows from
+    ``pspecs`` (:meth:`tp`)."""
 
     def __init__(self, mesh, pspecs, batch_axes: Sequence[str] = (),
-                 cache_pspecs=None,
+                 cache_pspecs=None, decode: bool = False,
                  on_gather: Optional[Callable[[torch.Tensor], None]] = None):
         self.mesh = mesh
         self.pspecs = pspecs
         self.batch_axes = tuple(batch_axes)
         self.cache_pspecs = cache_pspecs
+        self.decode = decode
         self.on_gather = on_gather
         self._specs = {}      # (path, leaf paths) -> their specs, a block's
         self._regions = {}    # sublayer path -> its ModelAxis or None
@@ -332,10 +348,12 @@ class Sharded:
         """The ``model`` axis (``parallel.tp.ModelAxis``) of the sublayer at
         ``path`` of the params (``blocks/l0/attn``, ``dec/xattn``,
         ``blocks/l1/moe``, ``unembed``) when it computes tensor-parallel:
-        the fitted specs put ``model`` on its heads (and not on its K/V
-        head_dim, as the decode rules do), MLP columns, experts or vocab.
-        Otherwise None: the sublayer gathers its weights over ``model`` and
-        computes whole."""
+        the fitted specs put ``model`` on its heads, MLP columns, experts
+        or vocab.  An attention whose K/V head_dim carries ``model`` (the
+        decode rules; prefill's where the kv heads do not split) gets a
+        ``parallel.tp.HeadDimAxis``: ``on_head_dim`` is the one question
+        that tells the two kinds apart.  Otherwise None: the sublayer
+        gathers its weights over ``model`` and computes whole."""
         if path not in self._regions:
             self._regions[path] = self._region(path)
         return self._regions[path]
@@ -351,6 +369,11 @@ class Sharded:
             return None
         if kind == "vocab":
             node = {name: node}
+        if kind == "attn" and "model" in axes_of(node["wk"][-1]):
+            from .tp import HeadDimAxis
+            return HeadDimAxis(self.mesh,
+                               heads="model" in axes_of(node["wq"][-2]),
+                               kv_whole=not self.decode)
         for leaf, (dim, sharded) in _TP_DIMS[kind].items():
             if leaf in node and ("model" in axes_of(node[leaf][dim])) != \
                     sharded:
@@ -363,12 +386,15 @@ class Sharded:
     def _gather_spec(self, path: str, ndim: int) -> PartitionSpec:
         """How the leaf at ``path`` is gathered: over every axis that its
         spec names, but over no ``model`` in a tensor-parallel sublayer,
-        whose leaves stay ``model``-local."""
+        whose leaves stay ``model``-local; a prefill attention on the K/V
+        head_dim takes ``wk``, ``wv``, ``bk`` and ``bv`` whole."""
         spec = _drop_layers(pspecs_at(self.pspecs, path), ndim)
         region = region_of(path)
-        if region is not None and self.tp(region) is not None:
-            return _without(spec, "model")
-        return spec
+        tp = None if region is None else self.tp(region)
+        if tp is None or (tp.on_head_dim and tp.kv_whole and
+                          path.rsplit("/", 1)[-1] in _KV_LEAVES):
+            return spec
+        return _without(spec, "model")
 
     # ----------------------------------------------------------- weights
     def gather(self, tree, path: str):
@@ -432,9 +458,14 @@ class Sharded:
         return s / n
 
     # ------------------------------------------------------------- caches
-    def _cache_spec(self, name: str, field: Optional[str], ndim: int):
-        spec = (self.cache_pspecs[name] if isinstance(self.cache_pspecs, dict)
+    def _cache_node(self, name: str):
+        """The specs of cache ``name``: a KVCache or SSMCache of specs, or
+        one spec."""
+        return (self.cache_pspecs[name] if isinstance(self.cache_pspecs, dict)
                 else getattr(self.cache_pspecs, name))
+
+    def _cache_spec(self, name: str, field: Optional[str], ndim: int):
+        spec = self._cache_node(name)
         if field is not None:
             spec = getattr(spec, field)
         # a block's cache [B, ...]: its batch rows are this rank's already
@@ -443,9 +474,9 @@ class Sharded:
     def cache_cut(self, cache, name: str, local: bool = False):
         """This rank's shard of one block's cache ``name`` (a KVCache, an
         SSMCache or a tensor) that prefill made whole but for the batch,
-        and for ``model`` too when ``local`` (the K/V heads of a
-        tensor-parallel attention are this rank's already): the inverse of
-        :meth:`cache_full`.  A field no axis shards is kept as it is."""
+        and for ``model`` too when ``local`` (a tensor-parallel attention
+        made its K/V heads, or its head_dim slice, already).  A field no
+        axis shards is kept as it is."""
 
         def cut(field, t):
             if not isinstance(t, torch.Tensor):    # a KV cache's length
@@ -461,38 +492,22 @@ class Sharded:
         return type(cache)(*(cut(f, t) for f, t in zip(cache._fields,
                                                          cache)))
 
-    def cache_full(self, cache, name: str):
-        """One block's cache ``name`` (a KVCache, an SSMCache or a tensor)
-        with every dim but the batch gathered: the shard itself where no
-        dim is sharded, so that decode's in-place write reaches it."""
-        fields = ({None: cache} if isinstance(cache, torch.Tensor)
-                  else dict(zip(cache._fields, cache)))
-        specs = {}
-        for f, t in fields.items():
-            if isinstance(t, torch.Tensor):    # not a KV cache's length
-                spec = self._cache_spec(name, f, t.ndim)
-                if _sharding_axes(spec):
-                    specs[f] = spec
-        fields.update(gather_leaves({f: fields[f] for f in specs}, specs,
-                                    self.mesh))
-        return (fields[None] if isinstance(cache, torch.Tensor)
-                else type(cache)(**fields))
-
-    def cache_store(self, full, shard, name: str) -> None:
-        """Write this rank's block of ``full`` (:meth:`cache_full`'s, which
-        decode advanced in place) back into the shard it came from."""
-        pairs = ([(None, full, shard)] if isinstance(shard, torch.Tensor)
-                 else zip(shard._fields, full, shard))
-        for field, f, s in pairs:
-            if isinstance(s, torch.Tensor) and f is not s:
-                spec = self._cache_spec(name, field, s.ndim)
-                s.copy_(f[shard_slices(spec, f.shape, self.mesh)])
+    def cache_seq(self, name: str):
+        """The sequence block (``parallel.tp.SeqShard``) of a block's KV
+        cache ``name`` (a KVCache or a tensor [B, S, KV, Dh]) where its
+        fitted spec cuts the sequence (long decode), else None."""
+        spec = self._cache_node(name)
+        axes = axes_of(_drop_layers(getattr(spec, "k", spec), 4)[1])
+        if not axes:
+            return None
+        from .tp import SeqShard
+        return SeqShard(self.mesh, axes)
 
 
 def reshard(tree, src, dst, mesh):
     """Shards under the specs ``src`` -> shards under ``dst`` (each leaf
     gathered whole, then cut), e.g. prefill's caches into the serve step's
-    layout."""
-    return tree_map(lambda t, a, b: shard_leaf(gather_leaf(t, a, mesh), b,
-                                               mesh)
+    layout: its gathers count under the tag ``"cache"``."""
+    return tree_map(lambda t, a, b: shard_leaf(
+        gather_leaf(t, a, mesh, "cache"), b, mesh)
                     if isinstance(t, torch.Tensor) else t, tree, src, dst)

@@ -8,10 +8,11 @@ sharded over both axes.  ``model`` shards attention heads, MLP columns,
 vocab and the experts, for tensor- and expert-parallel compute: in the
 port each such sublayer keeps its ``model``-local weights and ends in one
 sum over ``model`` (``parallel.fsdp.Sharded.tp``, ``parallel.tp``), and a
-weight whose fit drops ``model`` or puts it on head_dim is gathered
-before use (``parallel.fsdp``).  Decode moves the KV cache's shard onto
-``head_dim`` (kv_heads may not divide ``model``), and long decode (one
-sequence) shards the cache's sequence over ``data``.
+weight whose fit drops ``model`` is gathered before use
+(``parallel.fsdp``).  Decode moves the KV cache's shard onto ``head_dim``
+(kv_heads may not divide ``model``), and its attention computes on that
+shard (``parallel.tp.HeadDimAxis``); long decode (one sequence) shards
+the cache's sequence over ``data`` too.
 
 A spec is a :class:`~repro_torch.models.spec.PartitionSpec`; trees of specs
 follow the params' dicts and the caches' NamedTuples.  ``fit_*`` take a

@@ -25,6 +25,15 @@ the greedy token.  Sums run in the tensor's dtype, the activation dtype
 for a region's output.  Every collective counts in the mesh's
 ``collectives`` and ``axis_collectives``; a group of one copies, so at
 ``model = 1`` the arithmetic is the unsharded step's.
+
+An attention whose fitted specs put ``model`` on the K/V head_dim (the
+decode rules; prefill's where ``n_kv_heads`` does not split over
+``model``) gets a :class:`HeadDimAxis` (``on_head_dim``): in decode it
+computes on its head_dim shard of the weights and the KV cache
+(``models.layers.attention_decode``), in prefill on its local q heads
+with the K/V weights gathered whole.  A KV cache whose sequence is cut
+over the batch axes (long decode) merges its softmax over them through a
+:class:`SeqShard`.
 """
 from __future__ import annotations
 
@@ -96,7 +105,12 @@ class _LogSumExp(torch.autograd.Function):
 
 class ModelAxis:
     """This rank's place on the ``model`` axis of ``mesh``, and the
-    collectives of a tensor-parallel region over it."""
+    collectives of a tensor-parallel region over it.  In an attention,
+    the local heads' K/V are this rank's kv heads (``on_head_dim`` False;
+    :class:`HeadDimAxis` is the other kind)."""
+
+    on_head_dim = False
+    heads = True
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -149,6 +163,71 @@ class ModelAxis:
         inside = (local >= 0) & (local < table.shape[0])
         rows = table[torch.where(inside, local, 0)]
         return self.exit(torch.where(inside[..., None], rows, 0))
+
+
+class HeadDimAxis(ModelAxis):
+    """The ``model`` axis of an attention whose K/V head_dim carries it:
+    each rank holds slice ``rank`` of ``head_dim`` of every kv head of
+    ``wk``, ``wv`` (``bk``, ``bv``) and the KV cache.  ``heads``: ``wq``,
+    ``bq`` and ``wo`` hold the local heads (``n_heads`` splits over
+    ``model``), so the sublayer ends in :meth:`exit`; otherwise they are
+    whole and it ends in no sum.  ``kv_whole`` (prefill): the K/V weights
+    are gathered whole, the attention runs on the local q heads and the kv
+    heads they read, and the layer cuts its cache to this rank's slice
+    (:meth:`dh_slice`)."""
+
+    on_head_dim = True
+
+    def __init__(self, mesh, heads: bool, kv_whole: bool):
+        super().__init__(mesh)
+        self.heads = heads
+        self.kv_whole = kv_whole
+
+    def dh_slice(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the last dim (head_dim) of whole ``t``."""
+        lo, hi = self.local_range(t.shape[-1])
+        return t.narrow(-1, lo, hi - lo)
+
+    def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """``t``, this rank's block along ``dim`` (a head_dim slice, or the
+        local heads), whole along it: one all-gather over ``model``."""
+        return _all_gather([(0, t.contiguous(), dim % t.ndim)], self.mesh,
+                           AXIS)[0]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over ``model`` (no gradient): partial logits
+        of the head_dim slices."""
+        return _all_reduce(t, self.mesh, AXIS)
+
+
+class SeqShard:
+    """A KV cache's sequence cut over ``axes`` (long decode's
+    ``cache_seq``, the batch axes, outer first): this rank's block
+    ``index`` of ``count``, and the sums of a softmax merged over them."""
+
+    def __init__(self, mesh, axes):
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.index, self.count = 0, 1
+        for a in self.axes:
+            self.index = self.index * mesh.shape[a] + mesh.coords[a]
+            self.count *= mesh.shape[a]
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the axes, into a copy."""
+        t = t.clone(memory_format=torch.contiguous_format)
+        for a in self.axes:
+            _count(self.mesh, "all_reduce", a, t)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                            group=self.mesh.group(a))
+        return t
+
+    def sum(self, *ts: torch.Tensor):
+        """Each ``t`` summed over the axes, in one all-reduce an axis."""
+        items = list(enumerate(ts))
+        for a in self.axes:
+            got = _all_reduce_many(items, self.mesh, a)
+            items = [(i, got[i]) for i, _ in items]
+        return tuple(t for _, t in items)
 
 
 def greedy_tokens(logits: torch.Tensor, spec, mesh) -> torch.Tensor:

@@ -18,10 +18,16 @@
 - One production cell a kind at ``pod_16x16`` and full width (granite's
   ``prefill_32k``, qwen3-1.7b's ``decode_32k``, mamba2's ``long_500k``,
   qwen2-1.5b's ``train_4k``) runs on meta, fits, launches the kernels its
-  layers need, and decode's all-gathers carry each layer's KV cache.
+  layers need, and decode's attention computes on its head_dim shard: its
+  all-gathers over ``model`` carry only each layer's new K row, query and
+  output, and its all-reduces the partial logits over the cache.
 - The report: the port's cells rendered by the reference's
   ``repro.launch.report`` give the port's tables, apart from the capacity
-  in the "fits" header and "run" for "compile".
+  in the "fits" header and "run" for "compile".  Its decode table's cache
+  column counts the gathers tagged as a cache's: 0 for a decode cell on a
+  fake (2, 4) world (a route that gathered each layer's caches whole over
+  ``model`` would move that many bytes, by formula), and what
+  ``fsdp.reshard`` gathers when caches move between layouts.
 """
 import json
 import os
@@ -304,13 +310,18 @@ def test_production_cell(prod_cells, arch, shape):
         dryrun.model_flops(cfg, spec) / 256)
     by_axis = counts["axis_collectives"]
     if spec.kind == "decode" and cfg.n_kv_heads:
-        # each attention layer gathers its KV cache over model: at least
-        # the cache's K and V, whole over model, for this rank's rows
+        # attention on the head_dim shard: each layer gathers over model
+        # its query and output [b, 1, H, Dh] and new K row [b, 1, KV, Dh]
+        # (bf16), and sums f32 partial logits [b, H, s_max] (an
+        # all-reduce counts twice); no cache is gathered
         b = spec.global_batch // 16 if spec.global_batch >= 16 else 1
         s_max = spec.seq_len + 128
-        cache = 2 * b * s_max * cfg.n_kv_heads * cfg.d_head * 2
         n_attn = sum(1 for k in cfg.pattern if k == "attn") * cfg.n_blocks
-        assert by_axis["model"]["all-gather"]["bytes"] >= n_attn * cache
+        rows = 2 * b * (2 * cfg.n_heads + cfg.n_kv_heads) * cfg.d_head
+        assert by_axis["model"]["all-gather"]["bytes"] == n_attn * rows
+        assert by_axis["model"]["all-reduce"]["bytes"] >= \
+            n_attn * 2 * 4 * b * cfg.n_heads * s_max
+        assert counts["tagged"] == {}
     if spec.kind == "train":
         assert "reduce-scatter" in counts["collectives"]
 
@@ -352,3 +363,61 @@ def test_report_matches_the_reference(prod_cells, tmp_path):
         jreport.dryrun_table(as_ref)
     assert report.summary(cells) == jreport.summary(as_ref) == {
         "ok": 4, "skipped": 1, "error": 0, "fits": 4, "total": 5}
+
+
+def test_report_counts_the_cache_a_step_gathers(tmp_path):
+    """The decode table's cache column, from the gathers tagged as a
+    cache's: 0 for granite's smoke decode cell on a fake (2, 4) world,
+    where gathering each layer's K and V whole over ``model`` for its
+    batch rows would move a nonzero formula's bytes; and the tag counts:
+    resharding prefill's caches into the serve step's layout under a
+    counter gathers each leaf whole, innermost axis first."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import init_fake_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.parallel.fsdp import reshard, shard_tree
+    from repro_torch.parallel.sharding import axes_of, tree_map
+
+    arch, mesh_shape = "granite-moe-1b-a400m", (2, 4)
+    cfg = configs.get_smoke_config(arch)
+    shape = ShapeSpec("smoke_decode", "decode", 16, 8)
+    cell = dryrun.run_cell(arch, shape, mesh_shape=mesh_shape, cfg=cfg,
+                           verbose=False)
+    assert cell["status"] == "ok", cell.get("traceback")
+    assert report.cache_gather_bytes(cell) == 0
+    cell["arch"], cell["shape"] = arch, "decode_32k"
+    row = report.decode_table([{**cell, "mesh": "pod_16x16"}]).splitlines()
+    assert row[-1].endswith("| 0.00 |"), row
+    d, m = mesh_shape
+    caches = sp.cache_specs_shapes(cfg, shape)
+    parent = sum(t.numel() * t.element_size() // d for c in caches.values()
+                 for t in (c.k, c.v))
+    assert parent == 2 * cfg.n_blocks * (shape.global_batch // d) * (
+        shape.seq_len + sp.DECODE_MARGIN) * cfg.n_kv_heads * cfg.d_head * 2
+
+    with init_fake_mesh(mesh_shape) as mesh:
+        _, _, (_, c_pre), _ = make_prefill_step(cfg, mesh, shape)
+        _, _, (_, c_dec), _ = make_serve_step(cfg, mesh, shape)
+        shards = shard_tree(caches, c_pre, mesh)
+        want = []
+
+        def gathered(t, spec):
+            if not hasattr(t, "shape"):
+                return
+            size = t.numel() * t.element_size()
+            for a in reversed(tuple(mesh.shape)):
+                n = mesh.shape[a] if any(a in axes_of(p) for p in spec) \
+                    else 1
+                size //= n
+            for a in reversed(tuple(mesh.shape)):
+                if any(a in axes_of(p) for p in spec):
+                    size *= mesh.shape[a]
+                    want.append(size)
+
+        tree_map(gathered, caches, c_pre)
+        with rl.Counter(only_device="meta") as c:
+            reshard(shards, c_pre, c_dec, mesh)
+    got = sum(k["all-gather"]["bytes"] for k in c.tagged["cache"].values())
+    assert got == sum(want) > 0
+    assert report.cache_gather_bytes({"counts": c.as_dict()}) == got

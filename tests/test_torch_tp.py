@@ -43,7 +43,9 @@ its max, against both.
 
 Prefill and decode logits are this rank's block of the unsharded logits
 within 2e-5, and ``greedy_tokens`` gives the unsharded argmax on every
-rank.
+rank.  So are long decode's (global batch 1, the cache's sequence cut over
+``data``) at (2, 2), jamba with a window of 16 that spans both data
+ranks' blocks.
 
 That the compute is split: every leaf a gather returns keeps its
 ``model``-local dim in a tensor-parallel sublayer and is whole elsewhere;
@@ -51,7 +53,15 @@ That the compute is split: every leaf a gather returns keeps its
 groups over the local experts' kept rows alone (their sum over the ranks
 is the unsharded call's); no leaf is gathered over ``model`` but the SSM
 mixers'; prefill issues exactly one all-reduce over ``model`` a
-tensor-parallel sublayer (and one for the embedding).
+tensor-parallel sublayer (and one for the embedding), runs each attention
+on H / m heads, and gathers over ``model`` only ``wk``, ``wv``, ``bk`` and
+``bv``, where the kv heads do not split (2 kv heads over 4).  Decode
+computes attention on its head_dim shard: no attention weight comes back
+gathered over ``model``, no cache leaf is gathered (nothing counts under
+the ``"cache"`` tag, and the bytes gathered over ``model`` are exactly
+the new K rows, queries and outputs, plus the SSM mixers' weights), and
+each attention call issues the collectives over ``model`` that its route
+predicts.
 """
 import dataclasses
 import json
@@ -100,13 +110,14 @@ LOGIT_TOL = 2e-5
 SSM_NORM_RTOL, SSM_GRAD_TOL = 1e-4, 2e-3
 SSM = ("jamba",)
 MESHES = {"m2": (1, 2), "d2m2": (2, 2), "m4": (1, 4)}
+LONG_MESH = "d2m2"
 NAMES = list(TH.CONFIGS)
 CASES = [(m, n) for m in MESHES for n in NAMES]
 IDS = [f"{m}-{n}" for m, n in CASES]
 
 
 def _cfgs(name):
-    arch, over = TH.CONFIGS[name]
+    arch, over = {**TH.CONFIGS, **TH.LONG}[name]
     jcfg = jconfigs.get_smoke_config(arch).replace(dtype="float32", **over)
     return jcfg, ModelConfig(**dataclasses.asdict(jcfg))
 
@@ -135,6 +146,15 @@ def _inputs():
         if jcfg.is_encoder_decoder:
             out[f"{name}|enc_embeds"] = rng.standard_normal(
                 (batch, jcfg.enc_frames, jcfg.d_model), np.float32)
+    rng = np.random.default_rng(12)
+    _, _, prompt_len, batch = TH.LONG_SHAPE
+    for i, name in enumerate(TH.LONG):
+        jcfg, _ = _cfgs(name)
+        jp, _ = japi.init(jcfg, jax.random.PRNGKey(len(NAMES) + i))
+        for path, v in flatten(jax.tree.map(np.asarray, jp)).items():
+            out[f"{name}|params|{path}"] = v
+        out[f"{name}|prompts"] = rng.integers(
+            0, jcfg.vocab_size, (batch, prompt_len)).astype(np.int32)
     return out, jparams
 
 
@@ -148,12 +168,12 @@ def _batch(inputs, name, s):
             inputs.items() if k.startswith(f"{name}|batch{s}|")}
 
 
-def _serve_unsharded(name, inputs):
+def _serve_unsharded(name, inputs, shape=TH.SERVE_SHAPE):
     """The unsharded prefill and decode logits, each decode step fed the
     argmax of the step before, and those tokens."""
     _, cfg = _cfgs(name)
     params = api.cast_for_serving(cfg, _params(inputs, name))
-    _, _, prompt_len, _ = TH.SERVE_SHAPE
+    _, _, prompt_len, _ = shape
     batch = {"inputs": torch.from_numpy(inputs[f"{name}|prompts"])}
     if cfg.is_encoder_decoder:
         batch["enc_embeds"] = torch.from_numpy(inputs[f"{name}|enc_embeds"])
@@ -244,6 +264,8 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp")
     inputs, jparams = _inputs()
     served = {n: _serve_unsharded(n, inputs) for n in NAMES}
+    served.update({n: _serve_unsharded(n, inputs, TH.LONG_SHAPE)
+                   for n in TH.LONG})
     for n, (_, toks) in served.items():
         inputs[f"{n}|tokens"] = toks
     np.savez(tmp / "in.npz", **inputs)
@@ -256,7 +278,8 @@ def runs(tmp_path_factory):
     for mesh, shape in MESHES.items():
         world = int(np.prod(shape))
         (tmp / f"{mesh}.json").write_text(json.dumps(
-            {"shape": list(shape), "configs": NAMES, "steps": STEPS}))
+            {"shape": list(shape), "configs": NAMES, "steps": STEPS,
+             "long": list(TH.LONG) if mesh == LONG_MESH else []}))
         waits.append(_spawn([[helper, r, world, tmp / f"{mesh}.store",
                               tmp / f"{mesh}.json", tmp / "in.npz",
                               tmp / mesh] for r in range(world)], env))
@@ -373,12 +396,12 @@ def test_tensor_parallel_serving_matches_unsharded(runs, mesh, name):
                                   np.argmax(w, axis=-1)[rows]), key
 
 
-def _tp_kinds(cfg, m: int, prefill: bool = False):
+def _tp_kinds(cfg, m: int):
     """Which kinds of sublayer compute tensor-parallel on a model axis of
-    ``m``, by the rules (prefill moves ``model`` onto the K/V head_dim
-    where the kv heads do not split)."""
-    return {"attn": cfg.n_heads % m == 0 and (
-                not prefill or cfg.n_kv_heads % m == 0),
+    ``m``, by the rules: attention on its local q heads wherever they
+    split, in training and in prefill (whose K/V head_dim carries
+    ``model`` where the kv heads do not split)."""
+    return {"attn": cfg.n_heads % m == 0,
             "mlp": cfg.d_ff > 0 and cfg.d_ff % m == 0,
             "moe": cfg.n_experts > 0 and cfg.n_experts % m == 0,
             "vocab": cfg.vocab_size % m == 0}
@@ -440,7 +463,7 @@ def test_prefill_ends_each_sublayer_in_one_model_sum(runs, mesh, name):
     attention call on H / m heads where it is tensor-parallel."""
     _, cfg = _cfgs(name)
     m = MESHES[mesh][1]
-    kinds = _tp_kinds(cfg, m, prefill=True)
+    kinds = _tp_kinds(cfg, m)
     if cfg.is_encoder_decoder:
         n = cfg.n_enc_layers * (kinds["attn"] + kinds["mlp"]) + \
             cfg.n_layers * (2 * kinds["attn"] + kinds["mlp"])
@@ -456,6 +479,147 @@ def test_prefill_ends_each_sublayer_in_one_model_sum(runs, mesh, name):
     n += kinds["vocab"]
     for out in runs[mesh]:
         rec = json.loads(str(out[f"{name}|serve_record"]))
+        r = _rank_mesh(mesh, out).coords["model"]
         assert rec["collectives"].get("model", {}).get("all_reduce", 0) == n
         heads = cfg.n_heads // m if kinds["attn"] else cfg.n_heads
-        assert all(h == heads for h, _ in rec["attn"]), rec["attn"]
+        kv = _local_kv(cfg, m, r) if kinds["attn"] else cfg.n_kv_heads
+        assert rec["attn"] and all(
+            (h, k) == (heads, kv) for h, k in rec["attn"]), rec["attn"]
+
+
+def _serve_specs(mesh, name, decode: bool):
+    """The fitted param specs of the prefill or serve step on ``mesh``."""
+    _, cfg = _cfgs(name)
+    shape = ShapeSpec(*TH.SERVE_SHAPE)
+    make = steps.make_serve_step if decode else steps.make_prefill_step
+    return flatten(make(cfg, _sizes(mesh), shape)[1][0])
+
+
+def _whole_block_shape(runs, name, path):
+    shape = list(runs["inputs"][f"{name}|params|{path}"].shape)
+    return shape[1:] if path.split("/")[0] in steps.STACKED else shape
+
+
+@pytest.mark.parametrize("mesh,name", CASES, ids=IDS)
+def test_prefill_gathers_only_kv_weights_over_model(runs, mesh, name):
+    """Prefill's gathers: a leaf comes back whole over ``model`` only if
+    it is an SSM mixer's or, where the kv heads do not split, an
+    attention's ``wk``, ``wv``, ``bk`` or ``bv``; every other leaf whose
+    spec has ``model`` stays ``model``-local."""
+    _, cfg = _cfgs(name)
+    m = MESHES[mesh][1]
+    specs = _serve_specs(mesh, name, decode=False)
+    kv_whole = cfg.n_kv_heads % m != 0
+    for out in runs[mesh]:
+        rec = json.loads(str(out[f"{name}|serve_record"]))
+        assert rec["shapes"]
+        for path, shape in rec["shapes"].items():
+            spec = specs[path]
+            whole = _whole_block_shape(runs, name, path)
+            if len(spec) == len(whole) + 1:
+                spec = spec[1:]
+            leaf = path.rsplit("/", 1)[-1]
+            region = region_of(path)
+            over_model = region is None or (
+                kv_whole and REGIONS[region.split("/")[-1]] == "attn"
+                and leaf in ("wk", "wv", "bk", "bv"))
+            want = [d if over_model or "model" not in axes_of(part)
+                    else d // m for d, part in zip(whole, spec)]
+            assert shape == want, (path, shape, want)
+
+
+def _decode_attn_calls(cfg, m: int):
+    """Each decode attention call's collectives over ``model``, in call
+    order, as its route predicts: the query gathered (where the q heads
+    split), self-attention's new K row gathered,
+    the partial logits summed, the output gathered, and the sublayer's sum
+    (where the q heads split); cross-attention has no new rows."""
+    heads = int(cfg.n_heads % m == 0)
+    own = ("attention_decode", {"all_gather": 2 + heads,
+                                "all_reduce": 1 + heads})
+    cross = ("cross_attention", {"all_gather": 1 + heads,
+                                 "all_reduce": 1 + heads})
+    if cfg.is_encoder_decoder:
+        return [own, cross] * cfg.n_layers
+    return [own] * sum(k == "attn" for k in cfg.pattern) * cfg.n_blocks
+
+
+def _decode_activation_bytes(cfg, m: int, b: int) -> int:
+    """The bytes a decode step's attention gathers over ``model`` (f32):
+    the query and the output [b, 1, H, Dh] of each call, and the new K
+    row [b, 1, KV, Dh] of each self-attention."""
+    heads = int(cfg.n_heads % m == 0)
+    q_out = (heads + 1) * b * cfg.n_heads * cfg.d_head * 4
+    kv = b * cfg.n_kv_heads * cfg.d_head * 4
+    n_self = (cfg.n_layers if cfg.is_encoder_decoder else
+              sum(k == "attn" for k in cfg.pattern) * cfg.n_blocks)
+    n_cross = cfg.n_layers if cfg.is_encoder_decoder else 0
+    return n_self * (q_out + kv) + n_cross * q_out
+
+
+@pytest.mark.parametrize("mesh,name", CASES, ids=IDS)
+def test_decode_attention_computes_on_the_head_dim_shard(runs, mesh, name):
+    """The first decode step: every attention leaf its gathers return is
+    ``model``-local (its head_dim, or its heads), no gather is tagged as a
+    cache's, the all-gathers over ``model`` move exactly the attention's
+    new K rows, queries and outputs and the weights of the SSM mixers (the only
+    leaves gathered over ``model``), and each attention call issues the
+    collectives over ``model`` of :func:`_decode_attn_calls`."""
+    _, cfg = _cfgs(name)
+    d, m = MESHES[mesh]
+    specs = _serve_specs(mesh, name, decode=True)
+    b = TH.SERVE_SHAPE[3] // d
+    for out in runs[mesh]:
+        rec = json.loads(str(out[f"{name}|serve_record"]))["decode"]
+        assert rec["tagged"] == {}
+        assert rec["attn_calls"] == [list(c) for c in
+                                     _decode_attn_calls(cfg, m)]
+        weights = 0
+        for path, shape in rec["shapes"].items():
+            spec = specs[path]
+            whole = _whole_block_shape(runs, name, path)
+            if len(spec) == len(whole) + 1:
+                spec = spec[1:]
+            region = region_of(path)
+            if region is not None and REGIONS[region.split("/")[-1]] == \
+                    "attn":
+                want = [n // m if "model" in axes_of(part) else n
+                        for n, part in zip(whole, spec)]
+                assert shape == want, (path, shape, want)
+            elif region is None and any("model" in axes_of(part)
+                                        for part in spec):
+                assert shape == whole, (path, shape, whole)
+                # gathered over model first: its shard times m, f32
+                weights += 4 * int(np.prod(whole)) // int(np.prod(
+                    [_sizes(mesh)[a] for part in spec for a in axes_of(part)
+                     if a != "model"]))
+        assert rec["model_all_gather_bytes"] == weights + \
+            _decode_activation_bytes(cfg, m, b), (rec, weights)
+        if "mamba" not in cfg.pattern:
+            assert weights == 0
+
+
+def test_long_decode_matches_unsharded(runs):
+    """Long decode at (2, 2): the cache's sequence cut over ``data`` (the
+    window spans both blocks as decode writes slots 126 to 128, which
+    data rank 0 then rank 1 holds), K/V head_dim over ``model``; each
+    rank's logits its block of the unsharded ones within 2e-5, its greedy
+    token the unsharded argmax; each attention layer merges its softmax
+    in two all-reduces over ``data`` (the row max, then the sums)."""
+    for name in TH.LONG:
+        _, cfg = _cfgs(name)
+        spec = steps.make_serve_step(cfg, _sizes(LONG_MESH), ShapeSpec(
+            *TH.LONG_SHAPE))[2][0]
+        want, _ = runs["served"][name]
+        n_attn = sum(k == "attn" for k in cfg.pattern) * cfg.n_blocks
+        for out in runs[LONG_MESH]:
+            m = _rank_mesh(LONG_MESH, out)
+            for i, w in enumerate(want[1:]):
+                np.testing.assert_allclose(
+                    out[f"{name}|decode{i}"],
+                    w[shard_slices(spec, w.shape, m)], rtol=LOGIT_TOL,
+                    atol=LOGIT_TOL, err_msg=f"decode{i}")
+                assert np.array_equal(out[f"{name}|greedy{i}"],
+                                      np.argmax(w, axis=-1)), i
+            rec = json.loads(str(out[f"{name}|long_record"]))
+            assert rec["data"].get("all_reduce") == 2 * n_attn, rec

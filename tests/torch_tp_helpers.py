@@ -16,10 +16,19 @@ holds to ``OUT.rank{RANK}.npz``:
   call, and the collectives by axis.  Then a step on each batch: the loss,
   the grad norm, and the shards of the params and optimizer state after
   the last.
-- ``serve``: the sharded prefill of the inputs' prompts (its logits and
-  collectives by axis), the caches resharded into the serve step's
-  layout, then a decode step for each of the inputs' tokens: the logits
-  of each, and ``parallel.tp.greedy_tokens`` of each.
+- ``serve``: the sharded prefill of the inputs' prompts (its logits,
+  collectives by axis, kernel calls and the shape of every leaf its
+  gathers return), the caches resharded into the serve step's layout,
+  then a decode step for each of the inputs' tokens: the logits of each,
+  and ``parallel.tp.greedy_tokens`` of each.  Of the first decode step:
+  the shape of every leaf its gathers return, its collectives by axis,
+  each attention call's collectives over ``model``, and its bytes under a
+  ``launch.roofline.Counter`` (all-gathers over ``model``, and those
+  tagged as a cache's).
+- ``long``: long decode (global batch 1, the cache's sequence cut over
+  the batch axes) of a config with a window: the unsharded prefill's
+  caches cut into the serve step's layout, then a decode step for each of
+  the inputs' tokens, its logits and greedy token.
 
 Imports no jax.
 """
@@ -30,6 +39,9 @@ import numpy as np
 
 LR = (1e-2, 2, 10)          # cosine_with_warmup(peak, warmup, steps)
 SERVE_SHAPE = ("tp_serve", "decode", 12, 8)   # name, kind, S, B
+# long decode: one sequence whose window (16) spans the two data ranks'
+# blocks of the 126 + 128 cache slots as decode writes slots 126 to 128
+LONG_SHAPE = ("tp_long", "decode", 126, 1)
 # config name -> (architecture, overrides of its f32 smoke config)
 CONFIGS = {
     "granite": ("granite-moe-1b-a400m", {}),
@@ -41,11 +53,13 @@ CONFIGS = {
     # loss stay whole beside tensor-parallel attention and MoE
     "granite-v255": ("granite-moe-1b-a400m", {"vocab_size": 255}),
 }
+# long decode only: jamba's attention layers with a window
+LONG = {"jamba-w16": ("jamba-1.5-large-398b", {"sliding_window": 16})}
 
 
 def smoke_cfg(name):
     from repro_torch import configs
-    arch, over = CONFIGS[name]
+    arch, over = {**CONFIGS, **LONG}[name]
     return configs.get_smoke_config(arch).replace(dtype="float32", **over)
 
 
@@ -90,6 +104,54 @@ class Calls:
 
     def __exit__(self, *exc):
         self.ops.flash_attention, self.ops.grouped_matmul = self._fa, self._gmm
+
+
+class AttnCalls:
+    """Records the collectives over ``model`` of each decode attention
+    call (``layers.attention_decode``, ``layers.cross_attention``), by
+    kind, as ``(name, {kind: count})``."""
+
+    def __init__(self, mesh):
+        from repro_torch.models import layers
+        self.layers, self.mesh, self.calls = layers, mesh, []
+        self._fns = {n: getattr(layers, n)
+                     for n in ("attention_decode", "cross_attention")}
+
+    def _wrap(self, name, fn):
+        def call(*a, **kw):
+            before = dict(self.mesh.axis_collectives.get("model", {}))
+            out = fn(*a, **kw)
+            after = self.mesh.axis_collectives.get("model", {})
+            self.calls.append((name, {k: after[k] - before.get(k, 0)
+                                      for k in after
+                                      if after[k] != before.get(k, 0)}))
+            return out
+        return call
+
+    def __enter__(self):
+        for n, fn in self._fns.items():
+            setattr(self.layers, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._fns.items():
+            setattr(self.layers, n, fn)
+
+
+def _seen(sharded, shapes):
+    """Wrap ``sharded.gather`` to record the shape of every leaf it
+    returns in ``shapes``; returns the unwrapped one."""
+    from repro_torch.weights import flatten
+    gather = sharded.gather
+
+    def seen(tree, path):
+        got = gather(tree, path)
+        for k, t in flatten(got).items():
+            shapes[f"{path}/{k}" if path else k] = list(t.shape)
+        return got
+
+    sharded.gather = seen
+    return gather
 
 
 def _batch(inputs, name, i, b_specs, mesh):
@@ -139,7 +201,7 @@ def train(name, mesh, inputs, out, steps_n):
 def serve(name, mesh, inputs, out):
     import torch
     from repro_torch.configs.shapes import ShapeSpec
-    from repro_torch.launch import steps
+    from repro_torch.launch import roofline, steps
     from repro_torch.parallel.fsdp import reshard, shard_leaf, shard_tree
     from repro_torch.parallel.tp import greedy_tokens
 
@@ -153,22 +215,74 @@ def serve(name, mesh, inputs, out):
     batch = {"inputs": torch.from_numpy(inputs[f"{name}|prompts"])}
     if f"{name}|enc_embeds" in inputs:
         batch["enc_embeds"] = torch.from_numpy(inputs[f"{name}|enc_embeds"])
+    pre_shapes, dec_shapes = {}, {}
+    gather = _seen(pre.sharded, pre_shapes)
     mesh.reset_collectives()
     with Calls() as calls:
         logits, caches = pre(shard_tree(full, p_specs, mesh),
                              shard_tree(batch, b_specs, mesh))
-    out[f"{name}|serve_record"] = np.asarray(json.dumps({
-        "attn": calls.attn, "collectives": mesh.axis_collectives}))
+    pre.sharded.gather = gather
+    record = {"attn": calls.attn, "shapes": pre_shapes,
+              "collectives": json.loads(json.dumps(mesh.axis_collectives))}
     out[f"{name}|prefill"] = logits.numpy()
     out[f"{name}|greedy0"] = greedy_tokens(logits, l_spec, mesh).numpy()
     params = shard_tree(full, p_dec, mesh)
     caches = reshard(caches, c_pre, c_dec, mesh)
     for i, tok in enumerate(inputs[f"{name}|tokens"]):
         tok = shard_leaf(torch.from_numpy(tok), t_spec, mesh)
-        logits, caches = dec(params, tok, caches)
+        if i:
+            logits, caches = dec(params, tok, caches)
+        else:
+            gather = _seen(dec.sharded, dec_shapes)
+            mesh.reset_collectives()
+            with AttnCalls(mesh) as acalls, roofline.Counter() as counter:
+                logits, caches = dec(params, tok, caches)
+            dec.sharded.gather = gather
+            counted = counter.as_dict()
+            record["decode"] = {
+                "shapes": dec_shapes,
+                "collectives": json.loads(json.dumps(mesh.axis_collectives)),
+                "attn_calls": acalls.calls,
+                "model_all_gather_bytes": counted["axis_collectives"].get(
+                    "model", {}).get("all-gather", {}).get("bytes", 0),
+                "tagged": counted["tagged"]}
         out[f"{name}|decode{i}"] = logits.numpy()
         out[f"{name}|greedy{i + 1}"] = greedy_tokens(logits, l_spec,
                                                      mesh).numpy()
+    out[f"{name}|serve_record"] = np.asarray(json.dumps(record))
+
+
+def long_decode(name, mesh, inputs, out):
+    """Long decode of ``name``: every rank runs the unsharded prefill of
+    the one prompt, cuts its caches into the serve step's layout, then
+    decodes the inputs' tokens."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.parallel.fsdp import shard_leaf, shard_tree
+    from repro_torch.parallel.tp import greedy_tokens
+
+    cfg = smoke_cfg(name)
+    shape = ShapeSpec(*LONG_SHAPE)
+    dec, (p_dec, t_spec, c_dec), (l_spec, _), _ = steps.make_serve_step(
+        cfg, mesh, shape)
+    full = api.cast_for_serving(cfg, _torch(inputs, f"{name}|params|"))
+    with torch.no_grad():
+        _, caches = api.prefill(cfg, full, {"inputs": torch.from_numpy(
+            inputs[f"{name}|prompts"])}, shape.seq_len + steps.sp.DECODE_MARGIN)
+    params, caches = shard_tree(full, p_dec, mesh), shard_tree(caches, c_dec,
+                                                               mesh)
+    mesh.reset_collectives()
+    for i, tok in enumerate(inputs[f"{name}|tokens"]):
+        tok = shard_leaf(torch.from_numpy(tok), t_spec, mesh)
+        logits, caches = dec(params, tok, caches)
+        if not i:
+            out[f"{name}|long_record"] = np.asarray(json.dumps(
+                mesh.axis_collectives))
+        out[f"{name}|decode{i}"] = logits.numpy()
+        out[f"{name}|greedy{i}"] = greedy_tokens(logits, l_spec,
+                                                 mesh).numpy()
 
 
 def main(rank, world, store_path, plan_path, inputs_path, out_path):
@@ -187,6 +301,8 @@ def main(rank, world, store_path, plan_path, inputs_path, out_path):
         for name in plan["configs"]:
             train(name, mesh, inputs, out, plan["steps"])
             serve(name, mesh, inputs, out)
+        for name in plan.get("long", ()):
+            long_decode(name, mesh, inputs, out)
     np.savez(f"{out_path}.rank{rank}.npz", **out)
 
 
