@@ -116,7 +116,7 @@ exits non-zero:
     save with two training steps running while it writes, their step time
     beside two steps before and two after with no save in flight, and the
     host snapshot's time; that checkpoint loaded must hold the snapshot's
-    bits.  Then kill and resume: granite at full width cut to 4 of its 24
+    bits.  Then kill and resume: granite at full width cut to 2 of its 24
     layers, bf16 params, f32 master, AdamW, batch 8 x 512, 8 steps, a
     checkpoint every 4: (A) uninterrupted, (B) the same again, (C) async
     save and a failure injected at step 4, (D) a new Trainer resuming from
@@ -182,11 +182,28 @@ exits non-zero:
     shard) and collectives a token, decode ms of both.  Launch counts, set
     to 0 before the sharded train and serve runs, are the ``sharded``
     path of the kernels line, whisper's its ``sharded_encdec`` path.
-    Then each kernel at the ``model``-local shapes that
-    model 2, 4 and 16 give granite and qwen3-1.7b, f32 and bf16, against
-    its plain version: flash_attention forward and backward with 8 q heads
-    over 4 kv heads, 4 over 2 and 1 over 1 (kv replicated), at Dh 64 and
-    128; grouped_matmul with its dX and dW over 16 and 8 experts;
+    Then mamba2-780m at full width and depth on the same mesh, its SSM
+    mixers on their ``ssm_inner`` shard (``models.ssd``; at model 1 every
+    head) and its gated norm through the split launches
+    (``parallel.tp.ModelAxis.rmsnorm``): 2 sharded train steps against 2
+    unsharded ones (params and optimizer state the same bits, launches
+    the config's), then the sharded prefill of 8 x 512 and 8 decode steps
+    against the unsharded model (the same bits; over ``model`` a token,
+    each mixer gathers its new ``xs_raw`` row and ``conv_x`` and sums its
+    norm's rows and its output; the ``sharded_ssm`` path, which must
+    launch each split launch).  Then each kernel at the ``model``-local
+    shapes that model 2, 4 and 16 give granite and qwen3-1.7b, f32 and
+    bf16, against its plain version: flash_attention forward and backward
+    with 8 q heads over 4 kv heads, 4 over 2 and 1 over 1 (kv replicated),
+    at Dh 64 and 128; grouped_matmul with its dX and dW over 16 and 8
+    experts; the split norm's four launches at mamba2's d_inner (3072)
+    over model 1 to 16 on 4096 and 8 rows, and its scalar and wide routes
+    (``SPLIT_RMS``, ``SPLIT_EDGES``): each against its plain version, the
+    whole rows against rmsnorm's and rmsnorm_bwd's plain versions, and
+    over one rank the one-pass kernels' bits; each timed at 4096 rows over
+    model 1 and 16; ssd_chunk and ssd_chunk_bwd on 24, 12, 6 and 3 of
+    mamba2's 48 heads (``SSD_LOCAL``) against their plain versions and f64
+    bounds, and timed;
 (j) the count of a real step against the dry-run's: granite-moe-1b-a400m
     and qwen3-1.7b at full width and depth on the (1, 1) NCCL mesh of (i),
     one sharded train step (bf16, f32 master, AdamW, batch 8 x 512) and one
@@ -252,13 +269,24 @@ REPLACES = {
     "grouped_matmul_dx": "src/repro/kernels/grouped_matmul.py:25",
     "grouped_matmul_dw": "src/repro/kernels/grouped_matmul.py:25",
     "ssd_chunk_bwd": "src/repro/kernels/ssd_scan.py:28",
+    # the two halves each way of a norm whose rows are split over ranks
+    "rmsnorm_part": "src/repro/kernels/rmsnorm.py:18",
+    "rmsnorm_scale": "src/repro/kernels/rmsnorm.py:18",
+    "rmsnorm_bwd_part": "src/repro/kernels/rmsnorm.py:18",
+    "rmsnorm_bwd_scale": "src/repro/kernels/rmsnorm.py:18",
 }
-# backward kernel -> its forward kernel, whose source file holds it
+# the split norm's launches (``parallel.tp.ModelAxis.rmsnorm``)
+SPLIT_NAMES = ("rmsnorm_part", "rmsnorm_scale", "rmsnorm_bwd_part",
+               "rmsnorm_bwd_scale")
+# kernel that is not its own file's name -> that file
 SOURCES = {"rmsnorm_bwd": "rmsnorm", "flash_attention_bwd": "flash_attention",
            "grouped_matmul_dx": "grouped_matmul",
-           "grouped_matmul_dw": "grouped_matmul", "ssd_chunk_bwd": "ssd_chunk"}
-# the backward kernels of granite's layers (no SSM)
-GRANITE_BWD = tuple(n for n in SOURCES if n != "ssd_chunk_bwd")
+           "grouped_matmul_dw": "grouped_matmul", "ssd_chunk_bwd": "ssd_chunk",
+           **{n: "rmsnorm" for n in SPLIT_NAMES}}
+# the backward kernels, then those of granite's layers (no SSM)
+BACKWARD = ("rmsnorm_bwd", "flash_attention_bwd", "grouped_matmul_dx",
+            "grouped_matmul_dw", "ssd_chunk_bwd")
+GRANITE_BWD = BACKWARD[:4]
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
 # phase (f): jamba at smoke size (head dim 64, which the attention kernel
 # is built for), bf16 params and an f32 master, 3 steps of 4 x 64 tokens
@@ -270,9 +298,10 @@ HYBRID_ARCH, HYBRID_STEPS, HYBRID_BATCH, HYBRID_SEQ = (
 # hold every output within SSD_BWD_TOL of max |ref| in f32
 SSD_TRAIN = (TRAIN_BATCH * TRAIN_SEQ // 256, 256, 48, 64, 128)
 SSD_BWD_TOL = 1e-4
-# phase (g): granite cut to 4 of its 24 layers (checkpoints near 4 GB),
-# 8 steps, a checkpoint every 4; checkpoints go under build/ckpt
-RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 4, 8, 4
+# phase (g): granite cut to 2 of its 24 layers (checkpoints near 3 GB; 4
+# until mamba2's sharded phase joined (i)), 8 steps, a checkpoint every 4;
+# checkpoints go under build/ckpt
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 2, 8, 4
 # phase (h): granite's MoE block through moe_block_ep at one prefill of
 # 8 x 512 tokens and one decode step of 8
 EP_TOKENS = (BATCH * PROMPT, BATCH)
@@ -305,6 +334,22 @@ TP_ATTN = [(TRAIN_BATCH, TRAIN_SEQ, hq, kv, dh) for dh in (64, 128)
            for hq, kv in ((8, 4), (4, 2), (1, 1))]
 TP_GMM = [(TRAIN_BATCH * TRAIN_SEQ * 8 // m, d, f, 32 // m)
           for m in (2, 4) for d, f in ((1024, 512), (512, 1024))]
+# phase (i): the split gated norm as (T, D): mamba2's d_inner at training's
+# and prefill's 8 x 512 rows and at decode's 8, its columns split over
+# model 1 to 16 (SPLIT_MODELS); then its routes over model 1 and 2: rows
+# off the vectors (D 1001, the scalar route; model 1 only) and wide rows
+# (D 12288); the record of the kernels line is mamba2's rows over model 16
+SPLIT_RMS = ((TRAIN_BATCH * TRAIN_SEQ, 3072), (BATCH, 3072))
+SPLIT_MODELS = (1, 2, 4, 8, 16)
+SPLIT_EDGES = ((37, 1001), (64, 12288))
+SPLIT_TIMED = (TRAIN_BATCH * TRAIN_SEQ, 3072, 16)
+# phase (i): ssd_chunk and ssd_chunk_bwd on a model rank's heads of
+# mamba2's training shape, its 48 heads over model 2, 4, 8 and 16
+SSD_LOCAL = [(SSD_TRAIN[0], SSD_TRAIN[1], SSD_TRAIN[2] // m, SSD_TRAIN[3],
+              SSD_TRAIN[4]) for m in (2, 4, 8, 16)]
+# phase (i): mamba2-780m's sharded train steps (at full depth) and, after
+# its prefill, decode steps
+SHARD_SSM_STEPS = 2
 SPIN_CYCLES = 2_000_000      # about 1 ms of spin at the H100's clocks
 BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -505,8 +550,9 @@ def random_offsets(torch, gen, T: int, E: int, top_k: int = 8):
 def expected_launches(cfg, n_tokens: int, on_shard: bool = False):
     """Kernel launches for one prefill and n_tokens - 1 decode steps.  An
     image prefix changes no count (a launch covers every position).
-    ``on_shard``: the sharded serve step, whose decode cross-attention
-    runs on its head_dim shard, not through the kernel."""
+    ``on_shard``: the sharded steps, whose decode cross-attention runs on
+    its head_dim shard, not through the kernel, and whose SSM mixers
+    split their gated norm over ``model`` (two launches a token)."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import _has_ffn, _layer_is_moe
     want = {name: 0 for name in ops.KERNEL_NAMES}
@@ -529,6 +575,10 @@ def expected_launches(cfg, n_tokens: int, on_shard: bool = False):
         if kind == "attn":
             norms += 2 if cfg.qk_norm else 0
             want["flash_attention"] += 1              # prefill only
+        elif on_shard:                                # split gated norm
+            want["rmsnorm_part"] += n_tokens
+            want["rmsnorm_scale"] += n_tokens
+            want["ssd_chunk"] += 1
         else:
             norms += 1                                # gated norm
             want["ssd_chunk"] += 1                    # prefill only
@@ -540,12 +590,13 @@ def expected_launches(cfg, n_tokens: int, on_shard: bool = False):
     return want
 
 
-def expected_train_launches(cfg, steps: int):
+def expected_train_launches(cfg, steps: int, on_shard: bool = False):
     """Kernel launches of ``steps`` training steps: each layer's forward
     kernels run twice with remat (the forward, then again in the backward
     pass), each backward kernel once; the final norm is outside the
     remat.  An attention layer runs flash_attention (and qk-norms), an SSM
-    layer ssd_chunk and its gated norm."""
+    layer ssd_chunk and its gated norm (``on_shard``: split over
+    ``model``, two launches each way)."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import _has_ffn, _layer_is_moe
     per = {name: 0 for name in ops.KERNEL_NAMES}
@@ -558,7 +609,11 @@ def expected_train_launches(cfg, steps: int):
             per["flash_attention"] += again
             per["flash_attention_bwd"] += 1
         else:
-            norms += 1                                # gated norm
+            if on_shard:                              # split gated norm
+                for name in SPLIT_NAMES:
+                    per[name] += 1 if "bwd" in name else again
+            else:
+                norms += 1                            # gated norm
             per["ssd_chunk"] += again
             per["ssd_chunk_bwd"] += 1
         if _has_ffn(cfg):
@@ -1822,7 +1877,8 @@ def grads_card_vs_cpu(torch, dev, arch: str, B: int, S: int, cfg=None,
     launched = {n: ops.LAUNCHES[n] for n in ops.KERNEL_NAMES
                 if ops.LAUNCHES[n]}
     # each forward kernel the model ran has its backward kernels run too
-    if any(launched.get(SOURCES[n]) and not launched.get(n) for n in SOURCES):
+    if any(launched.get(SOURCES[n]) and not launched.get(n)
+           for n in BACKWARD):
         raise AssertionError(f"{arch}: a backward kernel was not launched "
                              f"({launched})")
     l_err = abs(float(lg) - float(lc)) / abs(float(lc))
@@ -2095,8 +2151,9 @@ def round_trip(torch, dev, trainer, out) -> None:
 
 
 def resume_path(torch, dev):
-    """Kill and resume on the card: granite at full width cut to 4 layers,
-    8 steps, a checkpoint every 4.  (A) uninterrupted, (B) the same again,
+    """Kill and resume on the card: granite at full width cut to
+    ``RESUME_LAYERS`` layers, 8 steps, a checkpoint every 4.  (A)
+    uninterrupted, (B) the same again,
     (C) async save and a failure injected at step 4, (D) a new Trainer
     resuming from C's directory.  D's data step equals A's, its losses are
     within 1e-4 of A's, and its final state differs from A's by no more
@@ -2488,6 +2545,199 @@ def check_local_shapes(torch, ops, ref, dev) -> None:
     torch.cuda.synchronize()
 
 
+def split_norm(torch, ops, x, w, dy, m: int):
+    """The norm of ``x`` [T, D] through the split launches as ``m`` model
+    ranks would run it, each on its D / m columns, the partial sums added
+    in rank order: (ss, y, sums, dx, dw), each whole (the columns
+    concatenated)."""
+    D = x.shape[1]
+    xs, ws, gs = (t.chunk(m, dim=-1) for t in (x, w, dy))
+    xs, gs = [t.contiguous() for t in xs], [t.contiguous() for t in gs]
+    ss = sum(ops.rmsnorm_part(xi) for xi in xs)
+    y = torch.cat([ops.rmsnorm_scale(xi, wi, ss, D, 1e-6)
+                   for xi, wi in zip(xs, ws)], dim=-1)
+    sums = sum(ops.rmsnorm_bwd_part(xi, wi, gi)
+               for xi, wi, gi in zip(xs, ws, gs))
+    parts = [ops.rmsnorm_bwd_scale(xi, wi, gi, sums, D, 1e-6)
+             for xi, wi, gi in zip(xs, ws, gs)]
+    return (ss, y, sums, torch.cat([p[0] for p in parts], dim=-1),
+            torch.cat([p[1] for p in parts]))
+
+
+def check_split_rmsnorm(torch, ops, ref, dev):
+    """The split gated norm's four launches (``SPLIT_NAMES``) at
+    ``SPLIT_RMS`` over ``SPLIT_MODELS`` and at ``SPLIT_EDGES``, f32 and
+    bf16: each launch against its plain version on the same inputs (the
+    sums at 2e-5 of max |ref| in f32, y at TOL, dx and dw at BWD_TOL of
+    max |ref|), the whole rows against ``ref.rmsnorm_ref`` and
+    ``rmsnorm_bwd_ref``, and over one rank the one-pass kernels' bits.
+    Its own generator (seed 16).  Returns each launch's max abs error at
+    ``SPLIT_TIMED``'s rows and split, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    errs = dict.fromkeys(SPLIT_NAMES, 0.0)
+    f32 = BWD_TOL["float32"]
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        for T, D in SPLIT_RMS + SPLIT_EDGES:
+            x = torch.randn(T, D, generator=gen, device=dev).to(dt)
+            dy = torch.randn(T, D, generator=gen, device=dev).to(dt)
+            w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+            models = ((1,) if D % 2 else (1, 2)) if (T, D) in SPLIT_EDGES \
+                else SPLIT_MODELS
+            for m in models:
+                ss, y, sums, dx, dw = split_norm(torch, ops, x, w, dy, m)
+                label = f"split rmsnorm [{T},{D}] over {m} {dname}"
+                pieces = zip(x.chunk(m, -1), w.chunk(m), dy.chunk(m, -1))
+                e = {n: 0.0 for n in SPLIT_NAMES}
+                for xi, wi, gi in pieces:
+                    xi, gi = xi.contiguous(), gi.contiguous()
+                    e["rmsnorm_part"] = max(e["rmsnorm_part"], compare_rel(
+                        f"rmsnorm_part {label}", ops.rmsnorm_part(xi),
+                        ref.rmsnorm_part_ref(xi), f32)[0])
+                    e["rmsnorm_scale"] = max(e["rmsnorm_scale"], compare(
+                        f"rmsnorm_scale {label}",
+                        ops.rmsnorm_scale(xi, wi, ss, D, 1e-6),
+                        ref.rmsnorm_scale_ref(xi, wi, ss, D, 1e-6), dname))
+                    e["rmsnorm_bwd_part"] = max(
+                        e["rmsnorm_bwd_part"], compare_rel(
+                            f"rmsnorm_bwd_part {label}",
+                            ops.rmsnorm_bwd_part(xi, wi, gi),
+                            ref.rmsnorm_bwd_part_ref(xi, wi, gi), f32)[0])
+                    got = ops.rmsnorm_bwd_scale(xi, wi, gi, sums, D, 1e-6)
+                    want = ref.rmsnorm_bwd_scale_ref(xi, wi, gi, sums, D,
+                                                     1e-6)
+                    e["rmsnorm_bwd_scale"] = max(
+                        e["rmsnorm_bwd_scale"],
+                        *(compare_rel(f"rmsnorm_bwd_scale {n} {label}", g,
+                                      w_, BWD_TOL[dname])[0]
+                          for n, g, w_ in zip(("dx", "dw"), got, want)))
+                # the whole rows against the one-pass plain versions
+                compare(f"y {label}", y, ref.rmsnorm_ref(x, w, eps=1e-6),
+                        dname)
+                for n, g, w_ in zip(("dx", "dw"), (dx, dw),
+                                    ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6)):
+                    compare_rel(f"{n} {label}", g, w_, BWD_TOL[dname])
+                same = ""
+                if m == 1:
+                    one = (ops.rmsnorm(x, w, eps=1e-6),
+                           *ops.rmsnorm_bwd(x, w, dy, 1e-6))
+                    if not all(bits_equal(torch, a, b) for a, b in
+                               zip((y, dx, dw), one)):
+                        raise AssertionError(f"{label}: not the one-pass "
+                                             f"kernels' bits")
+                    same = "; the one-pass kernels' bits"
+                log("i", f"{label}: max_abs_err " + ", ".join(
+                    f"{n} {v:.3e}" for n, v in e.items()) + same)
+                if (T, D, m) == SPLIT_TIMED and dname == "bfloat16":
+                    errs = e
+            del x, dy, w
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_split_rmsnorm(torch, ops, ref, dev):
+    """Times of the split norm's launches at mamba2's 8 x 512 rows over
+    model 1 and 16, bf16; returns each launch's record at
+    ``SPLIT_TIMED`` (no single PyTorch call computes a half)."""
+    from repro_torch.launch import roofline as rl
+    gen = torch.Generator(device=dev).manual_seed(17)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    T, D_all, _ = SPLIT_TIMED
+    out = {}
+    for m in (1, SPLIT_TIMED[2]):
+        D = D_all // m
+        x = torch.randn(T, D, generator=gen, device=dev).to(bf)
+        dy = torch.randn(T, D, generator=gen, device=dev).to(bf)
+        w = torch.ones(D, device=dev)
+        ss = ops.rmsnorm_part(x) * m
+        sums = ops.rmsnorm_bwd_part(x, w, dy) * m
+        runs = {
+            "rmsnorm_part": (lambda: ops.rmsnorm_part(x),
+                             lambda: ref.rmsnorm_part_ref(x),
+                             rl.rmsnorm_part_cost),
+            "rmsnorm_scale": (
+                lambda: ops.rmsnorm_scale(x, w, ss, D_all, 1e-6),
+                lambda: ref.rmsnorm_scale_ref(x, w, ss, D_all, 1e-6),
+                rl.rmsnorm_scale_cost),
+            "rmsnorm_bwd_part": (lambda: ops.rmsnorm_bwd_part(x, w, dy),
+                                 lambda: ref.rmsnorm_bwd_part_ref(x, w, dy),
+                                 rl.rmsnorm_bwd_part_cost),
+            "rmsnorm_bwd_scale": (
+                lambda: ops.rmsnorm_bwd_scale(x, w, dy, sums, D_all, 1e-6),
+                lambda: ref.rmsnorm_bwd_scale_ref(x, w, dy, sums, D_all,
+                                                  1e-6),
+                rl.rmsnorm_bwd_scale_cost)}
+        for name, (fn, plain, cost) in runs.items():
+            ms = timed_ms(torch, fn, flush)
+            plain_ms = timed_ms(torch, plain, flush)
+            b_ms, b_by = rl.bound_ms(*cost(T, D, 2), "bfloat16")
+            log("i", f"time {name} [{T},{D}] (a row of {D_all} over {m}) "
+                f"bfloat16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library n/a (no single call), bound {b_ms:.4g} ms "
+                f"({b_by})")
+            if m == SPLIT_TIMED[2]:
+                out[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": None, "bound_ms": b_ms,
+                             "bound_by": b_by, "shape": f"[{T},{D}]"}
+        del x, dy, w, ss, sums
+    del flush
+    return out
+
+
+def check_local_ssd(torch, ops, ref, dev) -> None:
+    """ssd_chunk and ssd_chunk_bwd on a model rank's heads of mamba2's
+    training shape (``SSD_LOCAL``: 24, 12, 6 and 3 of its 48 heads): every
+    output against its plain version (forward f32 TOL, backward
+    SSD_BWD_TOL of max |ref|) and within ``ref.ssd_chunk_f64``'s and
+    ``ref.ssd_chunk_bwd_f64``'s bounds, the backward twice bit for bit;
+    both timed with their plain versions and bounds.  Its own generator
+    (seed 18)."""
+    from repro_torch.launch import roofline as rl
+    gen = torch.Generator(device=dev).manual_seed(18)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    names = ("dx", "ddt", "da", "dB", "dC")
+    for shape in SSD_LOCAL:
+        BC, Q, H, P, N = shape
+        x, dt, a, B, C = args = ssd_inputs(torch, gen, *shape)
+        got = ops.ssd_chunk(*args)
+        e = max(compare(f"ssd_chunk {shape} {n}", g, w, "float32")
+                for n, g, w in zip(("y", "state"), got,
+                                   ref.ssd_chunk_ref(*args)))
+        y64, s64, yb, sb = ref.ssd_chunk_f64(*args)
+        r = max(compare_f64(f"ssd_chunk {shape} y", got[0], y64, yb),
+                compare_f64(f"ssd_chunk {shape} state", got[1], s64, sb))
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+        ds = torch.randn((BC, H, P, N), generator=gen, device=dev)
+        bwd = ops.ssd_chunk_bwd(*args, dy, ds)
+        want = ref.ssd_chunk_bwd_ref(*args, dy, ds)
+        vals, bounds = ref.ssd_chunk_bwd_f64(*args, dy, ds)
+        eb = max(compare_rel(f"ssd_chunk_bwd {shape} {n}", g, w,
+                             SSD_BWD_TOL)[0]
+                 for n, g, w in zip(names, bwd, want))
+        rb = max(compare_f64(f"ssd_chunk_bwd {shape} {n}", g, v, b)
+                 for n, g, v, b in zip(names, bwd, vals, bounds))
+        same_bits(torch, f"ssd_chunk_bwd {shape}", bwd,
+                  ops.ssd_chunk_bwd(*args, dy, ds))
+        t = {k: timed_ms(torch, fn, flush) for k, fn in (
+            ("fwd", lambda: ops.ssd_chunk(*args)),
+            ("fwd_plain", lambda: ref.ssd_chunk_ref(*args)),
+            ("bwd", lambda: ops.ssd_chunk_bwd(*args, dy, ds)),
+            ("bwd_plain", lambda: ref.ssd_chunk_bwd_ref(*args, dy, ds)))}
+        fb = rl.bound_ms(*rl.ssd_cost(*shape), "float32")
+        bb = rl.bound_ms(*rl.ssd_bwd_cost(*shape), "float32")
+        log("i", f"ssd_chunk local x[{BC},{Q},{H},{P}] N {N}: max_abs_err "
+            f"{e:.3e} (tol {TOL['float32']}), err/f64 bound {r:.3f}; "
+            f"ssd_chunk_bwd max_abs_err {eb:.3e} (tol {SSD_BWD_TOL} x "
+            f"max|ref|), err/f64 bound {rb:.3f}, deterministic; time "
+            f"ssd_chunk {t['fwd']:.4f} ms (plain {t['fwd_plain']:.4f}, bound "
+            f"{fb[0]:.4g} {fb[1]}), ssd_chunk_bwd {t['bwd']:.4f} ms (plain "
+            f"{t['bwd_plain']:.4f}, bound {bb[0]:.4g} {bb[1]})")
+        del args, x, dt, a, B, C, got, dy, ds, bwd, want, vals, bounds
+        torch.cuda.empty_cache()
+    del flush
+
+
 def model_collectives(mesh, steps: int) -> str:
     """The collectives over ``model`` a step, by kind."""
     got = mesh.axis_collectives.get("model", {})
@@ -2689,11 +2939,145 @@ def sharded_path(torch, dev, card: str, trained_losses):
         del model, full, params_pre, params_dec, caches
         torch.cuda.empty_cache()
         encdec_launches = sharded_encdec(torch, dev, card, mesh)
+        ssm_launches = sharded_ssm(torch, dev, card, mesh)
     torch.cuda.empty_cache()
     launches = {k: train_launches[k] + serve_launches[k]
                 for k in train_launches}
     log("i", f"phase (i) took {time.perf_counter() - t_i:.1f} s")
-    return launches, encdec_launches
+    return launches, encdec_launches, ssm_launches
+
+
+def sharded_ssm(torch, dev, card: str, mesh):
+    """mamba2-780m at full width and depth through the sharded steps on
+    ``mesh`` (1, 1): its mixers on their ``ssm_inner`` shard (at model 1
+    every head), the gated norm through the split launches.
+    ``SHARD_SSM_STEPS`` train steps of the sharded Trainer against the
+    unsharded one from the same seed, then the sharded prefill of 8 x 512
+    prompts and ``SHARD_DECODE`` greedy decode steps against the
+    unsharded model's: params, optimizer state and logits the same bits,
+    launches the config's, the decode's collectives a token over
+    ``model`` the route's.  Returns the launch counts of the sharded
+    runs."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.api import CausalLM
+    from repro_torch.parallel.fsdp import reshard, shard_tree
+    from repro_torch.parallel.tp import greedy_tokens
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = configs.get_config(SSM_ARCH)
+    tcfg = TrainerConfig(steps=SHARD_SSM_STEPS, batch_size=TRAIN_BATCH,
+                         seq_len=TRAIN_SEQ, peak_lr=3e-4, log_every=1)
+    plain = Trainer(cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain.run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    del plain
+    gc_collect(torch)
+    sharded = Trainer(cfg, tcfg, mesh=mesh)
+    mesh.reset_collectives()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = sharded.run()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    model_train = model_collectives(mesh, SHARD_SSM_STEPS)
+    losses = [h["loss"] for h in out["history"]]
+    deltas = {part: tree_delta(torch, out["state"][part], ref["state"][part])
+              for part in ("params", "opt")}
+    log("i", f"{SSM_ARCH} {SHARD_SSM_STEPS} sharded train steps, batch "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}, mixers on their ssm_inner shard: "
+        f"losses {losses}, unsharded {[h['loss'] for h in ref['history']]};"
+        f" max |sharded - unsharded| params {deltas['params']:.3e}, opt "
+        f"{deltas['opt']:.3e}; {(t3 - t2) * 1e3:.1f} ms (unsharded "
+        f"{(t1 - t0) * 1e3:.1f}, first step included); over model a step: "
+        f"{model_train}; {card}")
+    if any(deltas.values()):
+        raise AssertionError(f"{SSM_ARCH}: sharded state is not the "
+                             f"unsharded bits ({deltas})")
+    want = expected_train_launches(cfg, SHARD_SSM_STEPS, on_shard=True)
+    if launches != want:
+        raise AssertionError(f"{SSM_ARCH} sharded train launches {launches}"
+                             f" != {want}")
+    del sharded, out, ref
+    gc_collect(torch)
+
+    model = CausalLM.random(cfg, seed=0, device=dev)
+    prompts = make_prompts(cfg, BATCH, PROMPT, seed=1, device=dev)
+    shape = ShapeSpec("chip_smoke_ssm", "decode", PROMPT, BATCH)
+    s_max = PROMPT + steps.sp.DECODE_MARGIN
+    pre, (p_pre, b_pre), (l_spec, c_pre), _ = steps.make_prefill_step(
+        cfg, mesh, shape)
+    dec, (p_dec, _, c_dec), _, _ = steps.make_serve_step(cfg, mesh, shape)
+    params_pre = shard_tree(model.params, p_pre, mesh)
+    params_dec = shard_tree(model.params, p_dec, mesh)
+    mesh.reset_collectives()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre(params_pre, shard_tree({"inputs": prompts}, b_pre,
+                                                mesh))
+    tok = greedy_tokens(logits, l_spec, mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pre_model = model_collectives(mesh, 1)
+    caches = reshard(caches, c_pre, c_dec, mesh)
+    got, toks = [logits], [tok]
+    mesh.reset_collectives()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(SHARD_DECODE):
+        logits, caches = dec(params_dec, tok, caches)
+        tok = greedy_tokens(logits, l_spec, mesh)
+        got.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    colls = decode_collectives(mesh, SHARD_DECODE)
+    serve_launches = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        want_l, caches = model.prefill(prompts, s_max)
+        wants = [want_l]
+        torch.cuda.synchronize()
+        u0 = time.perf_counter()
+        for t in toks[:-1]:
+            want_l, caches = model.decode_step(t, caches)
+            wants.append(want_l)
+        torch.cuda.synchronize()
+        u1 = time.perf_counter()
+    same = all(bits_equal(torch, g, w) for g, w in zip(got, wants))
+    log("i", f"{SSM_ARCH} sharded prefill [{BATCH},{PROMPT}] "
+        f"{(t1 - t0) * 1e3:.1f} ms (over model: {pre_model}), "
+        f"{SHARD_DECODE} decode steps {(t3 - t2) * 1e3:.1f} ms (unsharded "
+        f"{(u1 - u0) * 1e3:.1f}); decode collectives a token, by axis and "
+        f"kind: {colls}; prefill and decode logits against the unsharded "
+        f"model's: {'the same bits' if same else 'differ'}; {card}")
+    if not same:
+        raise AssertionError(f"{SSM_ARCH}: sharded logits differ")
+    # a decode token over model: each mixer gathers its new xs_raw row and
+    # conv_x (with conv_x_b, one buffer), sums its gated norm's rows and its
+    # output; the embedding sums once, greedy_tokens gathers once
+    n = cfg.n_layers
+    want_c = {"all_gather": 2 * n + 1, "all_reduce": 2 * n + 1}
+    if colls.get("model") != want_c:
+        raise AssertionError(f"{SSM_ARCH} decode collectives over model "
+                             f"{colls.get('model')} != {want_c}")
+    want = expected_launches(cfg, SHARD_DECODE + 1, on_shard=True)
+    log("i", f"{SSM_ARCH} train launches {launches}; serve launches "
+        f"{serve_launches}, expected {want}")
+    if serve_launches != want:
+        raise AssertionError(f"{SSM_ARCH} sharded serve launches "
+                             f"{serve_launches} != {want}")
+    del model, params_pre, params_dec, caches
+    gc_collect(torch)
+    return {k: launches[k] + serve_launches[k] for k in launches}
 
 
 def decode_collectives(mesh, steps: int):
@@ -3090,9 +3474,16 @@ def main() -> int:
     by_path["ep"] = ep_path(torch, dev, card, errs)
     log("h", f"(a) to (h) {time.perf_counter() - t_start:.1f} s")
 
-    by_path["sharded"], by_path["sharded_encdec"] = sharded_path(
-        torch, dev, card, train_losses)
+    (by_path["sharded"], by_path["sharded_encdec"],
+     by_path["sharded_ssm"]) = sharded_path(torch, dev, card, train_losses)
+    for name in SPLIT_NAMES:
+        if not by_path["sharded_ssm"][name]:
+            raise AssertionError(f"{name}: mamba2's sharded path did not "
+                                 f"launch it")
     check_local_shapes(torch, ops, ref, dev)
+    errs.update(check_split_rmsnorm(torch, ops, ref, dev))
+    times.update(time_split_rmsnorm(torch, ops, ref, dev))
+    check_local_ssd(torch, ops, ref, dev)
     for name in ("rmsnorm", "flash_attention", "grouped_matmul",
                  *GRANITE_BWD):
         if not by_path["sharded"][name]:

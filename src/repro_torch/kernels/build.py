@@ -34,6 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("rmsnorm", "flash_attention", "grouped_matmul", "ssd_chunk")
 # entry point -> the source (library) that holds it
 ENTRIES = {"rmsnorm": "rmsnorm", "rmsnorm_bwd": "rmsnorm",
+           "rmsnorm_part": "rmsnorm", "rmsnorm_scale": "rmsnorm",
+           "rmsnorm_bwd_part": "rmsnorm", "rmsnorm_bwd_scale": "rmsnorm",
            "flash_attention": "flash_attention",
            "flash_attention_bwd": "flash_attention",
            "grouped_matmul": "grouped_matmul",
@@ -52,6 +54,15 @@ _SIGNATURES = {
     "rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
     # x, w, dy, dx, dw, partial, T, D, eps, dtype, stream
     "rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # a row split over ranks: x, ss, T, D, dtype, stream; then x, w, ss,
+    # out, T, D, the row's length, eps, dtype, stream
+    "rmsnorm_part": (_P, _P, _I, _I, _I, _P),
+    "rmsnorm_scale": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # its backward: x, w, dy, sums, T, D, dtype, stream; then x, w, dy,
+    # sums, dx, dw, partial, T, D, the row's length, eps, dtype, stream
+    "rmsnorm_bwd_part": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "rmsnorm_bwd_scale": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                          _P),
     # q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, scale, causal, window, dtype,
     # stream
     "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,

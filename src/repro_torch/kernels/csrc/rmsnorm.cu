@@ -20,12 +20,26 @@
 // L2) and writes.  A row that is not 16-byte aligned takes the scalar route.
 // The arithmetic is (x * inv) * w in f32, rounded once, as in
 // _rmsnorm_kernel.
+//
+// A row split over ranks (the gated norm of an SSM mixer whose d_inner is
+// cut over the model axis) runs the same kernels in two phases: kSums writes
+// each row's f32 sum of squares of the local columns, the caller sums those
+// over the ranks, and kScale scales the local columns by rsqrt(sum / Dn + eps)
+// and w, Dn the whole row's length.  Both phases run the one-pass kernel's
+// code, so a row's sum is taken in its order (the route, and so the order,
+// follows from x and D alone once w and out are 16-byte aligned, which the
+// wrapper ensures); over one rank the two launches give its bits.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;        // rows per block, a warp each
+
+// What a launch computes: the whole norm, or one phase of a row split over
+// ranks (kSums: each row's partial sum of squares, or for the backward its
+// (sum of squares, sum of w dy x); kScale: the rest, from the summed rows).
+enum Phase { kWhole = 0, kSums = 1, kScale = 2 };
 constexpr int kMaxNV = 16;       // 16-byte vectors a lane holds in registers
 
 template <typename T>
@@ -71,11 +85,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Aligned route, the row in registers (nvec = D / V <= 32 * NV vectors): w
 // is copied into shared memory while the row's loads are in flight, so the
-// scaled write after the reduction reads it from there.
-template <typename T, int NV>
+// scaled write after the reduction reads it from there.  kSums writes the
+// row's sum to ss; kScale reads it from there.
+template <typename T, int NV, int P>
 __global__ void __launch_bounds__(kWarps * 32)
 rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   T* __restrict__ out, int T_, int D, float eps) {
+                   T* __restrict__ out, float* __restrict__ ss_io, int T_,
+                   int D, int Dn, float eps) {
   extern __shared__ float4 w_s[];  // [D / 4]
   constexpr int V = Vec<T>::V;
   const int lane = threadIdx.x & 31;
@@ -83,11 +99,12 @@ rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const bool live = row < T_;
   const int nvec = D / V;
   const float4* w4 = reinterpret_cast<const float4*>(w);
-  for (int i = threadIdx.x; i < D / 4; i += kWarps * 32)
-    hw::cp_async16(hw::smem_u32(w_s + i), w4 + i, true);
-  hw::cp_async_commit();
+  if (P != kSums) {
+    for (int i = threadIdx.x; i < D / 4; i += kWarps * 32)
+      hw::cp_async16(hw::smem_u32(w_s + i), w4 + i, true);
+    hw::cp_async_commit();
+  }
   const uint4* xv = reinterpret_cast<const uint4*>(x + (size_t)row * D);
-  uint4* ov = reinterpret_cast<uint4*>(out + (size_t)row * D);
   uint4 reg[NV];
   float ss = 0.f;
   // every load of the row issued before the reduction
@@ -96,13 +113,24 @@ rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
     const int v = lane + 32 * i;
     if (live && v < nvec) reg[i] = xv[v];
   }
+  float total;
+  if (P == kScale) {
+    total = live ? ss_io[row] : 0.f;
+  } else {
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
-    if (live && lane + 32 * i < nvec) ss = sum_sq<T>(reg[i], ss);
-  const float inv = rsqrtf(warp_sum(ss) / (float)D + eps);
+    for (int i = 0; i < NV; ++i)
+      if (live && lane + 32 * i < nvec) ss = sum_sq<T>(reg[i], ss);
+    total = warp_sum(ss);
+  }
+  if (P == kSums) {
+    if (live && lane == 0) ss_io[row] = total;
+    return;
+  }
+  const float inv = rsqrtf(total / (float)Dn + eps);
   hw::cp_async_wait<0>();
   __syncthreads();
   if (!live) return;
+  uint4* ov = reinterpret_cast<uint4*>(out + (size_t)row * D);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int v = lane + 32 * i;
@@ -112,10 +140,11 @@ rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
 // Aligned route for rows wider than kMaxNV vectors a lane: pieces of
 // 32 * kMaxNV vectors, twice (the second pass reads x again).
-template <typename T>
+template <typename T, int P>
 __global__ void __launch_bounds__(kWarps * 32)
 rmsnorm_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                    T* __restrict__ out, int T_, int D, float eps) {
+                    T* __restrict__ out, float* __restrict__ ss_io, int T_,
+                    int D, int Dn, float eps) {
   constexpr int V = Vec<T>::V, NV = kMaxNV;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -125,18 +154,28 @@ rmsnorm_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
   uint4* ov = reinterpret_cast<uint4*>(out + (size_t)row * D);
   const float4* w4 = reinterpret_cast<const float4*>(w);
   uint4 reg[NV];
-  float ss = 0.f;
-  for (int base = 0; base < nvec; base += 32 * NV) {
+  float total;
+  if (P == kScale) {
+    total = ss_io[row];
+  } else {
+    float ss = 0.f;
+    for (int base = 0; base < nvec; base += 32 * NV) {
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int v = base + lane + 32 * i;
-      if (v < nvec) reg[i] = xv[v];
+      for (int i = 0; i < NV; ++i) {
+        const int v = base + lane + 32 * i;
+        if (v < nvec) reg[i] = xv[v];
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        if (base + lane + 32 * i < nvec) ss = sum_sq<T>(reg[i], ss);
     }
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      if (base + lane + 32 * i < nvec) ss = sum_sq<T>(reg[i], ss);
+    total = warp_sum(ss);
   }
-  const float inv = rsqrtf(warp_sum(ss) / (float)D + eps);
+  if (P == kSums) {
+    if (lane == 0) ss_io[row] = total;
+    return;
+  }
+  const float inv = rsqrtf(total / (float)Dn + eps);
   for (int base = 0; base < nvec; base += 32 * NV) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -152,58 +191,79 @@ rmsnorm_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 // Unaligned route: one element at a time, the second pass reads x again.
-template <typename T>
+template <typename T, int P>
 __global__ void __launch_bounds__(kWarps * 32)
 rmsnorm_scalar_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      T* __restrict__ out, int T_, int D, float eps) {
+                      T* __restrict__ out, float* __restrict__ ss_io, int T_,
+                      int D, int Dn, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= T_) return;
   const T* xr = x + (size_t)row * D;
   T* orow = out + (size_t)row * D;
-  float ss = 0.f;
-  for (int i = lane; i < D; i += 32) {
-    const float f = rt::to_f(xr[i]);
-    ss = fmaf(f, f, ss);
+  float total;
+  if (P == kScale) {
+    total = ss_io[row];
+  } else {
+    float ss = 0.f;
+    for (int i = lane; i < D; i += 32) {
+      const float f = rt::to_f(xr[i]);
+      ss = fmaf(f, f, ss);
+    }
+    total = warp_sum(ss);
   }
-  const float inv = rsqrtf(warp_sum(ss) / (float)D + eps);
+  if (P == kSums) {
+    if (lane == 0) ss_io[row] = total;
+    return;
+  }
+  const float inv = rsqrtf(total / (float)Dn + eps);
   for (int i = lane; i < D; i += 32)
     orow[i] = rt::from_f<T>((rt::to_f(xr[i]) * inv) * w[i]);
 }
 
-template <typename T>
-void launch(const void* x, const void* w, void* out, int T_, int D, float eps,
-            cudaStream_t stream) {
+inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// Phase P of the norm of rows of D columns over a row of Dn.  The route
+// follows from x and D where w and out are aligned (kSums reads neither).
+template <typename T, int P>
+void launch(const void* x, const void* w, void* out, float* ss, int T_, int D,
+            int Dn, float eps, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const float* wp = static_cast<const float*>(w);
   T* op = static_cast<T*>(out);
   const dim3 grid((unsigned)((T_ + kWarps - 1) / kWarps)), block(kWarps * 32);
-  const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
-                   ((uintptr_t)w % 16 == 0) &&
+  const bool vec = aligned16(x) &&
+                   (P == kSums || (aligned16(out) && aligned16(w))) &&
                    (((size_t)D * sizeof(T)) % 16 == 0);
   if (!vec) {
-    rmsnorm_scalar_kernel<T><<<grid, block, 0, stream>>>(xp, wp, op, T_, D, eps);
+    rmsnorm_scalar_kernel<T, P><<<grid, block, 0, stream>>>(xp, wp, op, ss, T_,
+                                                            D, Dn, eps);
     return;
   }
   // the fewest registers that hold the row; wider rows go in pieces
   const int per_lane = (D / Vec<T>::V + 31) / 32;
-  const size_t ws = (size_t)D * sizeof(float);
+  const size_t ws = P == kSums ? 0 : (size_t)D * sizeof(float);
+#define RMS_REG(NV)                                                       \
+  rmsnorm_reg_kernel<T, NV, P><<<grid, block, ws, stream>>>(xp, wp, op, ss, \
+                                                          T_, D, Dn, eps)
   if (per_lane <= 1)
-    rmsnorm_reg_kernel<T, 1><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+    RMS_REG(1);
   else if (per_lane <= 2)
-    rmsnorm_reg_kernel<T, 2><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+    RMS_REG(2);
   else if (per_lane <= 4)
-    rmsnorm_reg_kernel<T, 4><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+    RMS_REG(4);
   else if (per_lane <= 6)
-    rmsnorm_reg_kernel<T, 6><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+    RMS_REG(6);
   else if (per_lane <= 8)
-    rmsnorm_reg_kernel<T, 8><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+    RMS_REG(8);
   else if (per_lane <= 12)
-    rmsnorm_reg_kernel<T, 12><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+    RMS_REG(12);
   else if (per_lane <= kMaxNV)
-    rmsnorm_reg_kernel<T, kMaxNV><<<grid, block, ws, stream>>>(xp, wp, op, T_, D, eps);
+    RMS_REG(kMaxNV);
   else
-    rmsnorm_wide_kernel<T><<<grid, block, 0, stream>>>(xp, wp, op, T_, D, eps);
+    rmsnorm_wide_kernel<T, P><<<grid, block, 0, stream>>>(xp, wp, op, ss, T_, D,
+                                                          Dn, eps);
+#undef RMS_REG
 }
 
 // ------------------------------------------------------------- backward
@@ -238,6 +298,11 @@ void launch(const void* x, const void* w, void* out, int T_, int D, float eps,
 // in row order to the block's partial (reading x and dy a third time, from
 // L2).  Its loads are 16-byte vectors where the rows are aligned, single
 // elements otherwise.
+//
+// Split over ranks, kSums writes each row's (sum x^2, sum w dy x) over the
+// local columns to sums [T, 2], and after the caller's sum over the ranks
+// kScale writes dx and the local columns' dw from them, on the same grid:
+// each row's sums and dw's partials in the one-pass order.
 constexpr int kBwdWarps = 8;              // warps a block
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kMaxParts = 256;            // dw partials at most (ops.RMS_DW_PARTS)
@@ -298,12 +363,13 @@ __host__ __device__ constexpr int bwd_rows_at_once() {
   return NV <= 4 ? 8 / NV : 1;
 }
 
-template <typename T, int NV, int G>
+template <typename T, int NV, int G, int P>
 __global__ void __launch_bounds__(kBwdThreads, NV <= 6 ? 2 : 1)
 rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
                        const T* __restrict__ dy, T* __restrict__ dx,
                        float* __restrict__ dw, float* __restrict__ part,
-                       int T_, int D, float eps, int rpb) {
+                       float2* __restrict__ sums, int T_, int D, int Dn,
+                       float eps, int rpb) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   float* dw_s = w_s + D;
@@ -338,37 +404,55 @@ rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
     hw::cp_async_wait<0>();
     __syncthreads();                  // w is in shared memory
     float ss[RW], dot[RW];
+    if (P == kScale) {
 #pragma unroll
-    for (int u = 0; u < RW; ++u) {
-      const int row = base + (u * kBwdWarps + warp) * R + grp;
-      ss[u] = dot[u] = 0.f;
+      for (int u = 0; u < RW; ++u) {
+        const int row = base + (u * kBwdWarps + warp) * R + grp;
+        const float2 t = row < r1 ? sums[row] : make_float2(0.f, 0.f);
+        ss[u] = t.x;
+        dot[u] = t.y;
+      }
+    } else {
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int v = gl + G * i;
-        if (!(row < r1 && v < nvec)) continue;
-        const T* xe = reinterpret_cast<const T*>(&xv[u][i]);
-        const T* ge = reinterpret_cast<const T*>(&gv[u][i]);
-        float wf[V];
-        load_f<V>(w_s + v * V, wf);
+      for (int u = 0; u < RW; ++u) {
+        const int row = base + (u * kBwdWarps + warp) * R + grp;
+        ss[u] = dot[u] = 0.f;
 #pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float xf = rt::to_f(xe[j]);
-          ss[u] = fmaf(xf, xf, ss[u]);
-          dot[u] = fmaf(rt::to_f(ge[j]) * wf[j], xf, dot[u]);
+        for (int i = 0; i < NV; ++i) {
+          const int v = gl + G * i;
+          if (!(row < r1 && v < nvec)) continue;
+          const T* xe = reinterpret_cast<const T*>(&xv[u][i]);
+          const T* ge = reinterpret_cast<const T*>(&gv[u][i]);
+          float wf[V];
+          load_f<V>(w_s + v * V, wf);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float xf = rt::to_f(xe[j]);
+            ss[u] = fmaf(xf, xf, ss[u]);
+            dot[u] = fmaf(rt::to_f(ge[j]) * wf[j], xf, dot[u]);
+          }
         }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < RW; ++u) {
-      ss[u] = group_sum<G>(ss[u]);
-      dot[u] = group_sum<G>(dot[u]);
+      for (int u = 0; u < RW; ++u) {
+        ss[u] = group_sum<G>(ss[u]);
+        dot[u] = group_sum<G>(dot[u]);
+      }
+    }
+    if (P == kSums) {
+#pragma unroll
+      for (int u = 0; u < RW; ++u) {
+        const int row = base + (u * kBwdWarps + warp) * R + grp;
+        if (row < r1 && gl == 0) sums[row] = make_float2(ss[u], dot[u]);
+      }
+      continue;
     }
 #pragma unroll
     for (int u = 0; u < RW; ++u) {
       const int row = base + (u * kBwdWarps + warp) * R + grp;
       if (row >= r1) continue;
-      const float r = rsqrtf(ss[u] / (float)D + eps);
-      const float c = r * r * r * (dot[u] / (float)D);
+      const float r = rsqrtf(ss[u] / (float)Dn + eps);
+      const float c = r * r * r * (dot[u] / (float)Dn);
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         const int v = gl + G * i;
@@ -389,6 +473,7 @@ rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
+  if (P == kSums) return;
   // the warp's row groups (butterfly), then the warps in order
 #pragma unroll
   for (int o = G; o < 32; o *= 2)
@@ -417,12 +502,13 @@ rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
 // Wide route: rows [rpb b, rpb (b + 1)), a warp a row, 8 rows at a time;
 // VW elements a load (Vec<T>::V on aligned rows, else 1), U loads of each
 // of x, dy and w in flight a lane.  Shared memory: the 8 rows' r.
-template <typename T, int VW>
+template <typename T, int VW, int P>
 __global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
                         const T* __restrict__ dy, T* __restrict__ dx,
                         float* __restrict__ dw, float* __restrict__ part,
-                        int T_, int D, float eps, int rpb) {
+                        float2* __restrict__ sums, int T_, int D, int Dn,
+                        float eps, int rpb) {
   constexpr int U = VW == 1 ? 16 : 2;
   __shared__ float s_r[kBwdWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -435,7 +521,7 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
       const T* xr = x + (size_t)row * D;
       const T* gr = dy + (size_t)row * D;
       float ss = 0.f, dot = 0.f;
-      for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
+      for (int v0 = lane; P != kScale && v0 < nvec; v0 += 32 * U) {
         float xf[U][VW], gf[U][VW], wf[U][VW];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
@@ -456,10 +542,20 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
           }
         }
       }
-      ss = warp_sum(ss);
-      dot = warp_sum(dot);
-      const float r = rsqrtf(ss / (float)D + eps);
-      const float c = r * r * r * (dot / (float)D);
+      if (P == kScale) {
+        const float2 t = sums[row];
+        ss = t.x;
+        dot = t.y;
+      } else {
+        ss = warp_sum(ss);
+        dot = warp_sum(dot);
+      }
+      if (P == kSums) {
+        if (lane == 0) sums[row] = make_float2(ss, dot);
+        continue;
+      }
+      const float r = rsqrtf(ss / (float)Dn + eps);
+      const float c = r * r * r * (dot / (float)Dn);
       for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
         float xf[U][VW], gf[U][VW], wf[U][VW];
 #pragma unroll
@@ -484,6 +580,7 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
       }
       if (lane == 0) s_r[warp] = r;
     }
+    if (P == kSums) continue;
     __syncthreads();
     // dw: a thread a column, the 8 rows' loads in flight, summed in order
     const int n = min(kBwdWarps, r1 - base);
@@ -535,67 +632,120 @@ inline int rows_per_block(int T_, int pass) {
   return (need + pass - 1) / pass * pass;
 }
 
-template <typename T, int NV, int G>
-void launch_bwd_reg(const T* x, const float* w, const T* dy, T* dx, float* dw,
-                    float* part, int T_, int D, float eps, int* blocks,
-                    cudaStream_t stream) {
+// The operands of one backward launch (kSums writes sums and reads no dx,
+// dw or part; kScale reads sums).
+template <typename T>
+struct BwdArgs {
+  const T* x;
+  const float* w;
+  const T* dy;
+  T* dx;
+  float* dw;
+  float* part;
+  float2* sums;
+  int T_, D, Dn;
+  float eps;
+};
+
+template <typename T, int NV, int G, int P>
+int launch_bwd_reg(const BwdArgs<T>& a, cudaStream_t stream) {
   const int rpb =
-      rows_per_block(T_, kBwdWarps * (32 / G) * bwd_rows_at_once<NV>());
-  *blocks = (T_ + rpb - 1) / rpb;
-  rmsnorm_bwd_reg_kernel<T, NV, G>
-      <<<*blocks, kBwdThreads, 2 * (size_t)D * sizeof(float), stream>>>(
-          x, w, dy, dx, dw, part, T_, D, eps, rpb);
+      rows_per_block(a.T_, kBwdWarps * (32 / G) * bwd_rows_at_once<NV>());
+  const int blocks = (a.T_ + rpb - 1) / rpb;
+  rmsnorm_bwd_reg_kernel<T, NV, G, P>
+      <<<blocks, kBwdThreads, 2 * (size_t)a.D * sizeof(float), stream>>>(
+          a.x, a.w, a.dy, a.dx, a.dw, a.part, a.sums, a.T_, a.D, a.Dn, a.eps,
+          rpb);
+  return blocks;
 }
 
-template <typename T>
-void launch_bwd(const void* x_, const void* w_, const void* dy_, void* dx_,
-                void* dw_, void* part, int T_, int D, float eps,
-                cudaStream_t stream) {
-  const T* x = static_cast<const T*>(x_);
-  const float* w = static_cast<const float*>(w_);
-  const T* dy = static_cast<const T*>(dy_);
-  T* dx = static_cast<T*>(dx_);
-  float* dw = static_cast<float*>(dw_);
-  float* pp = static_cast<float*>(part);
+// Phase P of the backward.  The route follows from x, dy, w and D where dx
+// is aligned (kSums writes none).
+template <typename T, int P>
+void launch_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
   constexpr int V = Vec<T>::V;
-  const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)dy % 16 == 0) &&
-                   ((uintptr_t)dx % 16 == 0) && ((uintptr_t)w % 16 == 0) &&
-                   (((size_t)D * sizeof(T)) % 16 == 0);
-  const int nvec = D / V, per_lane = (nvec + 31) / 32;
+  const bool vec = aligned16(a.x) && aligned16(a.dy) && aligned16(a.w) &&
+                   (P == kSums || aligned16(a.dx)) &&
+                   (((size_t)a.D * sizeof(T)) % 16 == 0);
+  const int nvec = a.D / V, per_lane = (nvec + 31) / 32;
   int blocks;
   if (vec && per_lane <= kMaxBwdNV) {
     // the fewest registers that hold the row; short rows share a warp
     if (nvec <= 4)
-      launch_bwd_reg<T, 1, 4>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+      blocks = launch_bwd_reg<T, 1, 4, P>(a, stream);
     else if (nvec <= 8)
-      launch_bwd_reg<T, 1, 8>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+      blocks = launch_bwd_reg<T, 1, 8, P>(a, stream);
     else if (nvec <= 16)
-      launch_bwd_reg<T, 1, 16>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+      blocks = launch_bwd_reg<T, 1, 16, P>(a, stream);
     else if (per_lane <= 1)
-      launch_bwd_reg<T, 1, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+      blocks = launch_bwd_reg<T, 1, 32, P>(a, stream);
     else if (per_lane <= 2)
-      launch_bwd_reg<T, 2, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+      blocks = launch_bwd_reg<T, 2, 32, P>(a, stream);
     else if (per_lane <= 4)
-      launch_bwd_reg<T, 4, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+      blocks = launch_bwd_reg<T, 4, 32, P>(a, stream);
     else if (per_lane <= 6)
-      launch_bwd_reg<T, 6, 32>(x, w, dy, dx, dw, pp, T_, D, eps, &blocks, stream);
+      blocks = launch_bwd_reg<T, 6, 32, P>(a, stream);
     else
-      launch_bwd_reg<T, kMaxBwdNV, 32>(x, w, dy, dx, dw, pp, T_, D, eps,
-                                       &blocks, stream);
+      blocks = launch_bwd_reg<T, kMaxBwdNV, 32, P>(a, stream);
   } else {
-    const int rpb = rows_per_block(T_, kBwdWarps);
-    blocks = (T_ + rpb - 1) / rpb;
+    const int rpb = rows_per_block(a.T_, kBwdWarps);
+    blocks = (a.T_ + rpb - 1) / rpb;
     if (vec)
-      rmsnorm_bwd_wide_kernel<T, V><<<blocks, kBwdThreads, 0, stream>>>(
-          x, w, dy, dx, dw, pp, T_, D, eps, rpb);
+      rmsnorm_bwd_wide_kernel<T, V, P><<<blocks, kBwdThreads, 0, stream>>>(
+          a.x, a.w, a.dy, a.dx, a.dw, a.part, a.sums, a.T_, a.D, a.Dn, a.eps,
+          rpb);
     else
-      rmsnorm_bwd_wide_kernel<T, 1><<<blocks, kBwdThreads, 0, stream>>>(
-          x, w, dy, dx, dw, pp, T_, D, eps, rpb);
+      rmsnorm_bwd_wide_kernel<T, 1, P><<<blocks, kBwdThreads, 0, stream>>>(
+          a.x, a.w, a.dy, a.dx, a.dw, a.part, a.sums, a.T_, a.D, a.Dn, a.eps,
+          rpb);
   }
-  if (blocks > 1)
-    rmsnorm_bwd_dw_sum_kernel<<<(D + 31) / 32, kBwdThreads, 0, stream>>>(
-        pp, dw, blocks, D);
+  if (P != kSums && blocks > 1)
+    rmsnorm_bwd_dw_sum_kernel<<<(a.D + 31) / 32, kBwdThreads, 0, stream>>>(
+        a.part, a.dw, blocks, a.D);
 }
+
+// The dtype code's launch of launcher<T> for T = float or bf16; returns the
+// CUDA error code (0 = launched).
+template <template <typename> class L, typename... A>
+int by_dtype(int dtype, A... args) {
+  if (dtype == rt::kF32) {
+    L<float>::run(args...);
+  } else if (dtype == rt::kBF16) {
+    L<__nv_bfloat16>::run(args...);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+struct Fwd {
+  template <typename T>
+  struct L {
+    static void run(const void* x, const void* w, void* out, float* ss, int T_,
+                    int D, int Dn, float eps, cudaStream_t s) {
+      launch<T, P>(x, w, out, ss, T_, D, Dn, eps, s);
+    }
+  };
+};
+
+template <int P>
+struct Bwd {
+  template <typename T>
+  struct L {
+    static void run(const void* x, const void* w, const void* dy, void* dx,
+                    void* dw, void* part, void* sums, int T_, int D, int Dn,
+                    float eps, cudaStream_t s) {
+      launch_bwd<T, P>(BwdArgs<T>{static_cast<const T*>(x),
+                                  static_cast<const float*>(w),
+                                  static_cast<const T*>(dy),
+                                  static_cast<T*>(dx), static_cast<float*>(dw),
+                                  static_cast<float*>(part),
+                                  static_cast<float2*>(sums), T_, D, Dn, eps},
+                       s);
+    }
+  };
+};
 
 }  // namespace
 
@@ -604,15 +754,31 @@ void launch_bwd(const void* x_, const void* w_, const void* dy_, void* dx_,
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out, int T,
                               int D, float eps, int dtype, void* stream) {
   if (T <= 0 || D <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kF32) {
-    launch<float>(x, w, out, T, D, eps, s);
-  } else if (dtype == rt::kBF16) {
-    launch<__nv_bfloat16>(x, w, out, T, D, eps, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return by_dtype<Fwd<kWhole>::L>(dtype, x, w, out, (float*)nullptr, T, D, D,
+                                  eps, static_cast<cudaStream_t>(stream));
+}
+
+// A row split over ranks, phase one: ss [T] f32 gets each row's sum of
+// squares over its D local columns of x [T, D] (rmsnorm_launch's order).
+extern "C" int rmsnorm_part_launch(const void* x, void* ss, int T, int D,
+                                   int dtype, void* stream) {
+  if (T <= 0 || D <= 0) return 0;
+  return by_dtype<Fwd<kSums>::L>(dtype, x, (const void*)nullptr,
+                                 (void*)nullptr, static_cast<float*>(ss), T, D,
+                                 D, 0.f, static_cast<cudaStream_t>(stream));
+}
+
+// Phase two: out = x rsqrt(ss / Dn + eps) w over the local columns, ss [T]
+// the rows' sums over all Dn columns; w [D] f32 16-byte aligned.
+extern "C" int rmsnorm_scale_launch(const void* x, const void* w,
+                                    const void* ss, void* out, int T, int D,
+                                    int Dn, float eps, int dtype,
+                                    void* stream) {
+  if (T <= 0 || D <= 0) return 0;
+  return by_dtype<Fwd<kScale>::L>(dtype, x, w, out,
+                                  const_cast<float*>(static_cast<const float*>(ss)),
+                                  T, D, Dn, eps,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // Backward of rmsnorm_launch.  x, dy, dx: [T, D] contiguous, f32 or bf16
@@ -625,13 +791,32 @@ extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
                                   void* part, int T, int D, float eps,
                                   int dtype, void* stream) {
   if (T <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kF32) {
-    launch_bwd<float>(x, w, dy, dx, dw, part, T, D, eps, s);
-  } else if (dtype == rt::kBF16) {
-    launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw, part, T, D, eps, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return by_dtype<Bwd<kWhole>::L>(dtype, x, w, dy, dx, dw, part,
+                                  (void*)nullptr, T, D, D, eps,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The backward of a row split over ranks, phase one: sums [T, 2] f32 gets
+// each row's (sum x^2, sum w dy x) over its D local columns
+// (rmsnorm_bwd_launch's order).
+extern "C" int rmsnorm_bwd_part_launch(const void* x, const void* w,
+                                       const void* dy, void* sums, int T,
+                                       int D, int dtype, void* stream) {
+  if (T <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  return by_dtype<Bwd<kSums>::L>(dtype, x, w, dy, (void*)nullptr,
+                                 (void*)nullptr, (void*)nullptr, sums, T, D, D,
+                                 0.f, static_cast<cudaStream_t>(stream));
+}
+
+// Phase two: dx and the local columns' dw from sums [T, 2], the rows' sums
+// over all Dn columns (part as rmsnorm_bwd_launch's).
+extern "C" int rmsnorm_bwd_scale_launch(const void* x, const void* w,
+                                        const void* dy, const void* sums,
+                                        void* dx, void* dw, void* part, int T,
+                                        int D, int Dn, float eps, int dtype,
+                                        void* stream) {
+  if (T <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  return by_dtype<Bwd<kScale>::L>(dtype, x, w, dy, dx, dw, part,
+                                  const_cast<void*>(sums), T, D, Dn, eps,
+                                  static_cast<cudaStream_t>(stream));
 }

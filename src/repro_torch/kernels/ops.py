@@ -15,6 +15,14 @@ writes; ``grouped_matmul_dx``, which reads W^T in place, and
 ``grouped_matmul_dw``; ``ssd_chunk_bwd``).  Serving (no grad) launches the
 forward kernels alone, with no logsumexp.
 
+A norm whose rows are split over ranks (``parallel.tp.ModelAxis.rmsnorm``)
+runs the rmsnorm kernels in two launches each way, a sum over the ranks
+between them: ``rmsnorm_part`` (each row's sum of squares) then
+``rmsnorm_scale``, and backward ``rmsnorm_bwd_part`` (each row's sum of
+squares and of ``w dy x``) then ``rmsnorm_bwd_scale`` (dx and the local
+dw).  Each phase runs the one-pass kernel's code, so over one rank the two
+launches give ``rmsnorm``'s and ``rmsnorm_bwd``'s bits.
+
 Counting (``launch.roofline.Counter``): while a counter is active every
 entry of ``KERNEL_NAMES`` records its formula once a launch, whichever
 route runs it, and the aten ops inside its wrapper count nothing.  On CPU
@@ -37,7 +45,9 @@ from . import build, ref
 
 KERNEL_NAMES = build.KERNELS + ("rmsnorm_bwd", "flash_attention_bwd",
                                 "grouped_matmul_dx", "grouped_matmul_dw",
-                                "ssd_chunk_bwd")
+                                "ssd_chunk_bwd", "rmsnorm_part",
+                                "rmsnorm_scale", "rmsnorm_bwd_part",
+                                "rmsnorm_bwd_scale")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 SSD_MAX_Q = 1024     # csrc/ssd_chunk.cu: kMaxQ (its shared-memory plan)
 ATTN_HEAD_DIMS = (64, 96, 128)   # csrc/flash_attention.cu: its dispatches
@@ -131,6 +141,14 @@ def _kernel_call(fn):
 
 
 # ------------------------------------------------------------------ rmsnorm
+def _w32(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``w`` as a contiguous f32 tensor on x's device, 16-byte aligned: the
+    kernels then pick their route from x and D alone, so a split row's
+    sums run in the one-pass kernel's order."""
+    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
+    return wf if wf.data_ptr() % 16 == 0 else wf.clone()
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: [T, D]; w: [D] -> [T, D] in x.dtype (reduction in f32)."""
@@ -153,7 +171,7 @@ def _rmsnorm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float):
             None if x.is_meta else lambda: ref.rmsnorm_ref(x, w, eps=eps),
             lambda: torch.empty_like(x))
     code = _cuda_args("rmsnorm", x)
-    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
+    wf = _w32(w, x)
     out = torch.empty_like(x)
     _launch("rmsnorm", "rmsnorm", x.data_ptr(), wf.data_ptr(),
             out.data_ptr(), T, D, float(eps), code, _stream(x),
@@ -180,7 +198,7 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
             lambda: (torch.empty_like(x),
                      x.new_empty(D, dtype=torch.float32)))
     code = _cuda_args("rmsnorm_bwd", x, dy)
-    wf = w.to(device=x.device, dtype=torch.float32).contiguous()
+    wf = _w32(w, x)
     dx = torch.empty_like(x)
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
     if T == 0:
@@ -207,6 +225,111 @@ class _RmsNorm(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx, dw = rmsnorm_bwd(x, w, dy.contiguous(), ctx.eps)
         return dx, dw.to(w.dtype), None
+
+
+@_kernel_call
+def rmsnorm_part(x: torch.Tensor) -> torch.Tensor:
+    """x [T, D] -> [T] f32: each row's sum of squares over its D columns,
+    in ``rmsnorm``'s order; the first launch of a norm whose rows are split
+    over ranks."""
+    T, D = x.shape
+    cost = (*roofline.rmsnorm_part_cost(T, D, x.element_size()), _dt(x))
+    if not x.is_cuda:
+        return _plain("rmsnorm_part", cost,
+                      None if x.is_meta else lambda: ref.rmsnorm_part_ref(x),
+                      lambda: x.new_empty(T, dtype=torch.float32))
+    code = _cuda_args("rmsnorm_part", x)
+    ss = torch.empty(T, dtype=torch.float32, device=x.device)
+    _launch("rmsnorm_part", "rmsnorm_part", x.data_ptr(), ss.data_ptr(), T,
+            D, code, _stream(x), cost=lambda: cost)
+    return ss
+
+
+@_kernel_call
+def rmsnorm_scale(x: torch.Tensor, w: torch.Tensor, ss: torch.Tensor,
+                  n: int, eps: float) -> torch.Tensor:
+    """x [T, D] * rsqrt(ss / n + eps) * w [D], in x.dtype: the second launch
+    of a split row, ``ss`` [T] the rows' sums of squares over all ``n``
+    columns."""
+    T, D = x.shape
+    cost = (*roofline.rmsnorm_scale_cost(T, D, x.element_size()), _dt(x))
+    if not x.is_cuda:
+        return _plain("rmsnorm_scale", cost, None if x.is_meta else
+                      lambda: ref.rmsnorm_scale_ref(x, w, ss, n, eps),
+                      lambda: torch.empty_like(x))
+    code = _cuda_args("rmsnorm_scale", x)
+    ssf = _sums32("rmsnorm_scale", ss, (T,), x)
+    wf = _w32(w, x)
+    out = torch.empty_like(x)
+    _launch("rmsnorm_scale", "rmsnorm_scale", x.data_ptr(), wf.data_ptr(),
+            ssf.data_ptr(), out.data_ptr(), T, D, int(n), float(eps), code,
+            _stream(x), cost=lambda: cost)
+    return out
+
+
+def _sums32(name: str, t: torch.Tensor, shape, x: torch.Tensor):
+    """A split row's f32 sums of ``shape``, contiguous on x's device."""
+    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32 or \
+            t.device != x.device:
+        raise ValueError(f"{name}: f32 sums {tuple(shape)} on {x.device} "
+                         f"expected, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+    return t.contiguous()
+
+
+@_kernel_call
+def rmsnorm_bwd_part(x: torch.Tensor, w: torch.Tensor,
+                     dy: torch.Tensor) -> torch.Tensor:
+    """[T, 2] f32: each row's (sum x^2, sum w dy x) over its D columns, in
+    ``rmsnorm_bwd``'s order; the first launch of a split row's backward."""
+    T, D = x.shape
+    cost = (*roofline.rmsnorm_bwd_part_cost(T, D, x.element_size()),
+            _dt(x))
+    if not x.is_cuda:
+        return _plain("rmsnorm_bwd_part", cost, None if x.is_meta else
+                      lambda: ref.rmsnorm_bwd_part_ref(x, w, dy),
+                      lambda: x.new_empty((T, 2), dtype=torch.float32))
+    code = _cuda_args("rmsnorm_bwd_part", x, dy)
+    wf = _w32(w, x)
+    sums = torch.zeros((T, 2), dtype=torch.float32, device=x.device)
+    if T == 0:
+        return sums
+    _launch("rmsnorm_bwd_part", "rmsnorm_bwd_part", x.data_ptr(),
+            wf.data_ptr(), dy.data_ptr(), sums.data_ptr(), T, D, code,
+            _stream(x), cost=lambda: cost)
+    return sums
+
+
+@_kernel_call
+def rmsnorm_bwd_scale(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                      sums: torch.Tensor, n: int, eps: float):
+    """(dx in x.dtype, dw f32) of a split row's D columns from ``sums``
+    [T, 2], the rows' (sum x^2, sum w dy x) over all ``n`` columns: the
+    second launch (then the in-order sum of the blocks' dw partials, as
+    ``rmsnorm_bwd``'s)."""
+    T, D = x.shape
+    cost = (*roofline.rmsnorm_bwd_scale_cost(T, D, x.element_size()),
+            _dt(x))
+    if not x.is_cuda:
+        return _plain("rmsnorm_bwd_scale", cost, None if x.is_meta else
+                      lambda: ref.rmsnorm_bwd_scale_ref(x, w, dy, sums, n,
+                                                        eps),
+                      lambda: (torch.empty_like(x),
+                               x.new_empty(D, dtype=torch.float32)))
+    code = _cuda_args("rmsnorm_bwd_scale", x, dy)
+    sf = _sums32("rmsnorm_bwd_scale", sums, (T, 2), x)
+    wf = _w32(w, x)
+    dx = torch.empty_like(x)
+    dw = torch.empty(D, dtype=torch.float32, device=x.device)
+    if T == 0:
+        return dx, dw.zero_()
+    partial = torch.empty((min(T, RMS_DW_PARTS), D), dtype=torch.float32,
+                          device=x.device)
+    _launch("rmsnorm_bwd_scale", "rmsnorm_bwd_scale", x.data_ptr(),
+            wf.data_ptr(), dy.data_ptr(), sf.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), partial.data_ptr(), T, D, int(n), float(eps), code,
+            _stream(x), cost=lambda: cost)
+    return dx, dw
 
 
 # ---------------------------------------------------------- flash attention

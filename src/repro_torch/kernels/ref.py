@@ -38,6 +38,47 @@ def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
+def rmsnorm_part_ref(x: torch.Tensor) -> torch.Tensor:
+    """x: [T, D] -> [T] f32: each row's sum of squares, the first half of
+    a norm whose rows are split over ranks (their sum is the whole row's)."""
+    xf = x.float()
+    return (xf * xf).sum(dim=-1)
+
+
+def rmsnorm_scale_ref(x: torch.Tensor, w: torch.Tensor, ss: torch.Tensor,
+                      n: int, eps: float = 1e-6) -> torch.Tensor:
+    """The second half: x [T, D] scaled by ``rsqrt(ss / n + eps)`` and
+    ``w`` [D], in x.dtype, where ``ss`` [T] are the rows' sums of squares
+    over all ``n`` columns.  With ``ss = rmsnorm_part_ref(x)`` and ``n =
+    D`` it is :func:`rmsnorm_ref` (on the CPU its bits: a mean there is
+    the sum divided by D)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(ss[:, None] / n + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_part_ref(x: torch.Tensor, w: torch.Tensor,
+                         dy: torch.Tensor) -> torch.Tensor:
+    """[T, 2] f32: each row's (sum x^2, sum w dy x) over its columns, the
+    sums the backward of a split row takes over the ranks."""
+    xf, gf, wf = x.float(), dy.float(), w.float()
+    return torch.stack([(xf * xf).sum(dim=-1), (gf * wf * xf).sum(dim=-1)],
+                       dim=-1)
+
+
+def rmsnorm_bwd_scale_ref(x: torch.Tensor, w: torch.Tensor,
+                          dy: torch.Tensor, sums: torch.Tensor, n: int,
+                          eps: float = 1e-6):
+    """(dx [T, D] in x.dtype, dw [D] f32) of the split row's columns from
+    ``sums`` [T, 2], the rows' :func:`rmsnorm_bwd_part_ref` summed over all
+    ``n`` columns: :func:`rmsnorm_bwd_ref`'s formula."""
+    xf, gf, wf = x.float(), dy.float(), w.float()
+    r = torch.rsqrt(sums[:, :1] / n + eps)
+    dot = sums[:, 1:] / n
+    dx = wf * r * gf - xf * (r * r * r) * dot
+    return dx.to(x.dtype), (gf * xf * r).sum(dim=0)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         sm_scale: Optional[float] = None) -> torch.Tensor:

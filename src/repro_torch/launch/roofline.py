@@ -89,6 +89,29 @@ def rmsnorm_bwd_cost(T: int, D: int, es: int):
     return 3 * T * D * es + 8 * D, 10 * T * D
 
 
+def rmsnorm_part_cost(T: int, D: int, es: int):
+    """x read, a row's f32 sum written; 2 flops an element."""
+    return T * D * es + 4 * T, 2 * T * D
+
+
+def rmsnorm_scale_cost(T: int, D: int, es: int):
+    """x and the rows' sums read, y written; w in f32; 2 flops an
+    element."""
+    return 2 * T * D * es + 4 * T + 4 * D, 2 * T * D
+
+
+def rmsnorm_bwd_part_cost(T: int, D: int, es: int):
+    """x and dy read, w in f32, the rows' two f32 sums written; 5 flops an
+    element."""
+    return 2 * T * D * es + 4 * D + 8 * T, 5 * T * D
+
+
+def rmsnorm_bwd_scale_cost(T: int, D: int, es: int):
+    """x, dy and the rows' sums read, dx written; w read and dw written in
+    f32; 7 flops an element."""
+    return 3 * T * D * es + 8 * T + 8 * D, 7 * T * D
+
+
 def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """The (query, key) pairs the mask keeps: the causal band only."""
     if not causal:

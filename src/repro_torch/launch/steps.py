@@ -27,9 +27,12 @@ rules put ``model`` on the K/V head_dim (decode, and prefill where
 weights and the KV cache (long decode on its sequence block too), and
 gathers no weight or cache over ``model``; prefill gathers ``wk``, ``wv``,
 ``bk`` and ``bv`` over ``model``, attends on the local q heads and keeps
-its head_dim slice of the cache.  A sublayer whose fit drops ``model``
-(the SSM mixers) gathers over ``model`` and computes whole.  The layout
-of the state and the shapes are the reference's.
+its head_dim slice of the cache.  An SSM mixer whose ``ssm_inner`` splits
+into whole heads over ``model`` computes on its local heads (``models.ssd``:
+the gated norm summed over ``model``; prefill gathers its cache's state and
+x channels whole, decode the new ``xs_raw`` row and ``conv_x``); a
+sublayer whose fit drops ``model`` gathers over ``model`` and computes
+whole.  The layout of the state and the shapes are the reference's.
 """
 from __future__ import annotations
 
@@ -97,6 +100,14 @@ def loss_and_grads(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         lsum = lsum + loss.detach()
     grads = unflatten({p: g / microbatches for p, g in zip(paths, gsum)})
     return lsum / microbatches, grads
+
+
+def _ssm_dims(cfg: ModelConfig):
+    """The SSM mixers' ``(d_inner, head_dim)`` for ``Sharded``, or None
+    for a model with none."""
+    if "mamba" not in cfg.pattern:
+        return None
+    return cfg.ssm_expand * cfg.d_model, cfg.ssm_head_dim
 
 
 def _batch_pspecs(cfg: ModelConfig, rules) -> Dict[str, PartitionSpec]:
@@ -170,7 +181,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, mesh=None, *,
                         opt_s, mesh)
     b_pspecs = _batch_pspecs(cfg, rules)
     batch_axes = axes_of(rules["batch"])
-    sharded = Sharded(mesh, p_pspecs, batch_axes)
+    sharded = Sharded(mesh, p_pspecs, batch_axes, ssm_dims=_ssm_dims(cfg))
     n_batch = math.prod(mesh_shape(mesh)[a] for a in batch_axes)
 
     def loss(params, b):
@@ -241,7 +252,8 @@ def _serving(cfg, mesh, rules, shape: ShapeSpec, decode: bool = False):
     c_pspecs = fit_tree(cache_pspecs(cfg, cache_shapes, rules), cache_shapes,
                         mesh)
     sharded = Sharded(mesh, p_pspecs, axes_of(rules.get("batch")),
-                      cache_pspecs=c_pspecs, decode=decode)
+                      cache_pspecs=c_pspecs, decode=decode,
+                      ssm_dims=_ssm_dims(cfg))
     return params_s, p_pspecs, cache_shapes, c_pspecs, sharded
 
 

@@ -28,13 +28,14 @@ again; ``prefill`` and ``decode_step`` gather a block at a time.  Each
 sublayer asks ``sharded.tp(path)`` whether it computes tensor-parallel:
 then its weights stay ``model``-local (attention on the local heads or
 its K/V head_dim shard, the MLP on its columns, the MoE on its experts,
-the embeddings and logits on the local vocab) and it ends in one sum over
-``model``; the loss is the vocab-parallel one (:func:`lm_nll`).
-Otherwise it computes whole on gathered weights.  Prefill cuts each
-block's new caches to this rank's shard before the next block runs, and
-decode computes on the cache shards in place: attention on its head_dim
-slice (and sequence block, ``sharded.cache_seq``), the SSM mixers on
-their batch rows.  The MoE load-balance loss takes its batch means over
+the SSM mixer on its heads of ``ssm_inner``, the embeddings and logits on
+the local vocab) and it ends in one sum over ``model``; the loss is the
+vocab-parallel one (:func:`lm_nll`).  Otherwise it computes whole on
+gathered weights.  Prefill cuts each block's new caches to this rank's
+shard before the next block runs, and decode computes on the cache
+shards in place: attention on its head_dim slice (and sequence block,
+``sharded.cache_seq``), the SSM mixers on their batch rows of the state
+and conv tail, which ``model`` replicates.  The MoE load-balance loss takes its batch means over
 the ranks that split the batch.
 """
 from __future__ import annotations
@@ -137,7 +138,8 @@ def _layer_forward(cfg: ModelConfig, kind: str, pos: int, sharded, p,
                         window=cfg.sliding_window,
                         tp=tp_of(sharded, f"blocks/l{pos}/attn"))
     else:
-        h = ssm_layer(p["ssm"], cfg, h)
+        h = ssm_layer(p["ssm"], cfg, h,
+                      tp=tp_of(sharded, f"blocks/l{pos}/ssm"))
     x = x + h
     if _has_ffn(cfg):
         x, a = _ffn(cfg, p, x, pos, sharded, data_mean=(
@@ -216,7 +218,8 @@ def _block_prefill(cfg: ModelConfig, bp, x: torch.Tensor, s_max: int,
                 p["attn"], cfg, h, s_max, window=cfg.sliding_window,
                 tp=tp_of(sharded, f"blocks/l{pos}/attn"))
         else:
-            h, c = ssm_prefill(p["ssm"], cfg, h)
+            h, c = ssm_prefill(p["ssm"], cfg, h,
+                               tp=tp_of(sharded, f"blocks/l{pos}/ssm"))
         caches[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):
@@ -243,7 +246,8 @@ def _block_decode(cfg: ModelConfig, bp, x: torch.Tensor, caches,
                 tp=tp_of(sharded, f"blocks/l{pos}/attn"),
                 seq=seq_of(sharded, f"l{pos}"))
         else:
-            h, c = ssm_decode(p["ssm"], cfg, h, caches[f"l{pos}"])
+            h, c = ssm_decode(p["ssm"], cfg, h, caches[f"l{pos}"],
+                              tp=tp_of(sharded, f"blocks/l{pos}/ssm"))
         new[f"l{pos}"] = c
         x = x + h
         if _has_ffn(cfg):

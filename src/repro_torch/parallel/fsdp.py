@@ -8,14 +8,17 @@ all-gathered just before the block runs (:func:`gather_leaves`) and
 dropped after it; under remat the backward gathers them again.  The leaves
 of a tensor-parallel sublayer (:meth:`Sharded.tp`: attention by heads or
 by the K/V head_dim, the MLP by columns, the MoE by experts, the
-embeddings by vocab rows, where the fit puts ``model`` there) are gathered
-over every axis but ``model``: a rank computes on its ``model``-local part
-and the sublayer ends in one sum over ``model`` (``parallel.tp``), or none
-for an attention on its head_dim shard whose heads do not split.  Prefill
+embeddings by vocab rows, an SSM mixer by its whole heads of
+``ssm_inner``, where the fit puts ``model`` there) are gathered over every
+axis but ``model``: a rank computes on its ``model``-local part and the
+sublayer ends in one sum over ``model`` (``parallel.tp``), or none for an
+attention on its head_dim shard whose heads do not split.  Prefill
 gathers the head_dim-sharded ``wk``, ``wv``, ``bk`` and ``bv`` over
 ``model`` too (the K/V of every kv head, for its local q heads); decode
-computes on them as they are.  A sublayer whose fit dropped ``model``
-(the SSM mixers) gathers over ``model`` too and computes whole, the same
+computes on them as they are, and gathers an SSM mixer's ``conv_x`` and
+``conv_x_b`` whole (each rank advances the whole replicated conv tail and
+state).  A sublayer whose fit dropped ``model`` (an SSM mixer whose heads
+do not split) gathers over ``model`` too and computes whole, the same
 rows on each ``model`` rank of a batch slice.
 
 A gathered leaf's gradient is summed over the batch axes, whose ranks saw
@@ -285,20 +288,27 @@ class _DataMean(torch.autograd.Function):
 # The sublayers that can compute tensor-parallel, by the name of their
 # subtree (of the leaf itself for the embeddings), and their kind
 REGIONS = {"attn": "attn", "xattn": "attn", "mlp": "mlp", "moe": "moe",
-           "tok_embed": "vocab", "unembed": "vocab"}
+           "ssm": "ssm", "tok_embed": "vocab", "unembed": "vocab"}
 # an attention's K/V leaves: sharded on head_dim by the decode rules
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
+# an SSM mixer's leaves that decode gathers whole over model: the x
+# channels' conv, which advances the replicated conv tail and state
+_SSM_DECODE_WHOLE = ("conv_x", "conv_x_b")
 # A sublayer of each kind computes tensor-parallel when ``model`` shards the
 # dim (from the end) of each of these weights, as True or False says it
 # must: the heads of wq and wo, and not the head_dim of wk and wv; the MLP
-# columns; the experts; the vocab.  An attention whose wk head_dim carries
-# model is the other kind (``parallel.tp.HeadDimAxis``)
+# columns; the experts; the vocab; an SSM mixer's ssm_inner (its z, x and
+# out projections, x conv and gated norm).  An attention whose wk head_dim
+# carries model is the other kind (``parallel.tp.HeadDimAxis``)
 _TP_DIMS = {
     "attn": {"wq": (-2, True), "wo": (-3, True), "wk": (-1, False),
              "wv": (-1, False)},
     "mlp": {"wi_gate": (-1, True), "wi_up": (-1, True), "wo": (-2, True)},
     "moe": {"wi_gate": (-3, True), "wi_up": (-3, True), "wo": (-3, True)},
     "vocab": {"tok_embed": (-2, True), "unembed": (-1, True)},
+    "ssm": {"z_proj": (-1, True), "x_proj": (-1, True), "conv_x": (-1, True),
+            "conv_x_b": (-1, True), "norm": (-1, True),
+            "out_proj": (-2, True)},
 }
 
 
@@ -325,20 +335,23 @@ class Sharded:
     mesh axes that split the batch (``rules["batch"]``; none in long
     decode); ``cache_pspecs``: the fitted specs of the caches, for
     serving; ``decode``: the step is a decode step, whose attention on
-    the K/V head_dim computes on its shards.  ``on_gather(t)``, when
-    given, sees every leaf a ``gather`` returns (the tests count the live
-    ones).  Which sublayers compute tensor-parallel follows from
-    ``pspecs`` (:meth:`tp`)."""
+    the K/V head_dim computes on its shards; ``ssm_dims``: the SSM
+    mixers' ``(d_inner, head_dim)``, without which they compute whole.
+    ``on_gather(t)``, when given, sees every leaf a ``gather`` returns
+    (the tests count the live ones).  Which sublayers compute
+    tensor-parallel follows from ``pspecs`` (:meth:`tp`)."""
 
     def __init__(self, mesh, pspecs, batch_axes: Sequence[str] = (),
                  cache_pspecs=None, decode: bool = False,
-                 on_gather: Optional[Callable[[torch.Tensor], None]] = None):
+                 on_gather: Optional[Callable[[torch.Tensor], None]] = None,
+                 ssm_dims: Optional[Tuple[int, int]] = None):
         self.mesh = mesh
         self.pspecs = pspecs
         self.batch_axes = tuple(batch_axes)
         self.cache_pspecs = cache_pspecs
         self.decode = decode
         self.on_gather = on_gather
+        self.ssm_dims = ssm_dims
         self._specs = {}      # (path, leaf paths) -> their specs, a block's
         self._regions = {}    # sublayer path -> its ModelAxis or None
         self._axis = None
@@ -347,9 +360,10 @@ class Sharded:
     def tp(self, path: str):
         """The ``model`` axis (``parallel.tp.ModelAxis``) of the sublayer at
         ``path`` of the params (``blocks/l0/attn``, ``dec/xattn``,
-        ``blocks/l1/moe``, ``unembed``) when it computes tensor-parallel:
-        the fitted specs put ``model`` on its heads, MLP columns, experts
-        or vocab.  An attention whose K/V head_dim carries ``model`` (the
+        ``blocks/l1/moe``, ``blocks/l0/ssm``, ``unembed``) when it computes
+        tensor-parallel: the fitted specs put ``model`` on its heads, MLP
+        columns, experts, vocab or ``ssm_inner`` (an SSM mixer's only where
+        each rank holds whole heads, ``ssm_dims``).  An attention whose K/V head_dim carries ``model`` (the
         decode rules; prefill's where the kv heads do not split) gets a
         ``parallel.tp.HeadDimAxis``: ``on_head_dim`` is the one question
         that tells the two kinds apart.  Otherwise None: the sublayer
@@ -369,6 +383,8 @@ class Sharded:
             return None
         if kind == "vocab":
             node = {name: node}
+        if kind == "ssm" and not self._ssm_heads_split():
+            return None
         if kind == "attn" and "model" in axes_of(node["wk"][-1]):
             from .tp import HeadDimAxis
             return HeadDimAxis(self.mesh,
@@ -383,16 +399,29 @@ class Sharded:
             self._axis = ModelAxis(self.mesh)
         return self._axis
 
+    def _ssm_heads_split(self) -> bool:
+        """Each ``model`` rank holds whole SSM heads: ``head_dim`` divides
+        ``d_inner / model``."""
+        if self.ssm_dims is None:
+            return False
+        d_inner, head_dim = self.ssm_dims
+        m = self.mesh.shape["model"]
+        return d_inner % m == 0 and (d_inner // m) % head_dim == 0
+
     def _gather_spec(self, path: str, ndim: int) -> PartitionSpec:
         """How the leaf at ``path`` is gathered: over every axis that its
         spec names, but over no ``model`` in a tensor-parallel sublayer,
         whose leaves stay ``model``-local; a prefill attention on the K/V
-        head_dim takes ``wk``, ``wv``, ``bk`` and ``bv`` whole."""
+        head_dim takes ``wk``, ``wv``, ``bk`` and ``bv`` whole, and a
+        decode SSM mixer ``conv_x`` and ``conv_x_b``."""
         spec = _drop_layers(pspecs_at(self.pspecs, path), ndim)
         region = region_of(path)
         tp = None if region is None else self.tp(region)
+        leaf = path.rsplit("/", 1)[-1]
         if tp is None or (tp.on_head_dim and tp.kv_whole and
-                          path.rsplit("/", 1)[-1] in _KV_LEAVES):
+                          leaf in _KV_LEAVES) or (
+                self.decode and REGIONS[region.rsplit("/", 1)[-1]] == "ssm"
+                and leaf in _SSM_DECODE_WHOLE):
             return spec
         return _without(spec, "model")
 

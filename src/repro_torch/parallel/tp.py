@@ -13,11 +13,22 @@ Its :class:`ModelAxis` carries the two collectives:
   activation entering the region, the MoE combine weights, and the
   replicated leaves read for the local heads alone (``q_norm``,
   ``k_norm``; ``wk``, ``wv``, ``bk`` and ``bv`` where the kv heads do not
-  split over ``model``).  A tensor used whole by every rank (``ln1``, the
-  router's load-balance term) never goes through it: its gradient is
-  whole on every rank already.
+  split over ``model``; an SSM mixer's ``b_proj``, ``c_proj``,
+  ``dt_proj``, B and C convs, ``dt_bias``, ``A_log`` and ``D``).  A tensor
+  used whole by every rank (``ln1``, the router's load-balance term) never
+  goes through it: its gradient is whole on every rank already.
 - :meth:`ModelAxis.exit` (``from_model``): the sum over ``model`` forward,
   identity backward: the region's partial output.
+
+An SSM mixer on its ``ssm_inner`` shard (``models.ssd``) normalises its
+gated output over the whole ``d_inner`` with :meth:`ModelAxis.rmsnorm`:
+each row's sum of squares over the local columns, summed over ``model``,
+then the scale; backward the rows' sums of squares and of ``w dy x``,
+summed, then dx and the local ``dw``.  On the card each half is an
+rmsnorm kernel launch (``kernels.ops.rmsnorm_part`` and the rest), in the
+one-pass kernel's order, so at ``model = 1`` they give its bits; on the
+CPU the same formulas run as plain torch that autograd follows, whose
+bits at ``model = 1`` are ``ops.rmsnorm``'s plain version's.
 
 The vocab-parallel loss takes :meth:`ModelAxis.logsumexp` and
 :meth:`ModelAxis.pick` over vocab-local logits, and :func:`greedy_tokens`
@@ -37,11 +48,13 @@ over the batch axes (long decode) merges its softmax over them through a
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from ..kernels import ops, ref
+from ..launch import roofline
 from .fsdp import _all_gather, _all_reduce, _all_reduce_many, _count
 from .sharding import axes_of
 
@@ -78,6 +91,42 @@ class _FromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, g
+
+
+class _SumBoth(torch.autograd.Function):
+    """The sum over ``model`` forward and backward: a split row's partial
+    sums, which every rank's part of the row reads."""
+
+    @staticmethod
+    def forward(ctx, axis, t):
+        ctx.axis = axis
+        return _all_reduce(t, axis.mesh, AXIS)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _all_reduce(g, ctx.axis.mesh, AXIS)
+
+
+class _SplitRmsNorm(torch.autograd.Function):
+    """The norm of rows whose ``n`` columns are split over ``model``,
+    through the kernels: the rows' partial sums, one all-reduce, the scale;
+    backward the same shape of work, ending in the local ``dw``."""
+
+    @staticmethod
+    def forward(ctx, axis, x, w, n, eps):
+        ctx.save_for_backward(x, w)
+        ctx.axis, ctx.n, ctx.eps = axis, n, eps
+        ss = _all_reduce(ops.rmsnorm_part(x), axis.mesh, AXIS)
+        return ops.rmsnorm_scale(x, w, ss, n, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        sums = _all_reduce(ops.rmsnorm_bwd_part(x, w, dy), ctx.axis.mesh,
+                           AXIS)
+        dx, dw = ops.rmsnorm_bwd_scale(x, w, dy, sums, ctx.n, ctx.eps)
+        return None, dx, dw.to(w.dtype), None, None
 
 
 class _LogSumExp(torch.autograd.Function):
@@ -131,6 +180,32 @@ class ModelAxis:
     def exit(self, t: torch.Tensor) -> torch.Tensor:
         """``from_model``: the sum of the ranks' partial ``t``."""
         return _FromModel.apply(self, t)
+
+    def gather(self, t: torch.Tensor, dim: int = -1,
+               tag: Optional[str] = None) -> torch.Tensor:
+        """``t``, this rank's block along ``dim``, whole along it: one
+        all-gather over ``model`` (no gradient), counted under ``tag``."""
+        return _all_gather([(0, t.contiguous(), dim % t.ndim)], self.mesh,
+                           AXIS, tag)[0]
+
+    def rmsnorm(self, x: torch.Tensor, w: torch.Tensor,
+                eps: float) -> torch.Tensor:
+        """The RMS norm of ``x`` [..., D / m] over whole rows of D columns
+        cut over ``model`` (``w``: this rank's D / m scales): one
+        all-reduce of a row's sums each way (module docstring)."""
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]).contiguous()
+        n = shape[-1] * self.size
+        if not x2.is_cuda and roofline.ACTIVE is None:
+            # one f32 copy of x, as ops.rmsnorm's plain version takes, so
+            # its gradient is summed in f32 before the one cast back
+            xf = x2.float()
+            y = ref.rmsnorm_scale_ref(
+                xf, w, _SumBoth.apply(self, ref.rmsnorm_part_ref(xf)), n,
+                eps).to(x.dtype)
+        else:
+            y = _SplitRmsNorm.apply(self, x2, w, n, eps)
+        return y.reshape(shape)
 
     def all_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over ``model``, into a copy (no
@@ -187,12 +262,6 @@ class HeadDimAxis(ModelAxis):
         """This rank's slice of the last dim (head_dim) of whole ``t``."""
         lo, hi = self.local_range(t.shape[-1])
         return t.narrow(-1, lo, hi - lo)
-
-    def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """``t``, this rank's block along ``dim`` (a head_dim slice, or the
-        local heads), whole along it: one all-gather over ``model``."""
-        return _all_gather([(0, t.contiguous(), dim % t.ndim)], self.mesh,
-                           AXIS)[0]
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over ``model`` (no gradient): partial logits

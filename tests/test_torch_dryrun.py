@@ -277,9 +277,16 @@ def prod_cells():
 
 
 def _want_kernels(cfg, kind):
-    """The kernels a cell of ``kind`` must launch, from its layers."""
+    """The kernels a cell of ``kind`` must launch, from its layers (at
+    ``pod_16x16``: an SSM mixer whose heads split over model 16 runs its
+    gated norm as the split launches)."""
     attn = any(k == "attn" for k in cfg.pattern)
     want = {"rmsnorm"}
+    d_inner = cfg.ssm_expand * cfg.d_model
+    if "mamba" in cfg.pattern and (d_inner // 16) % cfg.ssm_head_dim == 0:
+        want |= {"rmsnorm_part", "rmsnorm_scale"}
+        if kind == "train":
+            want |= {"rmsnorm_bwd_part", "rmsnorm_bwd_scale"}
     if attn and kind != "decode":
         want.add("flash_attention")
     if cfg.n_experts > 0:

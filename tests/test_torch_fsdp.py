@@ -10,12 +10,13 @@ train in f32 for three steps on meshes (data, model) = (2, 1), (1, 2),
 fitted specs put ``model`` on granite's heads, MLP columns, experts or
 vocab those sublayers compute tensor-parallel (``test_torch_tp.py`` holds
 that compute on more configs).  On (1, 2) and (2, 2) mamba2's embeddings
-and loss are computed whole (``torch_fsdp_helpers.WHOLE_VOCAB``), as its
-SSM mixers are: its three-step state is chaotic at this file's bound, and
-the vocab-parallel loss's reordered sums alone would cross it
-(``tests/torch_tp_witness.py``: summing the unembed's input gradient over
-two vocab blocks, in one process, moves that state by 1.11e-4 of its
-max).  Each rank's shards of the params and optimizer state,
+and loss (``torch_fsdp_helpers.WHOLE_VOCAB``) and its SSM mixers
+(``WHOLE_MIXER``) are computed whole: its three-step state is chaotic at
+this file's bound, the vocab-parallel loss's reordered sums alone would
+cross it (``tests/torch_tp_witness.py``: summing the unembed's input
+gradient over two vocab blocks, in one process, moves that state by
+1.11e-4 of its max), and so do the mixers' on their ``ssm_inner`` shard
+(the helper's comment gives the reading).  Each rank's shards of the params and optimizer state,
 the loss and the grad norm are held to the port's unsharded step on the
 whole batch and to the reference (``repro.models.api.loss_fn``, its
 optimizers and ``clip_by_global_norm`` composed by hand, as in

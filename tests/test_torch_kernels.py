@@ -380,7 +380,8 @@ def test_cpu_ops_train_through_the_plain_versions():
     assert set(ops.LAUNCHES) == {
         "rmsnorm", "flash_attention", "grouped_matmul", "ssd_chunk",
         "rmsnorm_bwd", "flash_attention_bwd", "grouped_matmul_dx",
-        "grouped_matmul_dw", "ssd_chunk_bwd"}
+        "grouped_matmul_dw", "ssd_chunk_bwd", "rmsnorm_part",
+        "rmsnorm_scale", "rmsnorm_bwd_part", "rmsnorm_bwd_scale"}
 
 
 # ------------------------------------------------------------------ build

@@ -6,10 +6,11 @@ ranks spawned as subprocesses on a ``FileStore``
 Meshes (data, model) = (1, 2), (2, 2) and (1, 4); f32 smoke configs:
 granite (MoE, vocab 256 sharded), qwen3-1.7b (dense, qk-norm), qwen2-1.5b
 (qkv bias), whisper-medium (encoder, cross-attention), jamba (SSM mixers
-gathered beside tensor-parallel attention, MLP and MoE), and granite with
-a vocab of 255, which no model axis here divides (the embeddings and the
-loss whole).  At model 4 the 2 kv heads are replicated over ``model`` and
-each rank takes the one its q head reads.
+on their ``ssm_inner`` shard beside tensor-parallel attention, MLP and
+MoE), mamba2 (SSM mixers alone, 16 heads of P 8: 8 or 4 a rank), and
+granite with a vocab of 255, which no model axis here divides (the
+embeddings and the loss whole).  At model 4 the 2 kv heads are
+replicated over ``model`` and each rank takes the one its q head reads.
 
 Each rank's shards are held to the port's unsharded step on the whole
 batch and to the reference (``repro.models.api.loss_fn``, its AdamW and
@@ -17,8 +18,10 @@ batch and to the reference (``repro.models.api.loss_fn``, its AdamW and
 first batch, before clipping, within 1e-5 of its max |g| of the unsharded
 port's and 1e-4 (``test_torch_train.py``'s) of the reference's: a
 replicated leaf whose gradient a rank has only in part (``q_norm``, the
-replicated ``wk``) must be summed over ``model`` once, and one used whole
-(``ln1``) must not be, or it is off by a factor.  The loss and the grad
+replicated ``wk``; an SSM mixer's ``b_proj``, ``c_proj``, ``dt_proj``,
+B and C convs, ``dt_bias``, ``A_log`` and ``D``) must be summed over
+``model`` once, and one used whole (``ln1``) must not be, or it is off by
+a factor.  The loss and the grad
 norm of each of three steps 1e-5 relative.  ``test_torch_fsdp.py``'s
 bounds on the three steps: each element's move within 2% of the learning
 rates' sum and the optimizer state within 1e-4 of each leaf's max against
@@ -39,7 +42,8 @@ reference (the witness), and its unsharded port is 6.7e-4 from the
 reference, a few such ulps.  One reordered sum moves its optimizer state
 after three steps by 0.68 of its max.  So jamba is held at its first
 step: the loss 1e-5, the grad norm 1e-4 and each leaf's gradient 2e-3 of
-its max, against both.
+its max, against both; so is mamba2, whose SSM mixers the same reordered
+sums reach (its split gated norm sums each row over ``model``).
 
 Prefill and decode logits are this rank's block of the unsharded logits
 within 2e-5, and ``greedy_tokens`` gives the unsharded argmax on every
@@ -49,19 +53,28 @@ ranks' blocks.
 
 That the compute is split: every leaf a gather returns keeps its
 ``model``-local dim in a tensor-parallel sublayer and is whole elsewhere;
-``ops.flash_attention`` sees H / m q heads, ``ops.grouped_matmul`` E / m
-groups over the local experts' kept rows alone (their sum over the ranks
-is the unsharded call's); no leaf is gathered over ``model`` but the SSM
-mixers'; prefill issues exactly one all-reduce over ``model`` a
-tensor-parallel sublayer (and one for the embedding), runs each attention
-on H / m heads, and gathers over ``model`` only ``wk``, ``wv``, ``bk`` and
-``bv``, where the kv heads do not split (2 kv heads over 4).  Decode
-computes attention on its head_dim shard: no attention weight comes back
-gathered over ``model``, no cache leaf is gathered (nothing counts under
-the ``"cache"`` tag, and the bytes gathered over ``model`` are exactly
-the new K rows, queries and outputs, plus the SSM mixers' weights), and
-each attention call issues the collectives over ``model`` that its route
-predicts.
+``ops.flash_attention`` sees H / m q heads, ``ops.ssd_scan`` H / m SSM
+heads, ``ops.grouped_matmul`` E / m groups over the local experts' kept
+rows alone (their sum over the ranks is the unsharded call's); training
+gathers no leaf over ``model``; prefill issues exactly one all-reduce
+over ``model`` a tensor-parallel sublayer (two an SSM mixer: its gated
+norm's row sums, then its output; and one for the embedding), runs each
+attention on H / m heads and each SSM scan on H / m, and gathers over
+``model`` only ``wk``, ``wv``, ``bk`` and ``bv``, where the kv heads do
+not split (2 kv heads over 4).  Decode computes attention on its head_dim
+shard and each SSM mixer on its heads: no attention weight and no SSM
+projection comes back gathered over ``model``, no cache leaf is gathered
+(nothing counts under the ``"cache"`` tag, and the bytes gathered over
+``model`` are exactly the attention's new K rows, queries and outputs,
+each SSM mixer's new ``xs_raw`` row, ``conv_x`` and ``conv_x_b``), each
+attention call issues the collectives over ``model`` that its route
+predicts, and the SSM state and conv tail every ``model`` rank advances
+are the same bits.
+
+The split gated norm (``parallel.tp.ModelAxis.rmsnorm``) on each mesh,
+on its plain route and through the kernels' ``autograd.Function``: y, dx
+and dw of each rank's columns within 2e-5 (f32) of the whole-row norm's
+and of the reference's ``rmsnorm`` under ``jax.vjp``.
 """
 import dataclasses
 import json
@@ -108,7 +121,7 @@ LOGIT_TOL = 2e-5
 # jamba's smoke model in f32 at step 0: the grad norm and each leaf's
 # gradient (of its max), against both; its later steps are not held
 SSM_NORM_RTOL, SSM_GRAD_TOL = 1e-4, 2e-3
-SSM = ("jamba",)
+SSM = ("jamba", "mamba2")
 MESHES = {"m2": (1, 2), "d2m2": (2, 2), "m4": (1, 4)}
 LONG_MESH = "d2m2"
 NAMES = list(TH.CONFIGS)
@@ -254,6 +267,14 @@ def _spawn(argvs, env, timeout=600):
     return wait
 
 
+def _norm_inputs():
+    """The split norm's rows, scales and output gradient."""
+    rng = np.random.default_rng(13)
+    return {"norm|x": rng.standard_normal((2, 5, TH.NORM_D), np.float32),
+            "norm|w": 1 + 0.1 * rng.standard_normal(TH.NORM_D, np.float32),
+            "norm|dy": rng.standard_normal((2, 5, TH.NORM_D), np.float32)}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every mesh's ranks (each mesh one world, the three at once, while
@@ -268,6 +289,7 @@ def runs(tmp_path_factory):
                    for n in TH.LONG})
     for n, (_, toks) in served.items():
         inputs[f"{n}|tokens"] = toks
+    inputs.update(_norm_inputs())
     np.savez(tmp / "in.npz", **inputs)
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"),
@@ -279,7 +301,8 @@ def runs(tmp_path_factory):
         world = int(np.prod(shape))
         (tmp / f"{mesh}.json").write_text(json.dumps(
             {"shape": list(shape), "configs": NAMES, "steps": STEPS,
-             "long": list(TH.LONG) if mesh == LONG_MESH else []}))
+             "long": list(TH.LONG) if mesh == LONG_MESH else [],
+             "norm": True}))
         waits.append(_spawn([[helper, r, world, tmp / f"{mesh}.store",
                               tmp / f"{mesh}.json", tmp / "in.npz",
                               tmp / mesh] for r in range(world)], env))
@@ -396,15 +419,37 @@ def test_tensor_parallel_serving_matches_unsharded(runs, mesh, name):
                                   np.argmax(w, axis=-1)[rows]), key
 
 
+def _ssm_inner(cfg) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
 def _tp_kinds(cfg, m: int):
     """Which kinds of sublayer compute tensor-parallel on a model axis of
     ``m``, by the rules: attention on its local q heads wherever they
     split, in training and in prefill (whose K/V head_dim carries
-    ``model`` where the kv heads do not split)."""
+    ``model`` where the kv heads do not split); an SSM mixer where each
+    rank holds whole heads of ``ssm_inner``."""
+    d_inner = _ssm_inner(cfg)
     return {"attn": cfg.n_heads % m == 0,
             "mlp": cfg.d_ff > 0 and cfg.d_ff % m == 0,
             "moe": cfg.n_experts > 0 and cfg.n_experts % m == 0,
+            "ssm": "mamba" in cfg.pattern and d_inner % m == 0 and
+            (d_inner // m) % cfg.ssm_head_dim == 0,
             "vocab": cfg.vocab_size % m == 0}
+
+
+def _serve_kinds(name, cfg, m: int):
+    """:func:`_tp_kinds` of the serve job: ``TH.WHOLE_SSM_SERVE``'s SSM
+    mixers compute whole."""
+    kinds = _tp_kinds(cfg, m)
+    kinds["ssm"] &= name not in TH.WHOLE_SSM_SERVE
+    return kinds
+
+
+def _ssm_heads(cfg, m: int, split: bool) -> int:
+    """The SSM heads each rank's scan runs (``split``: over model)."""
+    H = _ssm_inner(cfg) // cfg.ssm_head_dim
+    return H // m if split else H
 
 
 def _local_kv(cfg, m: int, r: int) -> int:
@@ -440,17 +485,21 @@ def test_tensor_parallel_compute_is_split(runs, mesh, name):
                     if "model" in axes_of(part):
                         want[d] //= m
             assert shape == want, (path, shape, want)
-        assert rec["attn"] and all(
+        assert bool(rec["attn"]) == ("attn" in cfg.pattern) and all(
             h == (cfg.n_heads // m, _local_kv(cfg, m, r))
             for h in map(tuple, rec["attn"])), rec["attn"]
+        assert bool(rec["ssd"]) == ("mamba" in cfg.pattern) and all(
+            h == _ssm_heads(cfg, m, kinds["ssm"]) for h in rec["ssd"]), \
+            rec["ssd"]
         if cfg.n_experts:
             assert all(g == cfg.n_experts // m and rows == kept
                        for rows, g, kept in rec["gmm"]), rec["gmm"]
             calls_by_rank.append([rows for rows, _, _ in rec["gmm"]])
         model = rec["collectives"].get("model", {})
         assert model.get("all_reduce", 0) > 0
-        ssm = "mamba" in cfg.pattern
-        assert (model.get("all_gather", 0) > 0) == ssm, model
+        # every sublayer computes on its model-local part: no leaf is
+        # gathered over model, the SSM mixers' included
+        assert model.get("all_gather", 0) == 0, model
     if cfg.n_experts:
         want = [kept for _, _, kept in runs["unsharded"][name]["gmm"]]
         assert [sum(c) for c in zip(*calls_by_rank)] == want
@@ -459,11 +508,14 @@ def test_tensor_parallel_compute_is_split(runs, mesh, name):
 @pytest.mark.parametrize("mesh,name", CASES, ids=IDS)
 def test_prefill_ends_each_sublayer_in_one_model_sum(runs, mesh, name):
     """Prefill (no grad, no remat): exactly one all-reduce over ``model`` a
-    tensor-parallel sublayer, one for a vocab-parallel embedding, and each
-    attention call on H / m heads where it is tensor-parallel."""
+    tensor-parallel sublayer (two an SSM mixer: the gated norm's row sums,
+    then the output), one for a vocab-parallel embedding, and each
+    attention call on H / m heads and each SSM scan on H / m heads where
+    it is tensor-parallel; an SSM mixer gathers its cache's state and x
+    channels, two all-gathers over ``model``."""
     _, cfg = _cfgs(name)
     m = MESHES[mesh][1]
-    kinds = _tp_kinds(cfg, m)
+    kinds = _serve_kinds(name, cfg, m)
     if cfg.is_encoder_decoder:
         n = cfg.n_enc_layers * (kinds["attn"] + kinds["mlp"]) + \
             cfg.n_layers * (2 * kinds["attn"] + kinds["mlp"])
@@ -473,18 +525,31 @@ def test_prefill_ends_each_sublayer_in_one_model_sum(runs, mesh, name):
             kind = cfg.pattern[i % len(cfg.pattern)]
             pos = i % len(cfg.pattern)
             n += kind == "attn" and kinds["attn"]
+            n += 2 * (kind == "mamba" and kinds["ssm"])
             moe = cfg.n_experts > 0 and pos % cfg.moe_every == \
                 cfg.moe_every - 1
             n += kinds["moe"] if moe else kinds["mlp"]
     n += kinds["vocab"]
+    n_ssm = sum(k == "mamba" for k in cfg.pattern) * cfg.n_blocks
     for out in runs[mesh]:
         rec = json.loads(str(out[f"{name}|serve_record"]))
         r = _rank_mesh(mesh, out).coords["model"]
-        assert rec["collectives"].get("model", {}).get("all_reduce", 0) == n
+        model = rec["collectives"].get("model", {})
+        assert model.get("all_reduce", 0) == n
+        if n_ssm:
+            # each mixer's cache gathers (state, x channels), and one a
+            # block of its leaves gathered over model: the K/V weights where
+            # the kv heads do not split, the mixers' where they compute whole
+            whole = cfg.n_blocks * (not kinds["ssm"] or (
+                "attn" in cfg.pattern and cfg.n_kv_heads % m != 0))
+            assert model.get("all_gather", 0) == \
+                2 * n_ssm * kinds["ssm"] + whole, model
         heads = cfg.n_heads // m if kinds["attn"] else cfg.n_heads
         kv = _local_kv(cfg, m, r) if kinds["attn"] else cfg.n_kv_heads
-        assert rec["attn"] and all(
+        assert bool(rec["attn"]) == ("attn" in cfg.pattern) and all(
             (h, k) == (heads, kv) for h, k in rec["attn"]), rec["attn"]
+        assert all(h == _ssm_heads(cfg, m, kinds["ssm"])
+                   for h in rec["ssd"]), rec["ssd"]
 
 
 def _serve_specs(mesh, name, decode: bool):
@@ -502,14 +567,15 @@ def _whole_block_shape(runs, name, path):
 
 @pytest.mark.parametrize("mesh,name", CASES, ids=IDS)
 def test_prefill_gathers_only_kv_weights_over_model(runs, mesh, name):
-    """Prefill's gathers: a leaf comes back whole over ``model`` only if
-    it is an SSM mixer's or, where the kv heads do not split, an
-    attention's ``wk``, ``wv``, ``bk`` or ``bv``; every other leaf whose
-    spec has ``model`` stays ``model``-local."""
+    """Prefill's gathers: a leaf comes back whole over ``model`` only if,
+    where the kv heads do not split, it is an attention's ``wk``, ``wv``,
+    ``bk`` or ``bv`` (or an SSM mixer's whose heads do not split); every
+    other leaf whose spec has ``model`` stays ``model``-local."""
     _, cfg = _cfgs(name)
     m = MESHES[mesh][1]
     specs = _serve_specs(mesh, name, decode=False)
     kv_whole = cfg.n_kv_heads % m != 0
+    kinds = _serve_kinds(name, cfg, m)
     for out in runs[mesh]:
         rec = json.loads(str(out[f"{name}|serve_record"]))
         assert rec["shapes"]
@@ -520,9 +586,11 @@ def test_prefill_gathers_only_kv_weights_over_model(runs, mesh, name):
                 spec = spec[1:]
             leaf = path.rsplit("/", 1)[-1]
             region = region_of(path)
+            kind = None if region is None else REGIONS[region.split("/")[-1]]
             over_model = region is None or (
-                kv_whole and REGIONS[region.split("/")[-1]] == "attn"
-                and leaf in ("wk", "wv", "bk", "bv"))
+                kv_whole and kind == "attn"
+                and leaf in ("wk", "wv", "bk", "bv")) or (
+                kind == "ssm" and not kinds["ssm"])
             want = [d if over_model or "model" not in axes_of(part)
                     else d // m for d, part in zip(whole, spec)]
             assert shape == want, (path, shape, want)
@@ -544,31 +612,38 @@ def _decode_attn_calls(cfg, m: int):
     return [own] * sum(k == "attn" for k in cfg.pattern) * cfg.n_blocks
 
 
-def _decode_activation_bytes(cfg, m: int, b: int) -> int:
-    """The bytes a decode step's attention gathers over ``model`` (f32):
-    the query and the output [b, 1, H, Dh] of each call, and the new K
-    row [b, 1, KV, Dh] of each self-attention."""
+def _decode_activation_bytes(cfg, m: int, b: int, split: bool) -> int:
+    """The bytes a decode step gathers over ``model`` (f32) that are not
+    weights: the query and the output [b, 1, H, Dh] of each attention
+    call, the new K row [b, 1, KV, Dh] of each self-attention, and the new
+    ``xs_raw`` row [b, 1, d_inner] of each SSM mixer on its heads
+    (``split``)."""
     heads = int(cfg.n_heads % m == 0)
     q_out = (heads + 1) * b * cfg.n_heads * cfg.d_head * 4
     kv = b * cfg.n_kv_heads * cfg.d_head * 4
     n_self = (cfg.n_layers if cfg.is_encoder_decoder else
               sum(k == "attn" for k in cfg.pattern) * cfg.n_blocks)
     n_cross = cfg.n_layers if cfg.is_encoder_decoder else 0
-    return n_self * (q_out + kv) + n_cross * q_out
+    n_ssm = sum(k == "mamba" for k in cfg.pattern) * cfg.n_blocks
+    xs = b * _ssm_inner(cfg) * 4 if split else 0
+    return n_self * (q_out + kv) + n_cross * q_out + n_ssm * xs
 
 
 @pytest.mark.parametrize("mesh,name", CASES, ids=IDS)
 def test_decode_attention_computes_on_the_head_dim_shard(runs, mesh, name):
     """The first decode step: every attention leaf its gathers return is
-    ``model``-local (its head_dim, or its heads), no gather is tagged as a
-    cache's, the all-gathers over ``model`` move exactly the attention's
-    new K rows, queries and outputs and the weights of the SSM mixers (the only
-    leaves gathered over ``model``), and each attention call issues the
-    collectives over ``model`` of :func:`_decode_attn_calls`."""
+    ``model``-local (its head_dim, or its heads), and every SSM mixer leaf
+    but ``conv_x`` and ``conv_x_b`` (the only leaves gathered over
+    ``model``); no gather is tagged as a cache's, the all-gathers over
+    ``model`` move exactly the attention's new K rows, queries and
+    outputs, the SSM mixers' new ``xs_raw`` rows and those two leaves, and
+    each attention call issues the collectives over ``model`` of
+    :func:`_decode_attn_calls`."""
     _, cfg = _cfgs(name)
     d, m = MESHES[mesh]
     specs = _serve_specs(mesh, name, decode=True)
     b = TH.SERVE_SHAPE[3] // d
+    split = _serve_kinds(name, cfg, m)["ssm"]
     for out in runs[mesh]:
         rec = json.loads(str(out[f"{name}|serve_record"]))["decode"]
         assert rec["tagged"] == {}
@@ -581,22 +656,90 @@ def test_decode_attention_computes_on_the_head_dim_shard(runs, mesh, name):
             if len(spec) == len(whole) + 1:
                 spec = spec[1:]
             region = region_of(path)
-            if region is not None and REGIONS[region.split("/")[-1]] == \
-                    "attn":
+            kind = None if region is None else REGIONS[region.split("/")[-1]]
+            # an SSM mixer on its heads takes conv_x, conv_x_b whole
+            whole_ssm = kind == "ssm" and (not split or path.rsplit(
+                "/", 1)[-1] in ("conv_x", "conv_x_b"))
+            if kind == "attn" or (kind == "ssm" and not whole_ssm):
                 want = [n // m if "model" in axes_of(part) else n
                         for n, part in zip(whole, spec)]
                 assert shape == want, (path, shape, want)
-            elif region is None and any("model" in axes_of(part)
-                                        for part in spec):
+            elif (region is None or whole_ssm) and any(
+                    "model" in axes_of(part) for part in spec):
                 assert shape == whole, (path, shape, whole)
-                # gathered over model first: its shard times m, f32
+                # gathered over model first (once a block): its shard
+                # times m, f32
                 weights += 4 * int(np.prod(whole)) // int(np.prod(
                     [_sizes(mesh)[a] for part in spec for a in axes_of(part)
-                     if a != "model"]))
+                     if a != "model"])) * (cfg.n_blocks if path.startswith(
+                         "blocks/") else 1)
         assert rec["model_all_gather_bytes"] == weights + \
-            _decode_activation_bytes(cfg, m, b), (rec, weights)
+            _decode_activation_bytes(cfg, m, b, split), (rec, weights)
         if "mamba" not in cfg.pattern:
             assert weights == 0
+
+
+SSM_CASES = [(m, n) for m, n in CASES if n in SSM]
+
+
+@pytest.mark.parametrize("mesh,name", SSM_CASES,
+                         ids=[f"{m}-{n}" for m, n in SSM_CASES])
+def test_decode_ssm_state_is_the_same_bits_on_every_model_rank(runs, mesh,
+                                                               name):
+    """Each SSM layer's state and conv tail after the decode steps, which
+    ``model`` replicates: every ``model`` rank of a batch slice advanced
+    them from the same inputs, so they are the same bits."""
+    _, cfg = _cfgs(name)
+    by_data = {}
+    for out in runs[mesh]:
+        d = _rank_mesh(mesh, out).coords["data"]
+        keys = sorted(k for k in out if k.startswith(f"{name}|ssm_"))
+        assert keys
+        by_data.setdefault(d, []).append({k: out[k] for k in keys})
+    for ranks in by_data.values():
+        for other in ranks[1:]:
+            assert all(np.array_equal(ranks[0][k], other[k]) for k in other)
+
+
+NORM_CASES = [(m, r) for m in MESHES for r in ("plain", "function")]
+
+
+@pytest.fixture(scope="module")
+def norm_want():
+    """The whole-row norm of the split norm's inputs: the port's plain
+    version under autograd, and the reference's ``rmsnorm`` under
+    ``jax.vjp``; (y, dx, dw) each."""
+    from repro.models.layers import rmsnorm as jrmsnorm
+    from repro_torch.kernels import ref
+    inp = _norm_inputs()
+    x = torch.from_numpy(inp["norm|x"]).requires_grad_()
+    w = torch.from_numpy(inp["norm|w"]).requires_grad_()
+    y = ref.rmsnorm_ref(x.reshape(-1, TH.NORM_D), w,
+                        eps=TH.NORM_EPS).reshape(x.shape)
+    dx, dw = torch.autograd.grad(y, (x, w), torch.from_numpy(inp["norm|dy"]))
+    jy, vjp = jax.vjp(lambda a, b: jrmsnorm(a, b, TH.NORM_EPS),
+                      jnp.asarray(inp["norm|x"]), jnp.asarray(inp["norm|w"]))
+    jdx, jdw = vjp(jnp.asarray(inp["norm|dy"]))
+    return {"port": (y.detach().numpy(), dx.numpy(), dw.numpy()),
+            "reference": tuple(np.asarray(t) for t in (jy, jdx, jdw))}
+
+
+@pytest.mark.parametrize("mesh,route", NORM_CASES,
+                         ids=[f"{m}-{r}" for m, r in NORM_CASES])
+def test_split_gated_norm_matches_the_whole_row(runs, norm_want, mesh,
+                                                route):
+    """``ModelAxis.rmsnorm`` on each rank's block of the columns: its y,
+    dx and dw the whole-row norm's columns within 2e-5, the port's and the
+    reference's."""
+    m = MESHES[mesh][1]
+    for out in runs[mesh]:
+        r = _rank_mesh(mesh, out).coords["model"]
+        cols = slice(r * TH.NORM_D // m, (r + 1) * TH.NORM_D // m)
+        for who, want in norm_want.items():
+            for k, w in zip(("y", "dx", "dw"), want):
+                np.testing.assert_allclose(
+                    out[f"norm|{route}|{k}"], w[..., cols], rtol=2e-5,
+                    atol=2e-5, err_msg=f"{who} {k}")
 
 
 def test_long_decode_matches_unsharded(runs):

@@ -11,8 +11,9 @@ it holds to ``OUT.rank{RANK}.npz``:
   whole params in the inputs, cut to this rank's shards, for every batch
   of the inputs (this rank's rows of each); its loss, grad norm, and its
   shards of the params and optimizer state after the last step.  On a
-  ``model`` axis of more than one rank mamba2's embeddings and loss are
-  computed whole (``WHOLE_VOCAB``; ``test_torch_fsdp.py`` says why).  With
+  ``model`` axis of more than one rank mamba2's embeddings and loss
+  (``WHOLE_VOCAB``) and its SSM mixers (``WHOLE_MIXER``) are computed
+  whole (``test_torch_fsdp.py`` says why).  With
   ``count_gathers`` the gathers report every leaf they return, and the
   largest number of elements alive at once is written.
 - ``serve``: the sharded prefill of the inputs' prompts, the caches
@@ -42,6 +43,12 @@ FACTOR_MIN = 32
 # the architectures whose vocab-parallel sublayers the train job computes
 # whole on a model axis of more than one rank
 WHOLE_VOCAB = ("mamba2-780m",)
+# ... and whose SSM mixers it computes whole there: on their ssm_inner
+# shard (the gated norm's row sums and out_proj summed over model) the
+# three-step Adam moment of mamba2's D moves 2.2e-6 at (1, 2) and 2.0e-6 at
+# (2, 2) from the unsharded step's, past this file's 1e-4 of its max
+# (1.35e-6); test_torch_tp.py holds that route at its first step
+WHOLE_MIXER = ("mamba2-780m",)
 
 
 def smoke_cfg(arch):
@@ -79,10 +86,11 @@ def train(job, mesh, inputs, out, states):
     fn, (p_specs, o_specs, b_specs), _, _ = steps.make_train_step(
         cfg, opt, mesh, multi_pod="pod" in mesh.shape,
         microbatches=job.get("microbatches", 1))
-    if job["arch"] in WHOLE_VOCAB and mesh.shape["model"] > 1:
-        tp = fn.sharded.tp
+    if mesh.shape["model"] > 1:
+        tp, arch = fn.sharded.tp, job["arch"]
         fn.sharded.tp = lambda path: (
-            None if path in ("tok_embed", "unembed") else tp(path))
+            None if (arch in WHOLE_VOCAB and path in ("tok_embed", "unembed"))
+            or (arch in WHOLE_MIXER and path.endswith("/ssm")) else tp(path))
     full = _torch(inputs, f"{job['arch']}|params|")
     params = steps.as_trainable(shard_tree(full, p_specs, mesh))
     state = shard_tree(opt.init(full), o_specs, mesh)

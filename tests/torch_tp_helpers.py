@@ -12,8 +12,8 @@ holds to ``OUT.rank{RANK}.npz``:
   ``loss_and_grads`` on the first batch (this rank's shards of every
   leaf's gradient), recording what the sublayers compute: the shape of
   every leaf a gather returns, the heads of each ``ops.flash_attention``
-  call, the rows, groups and kept rows of each ``ops.grouped_matmul``
-  call, and the collectives by axis.  Then a step on each batch: the loss,
+  and ``ops.ssd_scan`` call, the rows, groups and kept rows of each
+  ``ops.grouped_matmul`` call, and the collectives by axis.  Then a step on each batch: the loss,
   the grad norm, and the shards of the params and optimizer state after
   the last.
 - ``serve``: the sharded prefill of the inputs' prompts (its logits,
@@ -24,7 +24,13 @@ holds to ``OUT.rank{RANK}.npz``:
   the shape of every leaf its gathers return, its collectives by axis,
   each attention call's collectives over ``model``, and its bytes under a
   ``launch.roofline.Counter`` (all-gathers over ``model``, and those
-  tagged as a cache's).
+  tagged as a cache's).  After the last decode step, each SSM layer's
+  state and conv tail (this rank's rows).
+- ``norm``: the split gated norm (``parallel.tp.ModelAxis.rmsnorm``) of
+  the inputs' rows on this rank's block of their columns, forward and
+  backward, on both of its routes: the plain one that CPU tensors take,
+  and the kernels' ``autograd.Function`` (whose wrappers give their plain
+  versions on the CPU).
 - ``long``: long decode (global batch 1, the cache's sequence cut over
   the batch axes) of a config with a window: the unsharded prefill's
   caches cut into the serve step's layout, then a decode step for each of
@@ -52,7 +58,19 @@ CONFIGS = {
     # a vocab that no model axis of 2 or 4 divides: the embeddings and the
     # loss stay whole beside tensor-parallel attention and MoE
     "granite-v255": ("granite-moe-1b-a400m", {"vocab_size": 255}),
+    # last, so that the configs before it keep their inputs
+    "mamba2": ("mamba2-780m", {}),
 }
+# the configs whose serve job computes its SSM mixers whole (``Sharded``
+# without ``ssm_dims``): in jamba's ill-conditioned f32 smoke model the two
+# sums a mixer on its ssm_inner shard reorders (its gated norm's row sums,
+# its out_proj over model) move the logits by up to 2.25e-5 in one process
+# with no sharding, past the serving test's 2e-5, and mamba2's by under
+# 4e-6 (``torch_tp_witness.py`` part 3).  So mamba2 holds that route's
+# serving at 2e-5, and jamba's training runs it (held at its first step)
+WHOLE_SSM_SERVE = ("jamba",)
+# the split gated norm's rows: [2, 5, NORM_D], columns over model
+NORM_D, NORM_EPS = 96, 1e-6
 # long decode only: jamba's attention layers with a window
 LONG = {"jamba-w16": ("jamba-1.5-large-398b", {"sliding_window": 16})}
 
@@ -82,28 +100,36 @@ def _put(out, prefix, tree):
 
 
 class Calls:
-    """Records the kernels' calls: ``attn`` (q heads, kv heads) and
-    ``gmm`` (rows, groups, rows the groups cover)."""
+    """Records the kernels' calls: ``attn`` (q heads, kv heads), ``gmm``
+    (rows, groups, rows the groups cover) and ``ssd`` (the heads of each
+    ``ops.ssd_scan``)."""
 
     def __init__(self):
         from repro_torch.kernels import ops
-        self.ops, self.attn, self.gmm = ops, [], []
-        self._fa, self._gmm = ops.flash_attention, ops.grouped_matmul
+        self.ops, self.attn, self.gmm, self.ssd = ops, [], [], []
+        self._fns = {n: getattr(ops, n) for n in (
+            "flash_attention", "grouped_matmul", "ssd_scan")}
 
     def __enter__(self):
         def fa(q, k, v, **kw):
             self.attn.append((q.shape[2], k.shape[2]))
-            return self._fa(q, k, v, **kw)
+            return self._fns["flash_attention"](q, k, v, **kw)
 
         def gmm(lhs, rhs, offsets):
             self.gmm.append((lhs.shape[0], rhs.shape[0], int(offsets[-1])))
-            return self._gmm(lhs, rhs, offsets)
+            return self._fns["grouped_matmul"](lhs, rhs, offsets)
+
+        def ssd(x, *args, **kw):
+            self.ssd.append(x.shape[2])
+            return self._fns["ssd_scan"](x, *args, **kw)
 
         self.ops.flash_attention, self.ops.grouped_matmul = fa, gmm
+        self.ops.ssd_scan = ssd
         return self
 
     def __exit__(self, *exc):
-        self.ops.flash_attention, self.ops.grouped_matmul = self._fa, self._gmm
+        for n, fn in self._fns.items():
+            setattr(self.ops, n, fn)
 
 
 class AttnCalls:
@@ -187,7 +213,7 @@ def train(name, mesh, inputs, out, steps_n):
     fn.sharded.gather = gather
     out[f"{name}|train_record"] = np.asarray(json.dumps({
         "shapes": shapes, "attn": calls.attn, "gmm": calls.gmm,
-        "collectives": mesh.axis_collectives}))
+        "ssd": calls.ssd, "collectives": mesh.axis_collectives}))
     _put(out, f"{name}|g|", grads)
     for i in range(steps_n):
         params, state, m = fn(params, state,
@@ -211,6 +237,8 @@ def serve(name, mesh, inputs, out):
         cfg, mesh, shape)
     dec, (p_dec, t_spec, c_dec), _, _ = steps.make_serve_step(cfg, mesh,
                                                               shape)
+    if name in WHOLE_SSM_SERVE:
+        pre.sharded.ssm_dims = dec.sharded.ssm_dims = None
     full = _torch(inputs, f"{name}|params|")
     batch = {"inputs": torch.from_numpy(inputs[f"{name}|prompts"])}
     if f"{name}|enc_embeds" in inputs:
@@ -222,7 +250,7 @@ def serve(name, mesh, inputs, out):
         logits, caches = pre(shard_tree(full, p_specs, mesh),
                              shard_tree(batch, b_specs, mesh))
     pre.sharded.gather = gather
-    record = {"attn": calls.attn, "shapes": pre_shapes,
+    record = {"attn": calls.attn, "ssd": calls.ssd, "shapes": pre_shapes,
               "collectives": json.loads(json.dumps(mesh.axis_collectives))}
     out[f"{name}|prefill"] = logits.numpy()
     out[f"{name}|greedy0"] = greedy_tokens(logits, l_spec, mesh).numpy()
@@ -249,7 +277,35 @@ def serve(name, mesh, inputs, out):
         out[f"{name}|decode{i}"] = logits.numpy()
         out[f"{name}|greedy{i + 1}"] = greedy_tokens(logits, l_spec,
                                                      mesh).numpy()
+    for cname, c in (caches.items() if isinstance(caches, dict) else ()):
+        if hasattr(c, "state"):
+            out[f"{name}|ssm_state|{cname}"] = c.state.numpy()
+            out[f"{name}|ssm_conv|{cname}"] = c.conv.numpy()
     out[f"{name}|serve_record"] = np.asarray(json.dumps(record))
+
+
+def split_norm(mesh, inputs, out):
+    """The split gated norm of ``norm|x`` (weights ``norm|w``, output
+    gradient ``norm|dy``) on this rank's block of the columns: y, dx, dw
+    of the plain route and of the kernels' ``autograd.Function``."""
+    import torch
+    from repro_torch.parallel.tp import ModelAxis, _SplitRmsNorm
+
+    axis = ModelAxis(mesh)
+    lo, hi = axis.local_range(NORM_D)
+    x, w, dy = (torch.from_numpy(inputs[f"norm|{k}"])[..., lo:hi]
+                for k in ("x", "w", "dy"))
+    routes = {
+        "plain": lambda a, b: axis.rmsnorm(a, b, NORM_EPS),
+        "function": lambda a, b: _SplitRmsNorm.apply(
+            axis, a.reshape(-1, hi - lo), b, NORM_D, NORM_EPS).reshape(
+                a.shape)}
+    for route, fn in routes.items():
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xr, wr)
+        dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+        for k, t in (("y", y), ("dx", dx), ("dw", dw)):
+            out[f"norm|{route}|{k}"] = t.detach().numpy()
 
 
 def long_decode(name, mesh, inputs, out):
@@ -301,6 +357,8 @@ def main(rank, world, store_path, plan_path, inputs_path, out_path):
         for name in plan["configs"]:
             train(name, mesh, inputs, out, plan["steps"])
             serve(name, mesh, inputs, out)
+        if plan.get("norm"):
+            split_norm(mesh, inputs, out)
         for name in plan.get("long", ()):
             long_decode(name, mesh, inputs, out)
     np.savez(f"{out_path}.rank{rank}.npz", **out)

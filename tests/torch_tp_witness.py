@@ -18,6 +18,13 @@ and the whole-vocab mamba2 of ``test_torch_fsdp.py``.  Not a test module
    reference (``repro.models.api.loss_fn``), with every element of the
    embedding table moved up one ulp: the largest change of each side (of
    each leaf's max), beside the port's distance from the reference.
+3. **The SSM mixers' sums reordered in serving.**  jamba's and mamba2's
+   unsharded prefill and decode steps on ``test_torch_tp.py``'s prompts
+   and tokens, as they are and with each SSM mixer's gated norm summing
+   its rows' squares over ``m`` column blocks and its ``out_proj`` summing
+   over ``m`` row blocks, the two sums a mixer on its ``ssm_inner`` shard
+   takes over ``model``: each step's largest logit change beside the
+   serving test's 2e-5 (``torch_tp_helpers.WHOLE_SSM_SERVE``).
 """
 import sys
 
@@ -32,8 +39,12 @@ import jax.numpy as jnp  # noqa: E402
 import test_torch_fsdp as FT  # noqa: E402
 import test_torch_tp as TT  # noqa: E402
 from repro.models import api as japi  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import ssd  # noqa: E402
 from repro_torch.weights import flatten, from_jax_params  # noqa: E402
 
 MOVE_BOUND, STATE_BOUND = 2e-2, 1e-4
@@ -149,9 +160,55 @@ def ulp_witness(name="jamba"):
           f"{_worst(p0, r0, _leaf_max):.2e}", flush=True)
 
 
+def _blocked_gated_norm(blocks):
+    """``ssd._gated_norm`` whose row sums of squares and ``out_proj`` sum
+    run over ``blocks`` column (row) blocks, in order."""
+    def gated_norm(p, cfg, y, z, tp=None):
+        g = (y * F.silu(z)).reshape(-1, y.shape[-1])
+        K = g.shape[-1]
+        cut = [slice(i * K // blocks, (i + 1) * K // blocks)
+               for i in range(blocks)]
+        xf = g.float()
+        ss = sum(kref.rmsnorm_part_ref(xf[:, c]) for c in cut)
+        n = kref.rmsnorm_scale_ref(xf, p["norm"], ss, K, cfg.norm_eps).to(
+            y.dtype).reshape(y.shape)
+        w = p["out_proj"].to(n.dtype)
+        return sum(n[..., c] @ w[c] for c in cut)
+    return gated_norm
+
+
+def serve_witness():
+    inputs, _ = TT._inputs()
+    for name in TT.SSM:
+        _, cfg = TT._cfgs(name)
+        params = api.cast_for_serving(cfg, TT._params(inputs, name))
+        prompts = torch.from_numpy(inputs[f"{name}|prompts"])
+        base, toks = TT._serve_unsharded(name, inputs)
+        s_max = prompts.shape[1] + steps.sp.DECODE_MARGIN
+        for m in (2, 4):
+            plain, ssd._gated_norm = ssd._gated_norm, _blocked_gated_norm(m)
+            try:
+                with torch.no_grad():
+                    logits, caches = api.prefill(cfg, params,
+                                                 {"inputs": prompts}, s_max)
+                    got = [logits.numpy()]
+                    for tok in toks:
+                        logits, caches = api.decode_step(
+                            cfg, params, torch.from_numpy(tok), caches)
+                        got.append(logits.numpy())
+            finally:
+                ssd._gated_norm = plain
+            errs = [float(np.abs(g - w).max()) for g, w in zip(got, base)]
+            print(f"serve {name:8s} m {m}: largest logit change, prefill "
+                  f"then each decode step: " + ", ".join(
+                      f"{e:.2e}" for e in errs) + " (bound 2e-5)", flush=True)
+
+
 if __name__ == "__main__":
-    which = sys.argv[1:] or ["reorder", "ulp"]
+    which = sys.argv[1:] or ["reorder", "ulp", "serve"]
     if "reorder" in which:
         reorder_witness()
     if "ulp" in which:
         ulp_witness()
+    if "serve" in which:
+        serve_witness()
