@@ -64,6 +64,18 @@ exits non-zero:
     queued behind a spin kernel): 2 ms of host time before an empty launch
     must stay out of it.  The time of an empty launch, taken the same way,
     gives each window's launch share;
+(k) run right after (e): the port's simulator (``repro_torch.core``,
+    ``repro_torch.workloads.derive`` and ``.replay``; host code in numpy,
+    no torch) on the card's windows.  Each of (e)'s four profiles is
+    derived into 4 decode steps and replayed through persistent Link TLBs
+    on both engines, whose ``StepStats`` must be the same bits: each
+    step's comm, ideal and compute us, degradation, walks and requests,
+    and the cold and steady degradation (granite: cold above steady, no
+    walk from token 1 on).  The Fig. 4/5 points (1 MB at 8, 16 and 64
+    GPUs) and Fig. 14's single-Clos rows, on both engines, must equal the
+    reference's golden numbers (``SIM_FIG45``, ``SIM_FIG14``).  Then both
+    engines are timed on the host at the largest replay (host time, on the
+    CPU named from ``/proc/cpuinfo``);
 (f) training on the card.  The backward kernels (rmsnorm_bwd,
     flash_attention_bwd from the forward's row logsumexp, grouped_matmul_dx
     reading W^T in place and grouped_matmul_dw) against
@@ -254,6 +266,16 @@ SERVING = (ARCH, SSM_ARCH, DENSE_ARCH, ENCDEC_ARCH, VLM_ARCH)
 CAL_ARCHS = ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b", "mamba2-780m",
              "qwen3-1.7b")
 CAL_SHAPE, CAL_GPUS, CAL_REPS = "decode_32k", 16, 20
+# phase (k): decode steps replayed per profile, and the simulator's golden
+# numbers (the reference's tests/test_golden_figs.py): Fig. 4/5 at 1 MB,
+# (n_gpus) -> (baseline ns, ideal ns, requests, walks), and Fig. 14's
+# single-Clos rows at 1 MB, two iterations, (n_gpus) -> (cold ns, warm ns,
+# ideal cold ns, ideal warm ns, walks)
+SIM_STEPS = 4
+SIM_FIG45 = {8: (3890.0, 2762.32, 3584, 1), 16: (3890.0, 2802.0, 3840, 1),
+             64: (3890.0, 2825.04, 4032, 1)}
+SIM_FIG14 = {16: (3890.0, 2852.0, 2802.0, 2802.0, 1),
+             64: (3890.0, 2875.04, 2825.04, 2825.04, 1)}
 BATCH, PROMPT, TOKENS = 8, 512, 32
 PROMPTS = {ENCDEC_ARCH: 224}          # whisper's decoder prompt; else PROMPT
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1347,7 +1369,7 @@ def layerwise_decode_vs_prefill(torch, cfg, params, seq, start: int) -> None:
 # ------------------------------------------------------------ phase (e)
 def calibration_profiles(torch, dev):
     """The calibration harness on the card for CAL_ARCHS; returns the
-    launch counts of its runs, by kernel."""
+    launch counts of its runs, by kernel, and the profiles, by arch."""
     from repro_torch.kernels import ops
     from repro_torch.workloads.calibrate import (
         ComputeProfile, _time_call, calibrate, default_cache_path)
@@ -1366,6 +1388,7 @@ def calibration_profiles(torch, dev):
     if not host_ns < 2e5:
         raise AssertionError("calibration windows hold host time")
     total = {name: 0 for name in ops.LAUNCHES}
+    profiles = {}
     for arch in CAL_ARCHS:
         path = default_cache_path(arch, CAL_SHAPE, CAL_GPUS, root=root)
         ops.reset_launches()
@@ -1404,7 +1427,102 @@ def calibration_profiles(torch, dev):
             f"layers*roofline {roof:.6f} ns")
         for name in total:
             total[name] += launches[name]
-    return total
+        profiles[arch] = prof
+    return total, profiles
+
+
+# ------------------------------------------------------------ phase (k)
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` names it: its model name (which a
+    virtual machine may give as "unknown"), vendor, family and model, and
+    the logical CPUs and their clock."""
+    info, n = {}, 0
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, value = line.partition(":")
+        key = key.strip()
+        n += key == "processor"
+        info.setdefault(key, value.strip())
+    return (f"{info.get('model name', '?')} ({info.get('vendor_id', '?')} "
+            f"family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')}, {n} logical CPUs at "
+            f"{info.get('cpu MHz', '?')} MHz)")
+
+
+def simulator_path(profiles) -> None:
+    """Phase (k): (e)'s profiles through the port's simulator on both
+    engines, the simulator's goldens, and the engines' host times."""
+    from repro_torch.core import ratsim
+    from repro_torch.core.config import MB, FabricConfig, SimConfig
+    from repro_torch.workloads.derive import derive_workload, pod_fabric
+    from repro_torch.workloads.replay import replay
+
+    t0 = time.perf_counter()
+    cpu = host_cpu()
+    largest = None
+    for arch in CAL_ARCHS:
+        prof = profiles[arch]
+        trace = derive_workload(arch, CAL_SHAPE, n_gpus=CAL_GPUS,
+                                n_steps=SIM_STEPS, compute_profile=prof)
+        reps, secs = {}, {}
+        for engine in ("event", "vectorized"):
+            cfg = SimConfig(fabric=pod_fabric(trace.pod), engine=engine)
+            t = time.perf_counter()
+            reps[engine] = replay(trace, cfg=cfg, compute_profile=prof)
+            secs[engine] = time.perf_counter() - t
+        rep = reps["event"]
+        if reps["vectorized"].steps != rep.steps:
+            raise AssertionError(f"{arch}: the engines' StepStats differ")
+        log("k", f"{arch} {CAL_SHAPE} g{CAL_GPUS} on (e)'s windows: "
+            f"{len(trace.calls)} calls, both engines the same bits")
+        log("k", "  step,comm_us,ideal_us,compute_us,degradation,walks,"
+            "requests")
+        for st in rep.steps:
+            log("k", f"  {st.step},{st.comm_ns / 1e3!r},"
+                f"{st.ideal_comm_ns / 1e3!r},{st.compute_ns / 1e3!r},"
+                f"{st.degradation!r},{st.walks},{st.requests}")
+        log("k", f"  cold {rep.cold_degradation!r}, steady "
+            f"{rep.steady_degradation!r}")
+        # mamba2's windows are 0: the reference's roofline prices mixers
+        # by attention and FFN parameters, and it has neither
+        if not all(math.isfinite(st.degradation) and st.degradation >= 1.0
+                   and st.compute_ns >= 0 for st in rep.steps):
+            raise AssertionError(f"{arch}: a step is not a degradation")
+        if arch == ARCH and not (
+                rep.cold_degradation > rep.steady_degradation
+                and all(st.walks == 0 for st in rep.steps[1:])):
+            raise AssertionError(f"{arch}: warm TLBs did not win back the "
+                                 f"cold walks")
+        if largest is None or len(trace.calls) > largest[1]:
+            largest = (arch, len(trace.calls), secs)
+    for n, (base, ideal, reqs, walks) in SIM_FIG45.items():
+        for engine in ("event", "vectorized"):
+            c = ratsim.compare(1 * MB, n, engine=engine)
+            got = (c.baseline.completion_ns, c.ideal.completion_ns,
+                   c.baseline.counters.requests, c.baseline.counters.walks)
+            if got != (base, ideal, reqs, walks):
+                raise AssertionError(f"Fig. 4/5 at {n} GPUs ({engine}): "
+                                     f"{got} != {(base, ideal, reqs, walks)}")
+    for n, want in SIM_FIG14.items():
+        for engine in ("event", "vectorized"):
+            cfg = SimConfig(fabric=FabricConfig(
+                n_gpus=n, leaf_size=16, oversubscription=2.0, pod_size=16),
+                iterations=2, engine=engine)
+            c = ratsim.compare(1 * MB, n, cfg=cfg)
+            b, i = c.baseline.iterations, c.ideal.iterations
+            got = (b[0].completion_ns, b[1].completion_ns,
+                   i[0].completion_ns, i[1].completion_ns,
+                   c.baseline.counters.walks)
+            if got != want:
+                raise AssertionError(f"Fig. 14 single_clos at {n} GPUs "
+                                     f"({engine}): {got} != {want}")
+    log("k", f"goldens: Fig. 4/5 at 1 MB on {sorted(SIM_FIG45)} GPUs and "
+        f"Fig. 14 single_clos on {sorted(SIM_FIG14)}, both engines exact")
+    arch, n_calls, secs = largest
+    log("k", f"engines at the largest replay ({arch}, {n_calls} calls, "
+        f"{SIM_STEPS} steps and its ideal twin), host time on {cpu}: "
+        f"event {secs['event']:.3f} s, vectorized "
+        f"{secs['vectorized']:.3f} s ({secs['event'] / secs['vectorized']:.2f}x)")
+    log("k", f"phase (k) took {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ phase (f)
@@ -3428,7 +3546,8 @@ def main() -> int:
     whole_model_checks(torch, dev, VLM_ARCH, (16,), 4)
     whole_model_checks(torch, dev, DENSE_ARCH, (200,), 80, window=20)
     log("d", f"(a) to (d) {time.perf_counter() - t_start:.1f} s")
-    by_path["calibrate"] = calibration_profiles(torch, dev)
+    by_path["calibrate"], profiles = calibration_profiles(torch, dev)
+    simulator_path(profiles)
     for name in build.KERNELS:
         if not any(by_path[arch][name] for arch in SERVING):
             raise AssertionError(f"{name}: no serving path launched it")

@@ -15,10 +15,10 @@ versions of the kernels.
     PYTHONPATH=src torchrun --nproc-per-node 4 \\
         examples/moe_scheduled_a2a_torch.py --device cpu
 
-``--plan PATH`` reads a ``CollectivePlan`` JSON, which the reference's
-scheduler writes (``json.dumps(dataclasses.asdict(
-TranslationAwareScheduler(8).plan_all_to_all(nbytes)))``); without it the
-plan is a warm-up of an eighth of the buffer and 2 chunks.
+``--plan PATH`` reads a ``CollectivePlan`` JSON, which the port's
+scheduler writes (``repro_torch.core.TranslationAwareScheduler(8)
+.plan_all_to_all(nbytes).to_json()``); without it the plan is a warm-up
+of an eighth of the buffer and 2 chunks.
 """
 import argparse
 import os

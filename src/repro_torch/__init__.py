@@ -3,8 +3,8 @@
 The package mirrors ``repro``'s module names (``models.layers``,
 ``models.moe``, ``kernels.ops`` ...) so each counterpart is easy to find,
 but it imports nothing of ``repro`` and never imports jax: what it needs
-from the jax-free half (``ModelConfig``, the config registry) it keeps as
-its own copy.  Submodules load lazily, so ``import repro_torch`` stays
+from the jax-free half (``ModelConfig``, the config registry, the RAT
+simulator in ``core`` and ``workloads``) it keeps as its own copy.  Submodules load lazily, so ``import repro_torch`` stays
 cheap and imports no torch either.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import importlib
 
-__all__ = ["checkpoint", "configs", "data", "device", "kernels", "launch",
-           "models", "optim", "runtime", "weights", "workloads"]
+__all__ = ["checkpoint", "configs", "core", "data", "device", "kernels",
+           "launch", "models", "optim", "runtime", "weights", "workloads"]
 
 
 def __getattr__(name: str):

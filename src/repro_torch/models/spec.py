@@ -3,28 +3,28 @@
 The port imports nothing of ``repro``, so :class:`ModelConfig` is copied
 here field for field (same names, same defaults); the parity tests build
 both from the same registry entry and would notice a drift.  ``dtype`` and
-``param_dtype`` stay dtype *names*; :func:`torch_dtype` maps them.
+``param_dtype`` stay dtype *names*; :func:`torch_dtype` maps them.  The
+module imports torch only inside :func:`torch_dtype`, so the config
+registry loads without it (the simulator's replay path is torch-free).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import TYPE_CHECKING, Any, Tuple
 
-import torch
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    import torch
 
-_DTYPES = {
-    "float32": torch.float32,
-    "bfloat16": torch.bfloat16,
-}
+_DTYPES = ("float32", "bfloat16")
 
 
 def torch_dtype(name) -> torch.dtype:
     """Map a dtype name ("bfloat16" or "float32") to a torch dtype."""
-    try:
-        return _DTYPES[str(name)]
-    except KeyError:
-        raise ValueError(f"unsupported dtype name {name!r}") from None
+    if str(name) not in _DTYPES:
+        raise ValueError(f"unsupported dtype name {name!r}")
+    import torch
+    return getattr(torch, str(name))
 
 
 @dataclass(frozen=True)

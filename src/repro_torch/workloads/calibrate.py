@@ -5,9 +5,8 @@ hand-written kernels (``rmsnorm`` + ``flash_attention`` for attention
 mixers, ``ssd_scan``'s ``ssd_chunk`` for SSM mixers, ``grouped_matmul``
 for MoE and dense FFNs) over capped slices of each phase's shapes, and
 writes a :class:`ComputeProfile`: one calibrated window per ``(arch,
-shape, phase)``.  The JSON is the reference's byte for byte, so the
-jax-free ``python -m repro.workloads --profile`` and its serving layers
-read it unchanged.
+shape, phase)``.  The JSON is the reference's byte for byte, so either
+package's ``--profile`` replay reads the other's profile unchanged.
 
 Calibration model (roofline-anchored relative timing), as the reference:
 
@@ -31,6 +30,10 @@ describes.  On the CPU, which
 only the tests ask for, the kernels' plain versions run, the clock is
 ``time.perf_counter`` and the profile says ``interpret=True``: those are
 not hardware kernel times.
+
+Module import is torch-free (profiles load on the simulator's replay
+path, which imports no torch); the measurers import torch and the kernel
+tier when they run.
 """
 from __future__ import annotations
 
@@ -40,16 +43,16 @@ import math
 import time
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 import numpy as np
-import torch
 
 from ..configs import SHAPES, get_config
-from ..device import resolve_device
-from ..kernels import ops
-from .derive import (PodSpec, _layer_is_moe, layer_roofline_ns, resolve_pod,
-                     step_shape)
+from .derive import (PodSpec, ffn_phase, layer_roofline_ns, mixer_phase,
+                     resolve_pod, step_shape)
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    import torch
 
 # v2: per-phase `layers` multiplicity entered the anchor normalization —
 # v1 caches carry unweighted calibrated windows and must be re-measured.
@@ -154,22 +157,6 @@ def default_cache_path(arch: str, shape: str, n_gpus: int,
 
 
 # --------------------------------------------------------------------------
-# Phase naming shared with derive.py (duck-typed configs default to attn).
-# --------------------------------------------------------------------------
-def layer_kind(cfg, i: int) -> str:
-    pattern = getattr(cfg, "layer_pattern", ()) or ("attn",)
-    return pattern[i % len(pattern)]
-
-
-def mixer_phase(cfg, i: int) -> str:
-    return "attn_mixer" if layer_kind(cfg, i) == "attn" else "ssm_mixer"
-
-
-def ffn_phase(cfg, i: int) -> str:
-    return "moe_ffn" if _layer_is_moe(cfg, i) else "dense_ffn"
-
-
-# --------------------------------------------------------------------------
 # Measurement harness
 # --------------------------------------------------------------------------
 def _time_call(fn, reps: int, device: torch.device) -> float:
@@ -182,6 +169,8 @@ def _time_call(fn, reps: int, device: torch.device) -> float:
     passed before its end event was queued is not kept, and the spin is
     doubled for the next; so ``fn`` runs ``reps + 1`` times whatever the
     host does.  On the CPU, the host clock."""
+    import torch
+
     fn()                                   # build at first use, warm caches
     best = math.inf
     if device.type == "cuda":
@@ -214,6 +203,8 @@ def _time_call(fn, reps: int, device: torch.device) -> float:
 
 
 def _generator(device: torch.device, seed: int) -> torch.Generator:
+    import torch
+
     return torch.Generator(device=device).manual_seed(seed)
 
 
@@ -238,10 +229,16 @@ def slice_shape(cfg, phase: str) -> tuple:
 
 def ffn_offsets(T: int, E: int) -> torch.Tensor:
     """Equal ragged groups covering every row (the hot MoE case)."""
+    import torch
+
     return torch.from_numpy(np.linspace(0, T, E + 1, dtype=np.int32))
 
 
 def _measure_attn_mixer(cfg, reps: int, device: torch.device):
+    import torch
+
+    from ..kernels import ops
+
     T, D, S, H, KV, Dh = slice_shape(cfg, "attn_mixer")
     g = _generator(device, 0)
 
@@ -262,6 +259,10 @@ def _measure_attn_mixer(cfg, reps: int, device: torch.device):
 
 
 def _measure_ssm_mixer(cfg, reps: int, device: torch.device):
+    import torch
+
+    from ..kernels import ops
+
     S, chunk, H, P, N = slice_shape(cfg, "ssm_mixer")
     g = _generator(device, 1)
 
@@ -282,6 +283,10 @@ def _measure_ssm_mixer(cfg, reps: int, device: torch.device):
 
 
 def _measure_ffn(cfg, moe: bool, reps: int, device: torch.device):
+    import torch
+
+    from ..kernels import ops
+
     T, D, F, E = slice_shape(cfg, "moe_ffn" if moe else "dense_ffn")
     g = _generator(device, 2)
     lhs = torch.randn(T, D, generator=g, device=device).to(torch.bfloat16)
@@ -336,6 +341,8 @@ def calibrate(arch, shape: str, *, pod: Optional[PodSpec] = None,
     a stale or corrupt cache is measured again.  ``device=None`` is the
     card (raising without one); ``"cpu"`` runs the plain versions.
     """
+    from ..device import resolve_device
+
     device = resolve_device(device)
     cfg = get_config(arch) if isinstance(arch, str) else arch
     spec = SHAPES[shape]

@@ -5,9 +5,9 @@ The pod sizing and roofline formulas must equal the reference's exactly,
 and raise where it raises.  With the measurements replaced by the same
 fixed numbers in both modules, the profile JSON must be the reference's
 byte for byte.  A real CPU run (the kernels' plain versions) must write a
-JSON that the jax-free reference loads, derives and replays.  On the card
-the same harness times the CUDA kernels; ``chip_smoke.py`` phase (e) runs
-it there.
+JSON that the port's simulator derives and replays as the reference's
+does.  On the card the same harness times the CUDA kernels;
+``chip_smoke.py`` phase (e) runs it there.
 """
 import dataclasses
 import importlib
@@ -19,10 +19,13 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from repro import configs as jconfigs  # noqa: E402
-from repro.workloads import derive_workload, replay  # noqa: E402
+from repro import workloads as jworkloads  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import get_topology  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.workloads import __main__ as cli  # noqa: E402
+from repro_torch.workloads import derive_workload, replay  # noqa: E402
+from torch_sim_helpers import assert_same  # noqa: E402
 from test_calibrate import TinyHybrid, TinyMoE  # noqa: E402
 
 # The packages export a function ``calibrate`` beside the module of that
@@ -113,7 +116,8 @@ def test_shape_rule_and_pod_fields_are_copies():
                 == jconfigs.shape_applicable(jconfigs.get_config(a), spec)
     assert [(f.name, f.default) for f in dataclasses.fields(tderive.PodSpec)] \
         == [(f.name, f.default) for f in dataclasses.fields(jderive.PodSpec)]
-    assert tderive.tier0_group(tderive.PodSpec(topology="two_tier")) == 4
+    assert get_topology(tderive.pod_fabric(tderive.PodSpec(
+        topology="two_tier"))).tier0_group() == 4
 
 
 def test_harness_shapes_are_built_on_the_card(fixed_measurers):
@@ -235,7 +239,8 @@ def test_stale_or_corrupt_cache_is_measured_again(stale, fixed_measurers,
 # --------------------------------------------- a real CPU measurement
 def test_cpu_profile_replays_in_the_reference(tmp_path):
     """The plain versions, timed on the CPU: the JSON loads in the
-    reference, matches its pod, and derive_workload + replay run on it."""
+    reference and matches its pod; the port's derive_workload + replay
+    run on it and give the reference's replay of the same JSON."""
     path = tmp_path / "tiny.json"
     ops.reset_launches()
     prof = tcal.calibrate(TinyMoE(), "decode_32k", n_gpus=8, reps=1,
@@ -254,10 +259,13 @@ def test_cpu_profile_replays_in_the_reference(tmp_path):
     assert jprof.matches("tiny-moe", "decode_32k", 8, prof.ep, prof.tp,
                          prof.dp)
     trace = derive_workload(TinyMoE(), "decode_32k", n_gpus=8, n_steps=2,
-                            compute_profile=jprof)
-    rep = replay(trace, compute_profile=jprof)
+                            compute_profile=prof)
+    rep = replay(trace, compute_profile=prof)
     assert rep.cold_degradation > rep.steady_degradation
     assert rep.steps[0].compute_ns > 0
+    jtrace = jworkloads.derive_workload(TinyMoE(), "decode_32k", n_gpus=8,
+                                        n_steps=2, compute_profile=jprof)
+    assert_same(jworkloads.replay(jtrace, compute_profile=jprof), rep)
 
 
 def test_cpu_measurers_match_the_reference_s():
@@ -289,31 +297,37 @@ def test_cuda_window_is_device_time():
 # ------------------------------------------------------------------ CLI
 def test_cli_cpu_writes_a_profile_the_reference_replays(fixed_measurers,
                                                         tmp_path, capsys):
+    """``--calibrate --device cpu`` measures, writes the profile, and
+    replays it; the reference's CLI replays the same JSON into the same
+    lines."""
     path = tmp_path / "g.json"
-    rc = cli.main(["--arch", "granite-moe-1b-a400m", "--device", "cpu",
-                   "--reps", "1", "--profile", str(path), "--topology",
-                   "two_tier", "--leaf", "8"])
+    topo = ["--topology", "two_tier", "--leaf", "8", "--steps", "2"]
+    rc = cli.main(["--arch", "granite-moe-1b-a400m", "--calibrate",
+                   "--device", "cpu", "--reps", "1", "--profile", str(path)]
+                  + topo)
     out = capsys.readouterr().out.strip().splitlines()
     assert rc == 0
+    assert out[0].startswith(f"# compute profile ({path})")
     assert "attn_mixer" in out[1] and "measured" in out[1]
-    assert out[-1].startswith("python -m repro.workloads ")
+    assert out[-1].startswith("# steady-state degradation:")
     prof = jcal.ComputeProfile.load(path)
     assert (prof.n_gpus, prof.tp) == (16, 8)
-    # the printed command replays the profile through the reference
     from repro.workloads import __main__ as jcli
-    argv = out[-1].split()[3:] + ["--steps", "2"]
-    assert jcli.main(argv) == 0
-    assert "cold (step 0) degradation" in capsys.readouterr().out
+    assert jcli.main(["--arch", "granite-moe-1b-a400m", "--profile",
+                      str(path)] + topo) == 0
+    theirs = capsys.readouterr().out.strip().splitlines()
+    assert out[-len(theirs):] == theirs
+    assert "cold (step 0) degradation" in theirs[-2]
 
 
 def test_harness_refuses_without_gpu(tmp_path):
-    """No CUDA here: calibrate() and the CLI raise instead of measuring on
-    the CPU."""
+    """No CUDA here: calibrate() and the CLI's ``--calibrate`` raise
+    instead of measuring on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcal.calibrate("granite-moe-1b-a400m", "decode_32k")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["--arch", "granite-moe-1b-a400m", "--profile",
-                  str(tmp_path / "p.json")])
+        cli.main(["--arch", "granite-moe-1b-a400m", "--calibrate",
+                  "--profile", str(tmp_path / "p.json")])
     assert not (tmp_path / "p.json").exists()

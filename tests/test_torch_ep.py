@@ -27,13 +27,14 @@ from jax.sharding import Mesh, PartitionSpec as P  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.core import overlap as joverlap  # noqa: E402
-from repro.core.scheduler import (CollectivePlan as JPlan,  # noqa: E402
-                                  TranslationAwareScheduler)
+from repro.core import scheduler as jscheduler  # noqa: E402
+from repro.core.scheduler import CollectivePlan as JPlan  # noqa: E402
 from repro.kernels.compat import shard_map  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.workloads import derive as jderive  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.core import CollectivePlan  # noqa: E402
+from repro_torch.core import (CollectivePlan,  # noqa: E402
+                              TranslationAwareScheduler)
 from repro_torch.core.overlap import scheduled_all_to_all  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch.mesh import init_ep_group  # noqa: E402
@@ -126,15 +127,19 @@ def multi(tmp_path_factory):
 # ------------------------------------------------------------------- plan
 @pytest.mark.parametrize("nbytes", [4096, 1 << 20, 64 << 20])
 def test_collective_plan_matches_reference(nbytes):
-    """Fields and ``est_speedup`` of plans the reference's scheduler makes,
-    and a JSON round trip (the reference's asdict JSON reads back too)."""
-    jp = TranslationAwareScheduler(8, overlap_compute_ns=5e3) \
+    """The port's scheduler makes the reference's plans (fields and
+    ``est_speedup``), and a JSON round trip (the reference's asdict JSON
+    reads back too)."""
+    jp = jscheduler.TranslationAwareScheduler(8, overlap_compute_ns=5e3) \
         .plan_all_to_all(nbytes)
-    plan = CollectivePlan.from_json(json.dumps(dataclasses.asdict(jp)))
+    plan = TranslationAwareScheduler(8, overlap_compute_ns=5e3) \
+        .plan_all_to_all(nbytes)
     assert [f.name for f in dataclasses.fields(CollectivePlan)] == \
         [f.name for f in dataclasses.fields(JPlan)]
     assert dataclasses.asdict(plan) == dataclasses.asdict(jp)
     assert plan.est_speedup == jp.est_speedup
+    assert CollectivePlan.from_json(json.dumps(dataclasses.asdict(jp))) \
+        == plan
     assert CollectivePlan.from_json(plan.to_json()) == plan
     assert plan.warmup_chunk_bytes > 0 and plan.n_chunks >= 1
 
@@ -395,11 +400,14 @@ def test_ep_slice_and_group_errors():
 
 def test_example_runs_on_cpu_with_a_reference_plan(tmp_path):
     """``examples/moe_scheduled_a2a_torch.py --device cpu`` at world size 1
-    with a plan the reference's scheduler wrote."""
+    with a plan the port's scheduler wrote, which is the reference's."""
     plan = TranslationAwareScheduler(8, overlap_compute_ns=5e3) \
         .plan_all_to_all(64 * 64 * 4)
+    jplan = jscheduler.TranslationAwareScheduler(8, overlap_compute_ns=5e3) \
+        .plan_all_to_all(64 * 64 * 4)
+    assert dataclasses.asdict(plan) == dataclasses.asdict(jplan)
     path = tmp_path / "plan.json"
-    path.write_text(json.dumps(dataclasses.asdict(plan)))
+    path.write_text(plan.to_json())
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "moe_scheduled_a2a_torch.py"),

@@ -116,6 +116,65 @@ def test_dryrun_allocates_only_on_meta():
     assert out.stdout.strip().endswith("ok")
 
 
+# Installed through PYTHONPATH into every process of a run (spawned workers
+# too): each process leaves a file named by its pid, and an import of a
+# blocked package leaves a file named by it and fails.
+_SITECUSTOMIZE = """
+import importlib.abc, os, sys
+LOG = os.environ["ISOLATION_LOG"]
+open(os.path.join(LOG, "pid-" + str(os.getpid())), "w").close()
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in %r:
+            open(os.path.join(LOG, "blocked-" + name), "w").close()
+            raise ImportError(name + " is blocked")
+sys.meta_path.insert(0, _Block())
+""" % ((*BANNED, "torch"),)
+
+_SIM_SCRIPT = """
+import sys
+from repro_torch.core import MB, ratsim
+from repro_torch.workloads.derive import derive_workload
+from repro_torch.workloads.replay import replay
+
+if __name__ == "__main__":
+    pooled = ratsim.sweep([1 * MB, 2 * MB], [8], workers=2)
+    assert pooled == ratsim.sweep([1 * MB, 2 * MB], [8], workers=0)
+    trace = derive_workload("granite-moe-1b-a400m", "decode_32k",
+                            n_gpus=16, n_steps=2)
+    rep = replay(trace)
+    assert rep.cold_degradation > rep.steady_degradation
+    print("ok")
+"""
+
+
+def test_simulator_path_loads_no_torch(tmp_path):
+    """``repro_torch.core``, ``workloads.derive`` and ``.replay``, a sweep
+    on a pool of two spawned workers, and the replay CLI without
+    ``--calibrate``: no process of the run imports torch, jax or
+    ``repro``."""
+    site, log = tmp_path / "site", tmp_path / "log"
+    site.mkdir()
+    log.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    script = tmp_path / "sim.py"
+    script.write_text(_SIM_SCRIPT)
+    env = {**os.environ, "ISOLATION_LOG": str(log),
+           "PYTHONPATH": os.pathsep.join([str(site), str(ROOT / "src")])}
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
+    assert len(list(log.glob("pid-*"))) >= 3      # the pool did spawn
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.workloads", "--arch",
+         "granite-moe-1b-a400m", "--steps", "2"], capture_output=True,
+        text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert cli.returncode == 0, cli.stderr[-3000:]
+    assert "# cold (step 0) degradation:   1.0385" in cli.stdout
+    assert not list(log.glob("blocked-*")), sorted(log.glob("blocked-*"))
+
+
 @pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
 def test_torch_examples_refuse_without_gpu(path, tmp_path):
     """The torch examples run on the card: without one they exit non-zero
