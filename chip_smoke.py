@@ -76,6 +76,21 @@ exits non-zero:
     reference's golden numbers (``SIM_FIG45``, ``SIM_FIG14``).  Then both
     engines are timed on the host at the largest replay (host time, on the
     CPU named from ``/proc/cpuinfo``);
+(l) run right after (k): the port's serving layer (``repro_torch.serving``,
+    host code in numpy, no torch) on (e)'s granite profile.  Fig. 15's
+    bursty point (12 requests in bursts of 4, 50 us retention) on
+    roofline windows must equal the reference's golden numbers
+    (``SERVE_GOLDEN``) on both engines; the same point on the card's
+    windows at no retention and at 50 us, a fleet of 2 autoscaled
+    replicas (``SERVE_FLEET``) and a 1:1 disaggregated deployment (each of
+    the first 8 requests) must give the same bits on both engines, and the
+    calibrated points the same bits on a pool of 2 spawned workers.  Each
+    prints TTFT p50/p95/p99, the inter-token p50, the mean and p99 TTFT
+    degradation, cold steps, cold and warm comm and walks; then the
+    largest compute window a single call passes to the session (roofline
+    and calibrated, at 1 and 544 tokens) against the retention, whether
+    the p99 degradation clears the mean (a finding, not a check), each
+    run's host time, the host CPU and the phase's time;
 (f) training on the card.  The backward kernels (rmsnorm_bwd,
     flash_attention_bwd from the forward's row logsumexp, grouped_matmul_dx
     reading W^T in place and grouped_matmul_dw) against
@@ -276,6 +291,28 @@ SIM_FIG45 = {8: (3890.0, 2762.32, 3584, 1), 16: (3890.0, 2802.0, 3840, 1),
              64: (3890.0, 2825.04, 4032, 1)}
 SIM_FIG14 = {16: (3890.0, 2852.0, 2802.0, 2802.0, 1),
              64: (3890.0, 2875.04, 2825.04, 2825.04, 1)}
+# phase (l): Fig. 15's bursty serving point and its golden numbers (the
+# reference's tests/test_golden_figs.py, FIG15_POINT and FIG15_GOLDEN), the
+# retentions its calibrated run takes (none, and fig15's 50 us), and the
+# fleet (2 replicas, autoscaled) and disaggregated (1:1) points, which
+# serve the first 8 requests of that stream
+SERVE_POINT = dict(arch=ARCH, rps=16.0, arrival="bursty", n_requests=12,
+                   seed=7, retention_ns=50_000.0, steps_cap=60, burst_size=4,
+                   burstiness=24.0, prompt_mean=128, output_mean=8)
+SERVE_GOLDEN = dict(p50=2432782.6667737663, p95=3432839.485653756,
+                    p99=3478109.9026029403, mean_deg=1.0583494148024755,
+                    p99_deg=1.1010624819242405,
+                    cold_comm_ns=7072922.8800069485,
+                    warm_comm_ns=66063141.120014586, cold_steps=4, steps=42,
+                    walks=288, served=12)
+SERVE_RETENTIONS = (None, 50_000.0)
+SERVE_SMALL = dict(n_requests=8, steps_cap=40)
+# the fleet spins a cold replica up at each queued arrival (a live cap of
+# 2, 0.1 ms after the decision) and retires one idle for 50 ms: the
+# stream's gaps between bursts are about 240 ms, so replicas churn
+SERVE_FLEET = dict(replicas=2, router="least_loaded", autoscale=True,
+                   scale_up_queued=0, scale_down_idle_ns=5e7,
+                   spinup_latency_ns=1e5)
 BATCH, PROMPT, TOKENS = 8, 512, 32
 PROMPTS = {ENCDEC_ARCH: 224}          # whisper's decoder prompt; else PROMPT
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1523,6 +1560,158 @@ def simulator_path(profiles) -> None:
         f"event {secs['event']:.3f} s, vectorized "
         f"{secs['vectorized']:.3f} s ({secs['event'] / secs['vectorized']:.2f}x)")
     log("k", f"phase (k) took {time.perf_counter() - t0:.1f} s")
+
+
+# ------------------------------------------------------------ phase (l)
+def serving_bits(res):
+    """Every number of a serving result that both engines must give alike:
+    each step and request, each replica's life and each KV handoff (not
+    the vectorized engine's fast-path counts, which the event engine has
+    not)."""
+    import dataclasses
+
+    def fields(obj):
+        return tuple(getattr(obj, f.name) for f in dataclasses.fields(obj)
+                     if f.name not in ("fastpath_calls", "req", "itl_ns",
+                                       "stats", "steps", "stream"))
+
+    bits = [[fields(s) for s in res.steps],
+            [(r.rid, fields(r), tuple(r.itl_ns)) for r in res.requests]]
+    for rep in getattr(res, "replicas", ()):
+        bits.append(fields(rep))
+    bits.append([r.rid for r in getattr(res, "rejected", ())])
+    bits.append([fields(h) for h in getattr(res, "handoffs", ())])
+    return bits
+
+
+def serving_line(res) -> str:
+    """The numbers phase (l) prints of a serving result, as the reference's
+    serving CLI names them (us, unrounded)."""
+    ttft, itl = res.ttft_percentiles(), res.itl_percentiles()
+    return (f"TTFT p50/p95/p99 {ttft[50.0] / 1e3!r} / {ttft[95.0] / 1e3!r} "
+            f"/ {ttft[99.0] / 1e3!r} us, inter-token p50 "
+            f"{itl[50.0] / 1e3!r} us, TTFT degradation mean "
+            f"{res.mean_ttft_degradation!r} p99 "
+            f"{res.p99_ttft_degradation!r}, {res.cold_steps} cold of "
+            f"{len(res.steps)} steps, cold comm {res.cold_comm_ns / 1e3!r} "
+            f"us, warm comm {res.warm_comm_ns / 1e3!r} us, walks "
+            f"{sum(s.walks for s in res.steps)}, served "
+            f"{len(res.first_token_served)} of {len(res.requests)}")
+
+
+def serving_path(profile_path) -> None:
+    """Phase (l): the port's serving layer (``repro_torch.serving``; host
+    code in numpy, no torch) on (e)'s granite profile: Fig. 15's golden
+    on roofline windows, the calibrated point at each retention, a fleet
+    and a disaggregated point, each on both engines with the same bits,
+    and one pooled sweep against the serial runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.session import SimSession
+    from repro_torch.serving import (DisaggPoint, FleetPoint, TrafficPoint,
+                                     sweep_traffic)
+    from repro_torch.serving.disagg import _disagg_point
+    from repro_torch.serving.fleet import _fleet_point
+    from repro_torch.serving.simulate import _traffic_point
+    from repro_torch.workloads.calibrate import ComputeProfile
+    from repro_torch.workloads.derive import StepEmitter
+
+    t0 = time.perf_counter()
+    cpu = host_cpu()
+
+    def replace_engine(point, engine):
+        if isinstance(point, TrafficPoint):
+            return dataclasses.replace(point, engine=engine)
+        return dataclasses.replace(point, traffic=dataclasses.replace(
+            point.traffic, engine=engine))
+
+    def both_engines(label, price, point):
+        """``price((point,))`` on each engine: the same bits, or raise."""
+        res, secs = {}, {}
+        for engine in ("event", "vectorized"):
+            t = time.perf_counter()
+            res[engine] = price((replace_engine(point, engine),))
+            secs[engine] = time.perf_counter() - t
+        if serving_bits(res["vectorized"]) != serving_bits(res["event"]):
+            raise AssertionError(f"{label}: the engines' results differ")
+        log("l", f"{label}: both engines the same bits (host time event "
+            f"{secs['event']:.3f} s, vectorized {secs['vectorized']:.3f} s)")
+        log("l", f"  {serving_line(res['event'])}")
+        return res["event"]
+
+    golden = both_engines("Fig. 15 bursty point, roofline windows",
+                          _traffic_point, TrafficPoint(**SERVE_POINT))
+    ttft = golden.ttft_percentiles()
+    got = dict(p50=ttft[50.0], p95=ttft[95.0], p99=ttft[99.0],
+               mean_deg=golden.mean_ttft_degradation,
+               p99_deg=golden.p99_ttft_degradation,
+               cold_comm_ns=golden.cold_comm_ns,
+               warm_comm_ns=golden.warm_comm_ns,
+               cold_steps=golden.cold_steps, steps=len(golden.steps),
+               walks=sum(s.walks for s in golden.steps),
+               served=len(golden.first_token_served))
+    if got != SERVE_GOLDEN:
+        raise AssertionError(f"Fig. 15 golden: {got} != {SERVE_GOLDEN}")
+    log("l", "  golden: every field exact on both engines")
+
+    prof = ComputeProfile.load(profile_path)
+    log("l", f"profile {profile_path} ({prof.arch} {prof.shape} "
+        f"g{prof.n_gpus}, interpret={prof.interpret}): " + ", ".join(
+            f"{name} {w.calibrated_ns!r} ns (roofline {w.roofline_ns!r})"
+            for name, w in sorted(prof.phases.items())))
+    calibrated = {}
+    for retention in SERVE_RETENTIONS:
+        pt = TrafficPoint(**{**SERVE_POINT, "retention_ns": retention,
+                             "profile_path": str(profile_path)})
+        res = both_engines(f"calibrated, retention {retention} ns",
+                           _traffic_point, pt)
+        calibrated[pt] = res
+        clears = res.p99_ttft_degradation > res.mean_ttft_degradation
+        log("l", f"  the p99 TTFT degradation clears the mean: {clears}")
+    # the largest compute window a single call passes on to the session,
+    # at a one-token decode step and at the largest step (every slot and a
+    # full prefill chunk): one that reaches the retention would flush the
+    # TLBs inside a step
+    mcfg = get_config(ARCH)
+    pod = golden.pod
+    for label, kw in (("roofline", {}), ("calibrated",
+                                          dict(compute_profile=prof))):
+        sess = SimSession(golden.cfg, **kw)
+        for tokens in (1, 32 + 512):
+            em = StepEmitter(mcfg, pod)
+            em.step(0, tokens)
+            widest = max(sess.resolve_gap(c.compute_ns, c.phase,
+                                          c.window_parts) for c in em.calls)
+            log("l", f"largest compute window of one call, {label}, "
+                f"{tokens} tokens: {widest!r} ns; reaches the 50000.0 ns "
+                f"retention: {widest >= SERVE_RETENTIONS[-1]}")
+
+    small = {**SERVE_POINT, **SERVE_SMALL, "profile_path": str(profile_path)}
+    fleet = FleetPoint(traffic=TrafficPoint(**small), **SERVE_FLEET)
+    res = both_engines("fleet of 2 replicas, autoscaled, calibrated",
+                       _fleet_point, fleet)
+    log("l", f"  fleet: {res.spin_ups} spin-ups, {res.retired} retired, "
+        f"peak {res.peak_replicas} replicas, replica rows "
+        f"{res.replica_rows()}")
+    disagg = DisaggPoint(traffic=TrafficPoint(**small))
+    res = both_engines("disaggregated 1:1, calibrated", _disagg_point,
+                       disagg)
+    log("l", f"  disagg: {len(res.handoffs)} KV handoffs "
+        f"({res.kv_cold_handoffs} cold, {res.kv_walks} walks), TTFT "
+        f"decomposition {res.ttft_breakdown()}")
+
+    t = time.perf_counter()
+    points = {replace_engine(pt, "vectorized"): res
+              for pt, res in calibrated.items()}
+    pooled = sweep_traffic(list(points), workers=2)
+    for pt, res in points.items():
+        if serving_bits(pooled[pt]) != serving_bits(res):
+            raise AssertionError(f"{pt}: pooled != serial")
+    log("l", f"calibrated points on a pool of 2 spawned workers: the "
+        f"serial bits ({time.perf_counter() - t:.1f} s)")
+    log("l", f"host: {cpu}")
+    log("l", f"phase (l) took {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ phase (f)
@@ -3548,6 +3737,9 @@ def main() -> int:
     log("d", f"(a) to (d) {time.perf_counter() - t_start:.1f} s")
     by_path["calibrate"], profiles = calibration_profiles(torch, dev)
     simulator_path(profiles)
+    from repro_torch.workloads.calibrate import default_cache_path
+    serving_path(default_cache_path(ARCH, CAL_SHAPE, CAL_GPUS,
+                                    root=ROOT / "build" / "calibration"))
     for name in build.KERNELS:
         if not any(by_path[arch][name] for arch in SERVING):
             raise AssertionError(f"{name}: no serving path launched it")

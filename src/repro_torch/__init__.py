@@ -4,8 +4,9 @@ The package mirrors ``repro``'s module names (``models.layers``,
 ``models.moe``, ``kernels.ops`` ...) so each counterpart is easy to find,
 but it imports nothing of ``repro`` and never imports jax: what it needs
 from the jax-free half (``ModelConfig``, the config registry, the RAT
-simulator in ``core`` and ``workloads``) it keeps as its own copy.  Submodules load lazily, so ``import repro_torch`` stays
-cheap and imports no torch either.
+simulator in ``core`` and ``workloads``, the request-level serving layer
+in ``serving``) it keeps as its own copy.  Submodules load lazily, so
+``import repro_torch`` stays cheap and imports no torch either.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (see :mod:`repro_torch.device`).
@@ -15,7 +16,8 @@ from __future__ import annotations
 import importlib
 
 __all__ = ["checkpoint", "configs", "core", "data", "device", "kernels",
-           "launch", "models", "optim", "runtime", "weights", "workloads"]
+           "launch", "models", "optim", "runtime", "serving", "weights",
+           "workloads"]
 
 
 def __getattr__(name: str):

@@ -4,7 +4,9 @@
 (``examples/*_torch.py``) must run on a machine where jax is absent and
 the JAX package is not importable (nor ``ml_dtypes``: bf16 checkpoints
 are read through torch), and their entry points must refuse (not quietly
-fall back) when no GPU is present.  The dry-run and the report
+fall back) when no GPU is present.  The simulator's host examples
+(``HOST_EXAMPLES``) and the serving path run no kernel: they need no GPU
+and load no torch.  The dry-run and the report
 (``launch.dryrun``, ``launch.report``) compute nothing, so they need no
 GPU: a cell must allocate no tensor off the meta device instead.
 """
@@ -22,6 +24,12 @@ torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+# the simulator's examples: host code in numpy, which print the lines of
+# the reference example of the same name without the suffix
+HOST_EXAMPLES = tuple(ROOT / "examples" / f"{name}_torch.py" for name in
+                      ("quickstart", "workload_replay", "serving_traffic"))
+# the examples that run on the card
+CARD_EXAMPLES = [p for p in EXAMPLES if p not in HOST_EXAMPLES]
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
@@ -175,7 +183,94 @@ def test_simulator_path_loads_no_torch(tmp_path):
     assert not list(log.glob("blocked-*")), sorted(log.glob("blocked-*"))
 
 
-@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+_SERVING_SCRIPT = """
+from repro_torch.serving import TrafficPoint, sweep_traffic
+
+if __name__ == "__main__":
+    pts = [TrafficPoint(rps=40.0, arrival=arrival, n_requests=3, seed=2,
+                        steps_cap=6, prompt_mean=16, output_mean=2,
+                        retention_ns=50_000.0, profile_path=%r)
+           for arrival in ("poisson", "bursty")]
+    pooled = sweep_traffic(pts, workers=2)
+    serial = sweep_traffic(pts, workers=0)
+    for pt in pts:
+        assert [(s.t_start, s.t_end, s.comm_ns, s.walks)
+                for s in pooled[pt].steps] == [
+            (s.t_start, s.t_end, s.comm_ns, s.walks)
+            for s in serial[pt].steps]
+        assert pooled[pt].ttft_percentiles() == serial[pt].ttft_percentiles()
+    print("ok")
+"""
+
+
+def _blocked_env(tmp_path):
+    """PYTHONPATH with the blocking ``sitecustomize`` first, and its log."""
+    site, log = tmp_path / "site", tmp_path / "log"
+    site.mkdir()
+    log.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    env = {**os.environ, "ISOLATION_LOG": str(log),
+           "PYTHONPATH": os.pathsep.join([str(site), str(ROOT / "src")])}
+    return env, log
+
+
+def test_serving_path_loads_no_torch(tmp_path):
+    """``repro_torch.serving``: ``sweep_traffic`` on a pool of two spawned
+    workers (each loading a saved profile), and ``python -m
+    repro_torch.serving`` with ``--fleet 2`` and with ``--disagg 1:1
+    --profile``: no process of the run imports torch, jax or ``repro``."""
+    from repro_torch.workloads.calibrate import ComputeProfile, PhaseWindow
+    prof = tmp_path / "granite.json"
+    ComputeProfile(
+        arch="granite-moe-1b-a400m", shape="decode_32k", n_gpus=16, ep=16,
+        tp=1, dp=1, phases={ph: PhaseWindow(
+            phase=ph, kernels=(), roofline_ns=1000.0,
+            measured_wall_ns=1000.0, measured_flops=1.0,
+            calibrated_ns=ns) for ph, ns in (("attn_mixer", 2500.0),
+                                             ("moe_ffn", 4000.0))}).save(prof)
+    env, log = _blocked_env(tmp_path)
+    script = tmp_path / "serve.py"
+    script.write_text(_SERVING_SCRIPT % str(prof))
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
+    assert len(list(log.glob("pid-*"))) >= 3      # the pool did spawn
+    base = [sys.executable, "-m", "repro_torch.serving", "--arch",
+            "granite-moe-1b-a400m", "--requests", "3", "--steps-cap", "12",
+            "--prompt-mean", "16", "--output-mean", "2"]
+    for extra, want in ((["--fleet", "2", "--autoscale"], "# fleet:"),
+                        (["--disagg", "1:1", "--profile", str(prof)],
+                         "# disagg: 1 prefill + 1 decode pods")):
+        cli = subprocess.run(base + extra, capture_output=True, text=True,
+                             timeout=300, cwd=str(tmp_path), env=env)
+        assert cli.returncode == 0, cli.stderr[-3000:]
+        assert want in cli.stdout and "metric,p50_us" in cli.stdout
+    assert not list(log.glob("blocked-*")), sorted(log.glob("blocked-*"))
+
+
+@pytest.mark.parametrize("path", HOST_EXAMPLES, ids=lambda p: p.name)
+def test_host_examples_print_the_reference_s_lines(path, tmp_path):
+    """Each simulator example exits 0 with no GPU, loads no torch, jax or
+    ``repro`` (spawned workers included), and prints the lines of the
+    reference example it copies."""
+    env, log = _blocked_env(tmp_path)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, str(path)], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert not list(log.glob("blocked-*")), sorted(log.glob("blocked-*"))
+    ref = ROOT / "examples" / path.name.replace("_torch", "")
+    theirs = subprocess.run(
+        [sys.executable, str(ref)], capture_output=True, text=True,
+        timeout=300, cwd=str(ROOT),
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert theirs.returncode == 0, theirs.stderr[-3000:]
+    assert out.stdout == theirs.stdout
+    assert "===" in out.stdout
+
+
+@pytest.mark.parametrize("path", CARD_EXAMPLES, ids=lambda p: p.name)
 def test_torch_examples_refuse_without_gpu(path, tmp_path):
     """The torch examples run on the card: without one they exit non-zero
     with the port's error, before any step, and load no jax."""

@@ -1,19 +1,22 @@
-"""Shared by the ``test_torch_sim_*`` files (not collected): moves the
-simulator's values from ``repro`` to ``repro_torch`` and compares results
-of the two packages exactly.
+"""Shared by the ``test_torch_sim_*`` and serving files (not collected):
+moves the simulator's values from ``repro`` to ``repro_torch`` and
+compares results of the two packages exactly.
 
 A reference dataclass (a ``SimConfig`` and everything in it, a
 ``PodSpec``, a ``StepArrays``...) crosses as the port's class of the same
 name in the matching module, rebuilt field by field, the way weights
 cross.  :func:`assert_same` walks two results the same way and wants every
 field equal: floats bit for bit, arrays with their dtype and shape, dict
-keys in their order.
+keys in their order.  :func:`assert_same_result` adds every aggregate a
+serving result is read by, and :func:`same_or_same_fault` holds a
+reference fault the port copies as parity.
 """
 import dataclasses
 import importlib
 import math
 
 import numpy as np
+import pytest
 
 # (wall ns, flops, kernels) each phase's measurer returns in place of a
 # measurement, so that a profile is the same numbers in every run
@@ -82,3 +85,37 @@ def assert_same(ref, port, path="result"):
             (path, ref, port)
     else:
         assert type(port) is type(ref) and port == ref, (path, ref, port)
+
+
+# what every serving result is read by, besides its fields
+AGGREGATES = ("finished", "first_token_served", "ttft_percentiles",
+              "itl_percentiles", "ttft_degradations", "mean_ttft_degradation",
+              "p99_ttft_degradation", "cold_comm_ns", "warm_comm_ns",
+              "cold_steps", "fastpath_calls", "fastpath_step_fraction")
+DISAGG_AGGREGATES = ("steps", "kv_transfer_total_ns", "kv_excess_total_ns",
+                     "kv_walks", "kv_cold_handoffs", "kv_fastpath_calls",
+                     "ttft_breakdown", "replica_rows")
+
+
+def assert_same_result(ref, port, extra=()):
+    """Every field, then every aggregate, of two serving results."""
+    assert_same(ref, port)
+    for name in AGGREGATES + tuple(extra):
+        want, got = getattr(ref, name), getattr(port, name)
+        if callable(want):
+            want, got = want(), got()
+        assert_same(want, got, name)
+
+
+def same_or_same_fault(ref_fn, port_fn):
+    """``(ref_fn(), port_fn())``, or ``(None, None)`` where the reference
+    raises and the port raises the same error: a reference fault the port
+    copies on purpose (ROADMAP.md section 3) is held as parity too."""
+    try:
+        ref = ref_fn()
+    except Exception as fault:          # whatever it is, the port's too
+        with pytest.raises(type(fault)) as err:
+            port_fn()
+        assert str(err.value) == str(fault)
+        return None, None
+    return ref, port_fn()
