@@ -6,13 +6,14 @@
 Phases, each printing its own lines; any mismatch raises and the script
 exits non-zero:
 
-(a) the card's name and power limit (``nvidia-smi``), then the build of the
-    CUDA kernels from ``src/repro_torch/kernels/csrc`` and its time, each
-    kernel's registers and spills (``-Xptxas -v``), and the tensor-core
-    instructions in the SASS (``cuobjdump``) of the bf16 grouped_matmul
-    kernel in both of its B layouts (the forward's MN-major and dX's
-    K-major) and the bf16 dW kernel (HGMMA), and of the attention backward
-    kernels (HMMA), each of which must hold some;
+(a) the card's name and power limit (``nvidia-smi``) and the host CPU
+    (``host_cpu``, which every timed line of the run shares), then the
+    build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` and its
+    time, each kernel's registers and spills (``-Xptxas -v``), and the
+    tensor-core instructions in the SASS (``cuobjdump``) of the bf16
+    grouped_matmul kernel in both of its B layouts (the forward's MN-major
+    and dX's K-major) and the bf16 dW kernel (HGMMA), and of the attention
+    backward kernels (HMMA), each of which must hold some;
 (b) each kernel against its plain PyTorch version on the card, in f32
     (tolerance 2e-5) and bf16 (2e-2; ssd_chunk is f32 only), at the main
     paths' shapes, the kernel tests' shapes and the tile edges of the
@@ -228,7 +229,8 @@ exits non-zero:
     (``SPLIT_RMS``, ``SPLIT_EDGES``): each against its plain version, the
     whole rows against rmsnorm's and rmsnorm_bwd's plain versions, and
     over one rank the one-pass kernels' bits; each timed at 4096 rows over
-    model 1 and 16; ssd_chunk and ssd_chunk_bwd on 24, 12, 6 and 3 of
+    model 1 and 16, and the kernels of rmsnorm_part and rmsnorm_bwd_scale
+    there profiled; ssd_chunk and ssd_chunk_bwd on 24, 12, 6 and 3 of
     mamba2's 48 heads (``SSD_LOCAL``) against their plain versions and f64
     bounds, and timed;
 (j) the count of a real step against the dry-run's: granite-moe-1b-a400m
@@ -254,7 +256,8 @@ exits non-zero:
 ``python3 chip_smoke.py --train-ab PARENT`` runs only granite's training
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
 archive`` of the parent commit) against this checkout's, each in a fresh
-process, in turns parent, change, change, parent.
+process, in turns parent, change, change, parent.  ``--split-ab PARENT``
+does the same with the split norm's times (``time_split_rmsnorm``).
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -457,9 +460,10 @@ GMM_DW_EDGES = [
     ("an empty expert between two full ones", 700, 136, 200,
      [0, 300, 300, 700])]
 # rmsnorm_bwd as [T, D]: granite's training rows, qwen3-1.7b's, mamba2's,
-# qwen3's qk-norm rows, and edges (D off the vectors, few rows)
+# qwen3's qk-norm rows, edges (D off the vectors, few rows), and mamba2's
+# gate norm unsplit (its wide route)
 RMS_BWD = [(TRAIN_BATCH * TRAIN_SEQ, 1024), (4096, 2048), (4096, 1536),
-           (4096 * 16, 128), (37, 1001), (5, 64)]
+           (4096 * 16, 128), (37, 1001), (5, 64), (4096, 3072)]
 # rmsnorm_bwd about its routes: rows not a multiple of a block's (D 1001 off
 # the vectors, T 4097), row groups of 16 and 4 lanes (D 128, 24), 2 vectors
 # a lane (D 512), the wide route with aligned rows (D 3072 in bf16; 2048 in
@@ -1992,28 +1996,33 @@ def check_ssd_bwd(torch, ops, ref, dev) -> float:
     return err_train
 
 
-def kernel_split(torch, fn, flush, label: str, calls: int = 5) -> None:
+def kernel_split(torch, fn, flush, label: str, calls: int = 5,
+                 phase: str = "f") -> None:
     """Logs the device time a launch of each kernel that ``fn`` runs, from
     the profiler over ``calls`` calls with L2 flushed before each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
     parts = []
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total",
-                    getattr(evt, "self_cuda_time_total", 0.0))
-        if (evt.device_type == DeviceType.CUDA and t > 0
-                and "FillFunctor" not in evt.key):       # the flush
-            name = evt.key.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("(")[0]
-            parts.append(f"{name} {t / 1e3 / evt.count:.4f} ms a launch "
-                         f"({evt.count} seen)")
-    log("f", f"profile {label} ({calls} calls, L2 flushed): "
+    # late in a long run a trace can come back empty: one more try
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            t = getattr(evt, "self_device_time_total",
+                        getattr(evt, "self_cuda_time_total", 0.0))
+            if (evt.device_type == DeviceType.CUDA and t > 0
+                    and "FillFunctor" not in evt.key):       # the flush
+                name = evt.key.replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("(")[0]
+                parts.append(f"{name} {t / 1e3 / evt.count:.4f} ms a launch "
+                             f"({evt.count} seen)")
+        if parts:
+            break
+    log(phase, f"profile {label} ({calls} calls, L2 flushed): "
         f"{'; '.join(parts) or 'device time not measured'}")
 
 
@@ -2944,8 +2953,12 @@ def check_split_rmsnorm(torch, ops, ref, dev):
 
 def time_split_rmsnorm(torch, ops, ref, dev):
     """Times of the split norm's launches at mamba2's 8 x 512 rows over
-    model 1 and 16, bf16; returns each launch's record at
-    ``SPLIT_TIMED`` (no single PyTorch call computes a half)."""
+    model 1 and 16, bf16 (each window opens behind a spin kernel, so the
+    host's dispatch of a launch this short stays out of it: ``timed_ms``),
+    and the profiler's device time a launch of each kernel that
+    ``rmsnorm_part`` and ``rmsnorm_bwd_scale`` run; returns
+    each launch's record at ``SPLIT_TIMED`` (no single PyTorch call
+    computes a half)."""
     from repro_torch.launch import roofline as rl
     gen = torch.Generator(device=dev).manual_seed(17)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
@@ -2976,13 +2989,16 @@ def time_split_rmsnorm(torch, ops, ref, dev):
                                                   1e-6),
                 rl.rmsnorm_bwd_scale_cost)}
         for name, (fn, plain, cost) in runs.items():
-            ms = timed_ms(torch, fn, flush)
-            plain_ms = timed_ms(torch, plain, flush)
+            ms = timed_ms(torch, fn, flush, spin=True)
+            plain_ms = timed_ms(torch, plain, flush, spin=True)
             b_ms, b_by = rl.bound_ms(*cost(T, D, 2), "bfloat16")
             log("i", f"time {name} [{T},{D}] (a row of {D_all} over {m}) "
                 f"bfloat16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library n/a (no single call), bound {b_ms:.4g} ms "
                 f"({b_by})")
+            if name in ("rmsnorm_part", "rmsnorm_bwd_scale"):
+                kernel_split(torch, fn, flush, f"{name} [{T},{D}] bfloat16",
+                             phase="i")
             if m == SPLIT_TIMED[2]:
                 out[name] = {"ms": ms, "plain_ms": plain_ms,
                              "library_ms": None, "bound_ms": b_ms,
@@ -3655,25 +3671,42 @@ def gc_collect(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def train_ab(parent: str) -> int:
-    """``--train-ab PARENT``: granite's training step, ``train_path`` of
-    the checkout at PARENT against this one's, each in a fresh process, in
-    turns parent, change, change, parent; prints each run's lines."""
+def run_ab(parent: str, call: str, keep) -> int:
+    """``call`` (an expression on ``c``, this module, and ``torch``) in
+    the checkout at PARENT and in this one, each in a fresh process, in
+    turns parent, change, change, parent; prints each run's lines for
+    which ``keep`` holds."""
     code = ("import sys, torch; sys.path[:0] = ['src', '.']; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; "
-            "import chip_smoke as c; c.train_path(torch, torch.device('cuda'))")
+            f"import chip_smoke as c; {call}")
     for label, root in (("parent", parent), ("change", str(ROOT)),
                         ("change", str(ROOT)), ("parent", parent)):
         run = subprocess.run([sys.executable, "-c", code], cwd=root,
                              capture_output=True, text=True, timeout=900)
         for line in run.stdout.splitlines():
-            if "train bf16" in line or "profile" in line or "losses" in line:
+            if keep(line):
                 print(f"(ab) {label}: {line}", flush=True)
         if run.returncode:
             print(run.stderr[-3000:], file=sys.stderr)
             return 1
     return 0
+
+
+# what each A/B of ``--train-ab`` and ``--split-ab`` runs and prints
+AB = {
+    "--train-ab": ("c.train_path(torch, torch.device('cuda'))",
+                   lambda line: any(k in line for k in
+                                    ("train bf16", "profile", "losses"))),
+    # the parent's windows open behind the same spin kernel as this one's
+    "--split-ab": ("import functools; "
+                   "from repro_torch.kernels import build, ops, ref; "
+                   "build.build_all(); "
+                   "c.timed_ms = functools.partial(c.timed_ms, spin=True); "
+                   "c.time_split_rmsnorm(torch, ops, ref, "
+                   "torch.device('cuda'))",
+                   lambda line: "time " in line or "profile" in line),
+}
 
 
 # ------------------------------------------------------------------ main
@@ -3688,12 +3721,13 @@ def main() -> int:
               "port on the GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    if sys.argv[1:2] == ["--train-ab"] and len(sys.argv) == 3:
+    if sys.argv[1:2] and sys.argv[1] in AB and len(sys.argv) == 3:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True, timeout=60)
         print(smi.stdout.strip().splitlines()[0], flush=True)
-        return train_ab(sys.argv[2])
+        print(f"host CPU {host_cpu()}", flush=True)
+        return run_ab(sys.argv[2], *AB[sys.argv[1]])
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import roofline
@@ -3708,6 +3742,7 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    log("a", f"host CPU {host_cpu()}")
 
     total = torch.cuda.get_device_properties(0).total_memory
     log("a", f"device memory {total} bytes (launch.roofline.HBM_BYTES: "

@@ -935,7 +935,7 @@ class VecEngine:
             l1s = self.state.l1
             mut_c = self.state.mut
             if (g.fp_mutc is mut_c and g.fp_epoch == mut_c[0]
-                    and t1_max < g.fp_hmin):
+                    and t1_max < g.fp_hmin and g.fp_chk[0] is l1s):
                 # Epoch skip: no staging and no commit happened anywhere in
                 # this state since the last full check, so every L1's
                 # resident set and heap are exactly as observed then — the
@@ -943,6 +943,10 @@ class VecEngine:
                 # earliest staged commit still lies beyond this window.
                 # Recency moves don't bump the epoch; they can't change
                 # either fact.  Verdict carries over without the loops.
+                # The group (and so this memo) is shared by every session
+                # that adopts its plan: another state's failed check
+                # rebuilds the rows for its own L1s and leaves fp_mutc
+                # alone, so the rows must be this state's too.
                 rows = g.fp_chk[1]
                 ok = True
             else:

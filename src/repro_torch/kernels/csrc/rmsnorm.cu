@@ -25,8 +25,11 @@
 // cut over the model axis) runs the same kernels in two phases: kSums writes
 // each row's f32 sum of squares of the local columns, the caller sums those
 // over the ranks, and kScale scales the local columns by rsqrt(sum / Dn + eps)
-// and w, Dn the whole row's length.  Both phases run the one-pass kernel's
-// code, so a row's sum is taken in its order (the route, and so the order,
+// and w, Dn the whole row's length.  kScale runs the one-pass kernel's code.
+// kSums, whose rows are only read, runs on a grid that fills the card once,
+// each warp walking rows with the next rows' loads in flight while it
+// reduces (rmsnorm_part_kernel); a lane sums its vectors in the one-pass
+// kernel's order, so a row's sum is its sum (the route, and so the order,
 // follows from x and D alone once w and out are 16-byte aligned, which the
 // wrapper ensures); over one rank the two launches give its bits.
 #include "common.cuh"
@@ -85,13 +88,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Aligned route, the row in registers (nvec = D / V <= 32 * NV vectors): w
 // is copied into shared memory while the row's loads are in flight, so the
-// scaled write after the reduction reads it from there.  kSums writes the
-// row's sum to ss; kScale reads it from there.
+// scaled write after the reduction reads it from there.  kScale reads the
+// row's sum from ss (kSums runs rmsnorm_part_kernel).
 template <typename T, int NV, int P>
 __global__ void __launch_bounds__(kWarps * 32)
 rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   T* __restrict__ out, float* __restrict__ ss_io, int T_,
-                   int D, int Dn, float eps) {
+                   T* __restrict__ out, const float* __restrict__ ss_io,
+                   int T_, int D, int Dn, float eps) {
   extern __shared__ float4 w_s[];  // [D / 4]
   constexpr int V = Vec<T>::V;
   const int lane = threadIdx.x & 31;
@@ -99,11 +102,9 @@ rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const bool live = row < T_;
   const int nvec = D / V;
   const float4* w4 = reinterpret_cast<const float4*>(w);
-  if (P != kSums) {
-    for (int i = threadIdx.x; i < D / 4; i += kWarps * 32)
-      hw::cp_async16(hw::smem_u32(w_s + i), w4 + i, true);
-    hw::cp_async_commit();
-  }
+  for (int i = threadIdx.x; i < D / 4; i += kWarps * 32)
+    hw::cp_async16(hw::smem_u32(w_s + i), w4 + i, true);
+  hw::cp_async_commit();
   const uint4* xv = reinterpret_cast<const uint4*>(x + (size_t)row * D);
   uint4 reg[NV];
   float ss = 0.f;
@@ -121,10 +122,6 @@ rmsnorm_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
     for (int i = 0; i < NV; ++i)
       if (live && lane + 32 * i < nvec) ss = sum_sq<T>(reg[i], ss);
     total = warp_sum(ss);
-  }
-  if (P == kSums) {
-    if (live && lane == 0) ss_io[row] = total;
-    return;
   }
   const float inv = rsqrtf(total / (float)Dn + eps);
   hw::cp_async_wait<0>();
@@ -221,6 +218,78 @@ rmsnorm_scalar_kernel(const T* __restrict__ x, const float* __restrict__ w,
     orow[i] = rt::from_f<T>((rt::to_f(xr[i]) * inv) * w[i]);
 }
 
+// kSums on the aligned route, the row in registers (nvec <= 32 NV), on a
+// grid sized to the card: twice the blocks it holds at once, so a second
+// set waits to start as the first drains, and past that each warp walks
+// rows (row gw, gw + nw, ...), the next row's loads issued before it reduces
+// the current one's.  At 4096 rows of D 3072 or 192 each warp takes one row:
+// every load of the launch is in flight at once (walking two rows a warp
+// measured slower there, and four or eight rows a warp at D 192 too).  A
+// lane sums its vectors v = lane + 32 i in rising i, then the warp's
+// shuffles: rmsnorm_reg_kernel's order, so its bits.
+constexpr int kPartWarps = 8;    // warps a block of rmsnorm_part_kernel
+
+template <typename T, int NV>
+__device__ __forceinline__ void part_load(const T* __restrict__ x,
+                                          uint4 (&r)[NV], int row, int D,
+                                          int lane) {
+  const int nvec = D / Vec<T>::V;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + (size_t)row * D);
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < nvec) r[i] = xv[lane + 32 * i];
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ void part_reduce(const uint4 (&r)[NV], int row,
+                                            float* __restrict__ ss, int D,
+                                            int lane) {
+  const int nvec = D / Vec<T>::V;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    if (lane + 32 * i < nvec) s = sum_sq<T>(r[i], s);
+  s = warp_sum(s);
+  if (lane == 0) ss[row] = s;
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kPartWarps * 32)
+rmsnorm_part_kernel(const T* __restrict__ x, float* __restrict__ ss, int T_,
+                    int D) {
+  const int lane = threadIdx.x & 31;
+  const int nw = gridDim.x * kPartWarps;
+  uint4 a[NV], b[NV];
+  int row = blockIdx.x * kPartWarps + (threadIdx.x >> 5);
+  if (row < T_) part_load<T, NV>(x, a, row, D, lane);
+  for (; row < T_; row += 2 * nw) {
+    const int r1 = row + nw, r2 = r1 + nw;
+    if (r1 < T_) part_load<T, NV>(x, b, r1, D, lane);
+    part_reduce<T, NV>(a, row, ss, D, lane);
+    if (r2 < T_) part_load<T, NV>(x, a, r2, D, lane);
+    if (r1 < T_) part_reduce<T, NV>(b, r1, ss, D, lane);
+  }
+}
+
+// Blocks of `threads` threads of `kernel` that the card holds at once.
+template <typename K>
+int resident_blocks(K kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+template <typename T, int NV>
+void launch_part(const T* x, float* ss, int T_, int D, cudaStream_t stream) {
+  static const int cap =
+      2 * resident_blocks(rmsnorm_part_kernel<T, NV>, kPartWarps * 32);
+  const int need = (T_ + kPartWarps - 1) / kPartWarps;
+  rmsnorm_part_kernel<T, NV><<<need < cap ? need : cap, kPartWarps * 32, 0,
+                               stream>>>(x, ss, T_, D);
+}
+
 inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 // Phase P of the norm of rows of D columns over a row of Dn.  The route
@@ -242,28 +311,39 @@ void launch(const void* x, const void* w, void* out, float* ss, int T_, int D,
   }
   // the fewest registers that hold the row; wider rows go in pieces
   const int per_lane = (D / Vec<T>::V + 31) / 32;
-  const size_t ws = P == kSums ? 0 : (size_t)D * sizeof(float);
+  if (per_lane > kMaxNV) {
+    rmsnorm_wide_kernel<T, P><<<grid, block, 0, stream>>>(xp, wp, op, ss, T_,
+                                                          D, Dn, eps);
+    return;
+  }
+#define BY_NV(F)              \
+  if (per_lane <= 1)          \
+    F(1);                     \
+  else if (per_lane <= 2)     \
+    F(2);                     \
+  else if (per_lane <= 4)     \
+    F(4);                     \
+  else if (per_lane <= 6)     \
+    F(6);                     \
+  else if (per_lane <= 8)     \
+    F(8);                     \
+  else if (per_lane <= 12)    \
+    F(12);                    \
+  else                        \
+    F(kMaxNV)
+  if constexpr (P == kSums) {
+#define RMS_PART(NV) launch_part<T, NV>(xp, ss, T_, D, stream)
+    BY_NV(RMS_PART);
+#undef RMS_PART
+  } else {
+    const size_t ws = (size_t)D * sizeof(float);
 #define RMS_REG(NV)                                                       \
   rmsnorm_reg_kernel<T, NV, P><<<grid, block, ws, stream>>>(xp, wp, op, ss, \
                                                           T_, D, Dn, eps)
-  if (per_lane <= 1)
-    RMS_REG(1);
-  else if (per_lane <= 2)
-    RMS_REG(2);
-  else if (per_lane <= 4)
-    RMS_REG(4);
-  else if (per_lane <= 6)
-    RMS_REG(6);
-  else if (per_lane <= 8)
-    RMS_REG(8);
-  else if (per_lane <= 12)
-    RMS_REG(12);
-  else if (per_lane <= kMaxNV)
-    RMS_REG(kMaxNV);
-  else
-    rmsnorm_wide_kernel<T, P><<<grid, block, 0, stream>>>(xp, wp, op, ss, T_, D,
-                                                          Dn, eps);
+    BY_NV(RMS_REG);
 #undef RMS_REG
+  }
+#undef BY_NV
 }
 
 // ------------------------------------------------------------- backward
@@ -301,8 +381,11 @@ void launch(const void* x, const void* w, void* out, float* ss, int T_, int D,
 //
 // Split over ranks, kSums writes each row's (sum x^2, sum w dy x) over the
 // local columns to sums [T, 2], and after the caller's sum over the ranks
-// kScale writes dx and the local columns' dw from them, on the same grid:
-// each row's sums and dw's partials in the one-pass order.
+// kScale writes dx and the local columns' dw from them: each row's sums and
+// dw's partials in the one-pass order.  On the register route kScale runs on
+// the one-pass grid.  On the wide route with aligned rows the sums are given,
+// so kScale is a streaming pass over column tiles by the same runs of rows
+// (rmsnorm_bwd_scale_kernel): x and dy read once, not three times.
 constexpr int kBwdWarps = 8;              // warps a block
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kMaxParts = 256;            // dw partials at most (ops.RMS_DW_PARTS)
@@ -314,6 +397,14 @@ __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// dx of one element, w r dy - x c, rounded in this order by every backward
+// kernel (no contraction that the compiler could choose differently in each),
+// so that a split row's kScale gives the one-pass kernels' bits.
+__device__ __forceinline__ float bwd_dx(float w, float r, float g, float x,
+                                        float c) {
+  return __fsub_rn(__fmul_rn(__fmul_rn(w, r), g), __fmul_rn(x, c));
 }
 
 // VW consecutive elements at p as f32, in 16-byte loads where VW elements
@@ -466,7 +557,7 @@ rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const float xf = rt::to_f(xe[j]), gf = rt::to_f(ge[j]);
-          oe[j] = rt::from_f<T>(wf[j] * r * gf - xf * c);
+          oe[j] = rt::from_f<T>(bwd_dx(wf[j], r, gf, xf, c));
           acc[i * V + j] = fmaf(gf * xf, r, acc[i * V + j]);
         }
         reinterpret_cast<uint4*>(dx + (size_t)row * D)[v] = out;
@@ -574,7 +665,7 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
           float of[VW];
 #pragma unroll
           for (int j = 0; j < VW; ++j)
-            of[j] = wf[u][j] * r * gf[u][j] - xf[u][j] * c;
+            of[j] = bwd_dx(wf[u][j], r, gf[u][j], xf[u][j], c);
           store_f<VW>(dx + (size_t)row * D + v * VW, of);
         }
       }
@@ -602,6 +693,75 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
     }
     __syncthreads();
   }
+}
+
+// kScale on the wide route with aligned rows: a streaming pass, as the row
+// sums are given.  Block (bx, by) takes kScaleThreads 16-byte column vectors
+// (a thread each) of the rows [rpb by, rpb (by + 1)), the run whose dw
+// partial rmsnorm_bwd_wide_kernel writes.  A thread keeps its columns' w and
+// dw sums in registers and walks the run's rows in order, kScaleRows rows'
+// loads of x, dy and sums in flight, and writes dx as it goes: x and dy read
+// once, dx written once, all in coalesced 16-byte vectors, no barrier.  Each
+// column's partial is the wide kernel's fold, in row order from zero, so its
+// bits; part[by] (dw when one run holds every row) as there.
+constexpr int kScaleThreads = 128;   // column vectors a block
+constexpr int kScaleRows = 2;        // rows a thread has in flight
+
+template <typename T>
+__global__ void __launch_bounds__(kScaleThreads)
+rmsnorm_bwd_scale_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                         const T* __restrict__ dy, T* __restrict__ dx,
+                         float* __restrict__ dw, float* __restrict__ part,
+                         const float2* __restrict__ sums, int T_, int D,
+                         int Dn, float eps, int rpb) {
+  constexpr int V = Vec<T>::V;
+  const int nvec = D / V;
+  const int v = blockIdx.x * kScaleThreads + threadIdx.x;
+  if (v >= nvec) return;
+  const int r0 = blockIdx.y * rpb, r1 = min(T_, r0 + rpb);
+  const uint4* xv = reinterpret_cast<const uint4*>(x) + v;
+  const uint4* gv = reinterpret_cast<const uint4*>(dy) + v;
+  uint4* ov = reinterpret_cast<uint4*>(dx) + v;
+  float wf[V], acc[V];
+  load_f<V>(w + v * V, wf);
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  for (int base = r0; base < r1; base += kScaleRows) {
+    uint4 xr[kScaleRows], gr[kScaleRows];
+    float2 s[kScaleRows];
+#pragma unroll
+    for (int u = 0; u < kScaleRows; ++u) {
+      const size_t row = base + u;
+      if (base + u < r1) {
+        xr[u] = xv[row * nvec];
+        gr[u] = gv[row * nvec];
+        s[u] = sums[row];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScaleRows; ++u) {
+      if (base + u >= r1) break;
+      const float r = rsqrtf(s[u].x / (float)Dn + eps);
+      const float c = r * r * r * (s[u].y / (float)Dn);
+      const T* xe = reinterpret_cast<const T*>(&xr[u]);
+      const T* ge = reinterpret_cast<const T*>(&gr[u]);
+      uint4 out;
+      T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xf = rt::to_f(xe[j]), gf = rt::to_f(ge[j]);
+        oe[j] = rt::from_f<T>(bwd_dx(wf[j], r, gf, xf, c));
+        acc[j] = fmaf(gf * xf, r, acc[j]);
+      }
+      ov[(size_t)(base + u) * nvec] = out;
+    }
+  }
+  float4* dst = reinterpret_cast<float4*>(
+      (gridDim.y == 1 ? dw : part + (size_t)blockIdx.y * D) + v * V);
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q)
+    dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                         acc[4 * q + 3]);
 }
 
 // dw[d] = the sum over the n partials of column d, in order of block: warp
@@ -690,12 +850,18 @@ void launch_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
   } else {
     const int rpb = rows_per_block(a.T_, kBwdWarps);
     blocks = (a.T_ + rpb - 1) / rpb;
-    if (vec)
-      rmsnorm_bwd_wide_kernel<T, V, P><<<blocks, kBwdThreads, 0, stream>>>(
+    if (!vec)
+      rmsnorm_bwd_wide_kernel<T, 1, P><<<blocks, kBwdThreads, 0, stream>>>(
           a.x, a.w, a.dy, a.dx, a.dw, a.part, a.sums, a.T_, a.D, a.Dn, a.eps,
           rpb);
+    else if constexpr (P == kScale)
+      rmsnorm_bwd_scale_kernel<T>
+          <<<dim3((unsigned)((nvec + kScaleThreads - 1) / kScaleThreads),
+                  (unsigned)blocks),
+             kScaleThreads, 0, stream>>>(a.x, a.w, a.dy, a.dx, a.dw, a.part,
+                                         a.sums, a.T_, a.D, a.Dn, a.eps, rpb);
     else
-      rmsnorm_bwd_wide_kernel<T, 1, P><<<blocks, kBwdThreads, 0, stream>>>(
+      rmsnorm_bwd_wide_kernel<T, V, P><<<blocks, kBwdThreads, 0, stream>>>(
           a.x, a.w, a.dy, a.dx, a.dw, a.part, a.sums, a.T_, a.D, a.Dn, a.eps,
           rpb);
   }

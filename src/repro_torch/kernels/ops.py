@@ -20,8 +20,8 @@ runs the rmsnorm kernels in two launches each way, a sum over the ranks
 between them: ``rmsnorm_part`` (each row's sum of squares) then
 ``rmsnorm_scale``, and backward ``rmsnorm_bwd_part`` (each row's sum of
 squares and of ``w dy x``) then ``rmsnorm_bwd_scale`` (dx and the local
-dw).  Each phase runs the one-pass kernel's code, so over one rank the two
-launches give ``rmsnorm``'s and ``rmsnorm_bwd``'s bits.
+dw).  Each phase sums in the one-pass kernel's order, so over one rank the
+two launches give ``rmsnorm``'s and ``rmsnorm_bwd``'s bits.
 
 Counting (``launch.roofline.Counter``): while a counter is active every
 entry of ``KERNEL_NAMES`` records its formula once a launch, whichever
@@ -231,7 +231,7 @@ class _RmsNorm(torch.autograd.Function):
 def rmsnorm_part(x: torch.Tensor) -> torch.Tensor:
     """x [T, D] -> [T] f32: each row's sum of squares over its D columns,
     in ``rmsnorm``'s order; the first launch of a norm whose rows are split
-    over ranks."""
+    over ranks (a warp a row on a grid sized to the card)."""
     T, D = x.shape
     cost = (*roofline.rmsnorm_part_cost(T, D, x.element_size()), _dt(x))
     if not x.is_cuda:
@@ -306,7 +306,8 @@ def rmsnorm_bwd_scale(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     """(dx in x.dtype, dw f32) of a split row's D columns from ``sums``
     [T, 2], the rows' (sum x^2, sum w dy x) over all ``n`` columns: the
     second launch (then the in-order sum of the blocks' dw partials, as
-    ``rmsnorm_bwd``'s)."""
+    ``rmsnorm_bwd``'s).  Rows past the one-pass kernel's registers stream
+    through column tiles, x and dy read once."""
     T, D = x.shape
     cost = (*roofline.rmsnorm_bwd_scale_cost(T, D, x.element_size()),
             _dt(x))

@@ -9,14 +9,16 @@ fleet accounting (spin-ups, retirements, peak replicas, replica rows).
 ``sweep_fleet`` gives the same bits serial, pooled and on either engine.
 Nothing here imports torch.
 """
+import dataclasses
 import importlib
 
 import pytest
 
 from test_fleet import TinyFleetMoE, burst_times, tiny_requests
-from torch_sim_helpers import (assert_same, assert_same_result,
-                               reference_profile, same_or_same_fault,
-                               to_port)
+from test_serving import TinyDisaggMoE
+from torch_sim_helpers import (DISAGG_AGGREGATES, assert_same,
+                               assert_same_result, assert_same_run,
+                               reference_profile, same_or_repaired, to_port)
 
 jfl = importlib.import_module("repro.serving.fleet")
 fl = importlib.import_module("repro_torch.serving.fleet")
@@ -32,19 +34,24 @@ FLEET_AGGREGATES = ("requests", "steps", "spin_ups", "retired",
 
 
 def _fleet(reqs, retention=None, engine="event", mcfg=TINY, **kw):
-    """``simulate_fleet`` of both packages on 16-GPU replicas; ``None``
-    where both raise the vectorized engine's fault (ROADMAP.md section
-    3)."""
+    """``simulate_fleet`` of both packages on 16-GPU replicas, the port's
+    run; where the reference's vectorized engine raises (ROADMAP.md section
+    3), the port's equals its event engine's run."""
     pod = jwl.resolve_pod(jwl.PodSpec(n_gpus=16), mcfg, "decode")
     jc = jcfg.SimConfig(fabric=jwl.pod_fabric(pod), engine=engine,
                         tlb_retention_ns=retention)
-    ref, port = same_or_same_fault(
+
+    def port(cfg):
+        return lambda: fl.simulate_fleet(mcfg, to_port(reqs), n_gpus=16,
+                                         cfg=to_port(cfg), **to_port(kw))
+
+    ref, got = same_or_repaired(
         lambda: jfl.simulate_fleet(mcfg, reqs, n_gpus=16, cfg=jc, **kw),
-        lambda: fl.simulate_fleet(mcfg, to_port(reqs), n_gpus=16,
-                                  cfg=to_port(jc), **to_port(kw)))
+        port(jc), port(dataclasses.replace(jc, engine="event")),
+        FLEET_AGGREGATES)
     if ref is not None:
-        assert_same_result(ref, port, FLEET_AGGREGATES)
-    return port
+        assert_same_result(ref, got, FLEET_AGGREGATES)
+    return got
 
 
 def test_rid_hash_is_the_reference_s():
@@ -100,9 +107,6 @@ def test_autoscaler_is_the_reference_s(case, engine):
                          output=2)
     kw = dict(kw, autoscale=True)
     res = _fleet(reqs, engine=engine, **kw)
-    if res is None:
-        assert (case, engine) == ("churn", "vectorized")
-        return
     assert len(res.finished) == len(res.requests)
     if case == "churn":
         assert res.retired >= 1 and res.spin_ups >= 2
@@ -202,15 +206,90 @@ def test_sweep_prices_duplicates_once(monkeypatch):
 
 
 def test_vectorized_fault_is_the_reference_s():
-    """A fault of the reference's vectorized engine that the port copies
-    (ROADMAP.md section 3): with several sessions in one fleet, its warm
-    fast path raises KeyError on these points, in both packages, with the
-    same message; the event engine prices them."""
+    """The reference's vectorized engine raises KeyError on these points,
+    where several sessions share its fast path's memo (ROADMAP.md section
+    3); the port's prices them as its event engine does, serial and
+    pooled."""
     reqs = tiny_requests(burst_times(4, 6, GAP), prompt=16, output=2)
     assert _fleet(reqs, engine="vectorized", replicas=2, autoscale=True,
-                  scale_up_queued=1, scale_down_idle_ns=GAP / 4) is None
+                  scale_up_queued=1, scale_down_idle_ns=GAP / 4).spin_ups >= 2
     jpt, pt = _points(jsv, "vectorized")[2], _points(sv, "vectorized")[2]
-    assert same_or_same_fault(lambda: jfl._fleet_point((jpt,)),
-                              lambda: fl._fleet_point((pt,))) == (None, None)
     with pytest.raises(KeyError):
-        fl.sweep_fleet([pt, _points(sv, "vectorized")[0]], workers=2)
+        jfl._fleet_point((jpt,))
+    event = fl._fleet_point((_points(sv, "event")[2],))
+    assert_same_run(event, fl._fleet_point((pt,)), FLEET_AGGREGATES)
+    pooled = fl.sweep_fleet([pt, _points(sv, "vectorized")[0]], workers=2)
+    assert_same_run(event, pooled[pt], FLEET_AGGREGATES)
+
+
+# ----------------------------------------------- sessions sharing a plan
+# Multi-session points of the vectorized engine: every SimSession in one
+# process adopts the same cached plan groups (core.session._PLAN_CACHE), and
+# with them the fast path's memo.  The three sweep points, every autoscaler
+# case, and the disaggregated point with and without a retention, as
+# ``run(port, engine)`` and the aggregates its result is read by.
+jdis = importlib.import_module("repro.serving.disagg")
+dis = importlib.import_module("repro_torch.serving.disagg")
+TINY_KV = TinyDisaggMoE()
+
+
+def _swept(i):
+    def run(port, engine):
+        mod, pkg = (sv, fl) if port else (jsv, jfl)
+        return pkg._fleet_point((_points(mod, engine)[i],))
+    return run
+
+
+def _autoscaled(case):
+    n_bursts, per_burst, kw = AUTOSCALE[case]
+    reqs = tiny_requests(burst_times(n_bursts, per_burst, GAP), prompt=16,
+                         output=2)
+    kw = dict(kw, autoscale=True)
+
+    def run(port, engine):
+        pod = jwl.resolve_pod(jwl.PodSpec(n_gpus=16), TINY, "decode")
+        jc = jcfg.SimConfig(fabric=jwl.pod_fabric(pod), engine=engine)
+        if port:
+            return fl.simulate_fleet(TINY, to_port(reqs), n_gpus=16,
+                                     cfg=to_port(jc), **to_port(kw))
+        return jfl.simulate_fleet(TINY, reqs, n_gpus=16, cfg=jc, **kw)
+    return run
+
+
+def _disaggregated(retention):
+    def run(port, engine):
+        mod, pkg = (sv, dis) if port else (jsv, jdis)
+        return pkg._disagg_point((mod.DisaggPoint(traffic=mod.TrafficPoint(
+            arch=TINY_KV, rps=200.0, arrival="bursty", seed=5, burst_size=3,
+            n_requests=6, steps_cap=80, prompt_mean=16, output_mean=3,
+            retention_ns=retention, max_decode_slots=4,
+            prefill_chunk_tokens=32, engine=engine)),))
+    return run
+
+
+SESSIONS = {
+    **{f"point{i}": (_swept(i), FLEET_AGGREGATES) for i in range(3)},
+    **{f"autoscale_{c}": (_autoscaled(c), FLEET_AGGREGATES)
+       for c in AUTOSCALE},
+    "disagg_kept": (_disaggregated(None), DISAGG_AGGREGATES),
+    "disagg_100us": (_disaggregated(100_000.0), DISAGG_AGGREGATES)}
+
+
+@pytest.mark.parametrize("case", sorted(SESSIONS))
+def test_shared_plans_price_as_the_event_engine(case):
+    """The port's vectorized engine gives its event engine's results, whose
+    event engine gives the reference's; and the reference's vectorized
+    results wherever that engine prices the point and agrees with its own
+    event engine (elsewhere it raises KeyError, ROADMAP.md section 3)."""
+    run, extra = SESSIONS[case]
+    event = run(True, "event")
+    vectorized = run(True, "vectorized")
+    assert_same_run(event, vectorized, extra)
+    ref_event = run(False, "event")
+    assert_same_result(ref_event, event, extra)
+    try:
+        ref = run(False, "vectorized")
+        assert_same_run(ref_event, ref, extra)
+    except (KeyError, AssertionError):
+        return
+    assert_same_result(ref, vectorized, extra)

@@ -21,7 +21,7 @@ from test_golden_figs import FIG15_GOLDEN, FIG15_POINT
 from test_serving import TinyDisaggMoE, TinyServeMoE, tiny_requests
 from torch_sim_helpers import (DISAGG_AGGREGATES, assert_same,
                                assert_same_result, reference_profile,
-                               same_or_same_fault, to_port)
+                               same_or_repaired, to_port)
 
 jsv = importlib.import_module("repro.serving")
 sv = importlib.import_module("repro_torch.serving")
@@ -503,9 +503,10 @@ def test_disagg_sweep_serial_pooled_and_reference():
 
 
 def test_vectorized_disagg_fault_is_the_reference_s():
-    """The fault of the reference's vectorized engine that the port copies
-    (ROADMAP.md section 3), on a disaggregated run with a retention: both
-    raise the same KeyError; the event engine prices the point."""
+    """The reference's vectorized engine raises KeyError on a disaggregated
+    run with a retention, where the pods' sessions share its fast path's
+    memo (ROADMAP.md section 3); the port's prices it as its event engine
+    does, and its event engine as the reference's."""
     def point(mod, engine):
         return mod.DisaggPoint(traffic=mod.TrafficPoint(
             arch=TINY_KV, rps=200.0, arrival="bursty", seed=5, burst_size=3,
@@ -515,10 +516,11 @@ def test_vectorized_disagg_fault_is_the_reference_s():
 
     jdis = importlib.import_module("repro.serving.disagg")
     dis = importlib.import_module("repro_torch.serving.disagg")
-    assert same_or_same_fault(
+    ref, port = same_or_repaired(
         lambda: jdis._disagg_point((point(jsv, "vectorized"),)),
-        lambda: dis._disagg_point((point(sv, "vectorized"),))) == (None,
-                                                                    None)
+        lambda: dis._disagg_point((point(sv, "vectorized"),)),
+        lambda: dis._disagg_point((point(sv, "event"),)), DISAGG_AGGREGATES)
+    assert ref is None and port.kv_cold_handoffs > 0
     assert_same_result(jdis._disagg_point((point(jsv, "event"),)),
                        dis._disagg_point((point(sv, "event"),)),
                        DISAGG_AGGREGATES)

@@ -91,3 +91,32 @@ def test_session_sequence_matches_reference(engine, trace):
             a.run(nbytes, **kw)
             b.run(nbytes, **kw)
         assert_same(a.result(), b.result())
+
+
+# A draw of the reference's engine fuzz (test_engine_fuzz) on which its
+# engines and its DES disagree: a ring all-gather of 2,215,144 B over 4
+# GPUs, every target simulated.  In each of the 3 flows that carry chunk 3
+# (offset 1,661,358) the 2 MiB page boundary falls 82 B into request 1702:
+# the engines' epoch spans (``core.engine.epoch_spans``) hold that request in
+# both pages' spans and count it twice, the DES once (at the page of its
+# first byte), as ceil(nbytes / request_bytes) a flow.  The port keeps both
+# counts.
+FUZZ_DRAW = (2_215_144, dict(collective="all_gather", symmetric=False))
+FUZZ_COUNTS = {"event": (25_971, 9_469), "vectorized": (25_971, 9_469),
+               "des": (25_968, 9_466)}
+
+
+@pytest.mark.parametrize("engine", sorted(FUZZ_COUNTS))
+def test_fuzz_draw_counts_are_the_reference_s(engine):
+    nbytes, kw = FUZZ_DRAW
+    cfg = jcore.paper_config(4).replace(**kw)
+    if engine == "des":
+        ref = jcore.simulate_ref(nbytes, cfg)
+        port = core.simulate_ref(nbytes, to_port(cfg))
+    else:
+        cfg = cfg.replace(engine=engine)
+        ref = jcore.simulate(nbytes, cfg)
+        port = core.simulate(nbytes, to_port(cfg))
+    assert_same(ref, port)
+    c = port.counters
+    assert (c.requests, c.by_class["l1_mshr_hum"]) == FUZZ_COUNTS[engine]

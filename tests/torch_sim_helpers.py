@@ -8,15 +8,14 @@ name in the matching module, rebuilt field by field, the way weights
 cross.  :func:`assert_same` walks two results the same way and wants every
 field equal: floats bit for bit, arrays with their dtype and shape, dict
 keys in their order.  :func:`assert_same_result` adds every aggregate a
-serving result is read by, and :func:`same_or_same_fault` holds a
-reference fault the port copies as parity.
+serving result is read by, and :func:`same_or_repaired` holds the port
+to its event engine where the reference's vectorized engine raises.
 """
 import dataclasses
 import importlib
 import math
 
 import numpy as np
-import pytest
 
 # (wall ns, flops, kernels) each phase's measurer returns in place of a
 # measurement, so that a profile is the same numbers in every run
@@ -59,13 +58,18 @@ def reference_profile(monkeypatch, arch, shape, n_gpus, cache_path=None):
     return jcal.calibrate(arch, shape, n_gpus=n_gpus, cache_path=cache_path)
 
 
-def assert_same(ref, port, path="result"):
-    """``port`` equals ``ref`` field by field, floats bit for bit."""
+def assert_same(ref, port, path="result", skip=frozenset(), twin=False):
+    """``port`` equals ``ref`` field by field, floats bit for bit, leaving
+    out the fields and dict keys named in ``skip``.  A dataclass of ``port`` is the port's
+    class of the same name as ``ref``'s; with ``twin`` (two runs of one
+    package) the same class."""
     if dataclasses.is_dataclass(ref) and not isinstance(ref, type):
-        assert type(port) is port_class(type(ref)), (path, type(port))
+        want = type(ref) if twin else port_class(type(ref))
+        assert type(port) is want, (path, type(port))
         for f in dataclasses.fields(ref):
-            assert_same(getattr(ref, f.name), getattr(port, f.name),
-                        f"{path}.{f.name}")
+            if f.name not in skip:
+                assert_same(getattr(ref, f.name), getattr(port, f.name),
+                            f"{path}.{f.name}", skip, twin)
     elif isinstance(ref, np.ndarray):
         assert isinstance(port, np.ndarray), path
         assert (port.dtype, port.shape) == (ref.dtype, ref.shape), path
@@ -74,11 +78,12 @@ def assert_same(ref, port, path="result"):
     elif isinstance(ref, (list, tuple)):
         assert type(port) is type(ref) and len(port) == len(ref), path
         for i, (r, p) in enumerate(zip(ref, port)):
-            assert_same(r, p, f"{path}[{i}]")
+            assert_same(r, p, f"{path}[{i}]", skip, twin)
     elif isinstance(ref, dict):
         assert list(port) == list(ref), path
         for k in ref:
-            assert_same(ref[k], port[k], f"{path}[{k!r}]")
+            if k not in skip:
+                assert_same(ref[k], port[k], f"{path}[{k!r}]", skip, twin)
     elif isinstance(ref, float):
         assert type(port) is type(ref), (path, type(port))
         assert port == ref or (math.isnan(ref) and math.isnan(port)), \
@@ -97,25 +102,43 @@ DISAGG_AGGREGATES = ("steps", "kv_transfer_total_ns", "kv_excess_total_ns",
                      "ttft_breakdown", "replica_rows")
 
 
-def assert_same_result(ref, port, extra=()):
-    """Every field, then every aggregate, of two serving results."""
-    assert_same(ref, port)
+# what two engines' runs of one point may differ in: the engine's name and
+# the vectorized engine's fast-path counts
+ENGINE_FIELDS = frozenset({"engine", "fastpath_calls",
+                           "fastpath_step_fraction", "kv_fastpath_calls"})
+
+
+def assert_same_result(ref, port, extra=(), skip=frozenset(), twin=False):
+    """Every field, then every aggregate, of two serving results, but those
+    named in ``skip`` (``twin`` as :func:`assert_same`'s)."""
+    assert_same(ref, port, skip=skip, twin=twin)
     for name in AGGREGATES + tuple(extra):
+        if name in skip:
+            continue
         want, got = getattr(ref, name), getattr(port, name)
         if callable(want):
             want, got = want(), got()
-        assert_same(want, got, name)
+        assert_same(want, got, name, skip, twin)
 
 
-def same_or_same_fault(ref_fn, port_fn):
-    """``(ref_fn(), port_fn())``, or ``(None, None)`` where the reference
-    raises and the port raises the same error: a reference fault the port
-    copies on purpose (ROADMAP.md section 3) is held as parity too."""
+def assert_same_run(event, vectorized, extra=()):
+    """Two engines' runs of one point, from one package, give the same
+    results: every field and aggregate but :data:`ENGINE_FIELDS`."""
+    assert_same_result(event, vectorized, extra, skip=ENGINE_FIELDS,
+                       twin=True)
+
+
+def same_or_repaired(ref_fn, port_fn, event_fn, extra=()):
+    """``(ref_fn(), port_fn())``, or ``(None, port_fn())`` where the
+    reference raises the KeyError of its vectorized engine's shared
+    fast-path memo (ROADMAP.md section 3), which the port repairs: there the
+    port's run must price the point as the port's event engine does
+    (``event_fn()``), in every field and aggregate (``extra`` too) but
+    :data:`ENGINE_FIELDS`."""
     try:
         ref = ref_fn()
-    except Exception as fault:          # whatever it is, the port's too
-        with pytest.raises(type(fault)) as err:
-            port_fn()
-        assert str(err.value) == str(fault)
-        return None, None
+    except KeyError:
+        port = port_fn()
+        assert_same_run(event_fn(), port, extra)
+        return None, port
     return ref, port_fn()
