@@ -105,8 +105,9 @@ exits non-zero:
     64-row slices with D and F off the 128 x 256 tile, a hot expert, an
     empty expert between full ones; dX on the decode route, T <= 16 E;
     rmsnorm_bwd on each of its routes: a row group of 4, 8, 16 or 32
-    lanes, 1 to 8 vectors a lane, the wide route aligned and not, one
-    block or many); each twice, bit for bit, attention finite; the forward
+    lanes, 1 to 8 vectors a lane, the wide route (rows staged in shared
+    memory) and the scalar route, one block or many); each twice, bit for
+    bit, attention finite; the forward
     with the logsumexp equal to the forward without it, bit for bit; dX
     at granite's training shape allocating no more than its output (no
     copy of W^T); a bf16 dW with D % 8 != 0 raises.  ssd_chunk_bwd
@@ -118,8 +119,9 @@ exits non-zero:
     absent, and with a of both signs (``SSD_SIGNED``).
     Times of each backward kernel, its plain version, one PyTorch call
     (SDPA's backward, F.rms_norm's backward, a padded bmm; none for
-    ssd_chunk_bwd) and its bound, with each kernel's share of rmsnorm_bwd,
-    dX and ssd_chunk_bwd from the profiler; flash_attention_bwd also at
+    ssd_chunk_bwd) and its bound, with each kernel's share of rmsnorm_bwd
+    (at granite's rows, D 1001 and mamba2's gate rows [4096,3072]), dX and
+    ssd_chunk_bwd from the profiler; flash_attention_bwd also at
     qwen3-1.7b's Dh 128 and phi-3's Dh 96, rmsnorm_bwd at every
     ``RMS_BWD`` shape.  Then gradients in f32, the card against the CPU
     (granite and mamba2 cut to 2 layers at full width, mamba2 at 2 x 512
@@ -229,8 +231,8 @@ exits non-zero:
     (``SPLIT_RMS``, ``SPLIT_EDGES``): each against its plain version, the
     whole rows against rmsnorm's and rmsnorm_bwd's plain versions, and
     over one rank the one-pass kernels' bits; each timed at 4096 rows over
-    model 1 and 16, and the kernels of rmsnorm_part and rmsnorm_bwd_scale
-    there profiled; ssd_chunk and ssd_chunk_bwd on 24, 12, 6 and 3 of
+    model 1 and 16, and the kernels of rmsnorm_part, rmsnorm_bwd_part and
+    rmsnorm_bwd_scale there profiled; ssd_chunk and ssd_chunk_bwd on 24, 12, 6 and 3 of
     mamba2's 48 heads (``SSD_LOCAL``) against their plain versions and f64
     bounds, and timed;
 (j) the count of a real step against the dry-run's: granite-moe-1b-a400m
@@ -257,7 +259,15 @@ exits non-zero:
 step: ``train_path`` of the checkout at PARENT (an unpacked ``git
 archive`` of the parent commit) against this checkout's, each in a fresh
 process, in turns parent, change, change, parent.  ``--split-ab PARENT``
-does the same with the split norm's times (``time_split_rmsnorm``).
+does the same with the split norm's times (``time_split_rmsnorm``), and
+``--rms-ab PARENT`` with ``RMS_AB``: digests (crc32 of the output bytes)
+of rmsnorm_bwd at every ``RMS_BWD`` and ``RMS_BWD_EDGES`` shape and of
+rmsnorm_bwd_part and rmsnorm_bwd_scale on the shards of ``SPLIT_RMS`` and
+``SPLIT_EDGES``, f32 and bf16, which must be alike in all four runs, then
+rmsnorm_bwd's time at every ``RMS_BWD`` shape in bf16, its kernels' device
+time at [4096,3072], the
+same windows behind a read of the flush buffer rather than its zero fill,
+and the split launches' times.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -2067,7 +2077,7 @@ def time_backward_kernels(torch, ops, ref, dev):
             lambda: ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6),
             lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
             *rl.rmsnorm_bwd_cost(T, D, es)))
-        if (T, D) in (RMS_BWD[0], (37, 1001)):
+        if (T, D) in (RMS_BWD[0], (37, 1001), (4096, 3072)):
             kernel_split(torch, lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6),
                          flush, f"rmsnorm_bwd [{T},{D}] bfloat16")
         del x, dy, xl, wl, yl
@@ -2956,7 +2966,8 @@ def time_split_rmsnorm(torch, ops, ref, dev):
     model 1 and 16, bf16 (each window opens behind a spin kernel, so the
     host's dispatch of a launch this short stays out of it: ``timed_ms``),
     and the profiler's device time a launch of each kernel that
-    ``rmsnorm_part`` and ``rmsnorm_bwd_scale`` run; returns
+    ``rmsnorm_part``, ``rmsnorm_bwd_part`` and ``rmsnorm_bwd_scale`` run;
+    returns
     each launch's record at ``SPLIT_TIMED`` (no single PyTorch call
     computes a half)."""
     from repro_torch.launch import roofline as rl
@@ -2996,7 +3007,8 @@ def time_split_rmsnorm(torch, ops, ref, dev):
                 f"bfloat16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library n/a (no single call), bound {b_ms:.4g} ms "
                 f"({b_by})")
-            if name in ("rmsnorm_part", "rmsnorm_bwd_scale"):
+            if name in ("rmsnorm_part", "rmsnorm_bwd_part",
+                        "rmsnorm_bwd_scale"):
                 kernel_split(torch, fn, flush, f"{name} [{T},{D}] bfloat16",
                              phase="i")
             if m == SPLIT_TIMED[2]:
@@ -3671,29 +3683,132 @@ def gc_collect(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def run_ab(parent: str, call: str, keep) -> int:
+def run_ab(parent: str, call: str, keep, same=None) -> int:
     """``call`` (an expression on ``c``, this module, and ``torch``) in
     the checkout at PARENT and in this one, each in a fresh process, in
     turns parent, change, change, parent; prints each run's lines for
-    which ``keep`` holds."""
+    which ``keep`` holds.  With ``same``, the lines for which it holds
+    must be alike in the four runs, and there must be some."""
     code = ("import sys, torch; sys.path[:0] = ['src', '.']; "
             "torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; "
             f"import chip_smoke as c; {call}")
+    alike = []
     for label, root in (("parent", parent), ("change", str(ROOT)),
                         ("change", str(ROOT)), ("parent", parent)):
         run = subprocess.run([sys.executable, "-c", code], cwd=root,
                              capture_output=True, text=True, timeout=900)
-        for line in run.stdout.splitlines():
-            if keep(line):
-                print(f"(ab) {label}: {line}", flush=True)
+        lines = [ln for ln in run.stdout.splitlines() if keep(ln)]
+        for line in lines:
+            print(f"(ab) {label}: {line}", flush=True)
         if run.returncode:
             print(run.stderr[-3000:], file=sys.stderr)
             return 1
+        if same is not None:
+            alike.append([ln for ln in lines if same(ln)])
+    if same is not None:
+        if not alike[0] or any(a != alike[0] for a in alike):
+            print("(ab) the runs' checked lines differ or are missing",
+                  file=sys.stderr)
+            return 1
+        print(f"(ab) {len(alike[0])} checked lines alike in all four runs",
+              flush=True)
     return 0
 
 
-# what each A/B of ``--train-ab`` and ``--split-ab`` runs and prints
+# ``--rms-ab``'s run, in either checkout (so it calls only what the parent
+# has too): a crc32 of the bytes of rmsnorm_bwd's dx and dw at every
+# ``RMS_BWD`` and ``RMS_BWD_EDGES`` shape, and of rmsnorm_bwd_part's sums and
+# rmsnorm_bwd_scale's dx and dw on each shard of ``SPLIT_RMS`` over
+# ``SPLIT_MODELS`` and of ``SPLIT_EDGES`` over 1 and 2, f32 and bf16, from
+# seeded inputs; then rmsnorm_bwd's window at every ``RMS_BWD`` shape in
+# bf16 ([4096,3072] last), the device time of its kernels there and of
+# rmsnorm_bwd_part's, the windows of rmsnorm_bwd,
+# rmsnorm_bwd_part and rmsnorm_part there behind a read of the flush buffer
+# rather than its zero fill, and the split launches' times
+# (``time_split_rmsnorm``), each window behind the spin kernel.
+RMS_AB = f"""
+import functools, zlib
+from repro_torch.kernels import build, ops, ref
+build.build_all()
+dev = torch.device("cuda")
+c.timed_ms = functools.partial(c.timed_ms, spin=True)
+gen = torch.Generator(device=dev).manual_seed(19)
+
+
+def digest(*ts):
+    h = 0
+    for t in ts:
+        h = zlib.crc32(t.contiguous().view(torch.uint8).cpu().numpy()
+                       .tobytes(), h)
+    return format(h, "08x")
+
+
+for dname in ("float32", "bfloat16"):
+    dt = getattr(torch, dname)
+    for T, D in {RMS_BWD + RMS_BWD_EDGES!r}:
+        x, dy = (torch.randn(T, D, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        w = torch.randn(D, generator=gen, device=dev)
+        print(f"digest rmsnorm_bwd [{{T}},{{D}}] {{dname}}: "
+              f"{{digest(*ops.rmsnorm_bwd(x, w, dy, 1e-6))}}", flush=True)
+    for T, D in {SPLIT_RMS + SPLIT_EDGES!r}:
+        x, dy = (torch.randn(T, D, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+        models = {SPLIT_MODELS!r} if (T, D) in {SPLIT_RMS!r} else (
+            (1,) if D % 2 else (1, 2))
+        for m in models:
+            xs, ws, gs = (t.chunk(m, dim=-1) for t in (x, w, dy))
+            xs, gs = [t.contiguous() for t in xs], [t.contiguous() for t in gs]
+            parts = [ops.rmsnorm_bwd_part(xi, wi, gi)
+                     for xi, wi, gi in zip(xs, ws, gs)]
+            sums = sum(parts)
+            scaled = [t for xi, wi, gi in zip(xs, ws, gs)
+                      for t in ops.rmsnorm_bwd_scale(xi, wi, gi, sums, D, 1e-6)]
+            print(f"digest rmsnorm_bwd_part [{{T}},{{D}}] over {{m}} "
+                  f"{{dname}}: {{digest(*parts)}}; rmsnorm_bwd_scale "
+                  f"{{digest(*scaled)}}", flush=True)
+flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+for T, D in {[t for t in RMS_BWD if t != (4096, 3072)] + [(4096, 3072)]!r}:
+    x, dy = (torch.randn(T, D, generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    w = torch.ones(D, device=dev)
+    bwd = lambda: ops.rmsnorm_bwd(x, w, dy, 1e-6)
+    print(f"time rmsnorm_bwd [{{T}},{{D}}] bfloat16: kernel "
+          f"{{c.timed_ms(torch, bwd, flush):.4f}} ms", flush=True)
+c.kernel_split(torch, bwd, flush, "rmsnorm_bwd [4096,3072] bfloat16")
+c.kernel_split(torch, lambda: ops.rmsnorm_bwd_part(x, w, dy), flush,
+               "rmsnorm_bwd_part [4096,3072] bfloat16", phase="i")
+# the same windows behind a read of the flush buffer instead of its zero
+# fill, which leaves L2 full of dirty lines for the kernel's reads to evict
+sink = torch.empty((), dtype=torch.int64, device=dev)
+read = functools.partial(torch.sum, flush, dim=0, dtype=torch.int64, out=sink)
+for name, fn in (("rmsnorm_bwd", bwd),
+                 ("rmsnorm_bwd_part", lambda: ops.rmsnorm_bwd_part(x, w, dy)),
+                 ("rmsnorm_part", lambda: ops.rmsnorm_part(x))):
+    for _ in range(3):
+        fn()
+    ts = []
+    for _ in range(20):
+        read()
+        torch.cuda._sleep(c.SPIN_CYCLES)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        ts.append((s, e))
+    torch.cuda.synchronize()
+    ms = sum(s.elapsed_time(e) for s, e in ts) / len(ts)
+    print(f"time {{name}} [4096,3072] bfloat16 behind a read of the flush "
+          f"buffer (not its zero fill): kernel {{ms:.4f}} ms", flush=True)
+del x, dy, w, flush, sink
+c.time_split_rmsnorm(torch, ops, ref, dev)
+"""
+
+
+# what each A/B of ``--train-ab``, ``--split-ab`` and ``--rms-ab`` runs and
+# prints (and which printed lines must be alike in its four runs)
 AB = {
     "--train-ab": ("c.train_path(torch, torch.device('cuda'))",
                    lambda line: any(k in line for k in
@@ -3706,6 +3821,10 @@ AB = {
                    "c.time_split_rmsnorm(torch, ops, ref, "
                    "torch.device('cuda'))",
                    lambda line: "time " in line or "profile" in line),
+    "--rms-ab": (f"exec({RMS_AB!r})",
+                 lambda line: any(k in line for k in
+                                  ("digest ", "time ", "profile")),
+                 lambda line: line.startswith("digest ")),
 }
 
 

@@ -1,9 +1,10 @@
 // Inline-PTX helpers for the bf16 tensor-core kernels (sm_90a): shared
-// addresses, cp.async 16- and 4-byte copies, ldmatrix and mma.sync
-// m16n8k16, mbarriers, TMA tile loads, and wgmma m64n256k16 with
-// shared-memory descriptors (A and B each K-major or MN-major).  Host
-// side: cuTensorMapEncodeTiled, taken through the runtime's driver entry
-// point so that no library links against libcuda.
+// addresses and 16-byte shared loads, cp.async 16- and 4-byte copies,
+// ldmatrix and mma.sync m16n8k16, mbarriers, TMA tile and 1D bulk loads
+// (the latter under an L2 evict-first policy where asked), and wgmma m64n256k16 with shared-memory descriptors (A and B each
+// K-major or MN-major).  Host side: cuTensorMapEncodeTiled, taken through
+// the runtime's driver entry point so that no library links against
+// libcuda.
 #pragma once
 
 #include <cuda.h>
@@ -47,6 +48,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // multiple of 32, of the block.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 16 bytes at a shared address in one load (volatile: not split into
+// narrower loads, nor moved across the barriers that guard the data).
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
 }
 
 // ------------------------------------------------ ldmatrix and mma.sync
@@ -130,6 +141,36 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ----------------------------------------------------------------- TMA
+// 1D bulk copy of `bytes` (a multiple of 16) from global src to shared dst,
+// both 16-byte aligned; its bytes complete the transaction count of the
+// mbarrier at bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// The L2 cache policy for data read once: its lines are the first evicted,
+// so a stream of them recycles its own lines instead of the cache's other
+// (perhaps dirty) contents.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+// bulk_load under an L2 cache policy.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
                                             uint32_t bar, int c0, int c1) {
   asm volatile(

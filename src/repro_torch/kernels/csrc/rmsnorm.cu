@@ -271,13 +271,15 @@ rmsnorm_part_kernel(const T* __restrict__ x, float* __restrict__ ss, int T_,
   }
 }
 
-// Blocks of `threads` threads of `kernel` that the card holds at once.
+// Blocks of `threads` threads of `kernel` (with `smem` bytes of dynamic
+// shared memory) that the card holds at once.
 template <typename K>
-int resident_blocks(K kernel, int threads) {
+int resident_blocks(K kernel, int threads, size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
   return sms * (per_sm > 0 ? per_sm : 1);
 }
 
@@ -371,21 +373,32 @@ void launch(const void* x, const void* w, void* out, float* ss, int T_, int D,
 // give the same bits.  w is copied into shared memory (cp.async) while the
 // first rows load.
 //
-// Rows past the register budget (more than kMaxBwdNV vectors a lane: D >
-// 2048 in bf16, 1024 in f32) or not 16-byte aligned take the wide route:
-// a warp a row, two passes over it (sums, then dx; the second from
-// L1/L2), 8 rows at a time, then a thread a column adds those rows' dy x r
-// in row order to the block's partial (reading x and dy a third time, from
-// L2).  Its loads are 16-byte vectors where the rows are aligned, single
-// elements otherwise.
+// Aligned rows past the register budget (more than kMaxBwdNV vectors a
+// lane: D > 2048 in bf16, 1024 in f32) take the wide route, which keeps the
+// register route's order over the same runs of rows: a lane folds its
+// vectors v = lane + 32 i in rising i, the warp sums by shuffles, and each
+// column folds its run's rows in row order from zero.  The whole backward
+// stages each run in shared memory (rmsnorm_bwd_staged_kernel: x and dy
+// read from device memory once, by TMA bulk copies a group of rows ahead);
+// at a D where two groups do not fit (D 12288) it runs the split
+// launches' kernels instead, the sums (rmsnorm_bwd_part_kernel) then the
+// streaming kScale (rmsnorm_bwd_scale_kernel), the same bits by
+// construction.  Rows not 16-byte aligned, or wider than shared memory
+// holds w, take the scalar route (rmsnorm_bwd_scalar_kernel): a warp a
+// row, two passes over it, then a thread a column adds 8 rows' dy x r at a
+// time to the block's partial, one element a load.
 //
 // Split over ranks, kSums writes each row's (sum x^2, sum w dy x) over the
 // local columns to sums [T, 2], and after the caller's sum over the ranks
 // kScale writes dx and the local columns' dw from them: each row's sums and
-// dw's partials in the one-pass order.  On the register route kScale runs on
-// the one-pass grid.  On the wide route with aligned rows the sums are given,
-// so kScale is a streaming pass over column tiles by the same runs of rows
-// (rmsnorm_bwd_scale_kernel): x and dy read once, not three times.
+// dw's partials in the one-pass order.  On the register route both run on
+// the one-pass grid.  On the wide route kSums is rmsnorm_bwd_part_kernel (a
+// warp a row on a grid sized to the card, every load of a row in flight)
+// and kScale rmsnorm_bwd_scale_kernel (a pass over column tiles by the same
+// runs of rows): x and dy read once by each.  The wide route's kernels copy
+// x and dy into shared memory with TMA: held in the lanes' registers
+// instead, the bytes a warp keeps in flight are fewer and the walk is
+// slower.
 constexpr int kBwdWarps = 8;              // warps a block
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kMaxParts = 256;            // dw partials at most (ops.RMS_DW_PARTS)
@@ -407,40 +420,59 @@ __device__ __forceinline__ float bwd_dx(float w, float r, float g, float x,
   return __fsub_rn(__fmul_rn(__fmul_rn(w, r), g), __fmul_rn(x, c));
 }
 
-// VW consecutive elements at p as f32, in 16-byte loads where VW elements
-// fill them (p then 16-byte aligned); then the same for stores.
+// VW consecutive elements at p (16-byte aligned; VW elements fill whole
+// 16-byte loads) as f32.
 template <int VW, typename T>
 __device__ __forceinline__ void load_f(const T* p, float (&f)[VW]) {
   constexpr int PER = 16 / sizeof(T);
-  if constexpr (VW % PER == 0) {
+  static_assert(VW % PER == 0, "load_f reads whole 16-byte vectors");
 #pragma unroll
-    for (int q = 0; q < VW / PER; ++q) {
-      const uint4 raw = reinterpret_cast<const uint4*>(p)[q];
-      const T* e = reinterpret_cast<const T*>(&raw);
+  for (int q = 0; q < VW / PER; ++q) {
+    const uint4 raw = reinterpret_cast<const uint4*>(p)[q];
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int j = 0; j < PER; ++j) f[q * PER + j] = rt::to_f(e[j]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < VW; ++j) f[j] = rt::to_f(p[j]);
+    for (int j = 0; j < PER; ++j) f[q * PER + j] = rt::to_f(e[j]);
   }
 }
-template <int VW, typename T>
-__device__ __forceinline__ void store_f(T* p, const float (&f)[VW]) {
-  constexpr int PER = 16 / sizeof(T);
-  if constexpr (VW % PER == 0) {
+
+// A lane's fold of one 16-byte vector of x and of dy into its row sums, w
+// at its columns: the order of every backward kernel's sums.
+template <typename T>
+__device__ __forceinline__ void fold_sums(const uint4& xv, const uint4& gv,
+                                          const float* w, float& ss,
+                                          float& dot) {
+  constexpr int V = Vec<T>::V;
+  const T* xe = reinterpret_cast<const T*>(&xv);
+  const T* ge = reinterpret_cast<const T*>(&gv);
+  float wf[V];
+  load_f<V>(w, wf);
 #pragma unroll
-    for (int q = 0; q < VW / PER; ++q) {
-      uint4 raw;
-      T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < PER; ++j) e[j] = rt::from_f<T>(f[q * PER + j]);
-      reinterpret_cast<uint4*>(p)[q] = raw;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < VW; ++j) p[j] = rt::from_f<T>(f[j]);
+  for (int j = 0; j < V; ++j) {
+    const float xf = rt::to_f(xe[j]);
+    ss = fmaf(xf, xf, ss);
+    dot = fmaf(rt::to_f(ge[j]) * wf[j], xf, dot);
   }
+}
+
+// dx of one 16-byte vector of a row whose r and c are given, w at its
+// columns, and its g x r folded into acc (the dw fold of every backward
+// kernel).
+template <typename T>
+__device__ __forceinline__ uint4 vec_dx(const uint4& xv, const uint4& gv,
+                                        const float (&wf)[Vec<T>::V], float r,
+                                        float c, float (&acc)[Vec<T>::V]) {
+  constexpr int V = Vec<T>::V;
+  const T* xe = reinterpret_cast<const T*>(&xv);
+  const T* ge = reinterpret_cast<const T*>(&gv);
+  uint4 out;
+  T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float xf = rt::to_f(xe[j]), gf = rt::to_f(ge[j]);
+    oe[j] = rt::from_f<T>(bwd_dx(wf[j], r, gf, xf, c));
+    acc[j] = fmaf(gf * xf, r, acc[j]);
+  }
+  return out;
 }
 
 // Register route: rows [rpb b, rpb (b + 1)) of block b.  A lane holds RW
@@ -590,20 +622,23 @@ rmsnorm_bwd_reg_kernel(const T* __restrict__ x, const float* __restrict__ w,
     dst[i] = smem4[D / 4 + i];
 }
 
-// Wide route: rows [rpb b, rpb (b + 1)), a warp a row, 8 rows at a time;
-// VW elements a load (Vec<T>::V on aligned rows, else 1), U loads of each
-// of x, dy and w in flight a lane.  Shared memory: the 8 rows' r.
-template <typename T, int VW, int P>
+// Scalar route (rows not 16-byte aligned): rows [rpb b, rpb (b + 1)), a
+// warp a row, 8 rows at a time, U single-element loads of each of x, dy
+// and w in flight a lane; two passes over the row (sums, then dx), then a
+// thread a column adds the 8 rows' dy x r in row order to the block's
+// partial (reading x and dy a third time, from L2).  Shared memory: the 8
+// rows' r.
+template <typename T, int P>
 __global__ void __launch_bounds__(kBwdThreads)
-rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                        const T* __restrict__ dy, T* __restrict__ dx,
-                        float* __restrict__ dw, float* __restrict__ part,
-                        float2* __restrict__ sums, int T_, int D, int Dn,
-                        float eps, int rpb) {
-  constexpr int U = VW == 1 ? 16 : 2;
+rmsnorm_bwd_scalar_kernel(const T* __restrict__ x,
+                          const float* __restrict__ w,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          float* __restrict__ dw, float* __restrict__ part,
+                          float2* __restrict__ sums, int T_, int D, int Dn,
+                          float eps, int rpb) {
+  constexpr int U = 16;
   __shared__ float s_r[kBwdWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nvec = D / VW;
   const int r0 = blockIdx.x * rpb, r1 = min(T_, r0 + rpb);
   float* dst = gridDim.x == 1 ? dw : part + (size_t)blockIdx.x * D;
   for (int base = r0; base < r1; base += kBwdWarps) {
@@ -612,25 +647,22 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
       const T* xr = x + (size_t)row * D;
       const T* gr = dy + (size_t)row * D;
       float ss = 0.f, dot = 0.f;
-      for (int v0 = lane; P != kScale && v0 < nvec; v0 += 32 * U) {
-        float xf[U][VW], gf[U][VW], wf[U][VW];
+      for (int v0 = lane; P != kScale && v0 < D; v0 += 32 * U) {
+        float xf[U], gf[U], wf[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int v = v0 + 32 * u;
-          if (v < nvec) {
-            load_f<VW>(xr + v * VW, xf[u]);
-            load_f<VW>(gr + v * VW, gf[u]);
-            load_f<VW>(w + v * VW, wf[u]);
+          if (v < D) {
+            xf[u] = rt::to_f(xr[v]);
+            gf[u] = rt::to_f(gr[v]);
+            wf[u] = w[v];
           }
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          if (v0 + 32 * u >= nvec) continue;
-#pragma unroll
-          for (int j = 0; j < VW; ++j) {
-            ss = fmaf(xf[u][j], xf[u][j], ss);
-            dot = fmaf(gf[u][j] * wf[u][j], xf[u][j], dot);
-          }
+          if (v0 + 32 * u >= D) continue;
+          ss = fmaf(xf[u], xf[u], ss);
+          dot = fmaf(gf[u] * wf[u], xf[u], dot);
         }
       }
       if (P == kScale) {
@@ -647,26 +679,23 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
       }
       const float r = rsqrtf(ss / (float)Dn + eps);
       const float c = r * r * r * (dot / (float)Dn);
-      for (int v0 = lane; v0 < nvec; v0 += 32 * U) {
-        float xf[U][VW], gf[U][VW], wf[U][VW];
+      for (int v0 = lane; v0 < D; v0 += 32 * U) {
+        float xf[U], gf[U], wf[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int v = v0 + 32 * u;
-          if (v < nvec) {
-            load_f<VW>(xr + v * VW, xf[u]);
-            load_f<VW>(gr + v * VW, gf[u]);
-            load_f<VW>(w + v * VW, wf[u]);
+          if (v < D) {
+            xf[u] = rt::to_f(xr[v]);
+            gf[u] = rt::to_f(gr[v]);
+            wf[u] = w[v];
           }
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int v = v0 + 32 * u;
-          if (v >= nvec) continue;
-          float of[VW];
-#pragma unroll
-          for (int j = 0; j < VW; ++j)
-            of[j] = bwd_dx(wf[u][j], r, gf[u][j], xf[u][j], c);
-          store_f<VW>(dx + (size_t)row * D + v * VW, of);
+          if (v < D)
+            dx[(size_t)row * D + v] =
+                rt::from_f<T>(bwd_dx(wf[u], r, gf[u], xf[u], c));
         }
       }
       if (lane == 0) s_r[warp] = r;
@@ -695,15 +724,261 @@ rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// kSums on the wide route (aligned rows past the register budget): a warp
+// a row on a grid of the blocks the card holds at once, each warp walking
+// rows gw, gw + nw, ... in pieces of kPieceVecs 16-byte vectors (6 KB of x
+// and 6 KB of dy: the whole row at D 3072 in bf16, 12 vectors of each a
+// lane).  Lane 0 of each warp copies a piece of x and of dy into one of the
+// warp's two stages of shared memory with TMA bulk copies (completion on
+// the stage's mbarrier) and, once a piece has landed, the next one into
+// the other stage: every load of a piece is in flight at once, and the
+// next piece's while the warp folds this one.  The copy engine rather than
+// the lanes' registers holds those bytes in flight, and the copies read x
+// and dy under L2's evict-first policy (read once, they recycle their own
+// lines rather than evict the cache's dirty ones).  w is copied to shared
+// memory once.  The fold is fold_sums over v = lane + 32 i in rising i (a
+// piece holds 12 consecutive i of each lane), then the warp's shuffles:
+// the one-pass kernels' order, so their (ss, dot) bits.
+constexpr int kPartStageWarps = 4;   // warps a block
+constexpr int kPieceVecs = 32 * 12;  // 16-byte vectors of x (and dy) a piece
+
+// Byte offsets in rmsnorm_bwd_part_kernel's shared memory at D columns: w
+// [D] f32, each warp's two stages of a piece of x and of dy, each warp's
+// two mbarriers; then the total.
+struct PartLayout {
+  size_t stages, bar, bytes;
+  __host__ __device__ explicit PartLayout(int D)
+      : stages((size_t)D * sizeof(float)),
+        bar(stages + (size_t)kPartStageWarps * 2 * 2 * kPieceVecs * 16),
+        bytes(bar + (size_t)kPartStageWarps * 2 * sizeof(uint64_t)) {}
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kPartStageWarps * 32)
+rmsnorm_bwd_part_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const T* __restrict__ dy, float2* __restrict__ sums,
+                        int T_, int D) {
+  extern __shared__ float4 smem4[];
+  constexpr int V = Vec<T>::V, PB = kPieceVecs * 16;  // bytes of a piece
+  const PartLayout L(D);
+  const float* w_s = reinterpret_cast<const float*>(smem4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = D / V, pieces = (nvec + kPieceVecs - 1) / kPieceVecs;
+  const int nw = gridDim.x * kPartStageWarps;
+  const uint32_t base = hw::smem_u32(smem4);
+  const uint32_t st0 = base + (uint32_t)L.stages + warp * 2 * 2 * PB;
+  const uint32_t bar0 = base + (uint32_t)L.bar + warp * 2 * 8;
+  // lane 0: piece p of row into stage s (x, then dy PB bytes on)
+  auto issue = [&](int row, int p, int s) {
+    const int v0 = p * kPieceVecs;
+    const uint32_t bytes = (uint32_t)min(kPieceVecs, nvec - v0) * 16;
+    const size_t at = (size_t)row * D + (size_t)v0 * V;
+    const uint64_t once = hw::l2_evict_first();
+    hw::mbar_expect_tx(bar0 + 8 * s, 2 * bytes);
+    hw::bulk_load(st0 + s * 2 * PB, x + at, bytes, bar0 + 8 * s, once);
+    hw::bulk_load(st0 + s * 2 * PB + PB, dy + at, bytes, bar0 + 8 * s, once);
+  };
+  int row = blockIdx.x * kPartStageWarps + warp, piece = 0;
+  if (lane == 0) {
+    hw::mbar_init(bar0, 1);
+    hw::mbar_init(bar0 + 8, 1);
+    hw::mbar_fence_init();
+    if (row < T_) issue(row, 0, 0);
+  }
+  for (int i = threadIdx.x; i < D / 4; i += kPartStageWarps * 32)
+    hw::cp_async16(hw::smem_u32(smem4 + i),
+                   reinterpret_cast<const float4*>(w) + i, true);
+  hw::cp_async_commit();
+  hw::cp_async_wait<0>();
+  __syncthreads();                    // w and the mbarriers are in place
+  float ss = 0.f, dot = 0.f;
+  for (int c = 0; row < T_; ++c) {
+    int next = row, npiece = piece + 1;
+    if (npiece == pieces) {
+      next += nw;
+      npiece = 0;
+    }
+    const int s = c & 1;
+    hw::mbar_wait(bar0 + 8 * s, (c >> 1) & 1);
+    if (lane == 0 && next < T_) {     // the other stage was read at c - 1
+      hw::fence_proxy_async();
+      issue(next, npiece, s ^ 1);
+    }
+    const uint32_t xs = st0 + s * 2 * PB;
+    const int v0 = piece * kPieceVecs;
+#pragma unroll
+    for (int k = 0; k < kPieceVecs / 32; ++k) {
+      const int i = lane + 32 * k;
+      if (v0 + i < nvec)
+        fold_sums<T>(hw::ld_shared16(xs + 16 * i),
+                     hw::ld_shared16(xs + PB + 16 * i), w_s + (v0 + i) * V,
+                     ss, dot);
+    }
+    if (npiece == 0) {
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+      if (lane == 0) sums[row] = make_float2(ss, dot);
+      ss = dot = 0.f;
+    }
+    __syncwarp();                     // stage s is read
+    row = next;
+    piece = npiece;
+  }
+}
+
+// kWhole on the wide route: x and dy read from device memory once.  Block
+// b takes the run of rows [rpb b, rpb (b + 1)) (the runs, and so the dw
+// partials, of rmsnorm_bwd_scale_kernel) in groups of kStageRows rows.
+// Thread 0 copies each group's rows of x and dy into one of kStages
+// stages of shared memory with TMA 1D bulk copies (a row of each a copy,
+// under L2's evict-first policy; completion on the stage's mbarrier; w
+// with the first group), the group kStages - 1 ahead as soon as this one
+// has landed, so that it is in flight while the block works on this one.
+// Warp u sums row u of the group from shared memory (fold_sums over v =
+// lane + 32 i in rising i, then shuffles) and puts its r and c in shared
+// memory; then thread t takes the 16-byte column vectors t, t +
+// kBwdThreads, ... of each row in order, writes dx (vec_dx, 16-byte
+// stores) and folds g x r into registers held across the run, from zero;
+// the run's partial is written once at the end.  Shared memory is read in
+// whole 16-byte vectors (ld_shared16).  Rows a stage and threads a block:
+// a group of 4 rows at D 3072 in bf16 takes 48 KB a stage, 110.6 KB a
+// block with w, so two blocks share an SM and at 4096 rows (256 runs of
+// 16) every run is resident at once; 8 warps a block give the SM 16 to
+// issue the dx pass, while 4 of them sum a group's rows (a row's sums are
+// one warp's, for the one-pass order).  Groups of 2 or 8 rows, or 3
+// stages, measured no faster.
+constexpr int kStageRows = 4;     // rows a stage
+constexpr int kStages = 2;        // stages, each a group of rows
+constexpr int kStagedCols = 4;    // column vectors a thread at most
+
+// Byte offsets in rmsnorm_bwd_staged_kernel's shared memory at D columns
+// of element size es: the stages' x and dy rows, w [D] f32, the group's
+// (r, c), the stages' mbarriers; then the total.
+struct StagedLayout {
+  size_t w, rc, bar, bytes;
+  __host__ __device__ StagedLayout(int D, int es)
+      : w((size_t)kStages * 2 * kStageRows * D * es),
+        rc(w + (size_t)D * sizeof(float)),
+        bar(rc + kStageRows * sizeof(float2)),
+        bytes(bar + kStages * sizeof(uint64_t)) {}
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+rmsnorm_bwd_staged_kernel(const T* __restrict__ x,
+                          const float* __restrict__ w,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          float* __restrict__ dw, float* __restrict__ part,
+                          int T_, int D, float eps, int rpb) {
+  extern __shared__ float4 smem4[];
+  constexpr int V = Vec<T>::V, R = kStageRows, KV = kStagedCols;
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const StagedLayout L(D, sizeof(T));
+  T* rows_s = reinterpret_cast<T*>(smem);      // [stage][x, dy][R][D]
+  float* w_s = reinterpret_cast<float*>(smem + L.w);
+  float2* rc_s = reinterpret_cast<float2*>(smem + L.rc);
+  const uint32_t bar0 = hw::smem_u32(smem + L.bar);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nvec = D / V;
+  const uint32_t row_bytes = (uint32_t)D * sizeof(T);
+  const int r0 = blockIdx.x * rpb, r1 = min(T_, r0 + rpb);
+  const int groups = (r1 - r0 + R - 1) / R;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) hw::mbar_init(bar0 + 8 * s, 1);
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+  // thread 0: group g's rows into stage g % kStages (and w with group 0)
+  auto issue = [&](int g) {
+    const int s = g % kStages, base = r0 + g * R, n = min(R, r1 - base);
+    const uint32_t bar = bar0 + 8 * s;
+    const uint32_t w_bytes = (uint32_t)(D * sizeof(float));
+    hw::mbar_expect_tx(bar, 2u * n * row_bytes + (g == 0 ? w_bytes : 0u));
+    if (g == 0) hw::bulk_load(hw::smem_u32(w_s), w, w_bytes, bar);
+    const uint64_t once = hw::l2_evict_first();
+    for (int u = 0; u < n; ++u) {
+      T* xs = rows_s + ((size_t)2 * s * R + u) * D;
+      hw::bulk_load(hw::smem_u32(xs), x + (size_t)(base + u) * D, row_bytes,
+                    bar, once);
+      hw::bulk_load(hw::smem_u32(xs + (size_t)R * D),
+                    dy + (size_t)(base + u) * D, row_bytes, bar, once);
+    }
+  };
+  if (tid == 0)
+    for (int g = 0; g < kStages - 1 && g < groups; ++g) issue(g);
+  float acc[KV][V];
+#pragma unroll
+  for (int k = 0; k < KV; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[k][j] = 0.f;
+  for (int g = 0; g < groups; ++g) {
+    const int s = g % kStages, base = r0 + g * R, n = min(R, r1 - base);
+    // the stage's x and dy rows, read as whole 16-byte vectors (the
+    // compiler would otherwise read bf16 elements one at a time)
+    const uint32_t xa = hw::smem_u32(rows_s + (size_t)2 * s * R * D);
+    const uint32_t ga = xa + R * row_bytes;
+    hw::mbar_wait(bar0 + 8 * s, (g / kStages) & 1);
+    if (tid == 0 && g + kStages - 1 < groups) {
+      hw::fence_proxy_async();        // its stage was read at g - 1
+      issue(g + kStages - 1);
+    }
+    if (warp < n) {
+      const uint32_t row = (uint32_t)warp * row_bytes;
+      float ss = 0.f, dot = 0.f;
+#pragma unroll 4
+      for (int v = lane; v < nvec; v += 32)
+        fold_sums<T>(hw::ld_shared16(xa + row + 16 * v),
+                     hw::ld_shared16(ga + row + 16 * v), w_s + v * V, ss,
+                     dot);
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+      if (lane == 0) {
+        const float r = rsqrtf(ss / (float)D + eps);
+        rc_s[warp] = make_float2(r, r * r * r * (dot / (float)D));
+      }
+    }
+    __syncthreads();                  // the group's r and c are in place
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      const int v = tid + kBwdThreads * k;
+      if (v >= nvec) break;
+      float wf[V];
+      load_f<V>(w_s + v * V, wf);
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        if (u >= n) break;
+        const float2 rc = rc_s[u];
+        const uint32_t at = (uint32_t)u * row_bytes + 16 * v;
+        reinterpret_cast<uint4*>(dx + (size_t)(base + u) * D)[v] =
+            vec_dx<T>(hw::ld_shared16(xa + at), hw::ld_shared16(ga + at), wf,
+                      rc.x, rc.y, acc[k]);
+      }
+    }
+    __syncthreads();                  // stage s is read
+  }
+  float* dst = gridDim.x == 1 ? dw : part + (size_t)blockIdx.x * D;
+#pragma unroll
+  for (int k = 0; k < KV; ++k) {
+    const int v = tid + kBwdThreads * k;
+    if (v >= nvec) break;
+    float4* d4 = reinterpret_cast<float4*>(dst + v * V);
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q)
+      d4[q] = make_float4(acc[k][4 * q], acc[k][4 * q + 1], acc[k][4 * q + 2],
+                          acc[k][4 * q + 3]);
+  }
+}
+
 // kScale on the wide route with aligned rows: a streaming pass, as the row
 // sums are given.  Block (bx, by) takes kScaleThreads 16-byte column vectors
 // (a thread each) of the rows [rpb by, rpb (by + 1)), the run whose dw
-// partial rmsnorm_bwd_wide_kernel writes.  A thread keeps its columns' w and
-// dw sums in registers and walks the run's rows in order, kScaleRows rows'
-// loads of x, dy and sums in flight, and writes dx as it goes: x and dy read
-// once, dx written once, all in coalesced 16-byte vectors, no barrier.  Each
-// column's partial is the wide kernel's fold, in row order from zero, so its
-// bits; part[by] (dw when one run holds every row) as there.
+// partial rmsnorm_bwd_staged_kernel writes.  A thread keeps its columns' w
+// and dw sums in registers and walks the run's rows in order, kScaleRows
+// rows' loads of x, dy and sums in flight, and writes dx as it goes: x and
+// dy read once, dx written once, all in coalesced 16-byte vectors, no
+// barrier.  Each column's partial is the staged kernel's fold (vec_dx), in
+// row order from zero, so its bits; part[by] (dw when one run holds every
+// row) as there.
 constexpr int kScaleThreads = 128;   // column vectors a block
 constexpr int kScaleRows = 2;        // rows a thread has in flight
 
@@ -743,17 +1018,7 @@ rmsnorm_bwd_scale_kernel(const T* __restrict__ x, const float* __restrict__ w,
       if (base + u >= r1) break;
       const float r = rsqrtf(s[u].x / (float)Dn + eps);
       const float c = r * r * r * (s[u].y / (float)Dn);
-      const T* xe = reinterpret_cast<const T*>(&xr[u]);
-      const T* ge = reinterpret_cast<const T*>(&gr[u]);
-      uint4 out;
-      T* oe = reinterpret_cast<T*>(&out);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float xf = rt::to_f(xe[j]), gf = rt::to_f(ge[j]);
-        oe[j] = rt::from_f<T>(bwd_dx(wf[j], r, gf, xf, c));
-        acc[j] = fmaf(gf * xf, r, acc[j]);
-      }
-      ov[(size_t)(base + u) * nvec] = out;
+      ov[(size_t)(base + u) * nvec] = vec_dx<T>(xr[u], gr[u], wf, r, c, acc);
     }
   }
   float4* dst = reinterpret_cast<float4*>(
@@ -819,14 +1084,50 @@ int launch_bwd_reg(const BwdArgs<T>& a, cudaStream_t stream) {
   return blocks;
 }
 
+// The shared memory a block of the card may opt in to.
+inline int smem_optin() {
+  static const int bytes = [] {
+    int dev = 0, b = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&b, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return b;
+  }();
+  return bytes;
+}
+
+// Lets `kernel` take all of it as dynamic shared memory.
+template <typename K>
+bool allow_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_optin()) == cudaSuccess;
+}
+
+// kSums on the wide route: as many blocks as the card holds at once, fewer
+// where the rows need fewer.
+template <typename T>
+void launch_bwd_part(const T* x, const float* w, const T* dy, float2* sums,
+                     int T_, int D, cudaStream_t stream) {
+  static const bool allowed = allow_smem(rmsnorm_bwd_part_kernel<T>);
+  (void)allowed;
+  constexpr int threads = kPartStageWarps * 32;
+  const size_t smem = PartLayout(D).bytes;
+  const int cap = resident_blocks(rmsnorm_bwd_part_kernel<T>, threads, smem);
+  const int need = (T_ + kPartStageWarps - 1) / kPartStageWarps;
+  rmsnorm_bwd_part_kernel<T><<<need < cap ? need : cap, threads, smem,
+                               stream>>>(x, w, dy, sums, T_, D);
+}
+
 // Phase P of the backward.  The route follows from x, dy, w and D where dx
-// is aligned (kSums writes none).
+// is aligned (kSums writes none) and the sums kernel's shared memory (w and
+// its stages) fits.
 template <typename T, int P>
 void launch_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
   constexpr int V = Vec<T>::V;
   const bool vec = aligned16(a.x) && aligned16(a.dy) && aligned16(a.w) &&
                    (P == kSums || aligned16(a.dx)) &&
-                   (((size_t)a.D * sizeof(T)) % 16 == 0);
+                   (((size_t)a.D * sizeof(T)) % 16 == 0) &&
+                   PartLayout(a.D).bytes <= (size_t)smem_optin();
   const int nvec = a.D / V, per_lane = (nvec + 31) / 32;
   int blocks;
   if (vec && per_lane <= kMaxBwdNV) {
@@ -850,20 +1151,36 @@ void launch_bwd(const BwdArgs<T>& a, cudaStream_t stream) {
   } else {
     const int rpb = rows_per_block(a.T_, kBwdWarps);
     blocks = (a.T_ + rpb - 1) / rpb;
-    if (!vec)
-      rmsnorm_bwd_wide_kernel<T, 1, P><<<blocks, kBwdThreads, 0, stream>>>(
+    const StagedLayout staged(a.D, sizeof(T));
+    if (!vec) {
+      rmsnorm_bwd_scalar_kernel<T, P><<<blocks, kBwdThreads, 0, stream>>>(
           a.x, a.w, a.dy, a.dx, a.dw, a.part, a.sums, a.T_, a.D, a.Dn, a.eps,
           rpb);
-    else if constexpr (P == kScale)
+    } else if constexpr (P == kSums) {
+      launch_bwd_part<T>(a.x, a.w, a.dy, a.sums, a.T_, a.D, stream);
+    } else if (P == kWhole && staged.bytes <= (size_t)smem_optin() &&
+               nvec <= kStagedCols * kBwdThreads) {
+      static const bool allowed = allow_smem(rmsnorm_bwd_staged_kernel<T>);
+      (void)allowed;
+      rmsnorm_bwd_staged_kernel<T>
+          <<<blocks, kBwdThreads, staged.bytes, stream>>>(
+              a.x, a.w, a.dy, a.dx, a.dw, a.part, a.T_, a.D, a.eps, rpb);
+    } else {
+      // kScale, or the whole backward where two stages do not fit: the
+      // split launches' kernels over one rank, the sums in the scratch
+      // behind the partials
+      float2* sums = a.sums;
+      if (P == kWhole) {
+        sums = reinterpret_cast<float2*>(
+            a.part + (size_t)(a.T_ < kMaxParts ? a.T_ : kMaxParts) * a.D);
+        launch_bwd_part<T>(a.x, a.w, a.dy, sums, a.T_, a.D, stream);
+      }
       rmsnorm_bwd_scale_kernel<T>
           <<<dim3((unsigned)((nvec + kScaleThreads - 1) / kScaleThreads),
                   (unsigned)blocks),
              kScaleThreads, 0, stream>>>(a.x, a.w, a.dy, a.dx, a.dw, a.part,
-                                         a.sums, a.T_, a.D, a.Dn, a.eps, rpb);
-    else
-      rmsnorm_bwd_wide_kernel<T, V, P><<<blocks, kBwdThreads, 0, stream>>>(
-          a.x, a.w, a.dy, a.dx, a.dw, a.part, a.sums, a.T_, a.D, a.Dn, a.eps,
-          rpb);
+                                         sums, a.T_, a.D, a.Dn, a.eps, rpb);
+    }
   }
   if (P != kSums && blocks > 1)
     rmsnorm_bwd_dw_sum_kernel<<<(a.D + 31) / 32, kBwdThreads, 0, stream>>>(
@@ -949,9 +1266,10 @@ extern "C" int rmsnorm_scale_launch(const void* x, const void* w,
 
 // Backward of rmsnorm_launch.  x, dy, dx: [T, D] contiguous, f32 or bf16
 // (dtype code); w: [D] f32; dw: [D] f32 (written, not accumulated);
-// part: [min(T, 256), D] f32, the wrapper's scratch for the per-block dw
-// partials (kMaxParts).  Returns the CUDA error code of the launches
-// (0 = launched).
+// part: min(T, 256) D + 2 T f32, the wrapper's scratch for the per-block dw
+// partials (kMaxParts rows of D at most) and, behind them, the rows' sums
+// where the route takes the split launches' kernels.  Returns the CUDA
+// error code of the launches (0 = launched).
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w,
                                   const void* dy, void* dx, void* dw,
                                   void* part, int T, int D, float eps,

@@ -186,9 +186,11 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     """(dx in x.dtype, dw f32) through the backward kernel: one pass over
     the rows that writes dx and one f32 partial of dw for each block of
     rows, then a launch that sums the partials in order (skipped when one
-    block holds every row).  The scratch for the partials is
-    ``[min(T, RMS_DW_PARTS), D]`` f32: the kernel makes at most that many
-    blocks."""
+    block holds every row).  The scratch holds ``min(T, RMS_DW_PARTS) * D``
+    f32 for the partials (the kernel makes at most that many blocks), then
+    ``[T, 2]`` f32 for the rows' sums, which the wide route fills where it
+    runs the split launches' kernels (rows too wide for its shared
+    memory)."""
     T, D = x.shape
     if not x.is_cuda:
         return _plain("rmsnorm_bwd", (*roofline.rmsnorm_bwd_cost(
@@ -203,8 +205,8 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
     if T == 0:
         return dx, dw.zero_()
-    partial = torch.empty((min(T, RMS_DW_PARTS), D), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty(min(T, RMS_DW_PARTS) * D + 2 * T,
+                          dtype=torch.float32, device=x.device)
     _launch("rmsnorm_bwd", "rmsnorm_bwd", x.data_ptr(), wf.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
             T, D, float(eps), code, _stream(x),
@@ -291,9 +293,9 @@ def rmsnorm_bwd_part(x: torch.Tensor, w: torch.Tensor,
                       lambda: x.new_empty((T, 2), dtype=torch.float32))
     code = _cuda_args("rmsnorm_bwd_part", x, dy)
     wf = _w32(w, x)
-    sums = torch.zeros((T, 2), dtype=torch.float32, device=x.device)
     if T == 0:
-        return sums
+        return torch.zeros((T, 2), dtype=torch.float32, device=x.device)
+    sums = torch.empty((T, 2), dtype=torch.float32, device=x.device)
     _launch("rmsnorm_bwd_part", "rmsnorm_bwd_part", x.data_ptr(),
             wf.data_ptr(), dy.data_ptr(), sums.data_ptr(), T, D, code,
             _stream(x), cost=lambda: cost)

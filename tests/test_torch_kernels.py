@@ -236,10 +236,12 @@ def _autograd(fn, inputs, dout):
 
 
 # the kernel's routes: T off its blocks of rows with D off the 16-byte
-# vectors (the wide scalar route), short rows that share a warp (D 128),
-# and few rows past the register budget (D 3072, the wide vector route)
+# vectors (the scalar route), short rows that share a warp (D 128), and
+# rows past the register budget (the wide route: few rows of D 3072, runs
+# of rows of D 3072, and D 2048 in f32 with T off the runs' groups)
 @pytest.mark.parametrize("T,D", [(64, 64), (37, 1024), (16, 1001),
-                                 (300, 1001), (129, 128), (5, 3072)])
+                                 (300, 1001), (129, 128), (5, 3072),
+                                 (600, 2048), (64, 3072)])
 def test_rmsnorm_bwd_ref_matches_jax_vjp(T, D):
     rng = np.random.default_rng(T + D)
     x, dy = (rng.standard_normal((T, D), np.float32) for _ in range(2))
@@ -256,6 +258,32 @@ def test_rmsnorm_bwd_ref_matches_jax_vjp(T, D):
                          torch.from_numpy(dy))
     _rel_close(dx, adx, 2e-5)
     _rel_close(dw, adw, 2e-5)
+
+
+# the split backward's plain halves (the yardsticks of rmsnorm_bwd_part
+# and rmsnorm_bwd_scale on the card) over m column shards: mamba2's gate
+# rows whole and over 2 and 4 ranks, few rows, rows past the kernel's
+# shared memory for two groups (D 12288), and D off the 16-byte vectors
+@pytest.mark.parametrize("T,D,m", [(5, 3072, 1), (64, 3072, 1),
+                                   (64, 3072, 2), (64, 3072, 4),
+                                   (8, 12288, 2), (37, 1001, 1)])
+def test_split_rmsnorm_bwd_ref_matches_jax_vjp(T, D, m):
+    rng = np.random.default_rng(T * m + D)
+    x, dy = (rng.standard_normal((T, D), np.float32) for _ in range(2))
+    w = rng.standard_normal((D,), np.float32)
+    shards = [[torch.from_numpy(np.ascontiguousarray(a)) for a in s]
+              for s in zip(*(np.array_split(a, m, axis=-1)
+                             for a in (x, w, dy)))]
+    sums = sum(ref.rmsnorm_bwd_part_ref(*s) for s in shards)
+    parts = [ref.rmsnorm_bwd_scale_ref(xi, wi, gi, sums, D, eps=1e-6)
+             for xi, wi, gi in shards]
+    dx = torch.cat([p[0] for p in parts], dim=-1)
+    dw = torch.cat([p[1] for p in parts])
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b, eps=1e-6),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    _rel_close(dx, jdx, 2e-5)
+    _rel_close(dw, jdw, 2e-5)
 
 
 ATTN_BWD = [
@@ -650,6 +678,38 @@ def test_cuda_backward_kernels_match_plain():
             before["grouped_matmul_dx"] + 1
         assert ops.LAUNCHES["grouped_matmul_dw"] == \
             before["grouped_matmul_dw"] + 1
+    torch.cuda.synchronize()
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_bwd_wide_route():
+    """rmsnorm_bwd's wide route on the card: few rows and mamba2's gate
+    rows of D 3072 in bf16 and rows of D 2048 in f32 against the plain
+    version (bf16 2e-2, f32 2e-5 of max|ref|), the same bits twice; and
+    over one rank rmsnorm_bwd_part then rmsnorm_bwd_scale give
+    rmsnorm_bwd's bits."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    for T, D, dt, tol in ((5, 3072, torch.bfloat16, 2e-2),
+                          (4096, 3072, torch.bfloat16, 2e-2),
+                          (600, 2048, torch.float32, 2e-5)):
+        x, dy = (torch.randn(T, D, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+        got = ops.rmsnorm_bwd(x, w, dy, 1e-6)
+        want = ref.rmsnorm_bwd_ref(x, w, dy, eps=1e-6)
+        for g, r in zip(got, want):
+            assert _rel_err(g, r) <= tol
+        again = ops.rmsnorm_bwd(x, w, dy, 1e-6)
+        assert all(_same_bits(a, b) for a, b in zip(got, again))
+        split = ops.rmsnorm_bwd_scale(x, w, dy, ops.rmsnorm_bwd_part(x, w, dy),
+                                      D, 1e-6)
+        assert all(_same_bits(a, b) for a, b in zip(got, split))
     torch.cuda.synchronize()
 
 
