@@ -267,7 +267,10 @@ rmsnorm_bwd_part and rmsnorm_bwd_scale on the shards of ``SPLIT_RMS`` and
 rmsnorm_bwd's time at every ``RMS_BWD`` shape in bf16, its kernels' device
 time at [4096,3072], the
 same windows behind a read of the flush buffer rather than its zero fill,
-and the split launches' times.
+and the split launches' times.  ``--attn-ab PARENT`` with ``ATTN_AB``:
+flash_attention's bf16 forward at its six timed rows (``ATTN_ROWS``), each
+line with the route it took and the host CPU; no digest, since the wgmma
+route rounds in another order than the parent's mma.sync route.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -537,6 +540,31 @@ ATTN_NEW_EDGES = [(2, 61, 61, 8, 8, 96, True, 0),
                   (1, 257, 257, 8, 1, 128, True, 65),
                   (2, 300, 300, 8, 2, 64, True, 300),
                   (1, 200, 200, 4, 4, 96, True, 1000)]
+# flash_wgmma_kernel's edges (bf16; rows = Sq x G, taken when a (b, kv head)
+# has 64 or more): 64 and 128 rows exactly, at Dh 64, 96 and 128; rows one
+# past (65, 66, 129); G 8 with Sq 17 (136 rows: 16 queries a block) and with
+# a window; Dh 96 with Sq 129; Sk off the 128-key tile, and below one tile;
+# causal rows whose queries straddle a key tile; a window of 65 at Dh 128;
+# groups that do not divide 128 rows (G 3: 126 rows a block; G 12: 120);
+# 63 rows (flash_mma_kernel), beside them
+ATTN_WGMMA_EDGES = [(2, 32, 32, 4, 2, 64, True, 0),
+                    (1, 64, 64, 8, 8, 128, False, 0),
+                    (2, 64, 64, 4, 2, 64, True, 0),
+                    (1, 128, 128, 4, 4, 96, False, 0),
+                    (2, 65, 65, 4, 4, 64, True, 0),
+                    (2, 33, 33, 8, 4, 128, False, 0),
+                    (1, 129, 129, 4, 4, 64, True, 0),
+                    (2, 17, 17, 16, 2, 128, True, 0),
+                    (1, 300, 300, 8, 1, 64, True, 100),
+                    (1, 129, 129, 4, 4, 96, False, 0),
+                    (2, 129, 129, 4, 2, 96, True, 0),
+                    (2, 100, 300, 8, 4, 96, False, 0),
+                    (1, 200, 77, 4, 1, 128, False, 0),
+                    (1, 200, 200, 4, 2, 64, True, 0),
+                    (2, 300, 300, 8, 2, 128, True, 65),
+                    (1, 100, 100, 6, 2, 64, True, 0),
+                    (1, 50, 50, 12, 1, 128, False, 0),
+                    (1, 63, 63, 4, 4, 64, True, 0)]
 RMS_EDGES = [(37, 1001), (300, 1536), (64, 12288)]
 RMS_UNALIGNED = [(300, 1024), (64, 3072)]
 # ssd_chunk about its tiling: groups of up to 16 heads (H 1, 3, 13, 50), its
@@ -754,7 +782,8 @@ def dense_and_slice_shapes():
 TENSOR_CORE_KERNELS = (
     ("grouped_matmul", "HGMMA", ("gmm_wgmma_kernel", "gmm_dw_wgmma_kernel")),
     ("flash_attention", "HMMA", ("flash_bwd_dkdv_mma_kernel",
-                                 "flash_bwd_dq_mma_kernel")))
+                                 "flash_bwd_dq_mma_kernel")),
+    ("flash_attention", "HGMMA", ("flash_wgmma_kernel",)))
 
 
 def kernel_label(mangled: str) -> str:
@@ -815,9 +844,9 @@ def sass_counts(text: str, opcode: str):
 
 def check_tensor_core_sass(build) -> None:
     """Phase (a): the bf16 grouped_matmul kernel's SASS (both B layouts:
-    ``<0>`` the forward, ``<1>`` dX) and the dW kernel's hold HGMMA (wgmma),
-    and the attention backward kernels' HMMA (mma.sync), every
-    instantiation."""
+    ``<0>`` the forward, ``<1>`` dX), the dW kernel's and the attention
+    forward's wgmma kernel's hold HGMMA (wgmma), and the attention backward
+    kernels' HMMA (mma.sync), every instantiation."""
     for lib, opcode, kernels in TENSOR_CORE_KERNELS:
         counts = sass_counts(build.sass(lib), opcode)
         for kernel in kernels:
@@ -879,11 +908,12 @@ def check_kernels(torch, ops, ref, dev):
                        randn(B, Sk, KV, Dh, dtype=dt, g=g),
                        randn(B, Sk, KV, Dh, dtype=dt, g=g))
             e = compare("flash_attention",
-                        ops.flash_attention(q, k, v, causal=causal),
+                        attention_twice(torch, ops, q, k, v, causal, 0),
                         ref.flash_attention_ref(q, k, v, causal=causal),
                         dname)
             log("b", f"flash_attention {(B, Sq, Sk, H, KV, Dh, causal)} "
-                f"{dname}: max_abs_err {e:.3e} (tol {TOL[dname]})")
+                f"{dname}: max_abs_err {e:.3e} (tol {TOL[dname]}), route "
+                f"{attention_route(Sq, H, KV, Sk, dname)}")
             if dname == "bfloat16" and Sq == PROMPT and H == 16:
                 errs["flash_attention"] = e
         gmm_cases = []
@@ -1083,7 +1113,8 @@ def time_kernels(torch, ops, ref, dev):
     kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     out["flash_attention"] = record(
-        "flash_attention", f"q[{B},{S},{H},{Dh}] causal",
+        "flash_attention", f"q[{B},{S},{H},{Dh}] causal, route "
+        f"{attention_route(S, H, KV, S, 'bfloat16')}",
         lambda: ops.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
@@ -1133,6 +1164,86 @@ def attention_plain(torch, ref, q, k, v, causal: bool, window: int):
         causal=causal, window=window) for h in range(k.shape[2])], dim=2)
 
 
+def attention_route(Sq: int, H: int, KV: int, Sk: int, dname: str) -> str:
+    """The kernel ``flash_attention_launch`` takes for a shape (its
+    ``launch_bf16``): bf16 on wgmma where a (b, kv head) has 64 rows (query,
+    q head pairs) or more, there are keys, and a group of at most 128 heads;
+    else on mma.sync; f32 on the FMA kernel."""
+    if dname != "bfloat16":
+        return "f32 FMA"
+    G = H // KV
+    if Sq * G >= 64 and Sk > 0 and G <= 128:
+        return "wgmma (flash_wgmma_kernel)"
+    return "mma.sync (flash_mma_kernel)"
+
+
+def attention_twice(torch, ops, q, k, v, causal: bool, window: int):
+    """flash_attention's output; in bf16 a second call must give the same
+    bits (every output element has one owner and a fixed order)."""
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    if q.dtype == torch.bfloat16 and not torch.equal(
+            got, ops.flash_attention(q, k, v, causal=causal, window=window)):
+        raise AssertionError(f"flash_attention q{list(q.shape)} "
+                             f"k{list(k.shape)}: two calls differ")
+    return got
+
+
+def attention_lse_plain(torch, q, k, causal: bool, window: int):
+    """[B,H,Sq] f32: each row's logsumexp of its scaled, masked scores, +inf
+    where no key is kept (the forward kernel's LSE)."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // KV, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * Dh ** -0.5
+    if causal:
+        i = torch.arange(Sq, device=q.device)[:, None]
+        j = torch.arange(Sk, device=q.device)[None, :]
+        keep = j <= i
+        if window:
+            keep &= j > i - window
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return lse.masked_fill(torch.isneginf(lse), float("inf"))
+
+
+def check_wgmma_attention(torch, ops, ref, dev) -> None:
+    """flash_attention in bf16 at ``ATTN_WGMMA_EDGES`` against the plain
+    version (``TOL``), twice the same bits, the output with the LSE equal to
+    the output without, and the LSE within 2e-3 of the plain one (+inf on
+    the same rows).  Its own generator (seed 8), so every earlier check
+    keeps its inputs."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for shape in ATTN_WGMMA_EDGES:
+        B, Sq, Sk, H, KV, Dh, causal, window = shape
+        q, k, v = (torch.randn(*sh, generator=gen, device=dev).to(
+            torch.bfloat16) for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
+                                       (B, Sk, KV, Dh)))
+        got = attention_twice(torch, ops, q, k, v, causal, window)
+        e = compare("flash_attention", got,
+                    attention_plain(torch, ref, q, k, v, causal, window),
+                    "bfloat16")
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                         window=window, with_lse=True)
+        if not torch.equal(o, got):
+            raise AssertionError(f"flash_attention {shape}: the forward with "
+                                 f"the LSE differs")
+        want = attention_lse_plain(torch, q, k, causal, window)
+        inf = torch.isinf(want)
+        if not torch.equal(torch.isinf(lse), inf):
+            raise AssertionError(f"flash_attention {shape}: the LSE's +inf "
+                                 f"rows differ")
+        le = float((lse - want)[~inf].abs().max()) if bool((~inf).any()) \
+            else 0.0
+        if not le <= 2e-3:
+            raise AssertionError(f"flash_attention {shape}: LSE err {le:.3e}")
+        log("b", f"flash_attention {shape} bfloat16: max_abs_err {e:.3e} "
+            f"(tol {TOL['bfloat16']}), LSE err {le:.3e} (tol 2e-3); twice "
+            f"the same bits; with the LSE the same bits; route "
+            f"{attention_route(Sq, H, KV, Sk, 'bfloat16')}")
+        del q, k, v, got, o, lse, want
+    torch.cuda.synchronize()
+
+
 def check_new_attention(torch, ops, ref, dev) -> None:
     """flash_attention at ATTN_NEW and ATTN_NEW_EDGES, f32 and bf16,
     against the plain version (``attention_plain``); a window of S or more
@@ -1146,12 +1257,13 @@ def check_new_attention(torch, ops, ref, dev) -> None:
             q, k, v = (torch.randn(*sh, generator=gen, device=dev).to(dt)
                        for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
                                   (B, Sk, KV, Dh)))
-            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            got = attention_twice(torch, ops, q, k, v, causal, window)
             e = compare("flash_attention", got,
                         attention_plain(torch, ref, q, k, v, causal, window),
                         dname)
             log("b", f"flash_attention {shape} {dname}: max_abs_err {e:.3e} "
-                f"(tol {TOL[dname]})")
+                f"(tol {TOL[dname]}), route "
+                f"{attention_route(Sq, H, KV, Sk, dname)}")
             if window >= Sq:
                 same = torch.equal(got, ops.flash_attention(q, k, v,
                                                             causal=True))
@@ -1197,7 +1309,8 @@ def time_new_attention(torch, ops, ref, dev):
                  + (f" window {window}" if window else ""))
         log("b", f"time flash_attention {shape} bfloat16: kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms (one KV head at a time), SDPA "
-            f"{lib_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by})")
+            f"{lib_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}); route "
+            f"{attention_route(Sq, H, KV, Sk, 'bfloat16')}")
         out.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
         del q, k, v, qt, kt, vt, mask
@@ -3807,8 +3920,42 @@ c.time_split_rmsnorm(torch, ops, ref, dev)
 """
 
 
-# what each A/B of ``--train-ab``, ``--split-ab`` and ``--rms-ab`` runs and
-# prints (and which printed lines must be alike in its four runs)
+# ``--attn-ab``'s run, in either checkout (so it calls only what the parent
+# has too): flash_attention's bf16 forward at granite's prefill and the
+# ``ATTN_NEW`` rows, L2 flushed and each window behind the spin kernel, with
+# the route (the parent has no ``attention_route``: its bf16 forward is
+# flash_mma_kernel at every shape) and the host CPU on every line
+ATTN_ROWS = [(BATCH, PROMPT, PROMPT, 16, 8, 64, True, 0)] + ATTN_NEW
+ATTN_AB = f"""
+import functools
+from repro_torch.kernels import build, ops
+build.build_all()
+dev = torch.device("cuda")
+cpu = c.host_cpu()
+gen = torch.Generator(device=dev).manual_seed(23)
+flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+for B, Sq, Sk, H, KV, Dh, causal, window in {ATTN_ROWS!r}:
+    q, k, v = (torch.randn(*sh, generator=gen, device=dev)
+               .to(torch.bfloat16) for sh in ((B, Sq, H, Dh),
+                                              (B, Sk, KV, Dh),
+                                              (B, Sk, KV, Dh)))
+    fn = functools.partial(ops.flash_attention, q, k, v, causal=causal,
+                           window=window)
+    ms = c.timed_ms(torch, fn, flush, spin=True)
+    route = (c.attention_route(Sq, H, KV, Sk, "bfloat16")
+             if hasattr(c, "attention_route")
+             else "mma.sync (flash_mma_kernel)")
+    print(f"time flash_attention q[{{B}},{{Sq}},{{H}},{{Dh}}] "
+          f"k[{{B}},{{Sk}},{{KV}},{{Dh}}] causal {{causal}} window {{window}} "
+          f"bfloat16: kernel {{ms:.4f}} ms; route {{route}}; host {{cpu}}",
+          flush=True)
+    del q, k, v, fn
+"""
+
+
+# what each A/B of ``--train-ab``, ``--split-ab``, ``--rms-ab`` and
+# ``--attn-ab`` runs and prints (and which printed lines must be alike in
+# its four runs)
 AB = {
     "--train-ab": ("c.train_path(torch, torch.device('cuda'))",
                    lambda line: any(k in line for k in
@@ -3825,6 +3972,7 @@ AB = {
                  lambda line: any(k in line for k in
                                   ("digest ", "time ", "profile")),
                  lambda line: line.startswith("digest ")),
+    "--attn-ab": (f"exec({ATTN_AB!r})", lambda line: "time " in line),
 }
 
 
@@ -3876,6 +4024,7 @@ def main() -> int:
 
     errs = check_kernels(torch, ops, ref, dev)
     check_new_attention(torch, ops, ref, dev)
+    check_wgmma_attention(torch, ops, ref, dev)
     times = time_kernels(torch, ops, ref, dev)
     times["flash_attention"]["by_shape"] = time_new_attention(torch, ops,
                                                               ref, dev)

@@ -13,8 +13,30 @@
 // bf16.  Bound: at the prefill shape (q [8,512,16,64], k/v [8,512,8,64],
 // causal) the function moves 25 MB (0.0075 ms at 3.35 TB/s) and needs 4.3
 // GFLOP for the pairs kj <= qi (0.0044 ms at 989 TFLOP/s), so bytes bound
-// it.  Design (FA2 on mma.sync m16n8k16): one block per (b, kv head, tile
-// of rows), where a row is a (query, q head of the GQA group) pair,
+// it.  Two routes, chosen by shape (launch_bf16): flash_wgmma_kernel (below)
+// wherever a (b, kv head) has 64 rows or more, flash_mma_kernel for fewer
+// (decode) and the few shapes the former does not take.
+//
+// flash_wgmma_kernel (wgmma and TMA, Hopper's own): one block per (tile of
+// 64 NWG rows, b, kv head), rows as below; each warpgroup owns 64 rows.
+// Q arrives by one TMA load (a 4-D map (Dh, H, Sq, B), box 64 columns x G
+// heads x ROWS/G queries, so shared memory holds the rows in order) and
+// stays; K and V tiles of TK keys stream through a ring of NS stages of
+// 128-byte-swizzled 64-column TMA boxes, each stage with a full mbarrier,
+// refilled by the last warpgroup to release it.  S = Q K^T is wgmma
+// m64nTKk16 with both operands K-major in shared memory; O += P V is wgmma
+// m64n(Dh)k16 with P packed to bf16 in registers as the A operand (the
+// accumulator's layout is mma.sync's C fragment, so the softmax below
+// carries over) and V MN-major.  Tile i's S is issued before tile i - 1's
+// P V, so a warpgroup's softmax runs while its P V is on the tensor cores.
+// Dh 96 loads a second box with 32 real columns (the rest zero fill) and
+// stops its k-steps at 96.  Rows and keys past the ends arrive as zero
+// fill and are masked; the output is staged in the warpgroup's own Q rows
+// and stored in 16-byte rows.  Deterministic: each output element has one
+// owner and a fixed order, no atomics on data.
+//
+// flash_mma_kernel (FA2 on mma.sync m16n8k16): one block per (b, kv head,
+// tile of rows), where a row is a (query, q head of the GQA group) pair,
 // query-major, so the block serves every q head of the group from the same
 // K/V tiles.  Each warp owns 16 MT rows (MT = 2 at Dh 64, 1 at Dh 128):
 // each K and V fragment it loads from shared memory feeds MT mma tiles,
@@ -29,8 +51,9 @@
 // tiles start in reverse order, so those with the most keys start first.
 // S = Q K^T lands in f32 registers; only tiles that cross a warp's
 // diagonal, a window's edge or the end of the keys are masked, and tiles
-// wholly above the diagonal or below the window are skipped.  The online softmax runs on the C-fragment rows with quad
-// shuffles and ex2.approx on a log2(e)-prescaled scale.  P is packed to
+// wholly above the diagonal or below the window are skipped.  The online
+// softmax runs on the C-fragment rows with quad shuffles and ex2.approx on a
+// log2(e)-prescaled scale.  P is packed to
 // bf16 in registers as the A operand of P V (no shared-memory round trip),
 // and V goes through ldmatrix.trans.  The output is normalised, rounded
 // once to bf16, staged in the warp's own Q rows and stored in 16-byte rows.
@@ -410,6 +433,331 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------------------ bf16 (wgmma and TMA, Hopper)
+// NWG warpgroups of 64 rows, TK keys a K/V tile, NS ring stages, MINB
+// blocks an SM (__launch_bounds__)
+template <int DH, int NWG_, int TK_, int NS_, int MINB_>
+struct WgShape {
+  static constexpr int NWG = NWG_, TK = TK_, NS = NS_, MINB = MINB_;
+  static constexpr int SPANS = (DH + 63) / 64;    // 64-column (128-byte) spans
+  static constexpr int ROWS = 64 * NWG;           // rows per block, at most
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int Q_SPAN = ROWS * 128;       // bytes of a Q span
+  static constexpr int KV_SPAN = TK * 128;        // bytes of a K or V span
+  static constexpr int Q_BYTES = SPANS * Q_SPAN;
+  static constexpr int STAGE = 2 * SPANS * KV_SPAN;   // K's spans, then V's
+  static constexpr int SMEM = 1024 + Q_BYTES + NS * STAGE + (NS + 1) * 8 + NS * 4;
+};
+// Chosen by timing the kernel table's rows on the H100 (chip_smoke.py
+// prints each kernel's registers): Dh 64 two blocks of 2 warpgroups an SM
+// (16 warps leave a thread 128 registers), 64-key tiles; Dh 96 one block
+// of 4 warpgroups, 64-key tiles; Dh 128 one block of 2 warpgroups,
+// 128-key tiles (its accumulators do not fit 128 registers).
+template <int DH> struct WgCfg;
+template <> struct WgCfg<64> : WgShape<64, 2, 64, 4, 2> {};
+template <> struct WgCfg<96> : WgShape<96, 4, 64, 4, 1> {};
+template <> struct WgCfg<128> : WgShape<128, 2, 128, 3, 1> {};
+
+// One block per (tile of up to 64 NWG rows, b, kv head); rows as in
+// flash_mma_kernel.  Warpgroup wg owns rows 64 wg .. 64 wg + 63 of the
+// tile.  Shared memory, 1024-byte aligned: Q's spans (ROWS rows of 128
+// bytes each, 128-byte swizzled, as TMA writes them), then NS stages of K's
+// spans and V's spans (TK key rows of 128 bytes each), then the stages'
+// full barriers, Q's barrier and the stages' release counts.  No producer
+// warp (it would cost every thread registers): thread 0 loads Q and the
+// first NS tiles, and the last warpgroup to release a stage loads the tile
+// NS on into it.
+template <int DH>
+__global__ void __launch_bounds__(WgCfg<DH>::THREADS, WgCfg<DH>::MINB)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int Sq, int Sk, int H, int KV, float scale_log2,
+                   int causal, int window) {
+  using C = WgCfg<DH>;
+  constexpr int TK = C::TK, NS = C::NS;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t sq = (hw::smem_u32(smem_raw) + 1023u) & ~1023u;
+  auto sk = [&](int s) { return sq + C::Q_BYTES + s * C::STAGE; };
+  auto sv = [&](int s) { return sk(s) + C::SPANS * C::KV_SPAN; };
+  const uint32_t bars = sq + C::Q_BYTES + NS * C::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  const uint32_t qbar = bars + 8 * NS;
+  uint32_t* released = reinterpret_cast<uint32_t*>(
+      smem_raw + (bars - hw::smem_u32(smem_raw)) + 8 * (NS + 1));
+
+  const int G = H / KV;
+  const int qpb = C::ROWS / G;           // queries a block
+  const int rows = qpb * G;              // its rows (ROWS when G divides it)
+  // row tiles vary fastest, so the blocks that read one head's K and V run
+  // together (it comes from device memory once); in reverse, so the tiles
+  // with the most keys start first
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int s0 = (gridDim.x - 1 - blockIdx.x) * qpb;    // first query
+  const int p0 = s0 * G;                                // first row
+  const int n_rows = Sq * G;
+  const int q_last = min(n_rows - 1, p0 + rows - 1) / G;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const bool windowed = causal && window > 0;
+  // key tiles j0 .. j0 + nt - 1: from the tile of the first key in the window
+  // of the block's first query to the diagonal of its last (Sk > 0: nt >= 1)
+  const int j0 = windowed ? max(0, s0 - window + 1) / TK : 0;
+  const int nt = (k_end + TK - 1) / TK - j0;
+
+  auto load_kv = [&](int it) {           // tile j0 + it into its stage
+    const int s = it % NS, k0 = (j0 + it) * TK;
+    hw::mbar_expect_tx(full(s), C::STAGE);
+#pragma unroll
+    for (int c = 0; c < C::SPANS; ++c) {
+      hw::tma_load_4d(sk(s) + c * C::KV_SPAN, &map_k, full(s), 64 * c, kvh, k0,
+                      b);
+      hw::tma_load_4d(sv(s) + c * C::KV_SPAN, &map_v, full(s), 64 * c, kvh, k0,
+                      b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hw::mbar_init(full(s), 1);
+      released[s] = 0;
+    }
+    hw::mbar_init(qbar, 1);
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hw::mbar_expect_tx(qbar, C::SPANS * rows * 128);
+#pragma unroll
+    for (int c = 0; c < C::SPANS; ++c)
+      hw::tma_load_4d(sq + c * C::Q_SPAN, &map_q, qbar, 64 * c, kvh * G, s0, b);
+    for (int it = 0; it < min(nt, NS); ++it) load_kv(it);
+  }
+
+  // the warpgroup, broadcast from lane 0 so that the compiler knows it is
+  // warp-uniform: branches on it are not divergent, and the wgmma after
+  // them stay asynchronous
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the warpgroup's rows; this thread holds rows 16 warp + g and + 8
+  const int wp = p0 + 64 * wg;
+  const int w_first = wp / G, w_last = (wp + 63) / G;
+  const int qi[2] = {(wp + 16 * warp + g) / G, (wp + 16 * warp + g + 8) / G};
+
+  float acc[DH / 2], sc[TK / 2];
+  uint32_t pa[TK / 16][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  hw::mbar_wait_uniform(qbar, 0);
+
+  // S = Q K^T for tile it: the warpgroup's 64 Q rows against TK keys, k16
+  // steps along the head dim (32 bytes within a span; Dh 96 stops half way
+  // through its second span); committed, not waited on
+  auto issue_s = [&](int it) {
+    const uint32_t kb = sk(it % NS);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t da = hw::wgmma_desc(
+          sq + (kk / 4) * C::Q_SPAN + wg * 8192 + off, 16, 1024);
+      const uint64_t db = hw::wgmma_desc(kb + (kk / 4) * C::KV_SPAN + off,
+                                         16, 1024);
+      hw::wgmma_ss_kmajor<TK>(sc, da, db, kk > 0);
+    }
+    hw::wgmma_commit();
+    hw::fence_regs(sc);
+  };
+  // O += P V for tile it: P (pa) the A operand in registers (the
+  // accumulator columns 16 kk .. 16 kk + 15 are the A fragment of k16 step
+  // kk); V MN-major, a k16 step 16 key rows (2048 bytes) on
+  auto issue_pv = [&](int it) {
+    const uint32_t vb = sv(it % NS);
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      hw::wgmma_rs_mnmajor<DH>(
+          acc, pa[kk], hw::wgmma_desc(vb + kk * 2048, C::KV_SPAN, 1024), 1);
+    hw::wgmma_commit();
+    hw::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) hw::fence_regs(pa[kk]);
+  };
+  auto fence_all = [&]() {
+    hw::fence_regs(sc);
+    hw::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) hw::fence_regs(pa[kk]);
+  };
+  // tile it's K and V are read: the last warpgroup to say so loads tile it
+  // + NS into the stage
+  auto release = [&](int it) {
+    if (tid == 0) {
+      const int s = it % NS;
+      if (atomicAdd(&released[s], 1u) % C::NWG == C::NWG - 1 && it + NS < nt)
+        load_kv(it + NS);
+    }
+  };
+  // online softmax of tile it on the accumulator rows, in log2 units of the
+  // scaled scores: the row maximum of the raw scores (the scale is
+  // positive), then p = 2^(s scale - m) in one FFMA and ex2, into sc;
+  // masked scores are -inf.  Returns O's factors in alpha.
+  auto softmax = [&](int it, float (&alpha)[2]) {
+    const int kt0 = (j0 + it) * TK;
+    if (kt0 + TK > Sk || (causal && kt0 + TK - 1 > w_first) ||
+        (windowed && kt0 <= w_last - window)) {
+#pragma unroll
+      for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kt0 + 8 * i + 2 * t + (e & 1), qr = qi[e / 2];
+          if (kj >= Sk || (causal && kj > qr) ||
+              (windowed && kj <= qr - window))
+            sc[4 * i + e] = kNegInf;
+        }
+      }
+    }
+    // four partial maxima and sums a row, for instruction-level parallelism
+    float mx[2][4], rs[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r][j] = kNegInf;
+        rs[r][j] = 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i)
+      mx[(i % 4) / 2][(i / 4) % 4] = fmaxf(mx[(i % 4) / 2][(i / 4) % 4], sc[i]);
+    float m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x * scale_log2);
+      m_use[r] = m_new == kNegInf ? 0.f : m_new;
+      alpha[r] = hw::ex2(m[r] - m_use[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) {
+      sc[i] = hw::ex2(fmaf(sc[i], scale_log2, -m_use[(i % 4) / 2]));
+      rs[(i % 4) / 2][(i / 4) % 4] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      l[r] = l[r] * alpha[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+  };
+  // O to the new maxima (skipped where every row of the warp kept its
+  // maximum: a factor of 1 changes no bit), then P packed to bf16
+  auto rescale_pack = [&](const float (&alpha)[2]) {
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
+    }
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = hw::pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+  };
+
+  // The warpgroup computes tiles a .. z: the tiles before them lie below
+  // the window of every row of the warpgroup, the tiles after them above
+  // its diagonal (those are waited for and released only).  Pipelined
+  // within the warpgroup: tile i's S = Q K^T is issued, then tile i - 1's
+  // P V; the softmax of tile i runs while P V is on the tensor cores, and O
+  // is rescaled once P V is done.  At most two stages are held, so a ring
+  // of two or more never waits on itself.  No wgmma is under a branch (the
+  // compiler would make every wgmma of the kernel synchronous).
+  auto skipped = [&](int it) {
+    const int kt0 = (j0 + it) * TK;
+    return (causal && kt0 > w_last) ||
+           (windowed && kt0 + TK - 1 <= w_first - window);
+  };
+  int a = 0, z = nt - 1;
+  while (a < nt && skipped(a)) ++a;
+  while (z >= a && skipped(z)) --z;
+  auto pass = [&](int it) {
+    hw::mbar_wait_uniform(full(it % NS), (it / NS) & 1);
+    release(it);
+  };
+  for (int it = 0; it < a; ++it) pass(it);
+  if (a <= z) {
+    float alpha[2];
+    hw::mbar_wait_uniform(full(a % NS), (a / NS) & 1);
+    fence_all();
+    hw::wgmma_fence();
+    issue_s(a);
+    hw::wgmma_wait<0>();
+    fence_all();
+    softmax(a, alpha);
+    rescale_pack(alpha);
+    for (int it = a + 1; it <= z; ++it) {
+      hw::mbar_wait_uniform(full(it % NS), (it / NS) & 1);
+      fence_all();
+      hw::wgmma_fence();
+      issue_s(it);
+      issue_pv(it - 1);
+      hw::wgmma_wait<1>();
+      hw::fence_regs(sc);
+      softmax(it, alpha);
+      hw::wgmma_wait<0>();
+      fence_all();
+      release(it - 1);
+      rescale_pack(alpha);
+    }
+    fence_all();
+    hw::wgmma_fence();
+    issue_pv(z);
+    hw::wgmma_wait<0>();
+    fence_all();
+    release(z);
+  }
+  for (int it = max(a, z + 1); it < nt; ++it) pass(it);
+
+  // normalise, round once, stage in the warpgroup's own Q rows (its
+  // products are done) in their 128-byte swizzle, then store 16-byte rows
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lt = l[r];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    inv[r] = lt > 0.f ? 1.f / lt : 0.f;
+    // the row's logsumexp (natural log) for the backward: m is in log2
+    // units of the scaled scores
+    const int rr = 64 * wg + 16 * warp + g + 8 * r, p = p0 + rr;
+    if (lse != nullptr && t == 0 && rr < rows && p < n_rows)
+      lse[((size_t)b * H + kvh * G + p % G) * Sq + p / G] =
+          lt > 0.f ? (m[r] + log2f(lt)) * 0.6931471805599453f : INFINITY;
+  }
+  const uint32_t stg = sq + wg * 8192;
+  auto stg_addr = [&](int r, int j) {      // row r, 16-byte chunk j (8 cols)
+    return stg + (j / 8) * C::Q_SPAN + r * 128 + (((j % 8) ^ (r % 8)) << 4);
+  };
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int r = 16 * warp + g;
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg_addr(r, j) + 4 * t),
+                 "r"(hw::pack_bf16(acc[4 * j] * inv[0], acc[4 * j + 1] * inv[0]))
+                 : "memory");
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg_addr(r + 8, j) + 4 * t),
+                 "r"(hw::pack_bf16(acc[4 * j + 2] * inv[1],
+                                   acc[4 * j + 3] * inv[1]))
+                 : "memory");
+  }
+  hw::named_sync(1 + wg, 128);
+  for (int c = tid; c < 64 * (DH / 8); c += 128) {
+    const int r = c / (DH / 8), j = c % (DH / 8);
+    const int rr = 64 * wg + r, p = p0 + rr;
+    if (rr < rows && p < n_rows)
+      *reinterpret_cast<uint4*>(
+          o + (((size_t)b * Sq + p / G) * H + kvh * G + p % G) * DH + 8 * j) =
+          hw::ld_shared16(stg_addr(r, j));
+  }
+}
+
 template <typename T, int DH>
 void launch(const void* q, const void* k, const void* v, void* o,
             float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
@@ -462,18 +810,71 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o,
   return 0;
 }
 
+template <int DH>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
+                 int causal, int window, cudaStream_t s) {
+  using C = WgCfg<DH>;
+  const int G = H / KV, qpb = C::ROWS / G;
+  // q as (Dh, H, Sq, B) in boxes of 64 columns x the group's G heads x qpb
+  // queries, so a box lands as the block's rows in order; k and v as (Dh,
+  // KV, Sk, B) in boxes of 64 columns x TK keys of one kv head
+  CUtensorMap map_q, map_k, map_v;
+  const uint64_t dims_q[4] = {(uint64_t)DH, (uint64_t)H, (uint64_t)Sq,
+                              (uint64_t)B};
+  const uint64_t dims_kv[4] = {(uint64_t)DH, (uint64_t)KV, (uint64_t)Sk,
+                               (uint64_t)B};
+  const uint32_t box_q[4] = {64, (uint32_t)G, (uint32_t)qpb, 1};
+  const uint32_t box_kv[4] = {64, 1, C::TK, 1};
+  if (!hw::encode_bf16(&map_q, q, 4, dims_q, box_q) ||
+      !hw::encode_bf16(&map_k, k, 4, dims_kv, box_kv) ||
+      !hw::encode_bf16(&map_v, v, 4, dims_kv, box_kv))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_ok = false;        // set once per instantiation
+  if (!smem_ok) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_ok = true;
+  }
+  dim3 grid((unsigned)((Sq + qpb - 1) / qpb), B * KV);
+  flash_wgmma_kernel<DH><<<grid, C::THREADS, C::SMEM, s>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KV,
+      scale * 1.4426950408889634f, causal, window);
+  return 0;
+}
+
+// flash_wgmma_kernel where a (b, kv head) has 64 rows or more (a warpgroup's
+// tile) and there are keys to map; flash_mma_kernel below that (decode),
+// for Sk 0 (a tensor map has no extent 0), for groups of more than 128
+// heads (a block's rows hold whole queries) and for a scale that is not
+// positive (the wgmma kernel takes the row maximum of the raw scores).
+// The choice is made by shape, before any launch.
+template <int DH>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
+                int causal, int window, cudaStream_t s) {
+  if ((long)Sq * (H / KV) >= 64 && Sk > 0 && H / KV <= 128 && scale > 0.f) {
+    return launch_wgmma<DH>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                            window, s);
+  }
+  return launch_mma<DH>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                        window, s);
+}
+
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                   float* lse, int B, int Sq, int Sk, int H, int KV, int Dh,
                   float scale, int causal, int window, cudaStream_t s) {
   if (Dh == 64)
-    return launch_mma<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
-                          window, s);
-  if (Dh == 96)
-    return launch_mma<96>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
-                          window, s);
-  if (Dh == 128)
-    return launch_mma<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+    return launch_bf16<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
                            window, s);
+  if (Dh == 96)
+    return launch_bf16<96>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                           window, s);
+  if (Dh == 128)
+    return launch_bf16<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                            window, s);
   return (int)cudaErrorInvalidValue;
 }
 

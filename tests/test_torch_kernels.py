@@ -88,7 +88,29 @@ ATTN_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dh,causal", ATTN_SHAPES)
+# the bf16 forward's wgmma route (a (b, kv head) with Sq x G >= 64 rows) about
+# its tiles, small enough for interpret mode: 64 and 128 rows exactly, a row
+# or a query past them, G 8 with Sq 17 (136 rows, 16 queries a block), Dh 96
+# with Sq 129, and Sk off the 64- and 128-key tiles
+ATTN_WGMMA_EDGES = [
+    (2, 32, 32, 4, 2, 64, True),        # 64 rows
+    (1, 64, 64, 4, 2, 64, True),        # 128 rows
+    (1, 65, 65, 2, 2, 64, True),        # 65 rows (G 1)
+    (1, 33, 33, 4, 2, 128, False),      # 66 rows (G 2)
+    (1, 17, 17, 8, 1, 64, True),        # G 8
+    (1, 129, 129, 2, 2, 96, True),      # Dh 96, 129 rows
+    (1, 100, 300, 4, 2, 64, False),     # Sk off the key tile
+]
+
+
+def _jax_block(S: int) -> int:
+    """The JAX kernel's block along a length: 128 where it divides the
+    length (its default), else the whole length (its blocks must divide)."""
+    return 128 if S % min(128, S) == 0 else S
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,Dh,causal",
+                         ATTN_SHAPES + ATTN_WGMMA_EDGES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_jax_kernel(B, Sq, Sk, H, KV, Dh, causal,
                                             dtype):
@@ -98,7 +120,34 @@ def test_flash_attention_matches_jax_kernel(B, Sq, Sk, H, KV, Dh, causal,
     v_t, v_j = _both(rng.standard_normal((B, Sk, KV, Dh), np.float32), dtype)
     out = ops.flash_attention(q_t, k_t, v_t, causal=causal)
     assert out.dtype == q_t.dtype and out.shape == (B, Sq, H, Dh)
-    _close(out, jops.flash_attention(q_j, k_j, v_j, causal=causal), dtype)
+    _close(out, jops.flash_attention(q_j, k_j, v_j, causal=causal,
+                                     block_q=_jax_block(Sq),
+                                     block_k=_jax_block(Sk)), dtype)
+
+
+# windows about the wgmma route's 64-key tiles: 65 at Dh 128 (one past a
+# tile), with GQA, and at Dh 64 with G 2
+ATTN_WINDOWS = [(1, 150, 4, 1, 128, 65), (2, 130, 4, 2, 64, 65)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,Dh,window", ATTN_WINDOWS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_matches_jax_masked_attention(B, S, H, KV, Dh,
+                                                             window, dtype):
+    """The JAX kernel has no window: the model's masked attention
+    (``layers._blocked_sdpa``) is the reference, in f32 on the same
+    (rounded) inputs."""
+    rng = np.random.default_rng(B * S * H * Dh + window)
+    q_t, k_t, v_t = (_both(rng.standard_normal(sh, np.float32), dtype)[0]
+                     for sh in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh)))
+    out = ops.flash_attention(q_t, k_t, v_t, causal=True, window=window)
+    assert out.dtype == q_t.dtype and out.shape == (B, S, H, Dh)
+    jcfg = jconfigs.get_smoke_config("granite-moe-1b-a400m").replace(
+        dtype="float32")
+    want = jL._blocked_sdpa(jcfg, *(jnp.asarray(t.float().numpy())
+                                    for t in (q_t, k_t, v_t)),
+                            causal=True, window=window)
+    _close(out, want, dtype)
 
 
 def test_flash_attention_rejects_causal_offset():
@@ -553,6 +602,40 @@ def test_cuda_flash_attention_window_and_head_dim_96():
                 ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window),
                 rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_wgmma_route():
+    """The bf16 forward's wgmma route (flash_wgmma_kernel, where a (b, kv
+    head) has 64 rows or more) at its tile edges, against the plain version
+    within 2e-2 of max|ref|; a second call gives the same bits, and the
+    output with the LSE equals the output without."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cases = [(2, 32, 32, 4, 2, 64, True, 0),       # 64 rows
+             (2, 64, 64, 4, 2, 64, True, 0),       # 128 rows
+             (2, 65, 65, 4, 4, 64, True, 0),       # 65 rows
+             (2, 33, 33, 8, 4, 128, False, 0),     # 66 rows
+             (2, 17, 17, 16, 2, 128, True, 0),     # G 8
+             (1, 129, 129, 4, 4, 96, False, 0),    # Dh 96, 129 rows
+             (2, 100, 300, 8, 4, 96, False, 0),    # Sk off the key tile
+             (1, 200, 77, 4, 1, 128, False, 0),    # Sk below one tile
+             (2, 300, 300, 8, 2, 128, True, 65),   # a window of 65
+             (1, 100, 100, 6, 2, 64, True, 0)]     # G 3: 126 rows a block
+    for B, Sq, Sk, H, KV, Dh, causal, window in cases:
+        q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, Sk, KV, Dh, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, Sk, KV, Dh, generator=gen, device=dev).bfloat16()
+        kw = dict(causal=causal, window=window)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw).float()
+        err = float((got.float() - want).abs().max())
+        assert err <= 2e-2 * float(want.abs().max()), (B, Sq, Sk, H, KV, Dh)
+        assert torch.equal(got, ops.flash_attention(q, k, v, **kw))
+        o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        assert torch.equal(o, got)
+        assert bool(torch.isfinite(lse).all())
     torch.cuda.synchronize()
 
 
