@@ -12,8 +12,11 @@ exits non-zero:
     time, each kernel's registers and spills (``-Xptxas -v``), and the
     tensor-core instructions in the SASS (``cuobjdump``) of the bf16
     grouped_matmul kernel in both of its B layouts (the forward's MN-major
-    and dX's K-major) and the bf16 dW kernel (HGMMA), and of the attention
-    backward kernels (HMMA), each of which must hold some;
+    and dX's K-major), the bf16 dW kernel and the attention forward's and
+    backward's wgmma kernels (HGMMA), and of the attention backward's
+    mma.sync kernels (HMMA), each of which must hold some; ptxas must
+    report no serialized wgmma (notes C7510 to C7520) in the attention
+    kernels;
 (b) each kernel against its plain PyTorch version on the card, in f32
     (tolerance 2e-5) and bf16 (2e-2; ssd_chunk is f32 only), at the main
     paths' shapes, the kernel tests' shapes and the tile edges of the
@@ -101,9 +104,11 @@ exits non-zero:
     window at jamba's head layout and tile edges (S off the tiles, experts
     with no rows, uncovered rows: zero dX, nothing in dW), and the edges of
     the tensor-core tiles (Sq 65 and 127 at each head dim, a window of 1,
-    Sk 0 where no row keeps a key; dW groups of 1 to 129 rows off the
-    64-row slices with D and F off the 128 x 256 tile, a hot expert, an
-    empty expert between full ones; dX on the decode route, T <= 16 E;
+    Sk 0 where no row keeps a key; the wgmma backward's edges,
+    ``ATTN_BWD_WGMMA_EDGES``, its route on every line; dW groups of 1 to
+    129 rows off the 64-row slices with D and F off the 128 x 256 tile, a
+    hot expert, an empty expert between full ones; dX on the decode route,
+    T <= 16 E;
     rmsnorm_bwd on each of its routes: a row group of 4, 8, 16 or 32
     lanes, 1 to 8 vectors a lane, the wide route (rows staged in shared
     memory) and the scalar route, one block or many); each twice, bit for
@@ -120,7 +125,8 @@ exits non-zero:
     Times of each backward kernel, its plain version, one PyTorch call
     (SDPA's backward, F.rms_norm's backward, a padded bmm; none for
     ssd_chunk_bwd) and its bound, with each kernel's share of rmsnorm_bwd
-    (at granite's rows, D 1001 and mamba2's gate rows [4096,3072]), dX and
+    (at granite's rows, D 1001 and mamba2's gate rows [4096,3072]), dX,
+    flash_attention_bwd (D, dK/dV and dQ at each timed row) and
     ssd_chunk_bwd from the profiler; flash_attention_bwd also at
     qwen3-1.7b's Dh 128 and phi-3's Dh 96, rmsnorm_bwd at every
     ``RMS_BWD`` shape.  Then gradients in f32, the card against the CPU
@@ -268,9 +274,11 @@ rmsnorm_bwd's time at every ``RMS_BWD`` shape in bf16, its kernels' device
 time at [4096,3072], the
 same windows behind a read of the flush buffer rather than its zero fill,
 and the split launches' times.  ``--attn-ab PARENT`` with ``ATTN_AB``:
-flash_attention's bf16 forward at its six timed rows (``ATTN_ROWS``), each
-line with the route it took and the host CPU; no digest, since the wgmma
-route rounds in another order than the parent's mma.sync route.
+flash_attention's bf16 forward at its six timed rows (``ATTN_ROWS``), then
+flash_attention_bwd at its three (``ATTN_BWD_TIMED``) with its launches'
+device times, each line with the route it took and the host CPU; no
+digest, since the wgmma routes round in another order than the mma.sync
+routes.
 
 The last two lines are a ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -455,6 +463,27 @@ ATTN_BWD_EDGES = [(2, 65, 65, 8, 2, 64, True, 0),
                   (2, 127, 127, 8, 2, 128, False, 0),
                   (2, 300, 300, 8, 2, 64, True, 1),
                   (1, 65, 0, 4, 2, 64, False, 0)]
+# the wgmma backward's edges (bf16; taken where a (b, kv head) has 64 rows
+# or more, G <= 64): exactly 64 rows (Sq 32, G 2) and 63 (mma.sync); 65
+# rows with G 1; G 8 with Sq 17; Dh 96 at Sq 129, causal and not; Dh 128
+# with Sk off the key tiles, not causal, Sq != Sk (100 against 300), and
+# below a dK/dV block (77 keys); groups that do not divide a 64-row step (G
+# 3: 63 rows; G 12: 60), whose last rows are zeros; a window of 65 crossing
+# a tile with GQA at Dh 64 and 128; a window of 1 with GQA at Dh 128, held
+# against the cancelled terms
+ATTN_BWD_WGMMA_EDGES = [(2, 32, 32, 4, 2, 64, True, 0),
+                        (1, 63, 63, 4, 4, 64, True, 0),
+                        (2, 65, 65, 4, 4, 64, True, 0),
+                        (2, 17, 17, 16, 2, 128, True, 0),
+                        (1, 129, 129, 4, 4, 96, False, 0),
+                        (2, 129, 129, 4, 2, 96, True, 0),
+                        (2, 100, 300, 8, 4, 128, False, 0),
+                        (1, 200, 77, 4, 1, 128, False, 0),
+                        (1, 100, 100, 6, 2, 64, True, 0),
+                        (1, 50, 50, 12, 1, 128, False, 0),
+                        (1, 300, 300, 8, 2, 64, True, 65),
+                        (2, 300, 300, 8, 2, 128, True, 65),
+                        (1, 150, 150, 8, 4, 128, True, 1)]
 # flash_attention_bwd also timed at qwen3-1.7b's Dh 128 and phi-3's Dh 96,
 # as (B, S, H, KV, Dh), causal
 ATTN_BWD_TIMED = [(TRAIN_BATCH, TRAIN_SEQ, 16, 8, 64),
@@ -783,7 +812,13 @@ TENSOR_CORE_KERNELS = (
     ("grouped_matmul", "HGMMA", ("gmm_wgmma_kernel", "gmm_dw_wgmma_kernel")),
     ("flash_attention", "HMMA", ("flash_bwd_dkdv_mma_kernel",
                                  "flash_bwd_dq_mma_kernel")),
-    ("flash_attention", "HGMMA", ("flash_wgmma_kernel",)))
+    ("flash_attention", "HGMMA", ("flash_wgmma_kernel",
+                                  "flash_bwd_dkdv_wgmma_kernel",
+                                  "flash_bwd_dq_wgmma_kernel")))
+# ptxas's notes that it made every wgmma of a kernel wait for the one before
+# ("Potential Performance Loss: wgmma.mma_async instructions are
+# serialized"), which phase (a) refuses in the attention kernels
+SERIAL_NOTES = tuple(f"C75{i}" for i in range(10, 21))
 
 
 def kernel_label(mangled: str) -> str:
@@ -857,6 +892,14 @@ def check_tensor_core_sass(build) -> None:
             if not found or min(found.values()) == 0:
                 raise AssertionError(f"{kernel}: no {opcode} in its SASS "
                                      f"({found})")
+    notes = [ln.strip() for ln in
+             build.BUILD_LOG.get("flash_attention", "").splitlines()
+             if any(f"({n})" in ln for n in SERIAL_NOTES)]
+    log("a", f"ptxas flash_attention: {len(notes)} notes of serialized wgmma "
+        f"({SERIAL_NOTES[0]} to {SERIAL_NOTES[-1]})")
+    if notes:
+        raise AssertionError(f"flash_attention: ptxas serialized wgmma: "
+                             f"{notes[0][:300]}")
 
 
 # ------------------------------------------------------------ phase (b)
@@ -1175,6 +1218,21 @@ def attention_route(Sq: int, H: int, KV: int, Sk: int, dname: str) -> str:
     if Sq * G >= 64 and Sk > 0 and G <= 128:
         return "wgmma (flash_wgmma_kernel)"
     return "mma.sync (flash_mma_kernel)"
+
+
+def attention_bwd_route(B: int, Sq: int, H: int, KV: int, Sk: int,
+                        dname: str) -> str:
+    """The kernels ``flash_attention_bwd_launch`` takes for a shape (its
+    ``launch_bwd_bf16``): bf16 on wgmma where a (b, kv head) has 64 rows or
+    more, there are keys, a group of at most 64 heads (a dK/dV step of 64
+    rows holds whole queries) and 2 B H Sq statistics within a TMA
+    coordinate; else on mma.sync; f32 on the FMA kernels."""
+    if dname != "bfloat16":
+        return "f32 FMA"
+    G = H // KV
+    if Sq * G >= 64 and Sk > 0 and G <= 64 and 2 * B * H * Sq < 2 ** 31:
+        return "wgmma (flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel)"
+    return "mma.sync (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel)"
 
 
 def attention_twice(torch, ops, q, k, v, causal: bool, window: int):
@@ -1898,7 +1956,8 @@ def check_attention_bwd(torch, ops, ref, randn, shape, dname, dt,
     note = "; dq, dk against the cancelled terms" if window == 1 else ""
     log(phase, f"flash_attention_bwd {shape} {dname}: max_abs_err {e:.3e}, "
         f"err/max|ref| {r:.3e} (tol {ATTN_BWD_TOL[dname]}){note}; finite; "
-        f"deterministic; the LSE forward equals the forward bit for bit")
+        f"deterministic; the LSE forward equals the forward bit for bit; "
+        f"route {attention_bwd_route(B, Sq, H, KV, Sk, dname)}")
     return e
 
 
@@ -1931,6 +1990,8 @@ def check_backward_kernels(torch, ops, ref, dev):
     # one-pass rmsnorm_bwd and dX's decode route from another
     edge_gen = torch.Generator(device=dev).manual_seed(13)
     route_gen = torch.Generator(device=dev).manual_seed(14)
+    # and the wgmma backward's edges from another
+    wg_gen = torch.Generator(device=dev).manual_seed(17)
     errs = {}
 
     def randn(*shape, dtype):
@@ -1942,6 +2003,9 @@ def check_backward_kernels(torch, ops, ref, dev):
     def route_randn(*shape, dtype):
         return torch.randn(*shape, generator=route_gen,
                            device=dev).to(dtype)
+
+    def wg_randn(*shape, dtype):
+        return torch.randn(*shape, generator=wg_gen, device=dev).to(dtype)
 
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
@@ -1970,6 +2034,8 @@ def check_backward_kernels(torch, ops, ref, dev):
                 errs["flash_attention_bwd"] = e
         for shape in ATTN_BWD_EDGES:
             check_attention_bwd(torch, ops, ref, edge_randn, shape, dname, dt)
+        for shape in ATTN_BWD_WGMMA_EDGES:
+            check_attention_bwd(torch, ops, ref, wg_randn, shape, dname, dt)
         cases = []
         for T, D, Fo in ((TRAIN_BATCH * TRAIN_SEQ * 8, 1024, 512),
                          (TRAIN_BATCH * TRAIN_SEQ * 8, 512, 1024)):
@@ -2210,13 +2276,17 @@ def time_backward_kernels(torch, ops, ref, dev):
             .requires_grad_()
         ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dot = do.transpose(1, 2)
+        bwd = lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=True)
         attn.append(record(
-            "flash_attention_bwd", f"q[{B},{S},{H},{Dh}] causal",
-            lambda: ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+            "flash_attention_bwd", f"q[{B},{S},{H},{Dh}] causal", bwd,
             lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True),
             lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                         retain_graph=True),
             *rl.attention_bwd_cost(B, S, S, H, KV, Dh, True, 0, es)))
+        kernel_split(torch, bwd, flush, f"flash_attention_bwd q[{B},{S},{H},"
+                     f"{Dh}] causal bfloat16, route "
+                     f"{attention_bwd_route(B, S, H, KV, S, 'bfloat16')}")
         del q, do, k, v, o, lse, qt, kt, vt, ot, dot
         torch.cuda.empty_cache()
     out["flash_attention_bwd"] = {**attn[0], "by_shape": attn[1:]}
@@ -3922,9 +3992,10 @@ c.time_split_rmsnorm(torch, ops, ref, dev)
 
 # ``--attn-ab``'s run, in either checkout (so it calls only what the parent
 # has too): flash_attention's bf16 forward at granite's prefill and the
-# ``ATTN_NEW`` rows, L2 flushed and each window behind the spin kernel, with
-# the route (the parent has no ``attention_route``: its bf16 forward is
-# flash_mma_kernel at every shape) and the host CPU on every line
+# ``ATTN_NEW`` rows, then flash_attention_bwd at ``ATTN_BWD_TIMED`` with its
+# launches' device times, L2 flushed and each window behind the spin kernel,
+# with the route (a checkout without ``attention_bwd_route`` takes the
+# mma.sync backward at every shape) and the host CPU on every line
 ATTN_ROWS = [(BATCH, PROMPT, PROMPT, 16, 8, 64, True, 0)] + ATTN_NEW
 ATTN_AB = f"""
 import functools
@@ -3950,6 +4021,26 @@ for B, Sq, Sk, H, KV, Dh, causal, window in {ATTN_ROWS!r}:
           f"bfloat16: kernel {{ms:.4f}} ms; route {{route}}; host {{cpu}}",
           flush=True)
     del q, k, v, fn
+for B, S, H, KV, Dh in {ATTN_BWD_TIMED!r}:
+    q, do = (torch.randn(B, S, H, Dh, generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, S, KV, Dh, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
+    fn = functools.partial(ops.flash_attention_bwd, q, k, v, o, lse, do,
+                           causal=True)
+    ms = c.timed_ms(torch, fn, flush, spin=True)
+    route = (c.attention_bwd_route(B, S, H, KV, S, "bfloat16")
+             if hasattr(c, "attention_bwd_route")
+             else "mma.sync (flash_bwd_dkdv_mma_kernel, "
+                  "flash_bwd_dq_mma_kernel)")
+    print(f"time flash_attention_bwd q[{{B}},{{S}},{{H}},{{Dh}}] causal "
+          f"bfloat16: kernel {{ms:.4f}} ms; route {{route}}; host {{cpu}}",
+          flush=True)
+    c.kernel_split(torch, fn, flush,
+                   f"flash_attention_bwd q[{{B}},{{S}},{{H}},{{Dh}}] causal "
+                   f"bfloat16")
+    del q, do, k, v, o, lse, fn
 """
 
 
@@ -3972,7 +4063,8 @@ AB = {
                  lambda line: any(k in line for k in
                                   ("digest ", "time ", "profile")),
                  lambda line: line.startswith("digest ")),
-    "--attn-ab": (f"exec({ATTN_AB!r})", lambda line: "time " in line),
+    "--attn-ab": (f"exec({ATTN_AB!r})",
+                  lambda line: "time " in line or "profile" in line),
 }
 
 

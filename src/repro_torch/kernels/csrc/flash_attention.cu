@@ -880,50 +880,87 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 
 // ------------------------------------------------------------- backward
-// FA2's backward, with P recomputed from the forward's row logsumexp:
+// The gradient of the TPU kernel src/repro/kernels/flash_attention.py
+// (_attn_kernel), which has none of its own (jax.vjp of the reference
+// there).  FA2's backward, with P recomputed from the forward's row
+// logsumexp:
 //   D_i = rowsum(dO o O),  P = exp(S scale - LSE),  dV = P^T dO,
 //   dP = dO V^T,  dS = P o (dP - D),  dQ = dS K scale,  dK = dS^T Q scale.
 // Bound: at granite's training shape (q [8,512,16,64], causal, bf16) q, o,
-// dO, dq at 16 heads, k, v, dk, dv at 8 and the LSE are 51 MB (0.015 ms at
+// dO, dq at 16 heads, k, v, dk, dv at 8 and the LSE are 51 MB (0.0151 ms at
 // 3.35 TB/s) against 10.8 GFLOP for the 5 products over the kept pairs
-// (0.011 ms on the tensor cores), so bytes bound it.  Deterministic: every
-// output element is summed by one owner in a fixed order, with no atomics.
-// Three kernels, so that the GQA sum over a group's heads needs no atomics:
-//  * D: one warp a (b, query, head) row;
+// (0.011 ms on the tensor cores), so bytes bound it; the pairs grow with
+// S^2 and the bytes with S, so past about S 700 (G 2) operations do.
+// Deterministic: every output element is summed by one owner in a fixed
+// order, with no atomics.  Three kernels, so that the GQA sum over a
+// group's heads and dQ's sum over key tiles need no atomics (FA2 and FA3
+// add dQ up with f32 atomics from the dK/dV kernel, which changes its bits
+// from call to call):
+//  * D: a few lanes a (b, query, head) row;
 //  * dK, dV: one block per (b, kv head, tile of keys); it walks the rows of
 //    every q head of the GQA group that the causal mask and window let see
 //    a key of the tile;
-//  * dQ: one block per (b, kv head, tile of rows), rows as the forward's.
+//  * dQ: one block per (b, kv head, tile of rows), rows as the forward's;
+//    it recomputes S and dP, so the backward takes 7 products where FA2
+//    takes 5: the price of no atomics.
+// A row is a (query, q head of the group) pair, query-major, as in the
+// forward, so one loop walks every head of the group and one K/V tile
+// serves them all.  Only steps and tiles that cross a diagonal, a
+// window's edge or the end of the rows or keys are masked element by
+// element; those that see no kept pair are not computed.
 //
-// bf16 (tensor cores; FA2's backward on mma.sync m16n8k16, bf16 in, f32
-// accumulate, with cp.async and ldmatrix as flash_mma_kernel).  D takes
-// 16-byte loads, a few lanes a row.  A row is a
-// (query, q head of the group) pair, query-major, as in the forward, so
-// one loop walks every head of the group and one K/V tile serves them all.
+// bf16, two routes chosen by shape (launch_bwd_bf16).
+//
+// wgmma and TMA (Hopper's own), where a (b, kv head) has 64 rows or more:
+// D writes each row's D and LSE log2(e) into a row-ordered scratch (one
+// run of rows a step, so one TMA box of each loads a step's).
+//  * flash_bwd_dkdv_wgmma_kernel: warpgroup wg owns 64 keys of the block;
+//    K's and V's spans arrive once by TMA; steps of 64 rows (whole queries)
+//    stream through a ring of Q's and dO's 128-byte-swizzled spans and the
+//    step's statistics, refilled by the last warpgroup to release a stage.
+//    Transposed products: S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16,
+//    both operands K-major), P^T = 2^(S^T scale log2(e) - LSE log2(e)) and
+//    dS^T = P^T o (dP^T - D) in registers (a row with no key, LSE +inf,
+//    gives P exactly 0), packed to bf16 as the A operand of dV += P^T dO
+//    and dK += dS^T Q (m64n(Dh)k16, A from registers, B the same spans
+//    MN-major).  A step's S^T and dP^T are issued, then the step before's
+//    dV and dK, and P^T and dS^T are computed while those run.
+//  * flash_bwd_dq_wgmma_kernel: flash_wgmma_kernel's skeleton; Q's and
+//    dO's spans arrive once, K/V tiles stream through the ring; S = Q K^T
+//    and dP = dO V^T (K-major), dS with each row's statistics in
+//    registers, dQ += dS K (K's tile MN-major); a tile's S and dP are
+//    issued before the tile before's dS K.
+//  Against the bytes: each input is read from device memory once a block
+//  by TMA into swizzled spans that wgmma reads in place (no register or
+//  ldmatrix staging), and the blocks that share a head's K, V (or Q, dO)
+//  run together, so the rereads are L2 hits; outputs are rounded once and
+//  stored in 16-byte rows.  Against the operations: every product is an
+//  asynchronous wgmma, the exponentials and dS overlap the products, and
+//  the masks cost only on edge steps.  A warpgroup whose keys (rows) see
+//  none of a step's rows (keys) waits for and releases the stage only.  No
+//  wgmma is under a branch that is not warp-uniform, and no register of
+//  one is touched while it is in flight (ptxas would serialize every
+//  wgmma: notes C7510 to C7520).  A group of more than 64 heads (a step
+//  holds whole queries), Sk 0 (a tensor map has no extent 0) and fewer
+//  rows stay on mma.sync.
+//
+// mma.sync m16n8k16 (FA2's backward, bf16 in, f32 accumulate, with
+// cp.async and ldmatrix as flash_mma_kernel), below 64 rows a (b, kv head)
+// and for the shapes above.
 //  * dK/dV: 4 warps a block, 16 keys a warp; K and V stay in shared memory
 //    (bf16, padded rows) and dK, dV in registers as mma fragments.  Q, dO,
 //    the LSE and D of BQ rows a step are double-buffered through cp.async.
-//    The products are taken transposed: S^T = K Q^T and dP^T = V dO^T (Q
-//    and dO as B through ldmatrix), then P^T = 2^(S^T scale log2e - LSE
-//    log2e) (ex2; the LSE is natural-log, so a row with no key (LSE +inf)
-//    gives P exactly 0), dS^T = P^T o (dP^T - D); P^T and dS^T go from
-//    their accumulators straight to bf16 A fragments (no shared-memory
-//    round trip, rounded as FA2 rounds them), and dV += P^T dO, dK += dS^T Q
-//    read dO and Q through ldmatrix.trans.  BQ = 64 at Dh 64, 32 at Dh 96
-//    and 128, so dK, dV (Dh floats a thread) and S^T, dP^T (BQ) fit the
-//    registers.  A warp skips the steps whose rows cannot see its keys.
-//  * dQ: 4 warps a block, 16 rows a warp (64 rows, as the forward at Dh 96
-//    and 128); Q and dO stay in shared memory, dQ in registers, and the
-//    block walks the 64-key tiles the mask keeps (double-buffered K, V):
-//    S = Q K^T, dP = dO V^T, P, dS as above, dQ += dS K with K as B through
-//    ldmatrix.trans.  Row tiles start in reverse, the longest first.
-//  Only tiles that cross a diagonal, a window's edge or the end of the rows
-//  or keys are masked element by element.  What holds them back: one
-//  ldmatrix.x4 for every two mma (each warp reads the whole Q and dO tile,
-//  twice), so shared-memory reads, and 2 or 3 blocks an SM for the
-//  registers; and the dQ kernel's recompute of S and dP, the price of no
-//  atomics.  Two m16 tiles a warp would feed each fragment to twice the
-//  mma, where the registers allow it.
+//    The products are taken transposed as above, with Q and dO as B
+//    through ldmatrix; P^T and dS^T go from their accumulators straight to
+//    bf16 A fragments (no shared-memory round trip, rounded as FA2 rounds
+//    them), and dV += P^T dO, dK += dS^T Q read dO and Q through
+//    ldmatrix.trans.  BQ = 64 at Dh 64, 32 at Dh 96 and 128, so dK, dV (Dh
+//    floats a thread) and S^T, dP^T (BQ) fit the registers.
+//  * dQ: 4 warps a block, 16 rows a warp; Q and dO stay in shared memory,
+//    dQ in registers, and the block walks the 64-key tiles the mask keeps
+//    (double-buffered K, V): S = Q K^T, dP = dO V^T, P, dS as above, dQ +=
+//    dS K with K as B through ldmatrix.trans.  Row tiles start in reverse,
+//    the longest first.
 //
 // f32: FMA loops in f32 on f32 tiles in shared memory, so the f32 route
 // never touches TF32.  dK/dV blocks of 64 keys walk 32 query rows a step;
@@ -1216,12 +1253,20 @@ struct BwdCfg {
 // Dd[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d], bf16: L lanes a row
 // (the power of two >= Dh / 8), each lane 8 elements of O and of dO in one
 // 16-byte load each, summed in f32 by xor shuffles over the row's lanes.
+// ROWS_P (the wgmma route): Dd holds 2 N floats (N = B H Sq rows) in row
+// order p = query G + head within each (b, kv head), [B, KV, Sq, G]: first
+// each row's LSE log2(e), then its D, so that a step of rows is one run of
+// each, which one TMA box loads.
 template <int DH>
+__host__ __device__ constexpr int dot_lanes() { return DH / 8 <= 8 ? 8 : 16; }
+template <int DH, bool ROWS_P>
 __global__ void __launch_bounds__(BWD_NT)
 flash_bwd_dot_bf16_kernel(const __nv_bfloat16* __restrict__ o,
                           const __nv_bfloat16* __restrict__ dout,
-                          float* __restrict__ Dd, long rows, int Sq, int H) {
-  constexpr int CH = DH / 8, L = CH <= 8 ? 8 : 16;
+                          const float* __restrict__ lse,
+                          float* __restrict__ Dd, long rows, int Sq, int H,
+                          int KV) {
+  constexpr int CH = DH / 8, L = dot_lanes<DH>();
   const long row = ((long)blockIdx.x * BWD_NT + threadIdx.x) / L;
   const int c = threadIdx.x % L;
   float acc = 0.f;
@@ -1242,8 +1287,20 @@ flash_bwd_dot_bf16_kernel(const __nv_bfloat16* __restrict__ o,
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (row < rows && c == 0) {
     const long b = row / ((long)Sq * H), i = (row / H) % Sq, h = row % H;
-    Dd[((size_t)b * H + h) * Sq + i] = acc;
+    if (ROWS_P) {
+      const int G = H / KV;
+      const long p = ((b * KV + h / G) * Sq + i) * G + h % G;
+      Dd[p] = lse[((size_t)b * H + h) * Sq + i] * kLog2e;
+      Dd[rows + p] = acc;
+    } else {
+      Dd[((size_t)b * H + h) * Sq + i] = acc;
+    }
   }
+}
+// its grid: L lanes a row
+template <int DH>
+unsigned dot_blocks(long rows) {
+  return (unsigned)((rows * dot_lanes<DH>() + BWD_NT - 1) / BWD_NT);
 }
 
 template <int DH>
@@ -1628,6 +1685,637 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------ bf16 backward (wgmma and TMA, Hopper)
+// dK/dV: NWG warpgroups of 64 keys, steps of BQ = 64 rows (whole queries:
+// 64 / G of them), NS ring stages; PIPE computes a step's P^T and dS^T while
+// the step before's dV and dK are on the tensor cores (registers allowing).
+template <int DH, int NWG_, int NS_, bool PIPE_>
+struct DkdvShape {
+  static constexpr int NWG = NWG_, NS = NS_, BQ = 64;
+  static constexpr bool PIPE = PIPE_;
+  static constexpr int SPANS = (DH + 63) / 64;   // 64-column (128-byte) spans
+  static constexpr int KEYS = 64 * NWG;          // keys a block
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int KV_SPAN = KEYS * 128;     // bytes of a K or V span
+  static constexpr int KV_BYTES = 2 * SPANS * KV_SPAN;   // K's, then V's
+  static constexpr int Q_SPAN = BQ * 128;        // a step's Q or dO span
+  static constexpr int STAGE = 2 * SPANS * Q_SPAN;       // Q's, then dO's
+  // its LSE log2(e), then D: each a box of BQ + 4 floats from the 16-byte
+  // aligned element at or below the step's first row, in 384 bytes
+  static constexpr int STAT_BOX = BQ + 4;
+  static constexpr int STAT_HALF = 384;
+  static constexpr int STAT = 2 * STAT_HALF;
+  static constexpr int SMEM =
+      1024 + KV_BYTES + NS * (STAGE + STAT) + (NS + 1) * 8 + NS * 4;
+};
+// dQ: NWG warpgroups of 64 rows, TK keys a K/V tile, NS ring stages, MINB
+// blocks an SM
+template <int DH, int NWG_, int TK_, int NS_, int MINB_>
+struct DqShape {
+  static constexpr int NWG = NWG_, TK = TK_, NS = NS_, MINB = MINB_;
+  static constexpr int SPANS = (DH + 63) / 64;
+  static constexpr int ROWS = 64 * NWG;          // rows a block, at most
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int Q_SPAN = ROWS * 128;      // bytes of a Q or dO span
+  static constexpr int Q_BYTES = 2 * SPANS * Q_SPAN;     // Q's, then dO's
+  static constexpr int KV_SPAN = TK * 128;
+  static constexpr int STAGE = 2 * SPANS * KV_SPAN;      // K's, then V's
+  static constexpr int SMEM = 1024 + Q_BYTES + NS * STAGE + (NS + 1) * 8 + NS * 4;
+};
+// Chosen by timing the three timed rows on the H100 (chip_smoke.py prints
+// each kernel's registers; PERF.md): dK/dV blocks of one warpgroup at Dh
+// 64 and 128 (two blocks an SM for the registers; finer blocks even out
+// the causal rows' work), of two at Dh 96; at Dh 128 each step waited for
+// in turn (PIPE's registers spill there).  dQ: three blocks of one
+// warpgroup an SM at Dh 64, one of three at Dh 96, one of two at Dh 128.
+template <int DH> struct DkdvCfg;
+template <> struct DkdvCfg<64> : DkdvShape<64, 1, 4, true> {};
+template <> struct DkdvCfg<96> : DkdvShape<96, 2, 4, true> {};
+template <> struct DkdvCfg<128> : DkdvShape<128, 1, 2, false> {};
+template <int DH> struct DqCfg;
+template <> struct DqCfg<64> : DqShape<64, 1, 64, 3, 3> {};
+template <> struct DqCfg<96> : DqShape<96, 3, 64, 3, 1> {};
+template <> struct DqCfg<128> : DqShape<128, 2, 64, 3, 1> {};
+
+// One block per (tile of 64 NWG keys, b, kv head); warpgroup wg owns keys
+// 64 wg .. 64 wg + 63 of the tile.  Shared memory, 1024-byte aligned: K's
+// spans and V's spans (KEYS rows of 128 bytes each, 128-byte swizzled, as
+// TMA writes them), loaded once; NS stages of Q's and dO's spans (BQ rows);
+// the stages' LSE log2(e) and D (BQ floats each, from the D kernel's
+// row-ordered scratch); the stages' full barriers, K/V's barrier and the
+// stages' release counts.  Thread 0 loads K, V and the first NS steps; the
+// last warpgroup to release a stage loads the step NS on into it.
+template <int DH>
+__global__ void __launch_bounds__(DkdvCfg<DH>::THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_stat,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int n_stat,
+                            int Sq, int Sk, int H, int KV, float scale_log2,
+                            float scale, int causal, int window) {
+  using C = DkdvCfg<DH>;
+  constexpr int NS = C::NS, BQ = C::BQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t sk = (raw + 1023u) & ~1023u;
+  const uint32_t sv = sk + C::SPANS * C::KV_SPAN;
+  auto sq = [&](int s) { return sk + C::KV_BYTES + s * C::STAGE; };
+  auto sg = [&](int s) { return sq(s) + C::SPANS * C::Q_SPAN; };
+  const uint32_t stat0 = sk + C::KV_BYTES + NS * C::STAGE;
+  auto sl = [&](int s) { return stat0 + s * C::STAT; };
+  const uint32_t bars = stat0 + NS * C::STAT;
+  auto full = [&](int s) { return bars + 8 * s; };
+  const uint32_t kvbar = bars + 8 * NS;
+  uint32_t* released =
+      reinterpret_cast<uint32_t*>(smem_raw + (bars - raw) + 8 * (NS + 1));
+
+  const int G = H / KV;
+  const int qps = BQ / G;                // queries a step
+  const int rows = qps * G;              // its rows (BQ when G divides it)
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int k0 = blockIdx.x * C::KEYS;
+  const bool windowed = causal && window > 0;
+  // queries that can see a key of the block: >= k0 (causal) and < the last
+  // key + window (a window); steps of qps of them from q_begin
+  const int q_begin = causal ? k0 : 0;
+  const int q_end =
+      windowed ? min(Sq, min(Sk, k0 + C::KEYS) - 1 + window) : Sq;
+  const int n_steps = (q_end - q_begin + qps - 1) / qps;    // >= 1
+  const int stat_row0 = blockIdx.y * Sq * G;    // this head's first row
+
+  // the step's first row in the statistics (its LSE log2(e); its D is
+  // n_stat on), loaded from the 16-byte aligned element at or below it
+  auto stat_at = [&](int st) { return stat_row0 + (q_begin + st * qps) * G; };
+  auto load_step = [&](int st) {
+    const int s = st % NS, q0 = q_begin + st * qps;
+    hw::mbar_expect_tx(full(s),
+                       2 * C::SPANS * rows * 128 + 2 * C::STAT_BOX * 4);
+#pragma unroll
+    for (int c = 0; c < C::SPANS; ++c) {
+      hw::tma_load_4d(sq(s) + c * C::Q_SPAN, &map_q, full(s), 64 * c, kvh * G,
+                      q0, b);
+      hw::tma_load_4d(sg(s) + c * C::Q_SPAN, &map_do, full(s), 64 * c,
+                      kvh * G, q0, b);
+    }
+    hw::tma_load_1d(sl(s), &map_stat, full(s), stat_at(st) & ~3);
+    hw::tma_load_1d(sl(s) + C::STAT_HALF, &map_stat, full(s),
+                    (n_stat + stat_at(st)) & ~3);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hw::mbar_init(full(s), 1);
+      released[s] = 0;
+    }
+    hw::mbar_init(kvbar, 1);
+    hw::mbar_fence_init();
+  }
+  // rows BQ - rows .. of every stage's spans, which no box writes, are
+  // zeros: they are the K dimension of dV += P^T dO and dK += dS^T Q
+  if (rows < BQ) {
+    constexpr int PER_ROW = 8;                          // 16-byte chunks
+    const int n = NS * 2 * C::SPANS * (BQ - rows) * PER_ROW;
+    for (int i = threadIdx.x; i < n; i += C::THREADS) {
+      const int j = i % PER_ROW, r = rows + (i / PER_ROW) % (BQ - rows);
+      const int span = i / PER_ROW / (BQ - rows);     // over stages x 2 x SPANS
+      hw::st_shared_zero16(sq(0) + (span / (2 * C::SPANS)) * C::STAGE +
+                           (span % (2 * C::SPANS)) * C::Q_SPAN + r * 128 +
+                           16 * j);
+    }
+    hw::fence_proxy_async();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hw::mbar_expect_tx(kvbar, C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < C::SPANS; ++c) {
+      hw::tma_load_4d(sk + c * C::KV_SPAN, &map_k, kvbar, 64 * c, kvh, k0, b);
+      hw::tma_load_4d(sv + c * C::KV_SPAN, &map_v, kvbar, 64 * c, kvh, k0, b);
+    }
+    for (int st = 0; st < min(n_steps, NS); ++st) load_step(st);
+  }
+
+  // the warpgroup, broadcast from lane 0 so that the compiler knows it is
+  // warp-uniform (the wgmma after branches on it stay asynchronous)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wk0 = k0 + 64 * wg;          // the warpgroup's first key
+  // this thread's keys (rows of S^T): 16 warp + g and + 8
+  const int kj[2] = {wk0 + 16 * warp + g, wk0 + 16 * warp + g + 8};
+
+  float adk[DH / 2], adv[DH / 2], sc[BQ / 2], dp[BQ / 2];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) adk[i] = adv[i] = 0.f;
+  hw::mbar_wait_uniform(kvbar, 0);
+
+  // S^T = K Q^T (into sc) or dP^T = V dO^T (into dp) for step st: the
+  // warpgroup's 64 K (V) rows against the step's BQ Q (dO) rows, both
+  // K-major, k16 steps along the head dim; committed, not waited on
+  auto issue_t = [&](uint32_t a_base, uint32_t b_base, float (&d)[BQ / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t dA = hw::wgmma_desc(
+          a_base + (kk / 4) * C::KV_SPAN + wg * 8192 + off, 16, 1024);
+      const uint64_t dB =
+          hw::wgmma_desc(b_base + (kk / 4) * C::Q_SPAN + off, 16, 1024);
+      hw::wgmma_ss_kmajor<BQ>(d, dA, dB, kk > 0);
+    }
+    hw::wgmma_commit();
+    hw::fence_regs(d);
+  };
+  auto issue_sdp = [&](int st) {
+    issue_t(sk, sq(st % NS), sc);
+    issue_t(sv, sg(st % NS), dp);
+  };
+  // acc += A B with A (P^T or dS^T, packed) from registers, B the step's dO
+  // or Q MN-major: a k16 step is 16 rows (2048 bytes) on
+  auto issue_acc = [&](float (&acc)[DH / 2], uint32_t (&a)[BQ / 16][4],
+                       uint32_t b_base) {
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      hw::wgmma_rs_mnmajor<DH>(
+          acc, a[kk], hw::wgmma_desc(b_base + kk * 2048, C::Q_SPAN, 1024), 1);
+    hw::wgmma_commit();
+    hw::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) hw::fence_regs(a[kk]);
+  };
+  auto fence_all = [&]() {
+    hw::fence_regs(sc);
+    hw::fence_regs(dp);
+    hw::fence_regs(adk);
+    hw::fence_regs(adv);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      hw::fence_regs(pa[kk]);
+      hw::fence_regs(da[kk]);
+    }
+  };
+  // step st's Q and dO are read: the last warpgroup to say so loads step
+  // st + NS into the stage
+  auto release = [&](int st) {
+    if (tid == 0) {
+      const int s = st % NS;
+      if (atomicAdd(&released[s], 1u) % C::NWG == C::NWG - 1 &&
+          st + NS < n_steps)
+        load_step(st + NS);
+    }
+  };
+  auto skipped = [&](int st) {
+    const int q_lo = q_begin + st * qps, q_hi = min(q_lo + qps, Sq) - 1;
+    return wk0 >= Sk || (causal && wk0 > q_hi) ||
+           (windowed && wk0 + 63 <= q_lo - window);
+  };
+  // P^T = 2^(S^T scale log2(e) - LSE log2(e)) in place of S^T, 0 where the
+  // pair is masked (element e of column group j: key kj[e / 2], step row 8
+  // j + 2 t + (e & 1)), then dS^T = P^T o (dP^T - D) in place of dP^T; the
+  // LSE and D by column from the stage
+  auto grads = [&](int st) {
+    const float* ls =
+        reinterpret_cast<const float*>(smem_raw + (sl(st % NS) - raw)) +
+        (stat_at(st) & 3);
+    const float* ds = reinterpret_cast<const float*>(
+                          smem_raw + (sl(st % NS) - raw) + C::STAT_HALF) +
+                      ((n_stat + stat_at(st)) & 3);
+    const int q_lo = q_begin + st * qps, q_hi = min(q_lo + qps, Sq) - 1;
+    const bool edge = rows < BQ || q_lo + qps > Sq || wk0 + 64 > Sk ||
+                      (causal && wk0 + 63 > q_lo) ||
+                      (windowed && wk0 <= q_hi - window);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float l0 = ls[8 * j + 2 * t], l1 = ls[8 * j + 2 * t + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * j + e] =
+            hw::ex2(fmaf(sc[4 * j + e], scale_log2, -((e & 1) ? l1 : l0)));
+    }
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * j + 2 * t + (e & 1), key = kj[e / 2];
+          const int qi = q_lo + r / G;
+          if (r >= rows || qi >= Sq || key >= Sk || (causal && key > qi) ||
+              (windowed && key <= qi - window))
+            sc[4 * j + e] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float d0 = ds[8 * j + 2 * t], d1 = ds[8 * j + 2 * t + 1];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d1 : d0));
+    }
+  };
+  // P^T and dS^T packed to bf16 A fragments (the accumulator columns 16 kk
+  // .. 16 kk + 15 are k16 step kk's)
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pa[kk][e] = hw::pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+        da[kk][e] = hw::pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+      }
+  };
+  auto issue_dkdv = [&](int st) {       // dV += P^T dO, dK += dS^T Q
+    issue_acc(adv, pa, sg(st % NS));
+    issue_acc(adk, da, sq(st % NS));
+  };
+
+  // The warpgroup computes steps a .. z: the steps before them see none of
+  // its keys (causal), those after them lie past its window; those are
+  // waited for and released only.  PIPE: step st's S^T and dP^T are issued,
+  // then step st - 1's dV and dK; P^T and dS^T are computed while those run
+  // and packed once they are done (ptxas serializes every wgmma if S^T is
+  // read while dP^T, issued with it, is in flight).  Else each step is
+  // issued and waited for in turn.  At most two stages are held, so a ring
+  // of two or more never waits on itself.  No wgmma is under a branch that
+  // is not warp-uniform.
+  int a = 0, z = n_steps - 1;
+  while (a < n_steps && skipped(a)) ++a;
+  while (z >= a && skipped(z)) --z;
+  auto pass = [&](int st) {
+    hw::mbar_wait_uniform(full(st % NS), (st / NS) & 1);
+    release(st);
+  };
+  for (int st = 0; st < a; ++st) pass(st);
+  if (a <= z) {
+    hw::mbar_wait_uniform(full(a % NS), (a / NS) & 1);
+    fence_all();
+    hw::wgmma_fence();
+    issue_sdp(a);
+    hw::wgmma_wait<0>();
+    fence_all();
+    grads(a);
+    pack();
+    for (int st = a + 1; st <= z; ++st) {
+      if constexpr (!C::PIPE) {
+        fence_all();
+        hw::wgmma_fence();
+        issue_dkdv(st - 1);
+        hw::wgmma_wait<0>();
+        fence_all();
+        release(st - 1);
+      }
+      hw::mbar_wait_uniform(full(st % NS), (st / NS) & 1);
+      fence_all();
+      hw::wgmma_fence();
+      issue_sdp(st);
+      if constexpr (C::PIPE) {
+        issue_dkdv(st - 1);
+        hw::wgmma_wait<2>();            // S^T, dP^T (dV, dK in flight)
+        hw::fence_regs(sc);
+        hw::fence_regs(dp);
+        grads(st);
+        hw::wgmma_wait<0>();
+        fence_all();
+        release(st - 1);
+      } else {
+        hw::wgmma_wait<0>();
+        fence_all();
+        grads(st);
+      }
+      pack();
+    }
+    fence_all();
+    hw::wgmma_fence();
+    issue_dkdv(z);
+    hw::wgmma_wait<0>();
+    fence_all();
+    release(z);
+  }
+  for (int st = max(a, z + 1); st < n_steps; ++st) pass(st);
+
+  // dK (scaled) and dV rounded once, staged in the warpgroup's own K and V
+  // rows (its products are done) in their 128-byte swizzle, then stored in
+  // 16-byte rows
+  auto stg = [&](uint32_t base, int r, int j) {   // row r, 16-byte chunk j
+    return base + wg * 8192 + (j / 8) * C::KV_SPAN + r * 128 +
+           (((j % 8) ^ (r % 8)) << 4);
+  };
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int r = 16 * warp + g;
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg(sk, r, j) + 4 * t),
+                 "r"(hw::pack_bf16(adk[4 * j] * scale, adk[4 * j + 1] * scale))
+                 : "memory");
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg(sk, r + 8, j) + 4 * t),
+                 "r"(hw::pack_bf16(adk[4 * j + 2] * scale,
+                                   adk[4 * j + 3] * scale))
+                 : "memory");
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg(sv, r, j) + 4 * t),
+                 "r"(hw::pack_bf16(adv[4 * j], adv[4 * j + 1]))
+                 : "memory");
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg(sv, r + 8, j) + 4 * t),
+                 "r"(hw::pack_bf16(adv[4 * j + 2], adv[4 * j + 3]))
+                 : "memory");
+  }
+  hw::named_sync(1 + wg, 128);
+  for (int c = tid; c < 64 * (DH / 8); c += 128) {
+    const int r = c / (DH / 8), j = c % (DH / 8), key = wk0 + r;
+    if (key < Sk) {
+      const size_t off = (((size_t)b * Sk + key) * KV + kvh) * DH + 8 * j;
+      *reinterpret_cast<uint4*>(dk + off) = hw::ld_shared16(stg(sk, r, j));
+      *reinterpret_cast<uint4*>(dv + off) = hw::ld_shared16(stg(sv, r, j));
+    }
+  }
+}
+
+// One block per (tile of up to 64 NWG rows, b, kv head), rows as the
+// forward's (flash_wgmma_kernel, whose skeleton this is): Q's and dO's
+// spans arrive once by TMA and stay; K and V tiles stream through the
+// ring.  Per tile: S = Q K^T and dP = dO V^T (wgmma, K-major), P and dS in
+// registers with each row's LSE log2(e) and D held in registers, dQ += dS
+// K with dS packed as the A operand and K's tile MN-major.  Tile i's S and
+// dP are issued before tile i - 1's dS K, so dS is computed while dQ's
+// product is on the tensor cores.
+template <int DH>
+__global__ void __launch_bounds__(DqCfg<DH>::THREADS, DqCfg<DH>::MINB)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const float* __restrict__ stat,
+                          __nv_bfloat16* __restrict__ dq, int n_stat, int Sq,
+                          int Sk, int H, int KV, float scale_log2,
+                          float scale, int causal, int window) {
+  using C = DqCfg<DH>;
+  constexpr int TK = C::TK, NS = C::NS;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;
+  const uint32_t sg = sq + C::SPANS * C::Q_SPAN;
+  auto sk = [&](int s) { return sq + C::Q_BYTES + s * C::STAGE; };
+  auto sv = [&](int s) { return sk(s) + C::SPANS * C::KV_SPAN; };
+  const uint32_t bars = sq + C::Q_BYTES + NS * C::STAGE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  const uint32_t qbar = bars + 8 * NS;
+  uint32_t* released =
+      reinterpret_cast<uint32_t*>(smem_raw + (bars - raw) + 8 * (NS + 1));
+
+  const int G = H / KV;
+  const int qpb = C::ROWS / G;           // queries a block
+  const int rows = qpb * G;              // its rows
+  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  // row tiles in reverse, so the tiles with the most keys start first
+  const int s0 = (gridDim.x - 1 - blockIdx.x) * qpb;    // first query
+  const int p0 = s0 * G;                                // first row
+  const int n_rows = Sq * G;
+  const int q_last = min(n_rows - 1, p0 + rows - 1) / G;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const bool windowed = causal && window > 0;
+  const int j0 = windowed ? max(0, s0 - window + 1) / TK : 0;
+  const int nt = (k_end + TK - 1) / TK - j0;            // >= 1 (Sk > 0)
+
+  auto load_kv = [&](int it) {           // tile j0 + it into its stage
+    const int s = it % NS, k0 = (j0 + it) * TK;
+    hw::mbar_expect_tx(full(s), C::STAGE);
+#pragma unroll
+    for (int c = 0; c < C::SPANS; ++c) {
+      hw::tma_load_4d(sk(s) + c * C::KV_SPAN, &map_k, full(s), 64 * c, kvh, k0,
+                      b);
+      hw::tma_load_4d(sv(s) + c * C::KV_SPAN, &map_v, full(s), 64 * c, kvh, k0,
+                      b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      hw::mbar_init(full(s), 1);
+      released[s] = 0;
+    }
+    hw::mbar_init(qbar, 1);
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hw::mbar_expect_tx(qbar, 2 * C::SPANS * rows * 128);
+#pragma unroll
+    for (int c = 0; c < C::SPANS; ++c) {
+      hw::tma_load_4d(sq + c * C::Q_SPAN, &map_q, qbar, 64 * c, kvh * G, s0, b);
+      hw::tma_load_4d(sg + c * C::Q_SPAN, &map_do, qbar, 64 * c, kvh * G, s0,
+                      b);
+    }
+    for (int it = 0; it < min(nt, NS); ++it) load_kv(it);
+  }
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wp = p0 + 64 * wg;
+  const int w_first = wp / G, w_last = (wp + 63) / G;
+  // this thread's rows 16 warp + g and + 8: query, LSE log2(e), D
+  int qi[2];
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = 64 * wg + 16 * warp + g + 8 * r, p = p0 + rr;
+    qi[r] = p / G;
+    const bool ok = rr < rows && p < n_rows;
+    const int idx = blockIdx.y * n_rows + p;
+    lse2[r] = ok ? stat[idx] : 0.f;
+    dd[r] = ok ? stat[n_stat + idx] : 0.f;
+  }
+
+  float acc[DH / 2], sc[TK / 2], dp[TK / 2];
+  uint32_t da[TK / 16][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  hw::mbar_wait_uniform(qbar, 0);
+
+  // S = Q K^T (sc) and dP = dO V^T (dp) for tile it: the warpgroup's 64
+  // rows against TK keys, k16 steps along the head dim; each committed
+  auto issue_t = [&](uint32_t a_base, uint32_t b_base, float (&d)[TK / 2]) {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      const uint64_t dA = hw::wgmma_desc(
+          a_base + (kk / 4) * C::Q_SPAN + wg * 8192 + off, 16, 1024);
+      const uint64_t dB =
+          hw::wgmma_desc(b_base + (kk / 4) * C::KV_SPAN + off, 16, 1024);
+      hw::wgmma_ss_kmajor<TK>(d, dA, dB, kk > 0);
+    }
+    hw::wgmma_commit();
+    hw::fence_regs(d);
+  };
+  // dQ += dS K for tile it: dS (da) from registers, K MN-major
+  auto issue_dq = [&](int it) {
+    const uint32_t kb = sk(it % NS);
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      hw::wgmma_rs_mnmajor<DH>(
+          acc, da[kk], hw::wgmma_desc(kb + kk * 2048, C::KV_SPAN, 1024), 1);
+    hw::wgmma_commit();
+    hw::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) hw::fence_regs(da[kk]);
+  };
+  auto fence_all = [&]() {
+    hw::fence_regs(sc);
+    hw::fence_regs(dp);
+    hw::fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) hw::fence_regs(da[kk]);
+  };
+  auto release = [&](int it) {
+    if (tid == 0) {
+      const int s = it % NS;
+      if (atomicAdd(&released[s], 1u) % C::NWG == C::NWG - 1 && it + NS < nt)
+        load_kv(it + NS);
+    }
+  };
+  // dS = P o (dP - D) in place of dP, P = 2^(S scale log2(e) - LSE log2(e)),
+  // 0 where the pair is masked (element e of key group j: row r = e / 2,
+  // key kt0 + 8 j + 2 t + (e & 1))
+  auto dsoft = [&](int it) {
+    const int kt0 = (j0 + it) * TK;
+    const bool edge = kt0 + TK > Sk || (causal && kt0 + TK - 1 > w_first) ||
+                      (windowed && kt0 <= w_last - window);
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) {
+      const int r = (i % 4) / 2;
+      float pe = hw::ex2(fmaf(sc[i], scale_log2, -lse2[r]));
+      if (edge) {
+        const int key = kt0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (key >= Sk || (causal && key > qi[r]) ||
+            (windowed && key <= qi[r] - window))
+          pe = 0.f;
+      }
+      dp[i] = pe * (dp[i] - dd[r]);
+    }
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        da[kk][e] = hw::pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+  };
+
+  auto skipped = [&](int it) {
+    const int kt0 = (j0 + it) * TK;
+    return (causal && kt0 > w_last) ||
+           (windowed && kt0 + TK - 1 <= w_first - window);
+  };
+  int a = 0, z = nt - 1;
+  while (a < nt && skipped(a)) ++a;
+  while (z >= a && skipped(z)) --z;
+  auto pass = [&](int it) {
+    hw::mbar_wait_uniform(full(it % NS), (it / NS) & 1);
+    release(it);
+  };
+  for (int it = 0; it < a; ++it) pass(it);
+  if (a <= z) {
+    hw::mbar_wait_uniform(full(a % NS), (a / NS) & 1);
+    fence_all();
+    hw::wgmma_fence();
+    issue_t(sq, sk(a % NS), sc);
+    issue_t(sg, sv(a % NS), dp);
+    hw::wgmma_wait<0>();
+    fence_all();
+    dsoft(a);
+    pack();
+    for (int it = a + 1; it <= z; ++it) {
+      hw::mbar_wait_uniform(full(it % NS), (it / NS) & 1);
+      fence_all();
+      hw::wgmma_fence();
+      issue_t(sq, sk(it % NS), sc);
+      issue_t(sg, sv(it % NS), dp);
+      issue_dq(it - 1);
+      hw::wgmma_wait<1>();
+      hw::fence_regs(sc);
+      hw::fence_regs(dp);
+      dsoft(it);
+      hw::wgmma_wait<0>();
+      fence_all();
+      release(it - 1);
+      pack();
+    }
+    fence_all();
+    hw::wgmma_fence();
+    issue_dq(z);
+    hw::wgmma_wait<0>();
+    fence_all();
+    release(z);
+  }
+  for (int it = max(a, z + 1); it < nt; ++it) pass(it);
+
+  // dQ scaled, rounded once, staged in the warpgroup's own Q rows (its
+  // products are done) in their 128-byte swizzle, then stored in 16-byte
+  // rows
+  const uint32_t stg = sq + wg * 8192;
+  auto stg_addr = [&](int r, int j) {      // row r, 16-byte chunk j (8 cols)
+    return stg + (j / 8) * C::Q_SPAN + r * 128 + (((j % 8) ^ (r % 8)) << 4);
+  };
+#pragma unroll
+  for (int j = 0; j < DH / 8; ++j) {
+    const int r = 16 * warp + g;
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg_addr(r, j) + 4 * t),
+                 "r"(hw::pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale))
+                 : "memory");
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(stg_addr(r + 8, j) + 4 * t),
+                 "r"(hw::pack_bf16(acc[4 * j + 2] * scale,
+                                   acc[4 * j + 3] * scale))
+                 : "memory");
+  }
+  hw::named_sync(1 + wg, 128);
+  for (int c = tid; c < 64 * (DH / 8); c += 128) {
+    const int r = c / (DH / 8), j = c % (DH / 8);
+    const int rr = 64 * wg + r, p = p0 + rr;
+    if (rr < rows && p < n_rows)
+      *reinterpret_cast<uint4*>(
+          dq + (((size_t)b * Sq + p / G) * H + kvh * G + p % G) * DH + 8 * j) =
+          hw::ld_shared16(stg_addr(r, j));
+  }
+}
+
 template <typename T, int DH>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, void* dq, void* dk,
@@ -1692,10 +2380,8 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
   const bf* gp = static_cast<const bf*>(dout);
   const float scale_log2 = scale * kLog2e;
   const long rows = (long)B * Sq * H;
-  constexpr int L = DH / 8 <= 8 ? 8 : 16;     // lanes a row
-  flash_bwd_dot_bf16_kernel<DH>
-      <<<(unsigned)((rows * L + BWD_NT - 1) / BWD_NT), BWD_NT, 0, s>>>(
-          static_cast<const bf*>(o), gp, Dd, rows, Sq, H);
+  flash_bwd_dot_bf16_kernel<DH, false><<<dot_blocks<DH>(rows), BWD_NT, 0, s>>>(
+      static_cast<const bf*>(o), gp, lse, Dd, rows, Sq, H, KV);
   if (Sk > 0) {
     flash_bwd_dkdv_mma_kernel<DH>
         <<<dim3((Sk + C::KEYS - 1) / C::KEYS, B * KV), C::NW * 32,
@@ -1710,6 +2396,90 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o,
                                       static_cast<bf*>(dq), Sq, Sk, H, KV,
                                       scale_log2, scale, causal, window);
   return 0;
+}
+
+// The wgmma route: D (with each row's LSE log2(e)) in row order into Dd's 2
+// N floats, then dK/dV, then dQ.  q, dO as (Dh, H, Sq, B) in boxes of 64
+// columns x the group's G heads x (BQ or ROWS) / G queries, so a box lands
+// as rows in order; k, v as (Dh, KV, Sk, B) in boxes of 64 columns x KEYS or
+// TK keys of one kv head; the statistics as one 1-D f32 map of BQ boxes.
+template <int DH>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     void* dq, void* dk, void* dv, float* Dd, int B, int Sq,
+                     int Sk, int H, int KV, float scale, int causal,
+                     int window, cudaStream_t s) {
+  using KC = DkdvCfg<DH>;
+  using QC = DqCfg<DH>;
+  const uint32_t G = H / KV;
+  const long n_stat = (long)B * H * Sq;
+  CUtensorMap map_qs, map_gs, map_kb, map_vb, map_st, map_qr, map_gr, map_kt,
+      map_vt;
+  const uint64_t dims_q[4] = {(uint64_t)DH, (uint64_t)H, (uint64_t)Sq,
+                              (uint64_t)B};
+  const uint64_t dims_kv[4] = {(uint64_t)DH, (uint64_t)KV, (uint64_t)Sk,
+                               (uint64_t)B};
+  const uint32_t box_qs[4] = {64, G, KC::BQ / G, 1};
+  const uint32_t box_kb[4] = {64, 1, KC::KEYS, 1};
+  const uint32_t box_qr[4] = {64, G, QC::ROWS / G, 1};
+  const uint32_t box_kt[4] = {64, 1, QC::TK, 1};
+  if (!hw::encode_bf16(&map_qs, q, 4, dims_q, box_qs) ||
+      !hw::encode_bf16(&map_gs, dout, 4, dims_q, box_qs) ||
+      !hw::encode_bf16(&map_kb, k, 4, dims_kv, box_kb) ||
+      !hw::encode_bf16(&map_vb, v, 4, dims_kv, box_kb) ||
+      !hw::encode_f32_1d(&map_st, Dd, 2 * n_stat, KC::STAT_BOX) ||
+      !hw::encode_bf16(&map_qr, q, 4, dims_q, box_qr) ||
+      !hw::encode_bf16(&map_gr, dout, 4, dims_q, box_qr) ||
+      !hw::encode_bf16(&map_kt, k, 4, dims_kv, box_kt) ||
+      !hw::encode_bf16(&map_vt, v, 4, dims_kv, box_kt))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_ok = false;        // set once per instantiation
+  if (!smem_ok) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_wgmma_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, KC::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 QC::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_ok = true;
+  }
+  using bf = __nv_bfloat16;
+  const float scale_log2 = scale * kLog2e;
+  flash_bwd_dot_bf16_kernel<DH, true><<<dot_blocks<DH>(n_stat), BWD_NT, 0, s>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(dout), lse, Dd,
+      n_stat, Sq, H, KV);
+  flash_bwd_dkdv_wgmma_kernel<DH>
+      <<<dim3((Sk + KC::KEYS - 1) / KC::KEYS, B * KV), KC::THREADS, KC::SMEM,
+         s>>>(map_qs, map_gs, map_kb, map_vb, map_st, static_cast<bf*>(dk),
+              static_cast<bf*>(dv), (int)n_stat, Sq, Sk, H, KV, scale_log2,
+              scale, causal, window);
+  const int qpb = QC::ROWS / G;
+  flash_bwd_dq_wgmma_kernel<DH>
+      <<<dim3((Sq + qpb - 1) / qpb, B * KV), QC::THREADS, QC::SMEM, s>>>(
+          map_qr, map_gr, map_kt, map_vt, Dd, static_cast<bf*>(dq),
+          (int)n_stat, Sq, Sk, H, KV, scale_log2, scale, causal, window);
+  return 0;
+}
+
+// The bf16 route, chosen by shape before any launch: the wgmma kernels where
+// a (b, kv head) has 64 rows or more (a step's, a warpgroup's tile), there
+// are keys to map (a tensor map has no extent 0), a group of at most 64
+// heads (a dK/dV step of 64 rows holds whole queries) and the statistics'
+// 2 B H Sq floats within a TMA coordinate; mma.sync otherwise.
+template <int DH>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    void* dq, void* dk, void* dv, float* Dd, int B, int Sq,
+                    int Sk, int H, int KV, float scale, int causal,
+                    int window, cudaStream_t s) {
+  if ((long)Sq * (H / KV) >= 64 && Sk > 0 && H / KV <= 64 &&
+      2L * B * H * Sq < (1L << 31))
+    return launch_bwd_wgmma<DH>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                                Sk, H, KV, scale, causal, window, s);
+  return launch_bwd_mma<DH>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk,
+                            H, KV, scale, causal, window, s);
 }
 
 int dispatch_bwd_f32(const void* q, const void* k, const void* v,
@@ -1735,14 +2505,14 @@ int dispatch_bwd_bf16(const void* q, const void* k, const void* v,
                       int Sk, int H, int KV, int Dh, float scale, int causal,
                       int window, cudaStream_t s) {
   if (Dh == 64)
-    return launch_bwd_mma<64>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
-                              Sk, H, KV, scale, causal, window, s);
-  if (Dh == 96)
-    return launch_bwd_mma<96>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
-                              Sk, H, KV, scale, causal, window, s);
-  if (Dh == 128)
-    return launch_bwd_mma<128>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+    return launch_bwd_bf16<64>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
                                Sk, H, KV, scale, causal, window, s);
+  if (Dh == 96)
+    return launch_bwd_bf16<96>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                               Sk, H, KV, scale, causal, window, s);
+  if (Dh == 128)
+    return launch_bwd_bf16<128>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B,
+                                Sq, Sk, H, KV, scale, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1779,7 +2549,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 
 // Backward of flash_attention_launch.  q, o, dout, dq: [B,Sq,H,Dh]; k, v,
 // dk, dv: [B,Sk,KV,Dh]; all contiguous, one dtype (code); lse: [B,H,Sq] f32
-// from the forward; Dd: [B,H,Sq] f32 scratch.  The same masks and scale as
+// from the forward; Dd: 2 B H Sq f32 scratch.  The same masks and scale as
 // the forward.  dq, dk and dv are written, not accumulated.  Returns the
 // CUDA error code of the launches (0 = launched).
 extern "C" int flash_attention_bwd_launch(

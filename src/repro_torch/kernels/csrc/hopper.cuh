@@ -1,11 +1,13 @@
 // Inline-PTX helpers for the bf16 tensor-core kernels (sm_90a): shared
 // addresses and 16-byte shared loads, cp.async 16- and 4-byte copies,
 // ldmatrix and mma.sync m16n8k16, mbarriers, TMA tile (2-, 3- and 4-D) and 1D
-// bulk loads (the latter under an L2 evict-first policy where asked), and
+// bulk loads (the latter under an L2 evict-first policy where asked), a 1-D
+// f32 tile load (the attention backward's per-row statistics), and
 // wgmma: m64n256k16 with shared-memory descriptors (A and B each K-major or
 // MN-major), and attention's m64n{64,128}k16 with both operands K-major in
 // shared memory and m64n{64,96,128}k16 with A in registers.  Host side:
-// cuTensorMapEncodeTiled, taken through the runtime's driver entry point so
+// cuTensorMapEncodeTiled (bf16 maps of rank 1 to 4 with 128-byte swizzle, a
+// 1-D f32 map without), taken through the runtime's driver entry point so
 // that no library links against libcuda.
 #pragma once
 
@@ -183,6 +185,16 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
       ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+// A box of a 1-D tensor map (no swizzle: dst 128-byte aligned) from element
+// c0 on; elements past the end arrive as zeros.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
@@ -558,6 +570,21 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, int rank,
             const_cast<void*>(base), gdim, gstride, gbox, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 1-D f32 tensor map over n elements (base 16-byte aligned; n < 2^32) in
+// boxes of `box` elements (box * 4 a multiple of 16, at most 256), no
+// swizzle, zeros for out-of-bounds elements.  Returns false on failure.
+inline bool encode_f32_1d(CUtensorMap* map, const void* base, uint64_t n,
+                          uint32_t box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  cuuint64_t gdim[1] = {n}, gstride[1] = {0};
+  cuuint32_t gbox[1] = {box}, estride[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base),
+            gdim, gstride, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

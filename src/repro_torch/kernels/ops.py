@@ -429,7 +429,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: lse {(B, H, Sq)} expected, "
                          f"got {tuple(lse.shape)}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    Dd = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # scratch: each row's D, and on the wgmma route its LSE too
+    Dd = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd", "flash_attention_bwd", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

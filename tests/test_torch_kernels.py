@@ -347,6 +347,25 @@ ATTN_BWD = [
     (1, 65, 65, 4, 2, 64, True, 0),
     (1, 65, 65, 2, 1, 128, True, 0),
     (1, 40, 40, 4, 2, 16, True, 1),
+    # the wgmma backward's edges (chip_smoke.ATTN_BWD_WGMMA_EDGES): exactly
+    # 64 rows (Sq 32, G 2) and 63; 65 rows with G 1; G 8 with Sq 17; Dh 96
+    # at Sq 129, causal and not; Dh 128 with Sk off the key tiles (100
+    # against 300) and below a dK/dV block (77); groups that do not divide
+    # a 64-row step (G 3, G 12); a window of 65 crossing a tile with GQA at
+    # Dh 64 and 128; a window of 1 with GQA at Dh 128
+    (2, 32, 32, 4, 2, 64, True, 0),
+    (1, 63, 63, 4, 4, 64, True, 0),
+    (2, 65, 65, 4, 4, 64, True, 0),
+    (2, 17, 17, 16, 2, 128, True, 0),
+    (1, 129, 129, 4, 4, 96, False, 0),
+    (2, 129, 129, 4, 2, 96, True, 0),
+    (2, 100, 300, 8, 4, 128, False, 0),
+    (1, 200, 77, 4, 1, 128, False, 0),
+    (1, 100, 100, 6, 2, 64, True, 0),
+    (1, 50, 50, 12, 1, 128, False, 0),
+    (1, 300, 300, 8, 2, 64, True, 65),
+    (2, 300, 300, 8, 2, 128, True, 65),
+    (1, 150, 150, 8, 4, 128, True, 1),
 ]
 
 
@@ -687,7 +706,21 @@ def test_cuda_backward_kernels_match_plain():
                 (2, 127, 127, 8, 2, 96, True, 0),
                 (1, 127, 77, 4, 4, 128, False, 0),
                 (2, 300, 300, 8, 2, 64, True, 1),
-                (1, 65, 0, 4, 2, 64, False, 0)):
+                (1, 65, 0, 4, 2, 64, False, 0),
+                # the wgmma route's edges: 64 rows exactly and 63 (mma.sync),
+                # 65 rows with G 1, G 8 with Sq 17, Dh 96 at Sq 129, Sk off
+                # the key tiles (100 against 300), G 3 and G 12 (a step's
+                # last rows zero), a window of 65 at Dh 128, a window of 1
+                (2, 32, 32, 4, 2, 64, True, 0),
+                (1, 63, 63, 4, 4, 64, True, 0),
+                (2, 65, 65, 4, 4, 64, True, 0),
+                (2, 17, 17, 16, 2, 128, True, 0),
+                (2, 129, 129, 4, 2, 96, True, 0),
+                (2, 100, 300, 8, 4, 128, False, 0),
+                (1, 100, 100, 6, 2, 64, True, 0),
+                (1, 50, 50, 12, 1, 128, False, 0),
+                (2, 300, 300, 8, 2, 128, True, 65),
+                (1, 150, 150, 8, 4, 128, True, 1)):
             q = randn(B, Sq, H, Dh, dt=dt)
             k, v = randn(B, Sk, KV, Dh, dt=dt), randn(B, Sk, KV, Dh, dt=dt)
             do = randn(B, Sq, H, Dh, dt=dt)
