@@ -14,7 +14,8 @@ exits non-zero:
     grouped_matmul kernel in both of its B layouts (the forward's MN-major
     and dX's K-major), the bf16 dW kernel and the attention forward's and
     backward's wgmma kernels (HGMMA), and of the attention backward's
-    mma.sync kernels (HMMA), each of which must hold some; ptxas must
+    mma.sync kernels and the split decode kernel (HMMA), each of which must
+    hold some; ptxas must
     report no serialized wgmma (notes C7510 to C7520) in the attention
     kernels;
 (b) each kernel against its plain PyTorch version on the card, in f32
@@ -35,7 +36,14 @@ exits non-zero:
     (q[8,768,32,96], causal), a sliding window at jamba's head layout (64
     heads, 8 KV heads, Dh 128, S 8192, window 4096, so key tiles are
     skipped), Dh 96 tile edges, and windows of 1, past the sequence (which
-    must equal no window, bit for bit) and not a multiple of a tile;
+    must equal no window, bit for bit) and not a multiple of a tile; and at
+    the split decode route's edges (``ATTN_DECODE_EDGES``, seed 12), where
+    the forward's LSE is held to a plain logsumexp too.  Every
+    flash_attention and flash_attention_bwd line names the kernels
+    ``ops.attention_plan`` and ``ops.attention_bwd_plan`` chose, and every
+    timed window opens behind a spin kernel.  The split decode route is also
+    timed at every split size it takes against the plan's and SDPA
+    (``ATTN_SPLIT_SWEEP``);
 (c) the five serving paths, each at full width and full depth, bf16,
     seeded random weights, prefill of 8 prompts of 512 tokens (whisper:
     224, after 1500 frames of ``enc_embeds``; phi-3-vision: after 256
@@ -286,6 +294,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -594,6 +603,24 @@ ATTN_WGMMA_EDGES = [(2, 32, 32, 4, 2, 64, True, 0),
                     (1, 100, 100, 6, 2, 64, True, 0),
                     (1, 50, 50, 12, 1, 128, False, 0),
                     (1, 63, 63, 4, 4, 64, True, 0)]
+# the split decode route (bf16, not causal, Sq x G <= 16 rows a (b, kv
+# head), Sk >= 128) about its plan: Sq 1 with G 1, 2 and 8 at Dh 64, 96 and
+# 128; Sk 4097 (off a tile and off a split) at G 8 and at KV 1; 16 rows (Sq
+# 2, G 8); Sk 128, its least; Sk 129 (3 splits of 64 keys, the last one
+# key); 140000 keys of one head (8 tiles a split, so each warp runs two);
+# beside it on mma.sync: 17 rows, Sk 127, and causal decode (Sq = Sk = 1)
+ATTN_DECODE_EDGES = [(2, 1, 1500, H, KV, Dh, False, 0)
+                     for Dh in (64, 96, 128)
+                     for H, KV in ((4, 4), (8, 4), (16, 2))] + [
+                        (1, 1, 4097, 16, 2, 128, False, 0),
+                        (1, 1, 4097, 8, 1, 64, False, 0),
+                        (2, 2, 1500, 16, 2, 64, False, 0),
+                        (3, 1, 128, 4, 4, 128, False, 0),
+                        (1, 1, 129, 4, 4, 64, False, 0),
+                        (1, 1, 140000, 1, 1, 64, False, 0),
+                        (2, 17, 1500, 4, 4, 64, False, 0),
+                        (2, 1, 127, 8, 8, 64, False, 0),
+                        (2, 1, 1, 8, 2, 64, True, 0)]
 RMS_EDGES = [(37, 1001), (300, 1536), (64, 12288)]
 RMS_UNALIGNED = [(300, 1024), (64, 3072)]
 # ssd_chunk about its tiling: groups of up to 16 heads (H 1, 3, 13, 50), its
@@ -811,7 +838,8 @@ def dense_and_slice_shapes():
 TENSOR_CORE_KERNELS = (
     ("grouped_matmul", "HGMMA", ("gmm_wgmma_kernel", "gmm_dw_wgmma_kernel")),
     ("flash_attention", "HMMA", ("flash_bwd_dkdv_mma_kernel",
-                                 "flash_bwd_dq_mma_kernel")),
+                                 "flash_bwd_dq_mma_kernel",
+                                 "flash_decode_split_kernel")),
     ("flash_attention", "HGMMA", ("flash_wgmma_kernel",
                                   "flash_bwd_dkdv_wgmma_kernel",
                                   "flash_bwd_dq_wgmma_kernel")))
@@ -881,7 +909,8 @@ def check_tensor_core_sass(build) -> None:
     """Phase (a): the bf16 grouped_matmul kernel's SASS (both B layouts:
     ``<0>`` the forward, ``<1>`` dX), the dW kernel's and the attention
     forward's wgmma kernel's hold HGMMA (wgmma), and the attention backward
-    kernels' HMMA (mma.sync), every instantiation."""
+    kernels' and the split decode kernel's HMMA (mma.sync), every
+    instantiation."""
     for lib, opcode, kernels in TENSOR_CORE_KERNELS:
         counts = sass_counts(build.sass(lib), opcode)
         for kernel in kernels:
@@ -956,7 +985,7 @@ def check_kernels(torch, ops, ref, dev):
                         dname)
             log("b", f"flash_attention {(B, Sq, Sk, H, KV, Dh, causal)} "
                 f"{dname}: max_abs_err {e:.3e} (tol {TOL[dname]}), route "
-                f"{attention_route(Sq, H, KV, Sk, dname)}")
+                f"{ops.attention_plan(B, Sq, Sk, H, KV, Dh, dt, causal)}")
             if dname == "bfloat16" and Sq == PROMPT and H == 16:
                 errs["flash_attention"] = e
         gmm_cases = []
@@ -1112,7 +1141,8 @@ def check_dense_and_slices(torch, ops, ref, dev) -> None:
 
 
 def time_kernels(torch, ops, ref, dev):
-    """Times at the main path's shapes, bf16; returns per-kernel records."""
+    """Times at the main path's shapes, bf16; returns per-kernel records.
+    Device time: each window opens behind a spin kernel (``timed_ms``)."""
     from repro_torch.launch import roofline as rl
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1123,9 +1153,10 @@ def time_kernels(torch, ops, ref, dev):
 
     def record(name, shape, fn, plain, lib, nbytes, flops,
                dtype="bfloat16"):
-        ms = timed_ms(torch, fn, flush)
-        plain_ms = timed_ms(torch, plain, flush)
-        lib_ms = timed_ms(torch, lib, flush) if lib is not None else None
+        ms = timed_ms(torch, fn, flush, spin=True)
+        plain_ms = timed_ms(torch, plain, flush, spin=True)
+        lib_ms = (timed_ms(torch, lib, flush, spin=True) if lib is not None
+                  else None)
         b_ms, b_by = rl.bound_ms(nbytes, flops, dtype)
         log("b", f"time {name} {shape} {dtype}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
@@ -1157,7 +1188,7 @@ def time_kernels(torch, ops, ref, dev):
     vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     out["flash_attention"] = record(
         "flash_attention", f"q[{B},{S},{H},{Dh}] causal, route "
-        f"{attention_route(S, H, KV, S, 'bfloat16')}",
+        f"{ops.attention_plan(B, S, S, H, KV, Dh, bf, True)}",
         lambda: ops.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
@@ -1205,34 +1236,6 @@ def attention_plain(torch, ref, q, k, v, causal: bool, window: int):
     return torch.cat([ref.flash_attention_ref(
         q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
         causal=causal, window=window) for h in range(k.shape[2])], dim=2)
-
-
-def attention_route(Sq: int, H: int, KV: int, Sk: int, dname: str) -> str:
-    """The kernel ``flash_attention_launch`` takes for a shape (its
-    ``launch_bf16``): bf16 on wgmma where a (b, kv head) has 64 rows (query,
-    q head pairs) or more, there are keys, and a group of at most 128 heads;
-    else on mma.sync; f32 on the FMA kernel."""
-    if dname != "bfloat16":
-        return "f32 FMA"
-    G = H // KV
-    if Sq * G >= 64 and Sk > 0 and G <= 128:
-        return "wgmma (flash_wgmma_kernel)"
-    return "mma.sync (flash_mma_kernel)"
-
-
-def attention_bwd_route(B: int, Sq: int, H: int, KV: int, Sk: int,
-                        dname: str) -> str:
-    """The kernels ``flash_attention_bwd_launch`` takes for a shape (its
-    ``launch_bwd_bf16``): bf16 on wgmma where a (b, kv head) has 64 rows or
-    more, there are keys, a group of at most 64 heads (a dK/dV step of 64
-    rows holds whole queries) and 2 B H Sq statistics within a TMA
-    coordinate; else on mma.sync; f32 on the FMA kernels."""
-    if dname != "bfloat16":
-        return "f32 FMA"
-    G = H // KV
-    if Sq * G >= 64 and Sk > 0 and G <= 64 and 2 * B * H * Sq < 2 ** 31:
-        return "wgmma (flash_bwd_dkdv_wgmma_kernel, flash_bwd_dq_wgmma_kernel)"
-    return "mma.sync (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel)"
 
 
 def attention_twice(torch, ops, q, k, v, causal: bool, window: int):
@@ -1297,31 +1300,55 @@ def check_wgmma_attention(torch, ops, ref, dev) -> None:
         log("b", f"flash_attention {shape} bfloat16: max_abs_err {e:.3e} "
             f"(tol {TOL['bfloat16']}), LSE err {le:.3e} (tol 2e-3); twice "
             f"the same bits; with the LSE the same bits; route "
-            f"{attention_route(Sq, H, KV, Sk, 'bfloat16')}")
+            f"{ops.attention_plan(B, Sq, Sk, H, KV, Dh, q.dtype, causal)}")
         del q, k, v, got, o, lse, want
     torch.cuda.synchronize()
 
 
 def check_new_attention(torch, ops, ref, dev) -> None:
-    """flash_attention at ATTN_NEW and ATTN_NEW_EDGES, f32 and bf16,
-    against the plain version (``attention_plain``); a window of S or more
-    must give the unwindowed kernel's output bit for bit.  Its own
-    generator (seed 6), so every earlier check keeps its inputs."""
+    """flash_attention at ATTN_NEW, ATTN_NEW_EDGES and ATTN_DECODE_EDGES,
+    f32 and bf16, against the plain version (``attention_plain``); a window
+    of S or more must give the unwindowed kernel's output bit for bit.  At
+    the decode edges the forward with the LSE must give the same output,
+    and its LSE must be within ``ATTN_BWD_TOL`` of ``attention_lse_plain``
+    (+inf on the same rows).  Its own generators (seed 6, and seed 12 for
+    the decode edges), so every earlier check keeps its inputs."""
     gen = torch.Generator(device=dev).manual_seed(6)
+    dec_gen = torch.Generator(device=dev).manual_seed(12)
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
-        for shape in ATTN_NEW + ATTN_NEW_EDGES:
+        for i, shape in enumerate(ATTN_NEW + ATTN_NEW_EDGES
+                                  + ATTN_DECODE_EDGES):
+            decode = i >= len(ATTN_NEW) + len(ATTN_NEW_EDGES)
             B, Sq, Sk, H, KV, Dh, causal, window = shape
-            q, k, v = (torch.randn(*sh, generator=gen, device=dev).to(dt)
+            q, k, v = (torch.randn(*sh, generator=dec_gen if decode else gen,
+                                   device=dev).to(dt)
                        for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
                                   (B, Sk, KV, Dh)))
             got = attention_twice(torch, ops, q, k, v, causal, window)
             e = compare("flash_attention", got,
                         attention_plain(torch, ref, q, k, v, causal, window),
                         dname)
+            lse_note = ""
+            if decode:
+                o, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                                 window=window, with_lse=True)
+                if not torch.equal(o, got):
+                    raise AssertionError(f"flash_attention {shape} {dname}: "
+                                         f"the forward with the LSE differs")
+                want = attention_lse_plain(torch, q, k, causal, window)
+                inf = torch.isinf(want)
+                if not torch.equal(torch.isinf(lse), inf):
+                    raise AssertionError(f"flash_attention {shape} {dname}: "
+                                         f"the LSE's +inf rows differ")
+                le = compare("flash_attention lse", lse[~inf], want[~inf],
+                             dname, tol=ATTN_BWD_TOL[dname])
+                lse_note = (f", LSE err {le:.3e} (tol {ATTN_BWD_TOL[dname]}),"
+                            f" with the LSE the same output")
+                del o, lse, want
             log("b", f"flash_attention {shape} {dname}: max_abs_err {e:.3e} "
-                f"(tol {TOL[dname]}), route "
-                f"{attention_route(Sq, H, KV, Sk, dname)}")
+                f"(tol {TOL[dname]}){lse_note}, route "
+                f"{ops.attention_plan(B, Sq, Sk, H, KV, Dh, dt, causal)}")
             if window >= Sq:
                 same = torch.equal(got, ops.flash_attention(q, k, v,
                                                             causal=True))
@@ -1335,7 +1362,9 @@ def check_new_attention(torch, ops, ref, dev) -> None:
 
 def time_new_attention(torch, ops, ref, dev):
     """Times of flash_attention at ATTN_NEW in bf16 (kernel, plain, SDPA
-    and bound); returns their records."""
+    and bound; each window behind a spin kernel); returns their records.
+    Where the route has more than one kernel (split decode), the device time
+    of each is profiled too."""
     from repro_torch.launch import roofline as rl
     F = torch.nn.functional
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1353,13 +1382,15 @@ def time_new_attention(torch, ops, ref, dev):
             i = torch.arange(Sq, device=dev)[:, None]
             j = torch.arange(Sk, device=dev)[None, :]
             mask = (j <= i) & (j > i - window)
-        ms = timed_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=causal, window=window), flush)
+        fn = functools.partial(ops.flash_attention, q, k, v, causal=causal,
+                               window=window)
+        ms = timed_ms(torch, fn, flush, spin=True)
         plain_ms = timed_ms(torch, lambda: attention_plain(
-            torch, ref, q, k, v, causal, window), flush, iters=5, warmup=1)
+            torch, ref, q, k, v, causal, window), flush, iters=5, warmup=1,
+            spin=True)
         lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=causal and not window),
-            flush)
+            flush, spin=True)
         b_ms, b_by = rl.bound_ms(*rl.attention_cost(
             B, Sq, Sk, H, KV, Dh, causal, window, 2), "bfloat16")
         shape = (f"q[{B},{Sq},{H},{Dh}] k[{B},{Sk},{KV},{Dh}] "
@@ -1368,12 +1399,131 @@ def time_new_attention(torch, ops, ref, dev):
         log("b", f"time flash_attention {shape} bfloat16: kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms (one KV head at a time), SDPA "
             f"{lib_ms:.4f} ms, bound {b_ms:.4g} ms ({b_by}); route "
-            f"{attention_route(Sq, H, KV, Sk, 'bfloat16')}")
+            f"{ops.attention_plan(B, Sq, Sk, H, KV, Dh, q.dtype, causal)}")
+        plan = ops.attention_plan(B, Sq, Sk, H, KV, Dh, q.dtype, causal)
+        if len(plan.kernels) > 1:
+            kernel_split(torch, fn, flush, f"flash_attention {shape} "
+                         f"bfloat16, route {plan}", phase="b")
         out.append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
         del q, k, v, qt, kt, vt, mask
     del flush
     return out
+
+
+# the split decode route's runs against the plan's: Sq 1 at whisper's 1500
+# frames at each head dim (Dh 96 with G 2), and a longer cache at Dh 128
+ATTN_SPLIT_SWEEP = [(8, 1, 1500, 16, 16, 64), (8, 1, 1500, 16, 8, 96),
+                    (8, 1, 1500, 16, 16, 128), (8, 1, 4096, 32, 8, 128)]
+# and both routes about its least Sk (ops.DECODE_MIN_KEYS), at whisper's heads
+ATTN_SPLIT_EDGE = (8, 1, 16, 16, 64, (64, 128, 256, 512))
+
+
+def sweep_decode_splits(torch, ops, build, dev) -> None:
+    """flash_attention's split decode route at ``ATTN_SPLIT_SWEEP`` in
+    bf16, L2 flushed, each window behind the spin kernel: SDPA, the route
+    at the plan ``ops.attention_plan`` makes, and at runs of every tile
+    count the kernel takes (``DECODE_MAX_TILES``), launched through the C
+    entry point (so they count no launch).  Then the first row, plan and
+    SDPA, behind a read of the flush buffer rather than its zero fill (which
+    leaves L2 full of dirty lines that the reads must write back).  Last,
+    mma.sync against the split route's plan at ``ATTN_SPLIT_EDGE``'s key
+    counts, about the route's least Sk."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(14)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    launcher = build.launcher("flash_attention")
+
+    def launch(q, k, v, out, part, code, splits, keys):
+        B, Sq, H, Dh = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
+        rc = launcher(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), None, part.data_ptr(), B, Sq, Sk, H, KV,
+                      Dh, Dh ** -0.5, 0, 0, code, splits, keys, 1,
+                      torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise AssertionError(f"flash_attention route {code} at "
+                                 f"{splits} x {keys} keys: {rc}")
+
+    for B, Sq, Sk, H, KV, Dh in ATTN_SPLIT_SWEEP:
+        q, k, v = (torch.randn(*sh, generator=gen, device=dev).to(bf)
+                   for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
+                              (B, Sk, KV, Dh)))
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+        plan = ops.attention_plan(B, Sq, Sk, H, KV, Dh, bf, False)
+        tiles = -(-Sk // ops.ATTN_TILE)
+        out = torch.empty_like(q)
+        part = torch.empty(tiles * B * H * Sq * (Dh + 2), dtype=torch.float32,
+                           device=dev)
+
+        def split(per):
+            launch(q, k, v, out, part, plan.code, -(-tiles // per),
+                   per * ops.ATTN_TILE)
+
+        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt)
+        fn = functools.partial(ops.flash_attention, q, k, v, causal=False)
+        runs = ", ".join(
+            f"{per} ({-(-tiles // per)} splits) "
+            f"{timed_ms(torch, functools.partial(split, per), flush, spin=True):.4f}"
+            for per in range(1, ops.DECODE_MAX_TILES[Dh] + 1))
+        log("b", f"sweep flash_attention q[{B},{Sq},{H},{Dh}] "
+            f"k[{B},{Sk},{KV},{Dh}] bfloat16 (ms): SDPA "
+            f"{timed_ms(torch, sdpa, flush, spin=True):.4f}, plan "
+            f"{timed_ms(torch, fn, flush, spin=True):.4f} ({plan}); tiles a "
+            f"split: {runs}")
+        if (B, Sq, Sk, H, KV, Dh) == ATTN_SPLIT_SWEEP[0]:
+            sink = torch.empty((), dtype=torch.int64, device=dev)
+            read = functools.partial(torch.sum, flush, dim=0,
+                                     dtype=torch.int64, out=sink)
+            ms = {}
+            for name, f in (("SDPA", sdpa), ("plan", fn)):
+                for _ in range(3):
+                    f()
+                ts = []
+                for _ in range(20):
+                    read()
+                    torch.cuda._sleep(SPIN_CYCLES)
+                    st, en = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                    st.record()
+                    f()
+                    en.record()
+                    ts.append((st, en))
+                torch.cuda.synchronize()
+                ms[name] = sum(a.elapsed_time(b) for a, b in ts) / len(ts)
+            log("b", f"sweep flash_attention q[{B},{Sq},{H},{Dh}] behind a "
+                f"read of the flush buffer (not its zero fill): SDPA "
+                f"{ms['SDPA']:.4f} ms, plan {ms['plan']:.4f} ms")
+        del q, k, v, qt, kt, vt, out, part
+    B, Sq, H, KV, Dh, keys = ATTN_SPLIT_EDGE
+    runs = []
+    for Sk in keys:
+        q, k, v = (torch.randn(*sh, generator=gen, device=dev).to(bf)
+                   for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
+                              (B, Sk, KV, Dh)))
+        out = torch.empty_like(q)
+        plan = ops.attention_plan(B, Sq, max(Sk, ops.DECODE_MIN_KEYS), H,
+                                  KV, Dh, bf, False)
+        plan = ops.AttnPlan("split decode", splits=-(-Sk // plan.keys),
+                            keys=plan.keys)
+        part = torch.empty(plan.splits * B * H * Sq * (Dh + 2),
+                           dtype=torch.float32, device=dev)
+        mma = timed_ms(torch, functools.partial(
+            launch, q, k, v, out, part, ops.ATTN_ROUTES.index("mma.sync"), 1,
+            0), flush, spin=True)
+        sp = timed_ms(torch, functools.partial(
+            launch, q, k, v, out, part, plan.code, plan.splits, plan.keys),
+            flush, spin=True)
+        runs.append(f"Sk {Sk}: mma.sync {mma:.4f}, split decode {sp:.4f} "
+                    f"({plan.splits} x {plan.keys})")
+        del q, k, v, out, part
+    log("b", f"sweep flash_attention q[{B},{Sq},{H},{Dh}] bfloat16 about the "
+        f"split route's least Sk ({ops.DECODE_MIN_KEYS}; ms): "
+        + "; ".join(runs))
+    del flush
 
 
 # ------------------------------------------------------------ phase (c)
@@ -1957,7 +2107,7 @@ def check_attention_bwd(torch, ops, ref, randn, shape, dname, dt,
     log(phase, f"flash_attention_bwd {shape} {dname}: max_abs_err {e:.3e}, "
         f"err/max|ref| {r:.3e} (tol {ATTN_BWD_TOL[dname]}){note}; finite; "
         f"deterministic; the LSE forward equals the forward bit for bit; "
-        f"route {attention_bwd_route(B, Sq, H, KV, Sk, dname)}")
+        f"route {ops.attention_bwd_plan(B, Sq, Sk, H, KV, dt)}")
     return e
 
 
@@ -2286,7 +2436,7 @@ def time_backward_kernels(torch, ops, ref, dev):
             *rl.attention_bwd_cost(B, S, S, H, KV, Dh, True, 0, es)))
         kernel_split(torch, bwd, flush, f"flash_attention_bwd q[{B},{S},{H},"
                      f"{Dh}] causal bfloat16, route "
-                     f"{attention_bwd_route(B, S, H, KV, S, 'bfloat16')}")
+                     f"{ops.attention_bwd_plan(B, S, S, H, KV, bf)}")
         del q, do, k, v, o, lse, qt, kt, vt, ot, dot
         torch.cuda.empty_cache()
     out["flash_attention_bwd"] = {**attn[0], "by_shape": attn[1:]}
@@ -2902,7 +3052,8 @@ def ep_path(torch, dev, card: str, errs):
 def time_recv_gmm(torch, ops, ref, dev, card: str, lhs, rhs, offs) -> None:
     """grouped_matmul at a receive buffer's shape (a tail of empty slots
     that no group covers): kernel, plain version, padded ``bmm`` and the
-    bound (filled rows read, every row written)."""
+    bound (filled rows read, every row written); each window behind a spin
+    kernel."""
     from repro_torch.launch import roofline as rl
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     T, K = lhs.shape
@@ -2912,10 +3063,11 @@ def time_recv_gmm(torch, ops, ref, dev, card: str, lhs, rhs, offs) -> None:
     for e, (lo, n) in enumerate(zip(offs[:-1].tolist(), counts)):
         padded[e, :n] = lhs[lo:lo + n]
     rows, used = int(offs[-1]), sum(1 for n in counts if n)
-    ms = timed_ms(torch, lambda: ops.grouped_matmul(lhs, rhs, offs), flush)
+    ms = timed_ms(torch, lambda: ops.grouped_matmul(lhs, rhs, offs), flush,
+                  spin=True)
     plain = timed_ms(torch, lambda: ref.grouped_matmul_ref(lhs, rhs, offs),
-                     flush)
-    lib = timed_ms(torch, lambda: torch.bmm(padded, rhs), flush)
+                     flush, spin=True)
+    lib = timed_ms(torch, lambda: torch.bmm(padded, rhs), flush, spin=True)
     b_ms, b_by = rl.bound_ms(*rl.gmm_cost(T, K, N, E, rows, used, 2),
                              "bfloat16")
     log("h", f"time grouped_matmul recv [{T},{K}]x[{E},{K},{N}] ({rows} "
@@ -3994,53 +4146,108 @@ c.time_split_rmsnorm(torch, ops, ref, dev)
 # has too): flash_attention's bf16 forward at granite's prefill and the
 # ``ATTN_NEW`` rows, then flash_attention_bwd at ``ATTN_BWD_TIMED`` with its
 # launches' device times, L2 flushed and each window behind the spin kernel,
-# with the route (a checkout without ``attention_bwd_route`` takes the
-# mma.sync backward at every shape) and the host CPU on every line
+# with the plan from ``ops`` (a checkout without ``ops.attention_plan``
+# prints its ``chip_smoke.attention_route``, and one without that the
+# mma.sync route) and the host CPU on every line; then a crc32 of the bytes
+# of the forward's output and LSE, of the output without the LSE and of the
+# backward's dq, dk and dv at every ``ATTN_KEPT`` shape, f32 and bf16, from
+# seeded inputs: the routes this checkout keeps must give the parent's bits
 ATTN_ROWS = [(BATCH, PROMPT, PROMPT, 16, 8, 64, True, 0)] + ATTN_NEW
+# every forward and backward route but the split decode one: wgmma at
+# granite's prefill, the whisper cross-attention at Sq 224, phi-3's Dh 96, a
+# window at Dh 128, Sq != Sk at Dh 96, and a window of 65; mma.sync at 17
+# rows, 63 rows (causal), Sk 127 below the split route and causal decode
+ATTN_KEPT = [(8, 512, 512, 16, 8, 64, True, 0),
+             (8, 224, 1500, 16, 16, 64, False, 0),
+             (2, 768, 768, 32, 32, 96, True, 0),
+             (1, 2048, 2048, 64, 8, 128, True, 1024),
+             (2, 129, 77, 8, 4, 96, False, 0),
+             (2, 300, 300, 8, 2, 128, True, 65),
+             (2, 17, 1500, 4, 4, 64, False, 0),
+             (1, 63, 63, 4, 4, 64, True, 0),
+             (2, 1, 127, 8, 8, 64, False, 0),
+             (2, 1, 1, 8, 2, 64, True, 0)]
 ATTN_AB = f"""
-import functools
+import functools, zlib
 from repro_torch.kernels import build, ops
 build.build_all()
 dev = torch.device("cuda")
 cpu = c.host_cpu()
 gen = torch.Generator(device=dev).manual_seed(23)
 flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
+bf = torch.bfloat16
+
+
+def route(B, Sq, Sk, H, KV, Dh, causal):
+    if hasattr(ops, "attention_plan"):
+        return ops.attention_plan(B, Sq, Sk, H, KV, Dh, bf, causal)
+    if hasattr(c, "attention_route"):
+        return c.attention_route(Sq, H, KV, Sk, "bfloat16")
+    return "mma.sync (flash_mma_kernel)"
+
+
+def bwd_route(B, S, H, KV):
+    if hasattr(ops, "attention_bwd_plan"):
+        return ops.attention_bwd_plan(B, S, S, H, KV, bf)
+    if hasattr(c, "attention_bwd_route"):
+        return c.attention_bwd_route(B, S, H, KV, S, "bfloat16")
+    return "mma.sync (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel)"
+
+
+def digest(*ts):
+    h = 0
+    for t in ts:
+        h = zlib.crc32(t.contiguous().view(torch.uint8).cpu().numpy()
+                       .tobytes(), h)
+    return format(h, "08x")
+
+
 for B, Sq, Sk, H, KV, Dh, causal, window in {ATTN_ROWS!r}:
     q, k, v = (torch.randn(*sh, generator=gen, device=dev)
-               .to(torch.bfloat16) for sh in ((B, Sq, H, Dh),
-                                              (B, Sk, KV, Dh),
-                                              (B, Sk, KV, Dh)))
+               .to(bf) for sh in ((B, Sq, H, Dh), (B, Sk, KV, Dh),
+                                  (B, Sk, KV, Dh)))
     fn = functools.partial(ops.flash_attention, q, k, v, causal=causal,
                            window=window)
     ms = c.timed_ms(torch, fn, flush, spin=True)
-    route = (c.attention_route(Sq, H, KV, Sk, "bfloat16")
-             if hasattr(c, "attention_route")
-             else "mma.sync (flash_mma_kernel)")
     print(f"time flash_attention q[{{B}},{{Sq}},{{H}},{{Dh}}] "
           f"k[{{B}},{{Sk}},{{KV}},{{Dh}}] causal {{causal}} window {{window}} "
-          f"bfloat16: kernel {{ms:.4f}} ms; route {{route}}; host {{cpu}}",
+          f"bfloat16: kernel {{ms:.4f}} ms; route "
+          f"{{route(B, Sq, Sk, H, KV, Dh, causal)}}; host {{cpu}}",
           flush=True)
     del q, k, v, fn
 for B, S, H, KV, Dh in {ATTN_BWD_TIMED!r}:
     q, do = (torch.randn(B, S, H, Dh, generator=gen, device=dev)
-             .to(torch.bfloat16) for _ in range(2))
+             .to(bf) for _ in range(2))
     k, v = (torch.randn(B, S, KV, Dh, generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
+            .to(bf) for _ in range(2))
     o, lse = ops.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
     fn = functools.partial(ops.flash_attention_bwd, q, k, v, o, lse, do,
                            causal=True)
     ms = c.timed_ms(torch, fn, flush, spin=True)
-    route = (c.attention_bwd_route(B, S, H, KV, S, "bfloat16")
-             if hasattr(c, "attention_bwd_route")
-             else "mma.sync (flash_bwd_dkdv_mma_kernel, "
-                  "flash_bwd_dq_mma_kernel)")
     print(f"time flash_attention_bwd q[{{B}},{{S}},{{H}},{{Dh}}] causal "
-          f"bfloat16: kernel {{ms:.4f}} ms; route {{route}}; host {{cpu}}",
-          flush=True)
+          f"bfloat16: kernel {{ms:.4f}} ms; route {{bwd_route(B, S, H, KV)}}; "
+          f"host {{cpu}}", flush=True)
     c.kernel_split(torch, fn, flush,
                    f"flash_attention_bwd q[{{B}},{{S}},{{H}},{{Dh}}] causal "
                    f"bfloat16")
     del q, do, k, v, o, lse, fn
+gen = torch.Generator(device=dev).manual_seed(29)
+for dname in ("float32", "bfloat16"):
+    dt = getattr(torch, dname)
+    for B, Sq, Sk, H, KV, Dh, causal, window in {ATTN_KEPT!r}:
+        q, do = (torch.randn(B, Sq, H, Dh, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Sk, KV, Dh, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window)
+        o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        grads = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        shape = (B, Sq, Sk, H, KV, Dh, causal, window)
+        print(f"digest flash_attention {{shape}} {{dname}}: forward "
+              f"{{digest(o, lse)}}, without the LSE "
+              f"{{digest(ops.flash_attention(q, k, v, **kw))}}, backward "
+              f"{{digest(*grads)}}", flush=True)
+        del q, do, k, v, o, lse, grads
 """
 
 
@@ -4064,7 +4271,9 @@ AB = {
                                   ("digest ", "time ", "profile")),
                  lambda line: line.startswith("digest ")),
     "--attn-ab": (f"exec({ATTN_AB!r})",
-                  lambda line: "time " in line or "profile" in line),
+                  lambda line: any(k in line for k in
+                                   ("digest ", "time ", "profile")),
+                  lambda line: line.startswith("digest ")),
 }
 
 
@@ -4120,6 +4329,7 @@ def main() -> int:
     times = time_kernels(torch, ops, ref, dev)
     times["flash_attention"]["by_shape"] = time_new_attention(torch, ops,
                                                               ref, dev)
+    sweep_decode_splits(torch, ops, build, dev)
     log("b", f"(a) to (b) {time.perf_counter() - t_start:.1f} s")
     by_path = {arch: main_path(torch, dev, arch) for arch in SERVING}
     log("c", f"(a) to (c) {time.perf_counter() - t_start:.1f} s")

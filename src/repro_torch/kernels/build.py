@@ -63,14 +63,14 @@ _SIGNATURES = {
     "rmsnorm_bwd_part": (_P, _P, _P, _P, _I, _I, _I, _P),
     "rmsnorm_bwd_scale": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                           _P),
-    # q, k, v, o, lse, B, Sq, Sk, H, KV, Dh, scale, causal, window, dtype,
-    # stream
-    "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                        _I, _I, _P),
+    # q, k, v, o, lse, part, B, Sq, Sk, H, KV, Dh, scale, causal, window,
+    # route, splits, keys a split, dtype, stream (ops.attention_plan)
+    "flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                        _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk, H, KV, Dh, scale,
-    # causal, window, dtype, stream
+    # causal, window, route, dtype, stream (ops.attention_bwd_plan)
     "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, _F, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _F, _I, _I, _I, _I, _P),
     # lhs, rhs, offsets, out, T, D, F, E, dtype, stream
     "grouped_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # dy, w, offsets, dx, T, D, F, E, dtype, stream

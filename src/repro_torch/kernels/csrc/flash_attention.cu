@@ -13,9 +13,13 @@
 // bf16.  Bound: at the prefill shape (q [8,512,16,64], k/v [8,512,8,64],
 // causal) the function moves 25 MB (0.0075 ms at 3.35 TB/s) and needs 4.3
 // GFLOP for the pairs kj <= qi (0.0044 ms at 989 TFLOP/s), so bytes bound
-// it.  Two routes, chosen by shape (launch_bf16): flash_wgmma_kernel (below)
-// wherever a (b, kv head) has 64 rows or more, flash_mma_kernel for fewer
-// (decode) and the few shapes the former does not take.
+// it.  Three routes, chosen by shape in ops.attention_plan and passed in
+// (Route, checked against the shape here): flash_wgmma_kernel (below)
+// wherever a (b, kv head) has 64 rows or more; the split decode route
+// (flash_decode_split_kernel, then flash_decode_merge_kernel) where it has
+// at most 16, not causal, with 128 keys or more; flash_mma_kernel for the
+// rest (rows 17 to 63, causal decode-sized shapes, Sk 0 or few keys, a
+// scale that is not positive).
 //
 // flash_wgmma_kernel (wgmma and TMA, Hopper's own): one block per (tile of
 // 64 NWG rows, b, kv head), rows as below; each warpgroup owns 64 rows.
@@ -57,6 +61,24 @@
 // bf16 in registers as the A operand of P V (no shared-memory round trip),
 // and V goes through ldmatrix.trans.  The output is normalised, rounded
 // once to bf16, staged in the warp's own Q rows and stored in 16-byte rows.
+//
+// The split decode route (flash-decoding) replaces the same TPU kernel at
+// few rows: whisper-medium's decoder cross-attention at every token, q
+// [8,1,16,64] against k/v [8,1500,16,64], one row a (b, kv head).  Bytes
+// bound it: 49 MB of K and V (0.0147 ms at 3.35 TB/s) against 0.2 GFLOP.
+// flash_mma_kernel gave that shape one block a (b, kv head), 128 blocks for
+// 132 SMs, each streaming 24 key tiles through its ring one tile at a time
+// (one real row of 128: a serial chain of waits).  Here the keys of a (b, kv
+// head) are split across blocks (ops.attention_plan: runs of 2 or 3 whole
+// 64-key tiles, so 2 to 4 blocks share an SM, and enough runs to fill the
+// card, none empty); a block's warps own tiles, not rows, and every copy of
+// the block is in flight before its first S, read under L2 evict-first so
+// the stream recycles its own lines rather than the cache's dirty ones.
+// Each split writes its partial softmax (m, l and the unnormalised
+// accumulator, f32), and a second launch, placed early as the split's
+// programmatic dependent, merges them in split order, so two calls give the
+// same bits.  The fragment code (S, the online softmax, P V) is
+// flash_mma_kernel's (mma_scores, online_softmax, mma_pv).
 //
 // Dh 96 (phi-3-vision): the same tiling as Dh 128, one m16 tile a warp; Q K^T
 // takes 6 k-steps of 16 and P V 12 n-tiles of 8; a 192-byte row is 12
@@ -185,6 +207,136 @@ struct MmaCfg {
   static constexpr int SMEM = Q_BYTES + NS * 2 * KV_BYTES;
 };
 
+// The fragment code of the mma.sync kernels (flash_mma_kernel and the split
+// decode route): one warp, MT m16 tiles of rows, one TK-key tile of K and V
+// in shared memory in padded rows of LD elements (ldmatrix, bank-conflict
+// free).  C fragments: this lane holds rows 16 mt + g (e 0, 1) and + 8 (e 2,
+// 3), keys (or columns) 8 i + 2 t + (e & 1).
+
+// s = Q K^T for the tile whose K rows start at sk: each K fragment feeds
+// every m16 tile of the warp
+template <int DH, int MT, int LD>
+__device__ __forceinline__ void mma_scores(
+    float (&s)[MT][TK / 8][4], const uint32_t (&qf)[MT][DH / 16][4],
+    uint32_t sk, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < TK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][i][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+#pragma unroll
+    for (int np = 0; np < TK / 16; ++np) {
+      uint32_t kb[4];
+      hw::ldmatrix_x4(kb, sk + ((np * 16 + lane % 8 + 8 * (lane / 16)) * LD
+                                + ks * 16 + 8 * ((lane / 8) % 2)) * 2);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        hw::mma_bf16(s[mt][2 * np], qf[mt][ks], kb[0], kb[1]);
+        hw::mma_bf16(s[mt][2 * np + 1], qf[mt][ks], kb[2], kb[3]);
+      }
+    }
+  }
+}
+
+// The online softmax on the fragment rows, in the log2 domain: s is scaled
+// by scale_log2; where need_mask, the key kj = kt0 + 8 i + 2 t + (e & 1) of
+// the row whose query is qi[mt][e / 2] is set to -inf when kj >= Sk, or
+// above the diagonal (causal) or below the window (windowed); the row
+// maxima m (shared by the lanes of a quad) and this lane's partial row sums
+// l are updated, acc is rescaled, and s is left holding P = 2^(s - m).  A
+// row with no key yet keeps m = -inf and P = 0.  The mask's terms are
+// arguments, not a callback: with a callback nvcc gave each element a
+// branch and two copies of the loop, and flash_mma_kernel<64> ran slower.
+template <int DH, int MT>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[MT][TK / 8][4], float (&m)[MT][2], float (&l)[MT][2],
+    float (&acc)[MT][DH / 8][4], float scale_log2, bool need_mask, int kt0,
+    int t, int Sk, const int (&qi)[MT][2], int causal, bool windowed,
+    int window) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[mt][i][e] * scale_log2;
+        if (need_mask) {
+          const int kj = kt0 + 8 * i + 2 * t + (e & 1);
+          const int qr = qi[mt][e / 2];
+          if (kj >= Sk || (causal && kj > qr) ||
+              (windowed && kj <= qr - window))
+            x = kNegInf;
+        }
+        s[mt][i][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[mt][r], mx[r]);
+      m_use[r] = m_new == kNegInf ? 0.f : m_new;
+      alpha[r] = hw::ex2(m[mt][r] - m_use[r]);
+      m[mt][r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < TK / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[mt][i][e] = hw::ex2(s[mt][i][e] - m_use[e / 2]);
+        rs[e / 2] += s[mt][i][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      acc[mt][i][0] *= alpha[0];
+      acc[mt][i][1] *= alpha[0];
+      acc[mt][i][2] *= alpha[1];
+      acc[mt][i][3] *= alpha[1];
+    }
+  }
+}
+
+// acc += P V for the tile whose V rows start at sv: P packed to bf16 A
+// fragments in registers; each V fragment (ldmatrix.trans) feeds every m16
+// tile of the warp
+template <int DH, int MT, int LD>
+__device__ __forceinline__ void mma_pv(float (&acc)[MT][DH / 8][4],
+                                       const float (&s)[MT][TK / 8][4],
+                                       uint32_t sv, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < TK / 16; ++kk) {
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      pa[mt][0] = hw::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+      pa[mt][1] = hw::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+      pa[mt][2] = hw::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+      pa[mt][3] = hw::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      uint32_t vb[4];
+      hw::ldmatrix_x4_trans(vb, sv + ((kk * 16 + lane % 16) * LD + dp * 16
+                                      + 8 * (lane / 16)) * 2);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        hw::mma_bf16(acc[mt][2 * dp], pa[mt], vb[0], vb[1]);
+        hw::mma_bf16(acc[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+      }
+    }
+  }
+}
+
 template <int DH>
 __global__ void __launch_bounds__(MmaCfg<DH>::NW * 32, 1)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -291,106 +443,15 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // wholly below the window of every row of the warp
     if (windowed && kt0 + TK - 1 <= w_first - window) continue;
 
-    // S = Q K^T: each K fragment feeds every m16 tile of the warp
     float s[MT][TK / 8][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int i = 0; i < TK / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[mt][i][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < TK / 16; ++np) {
-        uint32_t kb[4];
-        hw::ldmatrix_x4(kb, sk(buf) + ((np * 16 + lane % 8 + 8 * (lane / 16))
-                                       * LD + ks * 16 + 8 * ((lane / 8) % 2))
-                                          * 2);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          hw::mma_bf16(s[mt][2 * np], qf[mt][ks], kb[0], kb[1]);
-          hw::mma_bf16(s[mt][2 * np + 1], qf[mt][ks], kb[2], kb[3]);
-        }
-      }
-    }
-
-    // online softmax on the fragment rows (log2 domain)
+    mma_scores<DH, MT, LD>(s, qf, sk(buf), lane);
+    // mask only tiles that cross the end of the keys, a diagonal or a
+    // window's edge
     const bool need_mask = kt0 + TK > Sk || (causal && kt0 + TK - 1 > w_first)
                            || (windowed && kt0 <= w_last - window);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int i = 0; i < TK / 8; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[mt][i][e] * scale_log2;
-          if (need_mask) {
-            const int kj = kt0 + 8 * i + 2 * t + (e & 1);
-            const int qr = qi[mt][e / 2];
-            if (kj >= Sk || (causal && kj > qr) ||
-                (windowed && kj <= qr - window))
-              x = kNegInf;
-          }
-          s[mt][i][e] = x;
-          mx[e / 2] = fmaxf(mx[e / 2], x);
-        }
-      }
-      float alpha[2], m_use[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[mt][r], mx[r]);
-        m_use[r] = m_new == kNegInf ? 0.f : m_new;
-        alpha[r] = hw::ex2(m[mt][r] - m_use[r]);
-        m[mt][r] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < TK / 8; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[mt][i][e] = hw::ex2(s[mt][i][e] - m_use[e / 2]);
-          rs[e / 2] += s[mt][i][e];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[r] + rs[r];
-#pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
-        acc[mt][i][0] *= alpha[0];
-        acc[mt][i][1] *= alpha[0];
-        acc[mt][i][2] *= alpha[1];
-        acc[mt][i][3] *= alpha[1];
-      }
-    }
-
-    // O += P V: P packed to bf16 A fragments in registers; each V fragment
-    // feeds every m16 tile of the warp
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        pa[mt][0] = hw::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
-        pa[mt][1] = hw::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
-        pa[mt][2] = hw::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
-        pa[mt][3] = hw::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
-      }
-#pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
-        uint32_t vb[4];
-        hw::ldmatrix_x4_trans(vb, sv(buf) + ((kk * 16 + lane % 16) * LD
-                                             + dp * 16 + 8 * (lane / 16)) * 2);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          hw::mma_bf16(acc[mt][2 * dp], pa[mt], vb[0], vb[1]);
-          hw::mma_bf16(acc[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
-        }
-      }
-    }
+    online_softmax<DH, MT>(s, m, l, acc, scale_log2, need_mask, kt0, t, Sk,
+                           qi, causal, windowed, window);
+    mma_pv<DH, MT, LD>(acc, s, sv(buf), lane);
   }
 
   // normalise, round once, stage in this warp's own Q rows, store rows
@@ -431,6 +492,270 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint4*>(o + row_off(p) + d) =
           *reinterpret_cast<const uint4*>(stg + r * LD + d);
   }
+}
+
+// ------------------------------------------- bf16 (split-key decode route)
+// One (b, kv head) with few rows (Sq G <= 16, one m16 tile) and many keys:
+// the keys are split across blocks, each writing a partial softmax, and a
+// second launch merges the partials in order (flash-decoding).
+template <int DH>
+struct DecodeCfg {
+  static constexpr int LD = DH + 8;               // padded smem row
+  static constexpr int KV_BYTES = TK * LD * 2;    // one K or V tile
+  static constexpr int PAIR = 2 * KV_BYTES;       // a tile's K, then its V
+  static constexpr int MAX_WARPS = 4;
+  // 64-key tiles a split at most: all of a block's tiles are in shared
+  // memory at once (147, 160 and 139 KB)
+  static constexpr int MAX_TILES = DH == 64 ? 8 : DH == 96 ? 6 : 4;
+  static constexpr int RLD = DH + 8;              // padded row of a warp's acc
+};
+
+// Grid (split, b * KV + kv head); blockDim 32 min(tiles a split, MAX_WARPS).
+// The block takes keys [split keys, min(Sk, (split + 1) keys)) of its (b, kv
+// head), in tiles of TK, and every row of the (b, kv head): p = query G +
+// head of the group, query-major, as flash_mma_kernel orders them.  Warp w
+// owns tiles w, w + nw, ...: it issues all of their cp.async copies at once
+// (keys past Sk zero-filled; a commit group a tile), loads Q's fragments
+// from global memory while they fly, then runs mma_scores, online_softmax
+// (keys past Sk masked) and mma_pv on each of its tiles as it lands.  The
+// launch lets the merge be scheduled at once.  The warps' (m, l, acc) are
+// combined in shared memory, each row's terms summed in warp order, and the
+// block writes its split's partial: part[(bkv splits + split) n_rows +
+// p][DH] (acc, unnormalised) and stat[...][2] (m in log2 units of the
+// scaled scores, l).  A split with no valid key would write m = -inf, l = 0.
+template <int DH>
+__global__ void __launch_bounds__(DecodeCfg<DH>::MAX_WARPS * 32)
+flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          float* __restrict__ part, float* __restrict__ stat,
+                          int Sq, int Sk, int H, int KV, float scale_log2,
+                          int keys) {
+  using C = DecodeCfg<DH>;
+  constexpr int LD = C::LD, CH = DH / 8;          // 16-byte chunks a row
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t s0 = hw::smem_u32(smem_raw);
+  const int split = blockIdx.x, bkv = blockIdx.y;
+  const int G = H / KV, b = bkv / KV, kvh = bkv % KV;
+  const int n_rows = Sq * G;
+  const int k0 = split * keys;
+  const int nt = (min(Sk, k0 + keys) - k0 + TK - 1) / TK;
+  const int nw = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the merge may be scheduled now; it waits for this grid's writes
+  hw::griddep_launch_dependents();
+
+  // K and V are read once: evict-first, so they recycle their own L2 lines.
+  // One commit group a tile, in the order the warp takes them.
+  const uint64_t once = hw::l2_evict_first();
+  for (int j = warp; j < nt; j += nw) {
+    const uint32_t sk = s0 + j * C::PAIR, sv = sk + C::KV_BYTES;
+    for (int c = lane; c < TK * CH; c += 32) {
+      const int r = c / CH, d = (c % CH) * 8, kj = k0 + j * TK + r;
+      const bool ok = kj < Sk;
+      const size_t off = (((size_t)b * Sk + (ok ? kj : 0)) * KV + kvh) * DH + d;
+      hw::cp_async16(sk + (r * LD + d) * 2, k + off, ok, once);
+      hw::cp_async16(sv + (r * LD + d) * 2, v + off, ok, once);
+    }
+    hw::cp_async_commit();
+  }
+
+  // Q's A fragments (flash_mma_kernel's ldmatrix layout): rows g and g + 8,
+  // columns 2 t and 2 t + 8 of each 16-column step; rows past n_rows zero
+  uint32_t qf[1][DH / 16][4];
+  const uint32_t* qrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = g + 8 * r;
+    qrow[r] = p < n_rows ? reinterpret_cast<const uint32_t*>(
+        q + (((size_t)b * Sq + p / G) * H + kvh * G + p % G) * DH) : nullptr;
+  }
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t* row = qrow[e % 2];
+      qf[0][ks][e] = row ? row[ks * 8 + t + 4 * (e / 2)] : 0u;
+    }
+
+  constexpr int kNoRows[1][2] = {{0, 0}};    // the rows' queries: unread
+  float acc[1][DH / 8][4], m[1][2], l[1][2];
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][i][e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[0][r] = kNegInf;
+    l[0][r] = 0.f;
+  }
+  const int mine = nt > warp ? (nt - warp + nw - 1) / nw : 0;   // my tiles
+  for (int j = warp, i = 0; j < nt; j += nw, ++i) {
+    // my tile i landed (the ones after it may still be in flight)
+    hw::cp_async_wait_dyn(mine - 1 - i);
+    __syncwarp();
+    const uint32_t sk = s0 + j * C::PAIR;
+    const int kt0 = k0 + j * TK;
+    float s[1][TK / 8][4];
+    mma_scores<DH, 1, LD>(s, qf, sk, lane);
+    // no diagonal and no window: only the end of the keys is masked
+    online_softmax<DH, 1>(s, m, l, acc, scale_log2, kt0 + TK > Sk, kt0, t,
+                          Sk, kNoRows, 0, false, 0);
+    mma_pv<DH, 1, LD>(acc, s, sk + C::KV_BYTES, lane);
+  }
+
+  // combine the warps: M = max m_w, each warp's acc and l scaled by
+  // 2^(m_w - M) (0 for a warp that saw no key), summed in warp order
+  float lt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lt[r] = l[0][r];
+    lt[r] += __shfl_xor_sync(0xffffffffu, lt[r], 1);
+    lt[r] += __shfl_xor_sync(0xffffffffu, lt[r], 2);
+  }
+  __syncthreads();                    // no warp reads its tiles any more
+  float* red = reinterpret_cast<float*>(smem_raw);     // [nw][16][RLD]
+  float* rst = red + nw * 16 * C::RLD;                 // [nw][16] (m, l)
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rst[(warp * 16 + g + 8 * r) * 2] = m[0][r];
+      rst[(warp * 16 + g + 8 * r) * 2 + 1] = lt[r];
+    }
+  }
+  __syncthreads();
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float M = kNegInf;
+    for (int w = 0; w < nw; ++w) M = fmaxf(M, rst[(w * 16 + g + 8 * r) * 2]);
+    f[r] = hw::ex2(m[0][r] - (M == kNegInf ? 0.f : M));
+  }
+#pragma unroll
+  for (int i = 0; i < DH / 8; ++i) {
+    float* row = red + (warp * 16 + g) * C::RLD + 8 * i + 2 * t;
+    *reinterpret_cast<float2*>(row) =
+        make_float2(acc[0][i][0] * f[0], acc[0][i][1] * f[0]);
+    *reinterpret_cast<float2*>(row + 8 * C::RLD) =
+        make_float2(acc[0][i][2] * f[1], acc[0][i][3] * f[1]);
+  }
+  __syncthreads();
+  const size_t base = ((size_t)bkv * gridDim.x + split) * n_rows;
+  for (int c = threadIdx.x; c < n_rows * (DH / 4); c += blockDim.x) {
+    const int row = c / (DH / 4), col = (c % (DH / 4)) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int w = 0; w < nw; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          red + (w * 16 + row) * C::RLD + col);
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    *reinterpret_cast<float4*>(part + (base + row) * DH + col) = a;
+  }
+  for (int row = threadIdx.x; row < n_rows; row += blockDim.x) {
+    float M = kNegInf, L = 0.f;
+    for (int w = 0; w < nw; ++w) M = fmaxf(M, rst[(w * 16 + row) * 2]);
+    const float mu = M == kNegInf ? 0.f : M;
+    for (int w = 0; w < nw; ++w)
+      L += rst[(w * 16 + row) * 2 + 1] * hw::ex2(rst[(w * 16 + row) * 2] - mu);
+    stat[(base + row) * 2] = M;
+    stat[(base + row) * 2 + 1] = L;
+  }
+}
+
+// One thread a (row, 8 columns), rows = B H Sq in the split kernel's order
+// (b, kv head, p): M = max m_s, L = sum l_s 2^(m_s - M), O = sum acc_s
+// 2^(m_s - M) / L, summed over s = 0, 1, ... in order, a split with m_s =
+// -inf (no valid key) adding nothing; O rounded once to bf16 and stored in
+// 16-byte rows; the row's logsumexp (natural log, +inf where L = 0) into lse
+// when given.  A row with no key gets 0.  Launched as the split kernel's
+// programmatic dependent, so it may be resident before that grid ends and
+// waits for its writes first.
+template <int DH>
+__global__ void __launch_bounds__(256)
+flash_decode_merge_kernel(const float* __restrict__ part,
+                          const float* __restrict__ stat,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int Sq, int H, int KV,
+                          int splits, long rows) {
+  constexpr int CH = DH / 8;
+  hw::griddep_wait();
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= rows * CH) return;
+  const long r = idx / CH;
+  const int c = (int)(idx % CH);
+  const int G = H / KV, n_rows = Sq * G;
+  const long bkv = r / n_rows;
+  const int p = (int)(r % n_rows);
+  const size_t r0 = (size_t)bkv * splits * n_rows + p;   // split 0's row
+  // M over every split, then the sums in split order.  The partials are
+  // loaded CHUNK splits at a time, all in flight together, and the first
+  // chunk's stay in registers between the two passes, so up to CHUNK
+  // splits take one round trip to memory.
+  constexpr int CHUNK = 8;
+  float2 ml[CHUNK];
+  float4 x[CHUNK][2];
+  auto load = [&](int s0) {
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u) {
+      const size_t row = r0 + (size_t)(s0 + u) * n_rows;
+      const bool in = s0 + u < splits;
+      const float4* src =
+          reinterpret_cast<const float4*>(part + row * DH + 8 * c);
+      ml[u] = in ? *reinterpret_cast<const float2*>(stat + row * 2)
+                 : make_float2(kNegInf, 0.f);
+      x[u][0] = in ? src[0] : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[u][1] = in ? src[1] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  load(0);
+  float M = kNegInf;
+#pragma unroll
+  for (int u = 0; u < CHUNK; ++u) M = fmaxf(M, ml[u].x);
+  for (int s0 = CHUNK; s0 < splits; s0 += CHUNK) {
+    float ms[CHUNK];
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u)
+      ms[u] = s0 + u < splits ? stat[(r0 + (size_t)(s0 + u) * n_rows) * 2]
+                              : kNegInf;
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u) M = fmaxf(M, ms[u]);
+  }
+  float L = 0.f, a[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < splits; s0 += CHUNK) {
+    if (s0 > 0) load(s0);
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u) {
+      // a split with no valid key (m = -inf, l = 0, acc 0), and a slot
+      // past the last split, add nothing
+      const float f = ml[u].x == kNegInf ? 0.f : hw::ex2(ml[u].x - M);
+      L += ml[u].y * f;
+      a[0] += x[u][0].x * f;
+      a[1] += x[u][0].y * f;
+      a[2] += x[u][0].z * f;
+      a[3] += x[u][0].w * f;
+      a[4] += x[u][1].x * f;
+      a[5] += x[u][1].y * f;
+      a[6] += x[u][1].z * f;
+      a[7] += x[u][1].w * f;
+    }
+  }
+  const float inv = L > 0.f ? 1.f / L : 0.f;
+  uint4 out;
+  out.x = hw::pack_bf16(a[0] * inv, a[1] * inv);
+  out.y = hw::pack_bf16(a[2] * inv, a[3] * inv);
+  out.z = hw::pack_bf16(a[4] * inv, a[5] * inv);
+  out.w = hw::pack_bf16(a[6] * inv, a[7] * inv);
+  const int b = (int)(bkv / KV), kvh = (int)(bkv % KV);
+  const int h = kvh * G + p % G, qi = p / G;
+  *reinterpret_cast<uint4*>(o + (((size_t)b * Sq + qi) * H + h) * DH + 8 * c) =
+      out;
+  if (lse != nullptr && c == 0)
+    lse[((size_t)b * H + h) * Sq + qi] =
+        L > 0.f ? (M + log2f(L)) * 0.6931471805599453f : INFINITY;
 }
 
 // ------------------------------------------ bf16 (wgmma and TMA, Hopper)
@@ -845,36 +1170,109 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return 0;
 }
 
-// flash_wgmma_kernel where a (b, kv head) has 64 rows or more (a warpgroup's
-// tile) and there are keys to map; flash_mma_kernel below that (decode),
-// for Sk 0 (a tensor map has no extent 0), for groups of more than 128
-// heads (a block's rows hold whole queries) and for a scale that is not
-// positive (the wgmma kernel takes the row maximum of the raw scores).
-// The choice is made by shape, before any launch.
+// The split decode route: flash_decode_split_kernel over (splits, B KV)
+// blocks of min(tiles, 4) warps and keys / TK tiles of shared memory, the
+// partials in part (acc: splits B H Sq Dh floats, then (m, l): splits B H Sq
+// 2), then flash_decode_merge_kernel over B H Sq Dh / 8 threads.
+template <int DH>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  float* lse, float* part, int B, int Sq, int Sk, int H,
+                  int KV, float scale, int splits, int keys, cudaStream_t s) {
+  using C = DecodeCfg<DH>;
+  static bool smem_ok = false;        // set once per instantiation
+  if (!smem_ok) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_split_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::MAX_TILES * C::PAIR);
+    if (err != cudaSuccess) return (int)err;
+    smem_ok = true;
+  }
+  const int tiles = keys / TK;
+  const int warps = tiles < C::MAX_WARPS ? tiles : C::MAX_WARPS;
+  const long rows = (long)B * H * Sq;
+  float* stat = part + (size_t)splits * rows * DH;
+  flash_decode_split_kernel<DH>
+      <<<dim3(splits, B * KV), warps * 32, tiles * C::PAIR, s>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), part, stat, Sq, Sk, H, KV,
+          scale * 1.4426950408889634f, keys);
+  // the merge as a programmatic dependent of the split kernel: its blocks
+  // are placed while the split's last ones run, and wait for their writes
+  const long threads = rows * (DH / 8);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((threads + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, flash_decode_merge_kernel<DH>,
+                                 static_cast<const float*>(part),
+                                 static_cast<const float*>(stat),
+                                 static_cast<__nv_bfloat16*>(o), lse, Sq, H,
+                                 KV, splits, rows);
+}
+
+// The forward's routes: ops.attention_plan chooses one by shape and passes
+// it in with the split decode route's splits and keys a split; each launch
+// here first checks that its route can take the shape.
+enum Route { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2, kRouteSplit = 3 };
+
+// flash_wgmma_kernel needs a (b, kv head) of 64 rows or more (a warpgroup's
+// tile), keys to map (a tensor map has no extent 0), a group of at most 128
+// heads (a block's rows hold whole queries) and a positive scale (it takes
+// the row maximum of the raw scores).
+bool wgmma_legal(int Sq, int Sk, int H, int KV, float scale) {
+  return (long)Sq * (H / KV) >= 64 && Sk > 0 && H / KV <= 128 && scale > 0.f;
+}
+
+// The split decode route needs no mask but the end of the keys (not causal,
+// so no window), one m16 tile of rows (Sq G <= 16), keys, a positive scale,
+// the partials' scratch, whole tiles a split within the shared memory, and
+// splits that cover Sk with none empty.
+template <int DH>
+bool split_legal(int Sq, int Sk, int H, int KV, float scale, int causal,
+                 int splits, int keys, const float* part) {
+  return !causal && (long)Sq * (H / KV) <= 16 && Sk > 0 && scale > 0.f &&
+         part != nullptr && keys > 0 && keys % TK == 0 &&
+         keys / TK <= DecodeCfg<DH>::MAX_TILES && splits >= 1 &&
+         (long)(splits - 1) * keys < Sk && (long)splits * keys >= Sk;
+}
+
 template <int DH>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Sq, int Sk, int H, int KV, float scale,
-                int causal, int window, cudaStream_t s) {
-  if ((long)Sq * (H / KV) >= 64 && Sk > 0 && H / KV <= 128 && scale > 0.f) {
+                float* lse, float* part, int B, int Sq, int Sk, int H, int KV,
+                float scale, int causal, int window, int route, int splits,
+                int keys, cudaStream_t s) {
+  if (route == kRouteWgmma && wgmma_legal(Sq, Sk, H, KV, scale))
     return launch_wgmma<DH>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
                             window, s);
-  }
-  return launch_mma<DH>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
-                        window, s);
+  if (route == kRouteSplit &&
+      split_legal<DH>(Sq, Sk, H, KV, scale, causal, splits, keys, part))
+    return launch_decode<DH>(q, k, v, o, lse, part, B, Sq, Sk, H, KV, scale,
+                             splits, keys, s);
+  if (route == kRouteMma)
+    return launch_mma<DH>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                          window, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int B, int Sq, int Sk, int H, int KV, int Dh,
-                  float scale, int causal, int window, cudaStream_t s) {
+                  float* lse, float* part, int B, int Sq, int Sk, int H,
+                  int KV, int Dh, float scale, int causal, int window,
+                  int route, int splits, int keys, cudaStream_t s) {
   if (Dh == 64)
-    return launch_bf16<64>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
-                           window, s);
+    return launch_bf16<64>(q, k, v, o, lse, part, B, Sq, Sk, H, KV, scale,
+                           causal, window, route, splits, keys, s);
   if (Dh == 96)
-    return launch_bf16<96>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
-                           window, s);
+    return launch_bf16<96>(q, k, v, o, lse, part, B, Sq, Sk, H, KV, scale,
+                           causal, window, route, splits, keys, s);
   if (Dh == 128)
-    return launch_bf16<128>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
-                            window, s);
+    return launch_bf16<128>(q, k, v, o, lse, part, B, Sq, Sk, H, KV, scale,
+                            causal, window, route, splits, keys, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -909,7 +1307,8 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 // window's edge or the end of the rows or keys are masked element by
 // element; those that see no kept pair are not computed.
 //
-// bf16, two routes chosen by shape (launch_bwd_bf16).
+// bf16, two routes chosen by shape in ops.attention_bwd_plan and passed in
+// (checked against the shape by launch_bwd_bf16).
 //
 // wgmma and TMA (Hopper's own), where a (b, kv head) has 64 rows or more:
 // D writes each row's D and LSE log2(e) into a row-ordered scratch (one
@@ -2463,23 +2862,30 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
   return 0;
 }
 
-// The bf16 route, chosen by shape before any launch: the wgmma kernels where
-// a (b, kv head) has 64 rows or more (a step's, a warpgroup's tile), there
-// are keys to map (a tensor map has no extent 0), a group of at most 64
-// heads (a dK/dV step of 64 rows holds whole queries) and the statistics'
-// 2 B H Sq floats within a TMA coordinate; mma.sync otherwise.
+// The bf16 routes (ops.attention_bwd_plan chooses one by shape and passes it
+// in): the wgmma kernels need a (b, kv head) of 64 rows or more (a step's, a
+// warpgroup's tile), keys to map (a tensor map has no extent 0), a group of
+// at most 64 heads (a dK/dV step of 64 rows holds whole queries) and the
+// statistics' 2 B H Sq floats within a TMA coordinate; mma.sync takes any
+// shape.
+bool bwd_wgmma_legal(int B, int Sq, int Sk, int H, int KV) {
+  return (long)Sq * (H / KV) >= 64 && Sk > 0 && H / KV <= 64 &&
+         2L * B * H * Sq < (1L << 31);
+}
+
 template <int DH>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     void* dq, void* dk, void* dv, float* Dd, int B, int Sq,
                     int Sk, int H, int KV, float scale, int causal,
-                    int window, cudaStream_t s) {
-  if ((long)Sq * (H / KV) >= 64 && Sk > 0 && H / KV <= 64 &&
-      2L * B * H * Sq < (1L << 31))
+                    int window, int route, cudaStream_t s) {
+  if (route == kRouteWgmma && bwd_wgmma_legal(B, Sq, Sk, H, KV))
     return launch_bwd_wgmma<DH>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
                                 Sk, H, KV, scale, causal, window, s);
-  return launch_bwd_mma<DH>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq, Sk,
-                            H, KV, scale, causal, window, s);
+  if (route == kRouteMma)
+    return launch_bwd_mma<DH>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
+                              Sk, H, KV, scale, causal, window, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int dispatch_bwd_f32(const void* q, const void* k, const void* v,
@@ -2503,16 +2909,17 @@ int dispatch_bwd_bf16(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, void* dk, void* dv, float* Dd, int B, int Sq,
                       int Sk, int H, int KV, int Dh, float scale, int causal,
-                      int window, cudaStream_t s) {
+                      int window, int route, cudaStream_t s) {
   if (Dh == 64)
     return launch_bwd_bf16<64>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
-                               Sk, H, KV, scale, causal, window, s);
+                               Sk, H, KV, scale, causal, window, route, s);
   if (Dh == 96)
     return launch_bwd_bf16<96>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B, Sq,
-                               Sk, H, KV, scale, causal, window, s);
+                               Sk, H, KV, scale, causal, window, route, s);
   if (Dh == 128)
     return launch_bwd_bf16<128>(q, k, v, o, dout, lse, dq, dk, dv, Dd, B,
-                                Sq, Sk, H, KV, scale, causal, window, s);
+                                Sq, Sk, H, KV, scale, causal, window, route,
+                                s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2521,25 +2928,32 @@ int dispatch_bwd_bf16(const void* q, const void* k, const void* v,
 // q, o: [B,Sq,H,Dh]; k, v: [B,Sk,KV,Dh]; all contiguous, one dtype (code);
 // window 0, or > 0 with causal.  lse: null (serving), or [B,H,Sq] f32 that
 // receives each row's logsumexp of the scaled, masked scores (+inf for a
-// row with no key), which the backward needs.  Returns the CUDA error code
-// of the launch (0 = launched).
+// row with no key), which the backward needs.  route: the kernel
+// ops.attention_plan chose (Route; f32 takes only kRouteFma); on kRouteSplit
+// the keys go in `splits` runs of `keys` (whole 64-key tiles) and part is
+// f32 scratch of splits B H Sq (Dh + 2) floats, else splits, keys and part
+// are not read.  A route that cannot take the shape is refused.  Returns the
+// CUDA error code of the launches (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
-                                      int B, int Sq, int Sk, int H, int KV,
-                                      int Dh, float scale, int causal,
-                                      int window, int dtype, void* stream) {
+                                      void* part, int B, int Sq, int Sk,
+                                      int H, int KV, int Dh, float scale,
+                                      int causal, int window, int route,
+                                      int splits, int keys, int dtype,
+                                      void* stream) {
   if (KV <= 0 || H % KV != 0 || (causal && Sq != Sk) || B * H > 65535 ||
       window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
-  if (dtype == rt::kF32) {
+  if (dtype == rt::kF32 && route == kRouteFma) {
     rc = dispatch_f32(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KV,
                       Dh, scale, causal, window, s);
   } else if (dtype == rt::kBF16) {
-    rc = dispatch_bf16(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H, KV,
-                       Dh, scale, causal, window, s);
+    rc = dispatch_bf16(q, k, v, o, static_cast<float*>(lse),
+                       static_cast<float*>(part), B, Sq, Sk, H, KV, Dh, scale,
+                       causal, window, route, splits, keys, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -2550,13 +2964,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // Backward of flash_attention_launch.  q, o, dout, dq: [B,Sq,H,Dh]; k, v,
 // dk, dv: [B,Sk,KV,Dh]; all contiguous, one dtype (code); lse: [B,H,Sq] f32
 // from the forward; Dd: 2 B H Sq f32 scratch.  The same masks and scale as
-// the forward.  dq, dk and dv are written, not accumulated.  Returns the
+// the forward.  route: the kernels ops.attention_bwd_plan chose (kRouteFma
+// for f32; kRouteMma or kRouteWgmma for bf16), refused where they cannot
+// take the shape.  dq, dk and dv are written, not accumulated.  Returns the
 // CUDA error code of the launches (0 = launched).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv, void* Dd,
     int B, int Sq, int Sk, int H, int KV, int Dh, float scale, int causal,
-    int window, int dtype, void* stream) {
+    int window, int route, int dtype, void* stream) {
   if (KV <= 0 || H % KV != 0 || (causal && Sq != Sk) || B * H > 65535 ||
       window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
@@ -2565,12 +2981,12 @@ extern "C" int flash_attention_bwd_launch(
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(Dd);
   int rc;
-  if (dtype == rt::kF32) {
+  if (dtype == rt::kF32 && route == kRouteFma) {
     rc = dispatch_bwd_f32(q, k, v, o, dout, lp, dq, dk, dv, dp, B, Sq, Sk, H,
                           KV, Dh, scale, causal, window, s);
   } else if (dtype == rt::kBF16) {
     rc = dispatch_bwd_bf16(q, k, v, o, dout, lp, dq, dk, dv, dp, B, Sq, Sk, H,
-                           KV, Dh, scale, causal, window, s);
+                           KV, Dh, scale, causal, window, route, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,6 @@
 // Inline-PTX helpers for the bf16 tensor-core kernels (sm_90a): shared
-// addresses and 16-byte shared loads, cp.async 16- and 4-byte copies,
+// addresses and 16-byte shared loads, cp.async 16- and 4-byte copies (16
+// under an L2 cache policy too), programmatic dependent launch,
 // ldmatrix and mma.sync m16n8k16, mbarriers, TMA tile (2-, 3- and 4-D) and 1D
 // bulk loads (the latter under an L2 evict-first policy where asked), a 1-D
 // f32 tile load (the attention backward's per-row statistics), and
@@ -32,6 +33,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(n)
                : "memory");
 }
+// cp_async16 under an L2 cache policy (l2_evict_first below).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid, uint64_t policy) {
+  const int n = valid ? 16 : 0;
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+      ::"r"(dst), "l"(src), "r"(n), "l"(policy)
+      : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -47,6 +57,21 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp_async_wait with a count known only at run time (0 to 7; more waits for
+// every group).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    default: cp_async_wait<0>();
+  }
 }
 // Barrier `id` (1 .. 15; 0 is __syncthreads') over `threads` threads, a
 // multiple of 32, of the block.
@@ -98,6 +123,19 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------- programmatic dependent launch
+// In a kernel launched with programmatic stream serialization: wait until
+// the grid before it in the stream has completed and its writes are
+// visible.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// Let the grid after this one in the stream (launched with programmatic
+// stream serialization) be scheduled before this one completes.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ mbarrier

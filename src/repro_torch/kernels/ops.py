@@ -5,7 +5,10 @@ A CUDA tensor goes to the hand-written CUDA kernel (built at first use by
 version in :mod:`.ref`, which autograd follows.  There is no fallback: a
 CUDA call that cannot launch raises.  ``LAUNCHES`` counts each kernel's
 launches, one per call that reached the GPU, so a run can show that it
-went through the kernels.
+went through the kernels.  flash_attention's kernels, forward and backward,
+are chosen by shape here alone (``attention_plan``, ``attention_bwd_plan``)
+and passed to the C entry points, which refuse a choice that cannot take
+the shape.
 
 Gradients on the card: when grad is enabled and an operand requires it,
 every kernel runs as a ``torch.autograd.Function`` whose forward is the
@@ -34,6 +37,7 @@ dry-run).  With no counter, a launch only tests ``roofline.ACTIVE``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Dict, Optional, Tuple
@@ -336,6 +340,109 @@ def rmsnorm_bwd_scale(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
 
 
 # ---------------------------------------------------------- flash attention
+# csrc/flash_attention.cu's routes, in the order of its Route codes, and the
+# kernels each launches, forward and backward
+ATTN_ROUTES = ("f32 FMA", "mma.sync", "wgmma", "split decode")
+_ATTN_KERNELS = {
+    "f32 FMA": ("flash_fwd_kernel",), "mma.sync": ("flash_mma_kernel",),
+    "wgmma": ("flash_wgmma_kernel",),
+    "split decode": ("flash_decode_split_kernel", "flash_decode_merge_kernel")}
+_ATTN_BWD_KERNELS = {
+    "f32 FMA": ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    "mma.sync": ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"),
+    "wgmma": ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")}
+ATTN_TILE = 64       # csrc/flash_attention.cu: TK, keys a tile
+DECODE_ROWS = 16     # the split decode route's rows a (b, kv head) at most
+DECODE_MIN_KEYS = 128   # and its keys at least
+DECODE_MAX_TILES = {64: 8, 96: 6, 128: 4}   # csrc: DecodeCfg<DH>::MAX_TILES
+DECODE_BLOCKS = 4 * 132   # split blocks that fill the H100: about 4 an SM
+# tiles a split at most while the splits stay few, by head dim
+DECODE_TILES = {64: 3, 96: 3, 128: 2}
+DECODE_MAX_SPLITS = 64   # splits past which runs grow to DECODE_MAX_TILES
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """What one flash_attention (or flash_attention_bwd) call launches:
+    ``route``, one of ``ATTN_ROUTES``, its kernels, and on the split decode
+    route each (b, kv head)'s keys in ``splits`` runs of ``keys`` (whole
+    tiles of ``ATTN_TILE``; the last run may be shorter, none is empty)."""
+    route: str
+    splits: int = 1
+    keys: int = 0
+    backward: bool = False
+
+    @property
+    def code(self) -> int:
+        """The C entry point's route argument."""
+        return ATTN_ROUTES.index(self.route)
+
+    @property
+    def kernels(self) -> Tuple[str, ...]:
+        return (_ATTN_BWD_KERNELS if self.backward
+                else _ATTN_KERNELS)[self.route]
+
+    def __str__(self) -> str:
+        text = f"{self.route} ({', '.join(self.kernels)})"
+        if self.route == "split decode":
+            text += f", {self.splits} splits of {self.keys} keys"
+        return text
+
+
+def attention_plan(B: int, Sq: int, Sk: int, H: int, KV: int, Dh: int,
+                   dtype: torch.dtype, causal: bool,
+                   scale: Optional[float] = None) -> AttnPlan:
+    """The forward's kernels for a shape, chosen here alone (the C entry
+    point refuses a route that cannot take the shape): f32 on the FMA
+    kernel; bf16 on ``flash_wgmma_kernel`` where a (b, kv head) has
+    ``Sq * H/KV >= 64`` rows, there are keys, ``H/KV <= 128`` and the scale
+    is positive; on the split decode route where it has at most
+    ``DECODE_ROWS`` rows, not causal, at least ``DECODE_MIN_KEYS`` keys and a
+    positive scale; else on ``flash_mma_kernel``.  The split decode route
+    cuts each (b, kv head)'s tiles into runs of equal length: the longest
+    that still give ``DECODE_BLOCKS`` blocks in all, but at most
+    ``DECODE_TILES`` (3 tiles at Dh 64 and 96, 2 at Dh 128: 55, 80 and 70
+    KB of shared memory, so 4, 2 and 3 blocks share an SM; chosen from
+    chip_smoke's sweep of every run length on the H100, PERF.md), unless
+    that makes more than ``DECODE_MAX_SPLITS`` runs, which the merge walks
+    in order: then as long as that needs, up to ``DECODE_MAX_TILES``.  It
+    takes as many runs as that length needs, so no run is empty.
+    ``scale`` None is 1/sqrt(Dh)."""
+    scale = 1.0 / math.sqrt(Dh) if scale is None else scale
+    if dtype != torch.bfloat16:
+        return AttnPlan("f32 FMA")
+    G = H // KV
+    rows = Sq * G
+    if rows >= 64 and Sk > 0 and G <= 128 and scale > 0:
+        return AttnPlan("wgmma")
+    if (not causal and rows <= DECODE_ROWS and Sk >= DECODE_MIN_KEYS
+            and scale > 0):
+        tiles = -(-Sk // ATTN_TILE)
+        want = min(tiles, -(-DECODE_BLOCKS // max(1, B * KV)))
+        per = max(min(-(-tiles // want), DECODE_TILES[Dh]),
+                  -(-tiles // DECODE_MAX_SPLITS))
+        per = min(per, DECODE_MAX_TILES[Dh])
+        return AttnPlan("split decode", splits=-(-tiles // per),
+                        keys=per * ATTN_TILE)
+    return AttnPlan("mma.sync")
+
+
+def attention_bwd_plan(B: int, Sq: int, Sk: int, H: int, KV: int,
+                       dtype: torch.dtype) -> AttnPlan:
+    """The backward's kernels for a shape, chosen here alone (the C entry
+    point refuses a route that cannot take the shape): f32 on the FMA
+    kernels; bf16 on the wgmma kernels where a (b, kv head) has ``Sq * H/KV
+    >= 64`` rows, there are keys, ``H/KV <= 64`` (a dK/dV step of 64 rows
+    holds whole queries) and the ``2 B H Sq`` statistics fit a TMA
+    coordinate; else on the mma.sync kernels."""
+    if dtype != torch.bfloat16:
+        return AttnPlan("f32 FMA", backward=True)
+    G = H // KV
+    if Sq * G >= 64 and Sk > 0 and G <= 64 and 2 * B * H * Sq < 2 ** 31:
+        return AttnPlan("wgmma", backward=True)
+    return AttnPlan("mma.sync", backward=True)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
@@ -391,13 +498,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lambda: (torch.empty_like(q), lse_like()))
     scale = _attn_scale(q, sm_scale)
     code = _cuda_args("flash_attention", q, k, v)
+    plan = attention_plan(B, Sq, Sk, H, KV, Dh, q.dtype, causal, scale)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    # the split decode route's partials: each split's accumulator rows,
+    # then its (max, sum) a row
+    part = (torch.empty(plan.splits * B * H * Sq * (Dh + 2),
+                        dtype=torch.float32, device=q.device)
+            if plan.route == "split decode" else None)
     _launch("flash_attention", "flash_attention", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, Dh,
-            scale, int(causal), int(window), code, _stream(q), cost=cost)
+            None if lse is None else lse.data_ptr(),
+            None if part is None else part.data_ptr(), B, Sq, Sk, H, KV, Dh,
+            scale, int(causal), int(window), plan.code, plan.splits,
+            plan.keys, code, _stream(q), cost=cost)
     return out, lse
 
 
@@ -435,7 +550,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             Dd.data_ptr(), B, Sq, Sk, H, KV, Dh, scale, int(causal),
-            int(window), code, _stream(q), cost=cost)
+            int(window), attention_bwd_plan(B, Sq, Sk, H, KV, q.dtype).code,
+            code, _stream(q), cost=cost)
     return dq, dk, dv
 
 

@@ -103,6 +103,20 @@ ATTN_WGMMA_EDGES = [
 ]
 
 
+# the split decode route's shapes (bf16 on the card: Sq x G <= 16 rows a (b,
+# kv head), not causal, Sk >= 128): Sq 1 at G 1, 4 and 8 and Dh 64 and 128,
+# whisper's decoder cross-attention (one row a (b, kv head) against 1500
+# frames), 16 rows (Sq 2, G 8 at Dh 96, Sk off a tile), and Sk 64 below the
+# route (mma.sync)
+ATTN_DECODE = [
+    (2, 1, 300, 4, 4, 64, False),
+    (1, 1, 1500, 16, 16, 64, False),
+    (2, 1, 200, 16, 2, 128, False),
+    (1, 2, 257, 8, 4, 96, False),
+    (1, 1, 64, 4, 4, 64, False),
+]
+
+
 def _jax_block(S: int) -> int:
     """The JAX kernel's block along a length: 128 where it divides the
     length (its default), else the whole length (its blocks must divide)."""
@@ -110,7 +124,7 @@ def _jax_block(S: int) -> int:
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,Dh,causal",
-                         ATTN_SHAPES + ATTN_WGMMA_EDGES)
+                         ATTN_SHAPES + ATTN_WGMMA_EDGES + ATTN_DECODE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_jax_kernel(B, Sq, Sk, H, KV, Dh, causal,
                                             dtype):
@@ -123,6 +137,83 @@ def test_flash_attention_matches_jax_kernel(B, Sq, Sk, H, KV, Dh, causal,
     _close(out, jops.flash_attention(q_j, k_j, v_j, causal=causal,
                                      block_q=_jax_block(Sq),
                                      block_k=_jax_block(Sk)), dtype)
+
+
+# (shape (B, Sq, Sk, H, KV, Dh), dtype, causal, scale) -> the forward's route
+# and, on the split decode route, (splits, keys a split): the timed rows
+# (granite's prefill, the whisper encoder, its cross-attention at Sq 224 and
+# 1, phi-3, jamba's window), then the route's edges
+ATTN_PLANS = [
+    ((8, 512, 512, 16, 8, 64), "bfloat16", True, None, "wgmma", None),
+    ((8, 1500, 1500, 16, 16, 64), "bfloat16", False, None, "wgmma", None),
+    ((8, 224, 1500, 16, 16, 64), "bfloat16", False, None, "wgmma", None),
+    ((8, 1, 1500, 16, 16, 64), "bfloat16", False, None, "split decode",
+     (8, 192)),
+    ((8, 768, 768, 32, 32, 96), "bfloat16", True, None, "wgmma", None),
+    ((1, 8192, 8192, 64, 8, 128), "bfloat16", True, None, "wgmma", None),
+    ((8, 1, 1500, 16, 16, 64), "float32", False, None, "f32 FMA", None),
+    ((8, 512, 512, 16, 8, 64), "float32", True, None, "f32 FMA", None),
+    ((2, 1, 0, 8, 8, 64), "bfloat16", False, None, "mma.sync", None),
+    ((2, 64, 0, 8, 8, 64), "bfloat16", False, None, "mma.sync", None),
+    ((2, 17, 1500, 4, 4, 64), "bfloat16", False, None, "mma.sync", None),
+    ((2, 2, 1500, 16, 2, 64), "bfloat16", False, None, "split decode",
+     None),
+    ((2, 1, 127, 8, 8, 64), "bfloat16", False, None, "mma.sync", None),
+    ((2, 1, 128, 8, 8, 64), "bfloat16", False, None, "split decode",
+     None),
+    ((1, 1, 129, 4, 4, 64), "bfloat16", False, None, "split decode",
+     (3, 64)),
+    ((2, 1, 1, 8, 2, 64), "bfloat16", True, None, "mma.sync", None),
+    ((1, 16, 16, 4, 4, 64), "bfloat16", True, None, "mma.sync", None),
+    ((2, 1, 1500, 8, 8, 64), "bfloat16", False, -0.125, "mma.sync", None),
+    ((1, 1, 140000, 1, 1, 64), "bfloat16", False, None, "split decode",
+     (274, 512)),
+    ((1, 1, 4097, 16, 2, 128), "bfloat16", False, None, "split decode",
+     None),
+    ((1, 1, 200000, 8, 1, 128), "bfloat16", False, None, "split decode",
+     None),
+    ((1, 1, 64, 1, 1, 96), "bfloat16", False, 0.5, "mma.sync", None),
+    ((2, 64, 300, 256, 1, 64), "bfloat16", False, None, "mma.sync", None),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,causal,scale,route,split", ATTN_PLANS)
+def test_attention_plan(shape, dtype, causal, scale, route, split):
+    """``ops.attention_plan`` picks each route by shape, and its splits
+    cover the keys in whole tiles within the kernel's shared memory, with
+    no split empty; the backward's plan keeps its own rule."""
+    B, Sq, Sk, H, KV, Dh = shape
+    plan = ops.attention_plan(B, Sq, Sk, H, KV, Dh, getattr(torch, dtype),
+                              causal, scale)
+    assert plan.route == route and plan.code == ops.ATTN_ROUTES.index(route)
+    assert str(plan).startswith(f"{route} ({plan.kernels[0]}")
+    if route != "split decode":
+        assert (plan.splits, plan.keys) == (1, 0)
+        return
+    assert plan.kernels == ("flash_decode_split_kernel",
+                            "flash_decode_merge_kernel")
+    if split is not None:
+        assert (plan.splits, plan.keys) == split
+    tiles = plan.keys // ops.ATTN_TILE
+    assert plan.keys % ops.ATTN_TILE == 0
+    assert 1 <= tiles <= ops.DECODE_MAX_TILES[Dh]
+    assert plan.splits * plan.keys >= Sk > (plan.splits - 1) * plan.keys
+    if shape == (1, 1, 129, 4, 4, 64):        # the last split has one key
+        assert Sk - (plan.splits - 1) * plan.keys == 1
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((8, 512, 512, 16, 8), "bfloat16", "wgmma"),
+    ((8, 1, 1500, 16, 16), "bfloat16", "mma.sync"),
+    ((2, 63, 63, 4, 4), "bfloat16", "mma.sync"),
+    ((1, 64, 0, 4, 4), "bfloat16", "mma.sync"),
+    ((1, 2, 2, 130, 1), "bfloat16", "mma.sync"),
+    ((8, 512, 512, 16, 8), "float32", "f32 FMA"),
+])
+def test_attention_bwd_plan(shape, dtype, route):
+    plan = ops.attention_bwd_plan(*shape, getattr(torch, dtype))
+    assert plan.route == route and plan.backward
+    assert plan.kernels[0].startswith("flash_bwd_dkdv")
 
 
 # windows about the wgmma route's 64-key tiles: 65 at Dh 128 (one past a
@@ -655,6 +746,54 @@ def test_cuda_flash_attention_wgmma_route():
         o, lse = ops.flash_attention_fwd(q, k, v, with_lse=True, **kw)
         assert torch.equal(o, got)
         assert bool(torch.isfinite(lse).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_split_decode_route():
+    """The bf16 forward's split decode route (keys split across blocks, then
+    an ordered merge) at its plan's edges, against the plain version within
+    2e-2 of max|ref|: Sq 1 at G 1, 2 and 8 and Dh 64, 96 and 128, Sk 4097
+    (off a tile and off a split), 16 rows (Sq 2, G 8), Sk 128 (its least),
+    Sk 129 (the last split one key) and 140000 keys of one head (a warp
+    runs two tiles); beside it 17 rows, Sk 127 and causal decode stay on
+    mma.sync.  A second call gives the same bits, the output with the LSE
+    equals the output without, and the LSE is within 2e-2 of a plain
+    logsumexp."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = [(2, 1, 1500, H, KV, Dh, False) for Dh in (64, 96, 128)
+             for H, KV in ((4, 4), (8, 4), (16, 2))] + [
+                 (1, 1, 4097, 16, 2, 128, False),
+                 (2, 2, 1500, 16, 2, 64, False),
+                 (3, 1, 128, 4, 4, 128, False),
+                 (1, 1, 129, 4, 4, 64, False),
+                 (1, 1, 140000, 1, 1, 64, False),
+                 (2, 17, 1500, 4, 4, 64, False),
+                 (2, 1, 127, 8, 8, 64, False),
+                 (2, 1, 1, 8, 2, 64, True)]
+    for B, Sq, Sk, H, KV, Dh, causal in cases:
+        split = ops.attention_plan(B, Sq, Sk, H, KV, Dh, torch.bfloat16,
+                                   causal).route == "split decode"
+        assert split == (not causal and Sq * H // KV <= 16 and Sk >= 128)
+        q = torch.randn(B, Sq, H, Dh, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, Sk, KV, Dh, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, Sk, KV, Dh, generator=gen, device=dev).bfloat16()
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+        err = float((got.float() - want).abs().max())
+        assert err <= 2e-2 * float(want.abs().max()), (B, Sq, Sk, H, KV, Dh)
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal))
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal,
+                                         with_lse=True)
+        assert torch.equal(o, got)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()
+                         .repeat_interleave(H // KV, dim=2)) * Dh ** -0.5
+        if causal:
+            s = s.masked_fill(torch.ones(Sq, Sk, dtype=torch.bool,
+                                         device=dev).triu(1), float("-inf"))
+        torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1),
+                                   rtol=2e-2, atol=2e-2)
     torch.cuda.synchronize()
 
 
